@@ -1,0 +1,545 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one line (any failure exits non-zero):
+
+1. the card's name and power limit (``nvidia-smi``), then the build of every
+   CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc``;
+2. the k-means kernels ``l1_topk2`` and ``centroid_update`` at the serve
+   path's shapes, each held bit for bit against its plain PyTorch version
+   on the same inputs, with times (CUDA events), the plain version's time
+   and a one-call PyTorch yardstick;
+3. live fleet serving of the paper's §9.2 visual-sensing workload at
+   Table-3 widths (CIFAR-100 and VWW agile CNNs, random seeded weights, a
+   k-means bank fitted on 384 training samples each, a solar harvester at
+   eta = 0.71, 25 requests per task, 64 devices): scan with adaptation on a
+   per-device and on a shared bank, then scan and fused (the
+   ``serve_fused_steps`` kernel, one launch per segment) without adaptation,
+   which must agree on every carry leaf; the scan's serve loop must also
+   equal the CPU's plain run from the same built state.  The launch counts
+   of the three kernels are zeroed before this phase and read after it;
+4. one JSON line naming every kernel with its launches, error, times and
+   bound.
+
+The second-to-last line is the card's ``nvidia-smi`` name and power limit;
+the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
+the script exits non-zero and prints no result.  It imports only
+``repro_torch``, ``torch`` and ``numpy``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 outside tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+
+SRC = "src/repro_torch/kernels/csrc/"
+REPLACES = {
+    "l1_topk2": "src/repro/kernels/l1_topk2.py:46",
+    "centroid_update": "src/repro/kernels/centroid_update.py:34",
+    "serve_fused_steps": "src/repro/kernels/fleet_step.py:226",
+}
+SOURCES = {
+    "l1_topk2": SRC + "l1_topk2.cu",
+    "centroid_update": SRC + "centroid_update.cu",
+    "serve_fused_steps": SRC + "serve_fused.cu",
+}
+
+
+@dataclass(frozen=True)
+class Scale:
+    """What the run serves; ``FULL`` is the configuration run on the card, the
+    narrow one rehearses the same phases on the CPU."""
+
+    cnns: tuple          # ((dataset name, CNNConfig or None = Table 3), ...)
+    n_train: int
+    n_requests: int
+    n_devices: int
+    big_devices: int     # second fleet size for the fused kernel's time
+    n_segments: int
+    l1_rows: int         # kernel D check: requests x units of both tasks
+    l1_dim: int          # selected features S of the serve tables
+    l1_k: int            # centroid rows C of the serve bank
+    cu_shape: tuple      # kernel E check: (k, d, B)
+
+
+FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
+             n_requests=25, n_devices=64, big_devices=1024, n_segments=4,
+             l1_rows=2 * 25 * 5, l1_dim=150, l1_k=5,
+             cu_shape=(5, 8192, 64))
+
+
+def _narrow():
+    from repro_torch.models.cnn import CNNConfig
+
+    return Scale(
+        cnns=(("cifar100", CNNConfig("cifar100-narrow", (32, 32, 3),
+                                     ((4, 5, True), (8, 5, True)), (16, 8),
+                                     5)),
+              ("vww", CNNConfig("vww-narrow", (32, 32, 3),
+                                ((4, 5, True), (4, 5, True), (8, 5, True)),
+                                (8,), 2))),
+        n_train=48, n_requests=4, n_devices=3, big_devices=5, n_segments=2,
+        l1_rows=2 * 4 * 5, l1_dim=150, l1_k=5, cu_shape=(5, 256, 3))
+
+
+# --------------------------------------------------------------------------- #
+# Measurement helpers.
+# --------------------------------------------------------------------------- #
+
+
+def _ms(fn, device, reps=20, warmup=2) -> float:
+    """Milliseconds per call: CUDA events around ``reps`` calls after a
+    warm-up on the card; one call on the host clock in a CPU rehearsal."""
+    import torch
+
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / reps
+
+
+def _bound(nbytes: float, nops: float):
+    """Least time on the card: the larger of bytes over HBM bandwidth and
+    f32 operations over the f32 peak."""
+    t_b, t_o = nbytes / PEAK_BYTES_S, nops / PEAK_F32_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _max_err(a, b) -> float:
+    import torch
+
+    if a.dtype == torch.bool or not a.dtype.is_floating_point:
+        return float((a != b).sum())
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+# --------------------------------------------------------------------------- #
+# Phases.
+# --------------------------------------------------------------------------- #
+
+
+def _card_line() -> str:
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, IndexError, subprocess.TimeoutExpired):
+        return "nvidia-smi not available"
+
+
+def _build_phase() -> None:
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build()
+    secs = time.perf_counter() - t0
+    usage = []
+    for name, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                usage.append(f"{name}: {line.strip()}")
+    print(f"build: {len(_build.SOURCES)} kernels in {secs:.2f} s "
+          f"({len(logs)} compiled this run)")
+    for line in usage:
+        print("  ptxas " + line)
+
+
+def _l1_phase(device, scale: Scale, rng) -> dict:
+    """Kernel D at the serve path's classify shapes.  The main path launches
+    it only from the scan's ``_classify_rows``: one row per device, each
+    against its own set of ``k`` centroid rows (``(D, k, d)``); that shape
+    gives the row's numbers.  The whole request stream's selected features
+    against one shared set (``(k, d)``) is timed beside it."""
+    import torch
+
+    from repro_torch.kernels import l1_topk2 as L1
+
+    B, d, k, D = scale.l1_rows, scale.l1_dim, scale.l1_k, scale.n_devices
+    x = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32)).to(
+        device)
+    c = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32)).to(
+        device)
+    c_rows = torch.from_numpy(rng.normal(size=(D, k, d)).astype(
+        np.float32)).to(device)
+    x_rows = x[:D].contiguous()
+    err = 0.0
+    for xx, cc in ((x, c), (x_rows, c_rows)):
+        out = L1.l1_topk2(xx, cc)
+        ref = L1.l1_topk2_plain(xx, cc)
+        for a, b in zip(out, ref):
+            if not torch.equal(a, b):
+                raise AssertionError("l1_topk2 kernel != plain version")
+            err = max(err, _max_err(a, b))
+
+    def times(xx, cc):
+        ms = _ms(lambda: L1.l1_topk2(xx, cc), device)
+        plain_ms = _ms(lambda: L1.l1_topk2_plain(xx, cc), device)
+        cb = cc if cc.dim() == 3 else cc[None]
+        xb = xx[:, None] if cc.dim() == 3 else xx[None]
+
+        def yardstick():
+            dist = torch.cdist(xb, cb, p=1).reshape(xx.shape[0], k)
+            return torch.topk(dist, 2, dim=-1, largest=False)
+
+        lib_ms = _ms(yardstick, device)
+        bound_ms, by = _bound(_nbytes(xx, cc) + xx.shape[0] * 12,
+                              3.0 * xx.shape[0] * k * d)
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=by, library_ms=lib_ms)
+
+    rows, shared = times(x_rows, c_rows), times(x, c)
+    for label, r in ((f"per-row centroids, B={D}", rows),
+                     (f"shared centroids, B={B}", shared)):
+        print(f"l1_topk2 ({label}, d={d}, k={k}): bit-equal to plain; "
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"cdist+topk {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+    return dict(rows, max_abs_err=err, shape=f"x ({D}, {d}), c ({D}, {k}, "
+                f"{d})", shared_centroids=dict(
+                    shared, shape=f"x ({B}, {d}), c ({k}, {d})"))
+
+
+def _cu_phase(device, scale: Scale, rng) -> dict:
+    """Kernel E at the shared-bank adaptation's shape: one (task, unit)
+    table of k = 5 centroids at the widest feature width, one row per
+    device, most devices not adapting this step (assign = -1)."""
+    import torch
+
+    from repro_torch.kernels import centroid_update as CU
+
+    k, d, B = scale.cu_shape
+    c = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32)).to(
+        device)
+    x = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32)).to(
+        device)
+    assign_np = np.where(rng.random(B) < 0.25, rng.integers(0, k, B),
+                         -1).astype(np.int32)
+    a = torch.from_numpy(assign_np).to(device)
+    out = CU.centroid_update(c, x, a, 32.0)
+    ref = CU.centroid_update_plain(c, x, a, 32.0)
+    if not torch.equal(out, ref):
+        raise AssertionError("centroid_update kernel != plain version")
+    err = _max_err(out, ref)
+    ms = _ms(lambda: CU.centroid_update(c, x, a, 32.0), device)
+    plain_ms = _ms(lambda: CU.centroid_update_plain(c, x, a, 32.0), device,
+                   reps=3)
+    valid = a >= 0
+    xv, av = x[valid], a[valid].to(torch.int64)
+    lib_ms = _ms(lambda: torch.zeros_like(c).index_add_(0, av, xv), device)
+    n_valid = int(valid.sum())
+    # only the assigned rows of x are read; c is read and written once
+    bound_ms, by = _bound(n_valid * d * 4 + 2 * _nbytes(c) + _nbytes(a),
+                          float(n_valid * d + 4 * k * d))
+    print(f"centroid_update (k={k}, d={d}, B={B}, {n_valid} rows assigned): "
+          f"bit-equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"index_add_ {lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
+                shape=f"c ({k}, {d}), x ({B}, {d}), {n_valid} assigned")
+
+
+def _models(device, scale: Scale):
+    """Seeded random CNNs (Table-3 widths on the card) and banks fitted on
+    each dataset's training split, as examples/intermittent_serving.py."""
+    import torch
+
+    from repro_torch.core import kmeans as km
+    from repro_torch.core.agile import AgileCNN
+    from repro_torch.data import make_dataset
+    from repro_torch.models import cnn
+
+    models, sets = [], []
+    for seed, (name, narrow) in enumerate(scale.cnns):
+        cfg = narrow or cnn.PAPER_CNNS[name]
+        ds = make_dataset(name, n_train=scale.n_train, n_test=128, seed=seed)
+        params = cnn.init_cnn_params(
+            cfg, torch.Generator().manual_seed(seed), device=device)
+        with torch.no_grad():
+            feats = cnn.cnn_forward_all(
+                cfg, params, torch.from_numpy(ds.x_train).to(device))
+        bank = km.fit_bank([f.cpu().numpy() for f in feats], ds.y_train,
+                           device=device)
+        models.append(AgileCNN(cfg, params, bank))
+        sets.append(ds)
+    return models, sets
+
+
+def _serve_phase(device, scale: Scale) -> dict:
+    import torch
+
+    from repro_torch.core import energy
+    from repro_torch.kernels import fleet_step, ops
+    from repro_torch.serve import FleetServeEngine, Request, ServeConfig
+
+    t0 = time.perf_counter()
+    models, sets = _models(device, scale)
+    harvester = energy.calibrate_harvester(0.71, 0.35, name="solar")
+    n = scale.n_requests
+    requests = [[Request(ds.x_test[i], int(ds.y_test[i]), release=float(i))
+                 for i in range(n)] for ds in sets]
+    u_max = max(m.n_units for m in models)
+
+    def engine(adapt, bank_mode):
+        cfg = ServeConfig(policy="zygarde", period=1.0, deadline=2.0,
+                          horizon=n + 5.0, adapt=adapt,
+                          unit_time=np.full(u_max, 0.22),
+                          unit_energy=np.full(u_max, 7e-3), seed=3)
+        return FleetServeEngine(models, harvester, eta=0.71, config=cfg,
+                                bank_mode=bank_mode, device=device)
+
+    seeds = list(range(scale.n_devices))
+    print(f"serve setup: {len(models)} tasks "
+          f"({', '.join(m.cfg.name for m in models)}), bank fit and "
+          f"harvester calibration in {time.perf_counter() - t0:.2f} s")
+
+    # ---- the main path: counts zeroed just before, read just after ------
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    res = {}
+    for label, adapt, mode, bank_mode in (
+            ("scan adapt per-device", True, "scan", "per-device"),
+            ("scan adapt shared", True, "scan", "shared"),
+            ("scan", False, "scan", "per-device"),
+            ("fused", False, "fused", "per-device")):
+        before = fleet_step.launches
+        r = engine(adapt, bank_mode).run(
+            requests, scale.n_devices, seeds=seeds,
+            n_segments=scale.n_segments, mode=mode)
+        res[label] = r
+        print(f"serve {label}: {r.jobs} jobs on {scale.n_devices} devices "
+              f"in {r.wall_s:.3f} s = {r.jobs_per_sec:.1f} jobs/s, "
+              f"{int(r.fleet.scheduled.sum())} on time, "
+              f"{int(r.fleet.units_executed.sum())} units")
+        if mode == "fused" and device.type == "cuda":
+            rose = fleet_step.launches - before
+            if rose != scale.n_segments:
+                raise AssertionError(f"fused run launched serve_fused_steps "
+                                     f"{rose} times, not {scale.n_segments}")
+    launches = ops.launch_counts()
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+    print(f"main path launches {json.dumps(launches)}, peak device memory "
+          f"{peak / 2**20:.1f} MiB")
+    if device.type == "cuda":
+        missing = [k for k, v in launches.items() if v == 0]
+        if missing:
+            raise AssertionError(f"main path never launched {missing}")
+
+    # ---- outputs are right ------------------------------------------------
+    scan, fused = res["scan"], res["fused"]
+    c_err = 0.0
+    for part in ("dev", "bank", "log"):
+        a_p, b_p = getattr(scan.carry, part), getattr(fused.carry, part)
+        for f, a, b in zip(a_p._fields, a_p, b_p):
+            if not torch.equal(a, b):
+                raise AssertionError(f"fused != scan at {part}.{f}")
+            c_err = max(c_err, _max_err(a, b))
+    n_tasks = len(models)
+    for label, r in res.items():
+        if r.jobs != scale.n_devices * n_tasks * n:
+            raise AssertionError(f"{label}: {r.jobs} jobs released")
+        if not np.isfinite(r.margin).all() or r.units.shape != (
+                scale.n_devices, n_tasks, n):
+            raise AssertionError(f"{label}: malformed outcome log")
+        if int(r.fleet.units_executed.sum()) == 0:
+            raise AssertionError(f"{label}: no unit executed")
+    print(f"fused == scan on every carry leaf; all {len(res)} runs released "
+          f"{scan.jobs} jobs with finite margins")
+
+    # the card's serve loop (kernel D) == the CPU's plain loop, same state
+    eng = engine(False, "per-device")
+    cfg, statics, tables, carry0, _ = eng.build(
+        requests, scale.n_devices, seeds=seeds)
+    n_chk = min(200, statics.n_steps)
+    S_, C_ = tables.fidx.shape[-1], carry0.bank.centroids.shape[-2]
+    if (S_, C_) != (scale.l1_dim, scale.l1_k):
+        raise AssertionError(f"serve tables have S={S_}, C={C_}: kernel D "
+                             f"was timed at d={scale.l1_dim}, "
+                             f"k={scale.l1_k}")
+    on_dev = eng._scan_steps(cfg, tables, carry0, 0, statics=statics,
+                             n_steps=n_chk, adapt=False)
+    cpu = torch.device("cpu")
+
+    def to_cpu(tree):
+        return type(tree)(*[to_cpu(x) if isinstance(x, tuple) else x.to(cpu)
+                            for x in tree])
+
+    on_cpu = eng._scan_steps(to_cpu(cfg), to_cpu(tables), to_cpu(carry0),
+                             0, statics=statics, n_steps=n_chk, adapt=False)
+    for part in ("dev", "log"):
+        a_p, b_p = getattr(on_dev, part), getattr(on_cpu, part)
+        for f, a, b in zip(a_p._fields, a_p, b_p):
+            if not torch.equal(a.to(cpu), b):
+                raise AssertionError(f"{device} serve loop != CPU reference "
+                                     f"at {part}.{f}")
+    print(f"serve loop on {device} == plain CPU reference over {n_chk} "
+          f"steps, every dev/log leaf")
+
+    _profile_phase(device, eng, cfg, statics, tables, carry0)
+
+    # ---- kernel C: time per launch at two fleet sizes --------------------
+    c_rows = {}
+    job0 = torch.zeros(n_tasks, dtype=torch.int32, device=device)
+    for n_dev in (scale.n_devices, scale.big_devices):
+        e2 = engine(False, "per-device")
+        cfg2, st2, tab2, car2, _ = e2.build(requests, n_dev,
+                                            seeds=list(range(n_dev)))
+
+        def launch():
+            return fleet_step.serve_fused_steps(
+                cfg2, car2, tab2, 0, job0, statics=st2,
+                n_steps=st2.n_steps)
+
+        out = launch()
+        ms = _ms(launch, device, reps=5, warmup=1)
+        plain_ms = None
+        if n_dev == scale.n_devices:
+            plain_ms = _ms(lambda: fleet_step.serve_fused_steps_plain(
+                cfg2, car2, tab2, 0, job0, statics=st2,
+                n_steps=st2.n_steps), device, reps=1, warmup=0)
+        units = int(out.dev.m_units.sum())
+        S_, C_ = tab2.fidx.shape[-1], car2.bank.centroids.shape[-2]
+        Q = st2.queue_size
+        carry_b = _nbytes(*car2.dev) + _nbytes(*car2.log)
+        cfg_b = sum(_nbytes(getattr(cfg2, f)) for f in fleet_step._CFG_FIELDS)
+        per_unit_b = 4 * (2 * S_ + C_ * S_) + 4 * (C_ + 2)
+        nbytes = 2 * carry_b + cfg_b + units * per_unit_b
+        # per device-step: ~40 operations per queue slot (scores, energy
+        # gates, admission); per completed unit: the C x S L1 distances
+        nops = float(n_dev * st2.n_steps * 40 * Q + units * 3 * C_ * S_)
+        bound_ms, by = _bound(nbytes, nops)
+        c_rows[n_dev] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=by)
+        print(f"serve_fused_steps (D={n_dev}, {st2.n_steps} steps, {units} "
+              f"units): kernel {ms:.3f} ms/launch"
+              + (f", plain {plain_ms:.1f} ms" if plain_ms else "")
+              + f", bound {bound_ms:.6f} ms ({by})")
+        del cfg2, car2, tab2, out
+    row = dict(c_rows[scale.n_devices], max_abs_err=c_err, library_ms=None,
+               ms_big_fleet=c_rows[scale.big_devices]["ms"],
+               big_fleet=scale.big_devices)
+    return dict(launches=launches, c_row=row)
+
+
+def _profile_phase(device, eng, cfg, statics, tables, carry0):
+    """Where the scan's time goes: ``torch.profiler`` over a window of scan
+    steps (no adaptation) from the built state — kernel launches per step,
+    device-busy time and share of the window's wall time, and the kernels
+    with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        print("scan profile: not measured (no card)")
+        return
+    n = min(100, statics.n_steps)
+    kw = dict(statics=statics, adapt=False)
+    eng._scan_steps(cfg, tables, carry0, 0, n_steps=5, **kw)   # warm-up
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng._scan_steps(cfg, tables, carry0, 0, n_steps=n, **kw)
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    if not kernels:
+        print("scan profile: not measured (the profiler saw no device "
+              "activity)")
+        return
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    print(f"scan profile ({n} steps, D={cfg.policy.shape[0]}): wall "
+          f"{wall_ms:.1f} ms ({wall_ms / n:.3f} ms/step, profiler on), "
+          f"{launches / n:.1f} kernel launches/step, device busy "
+          f"{busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% of wall; "
+          "top: " + "; ".join(
+              f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms "
+              f"x{e.count}" for e in top))
+
+
+def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
+    """All phases on ``device_name``; returns the kernels report."""
+    import torch
+
+    device = torch.device(device_name)
+    rng = np.random.default_rng(0)
+    if device.type == "cuda":
+        _build_phase()
+    d_row = _l1_phase(device, scale, rng)
+    e_row = _cu_phase(device, scale, rng)
+    serve = _serve_phase(device, scale)
+    rows = []
+    for name, row in (("l1_topk2", d_row), ("centroid_update", e_row),
+                      ("serve_fused_steps", serve["c_row"])):
+        rows.append(dict(name=name, route="cuda", source=SOURCES[name],
+                         replaces=REPLACES[name],
+                         launches=serve["launches"][name], **row))
+    return {"kernels": rows}
+
+
+def _rehearse(device: str = "cpu") -> dict:
+    """Every phase at narrow widths with the plain versions (no card)."""
+    return run(device, _narrow())
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels need one",
+              file=sys.stderr)
+        return 2
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable ({e})",
+              file=sys.stderr)
+        return 2
+    card = _card_line()
+    print(f"card: {card}")
+    report = run("cuda", FULL)
+    print(json.dumps(report))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

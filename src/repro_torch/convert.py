@@ -1,0 +1,89 @@
+"""Carry weights and state from the JAX package into the port.
+
+Every function takes plain numpy data — dicts, tuples or NamedTuples whose
+leaves are numpy arrays (``jax.tree.map(np.asarray, obj)`` of a JAX object,
+or anything laid out the same way) — and returns the port's tensors on
+``device``.  Nothing here imports JAX.  Dtypes are kept as they come
+(``float32``, ``int32``, ``bool``), so a converted pytree computes exactly
+what the JAX one does.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .core.kmeans import UnitClassifier
+from .core.step import DeviceCarry, StepParams
+from .fleet.state import ServeBank, ServeCarry, ServeLog
+from .serve.fleet_engine import ServeTables
+
+
+def tensor(a, device="cuda") -> torch.Tensor:
+    """One numpy array (or scalar) as a tensor of the same dtype."""
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _fields(obj, names: Sequence[str]) -> list:
+    if isinstance(obj, dict):
+        return [obj[n] for n in names]
+    if hasattr(obj, "_asdict"):
+        d = obj._asdict()
+        return [d[n] for n in names]
+    if len(obj) != len(names):
+        raise ValueError(f"expected {len(names)} leaves, got {len(obj)}")
+    return list(obj)
+
+
+def named_tuple(cls, obj, device="cuda"):
+    """Any of the port's flat NamedTuples (``StepParams``, ``DeviceCarry``,
+    ``ServeBank``, ``ServeLog``, ``ServeTables``) from numpy leaves, matched
+    by field name (dicts, NamedTuples) or by position (plain tuples)."""
+    return cls(*[tensor(v, device) for v in _fields(obj, cls._fields)])
+
+
+def step_params(obj, device="cuda") -> StepParams:
+    return named_tuple(StepParams, obj, device)
+
+
+def device_carry(obj, device="cuda") -> DeviceCarry:
+    return named_tuple(DeviceCarry, obj, device)
+
+
+def serve_tables(obj, device="cuda") -> ServeTables:
+    return named_tuple(ServeTables, obj, device)
+
+
+def serve_carry(obj, device="cuda") -> ServeCarry:
+    """A ``ServeCarry`` of ``(dev, bank, log)`` numpy pytrees."""
+    dev, bank, log = _fields(obj, ServeCarry._fields)
+    return ServeCarry(dev=device_carry(dev, device),
+                      bank=named_tuple(ServeBank, bank, device),
+                      log=named_tuple(ServeLog, log, device))
+
+
+def cnn_params(params: dict, device="cuda") -> dict:
+    """The reference CNN's parameter dict: conv weights HWIO -> OIHW; FC
+    weights stay ``(in, out)`` (their input index is NHWC-flattened in
+    both packages)."""
+    return {
+        "convs": [{"w": tensor(np.transpose(np.asarray(p["w"], np.float32),
+                                            (3, 2, 0, 1)), device),
+                   "b": tensor(np.asarray(p["b"], np.float32), device)}
+                  for p in params["convs"]],
+        "fcs": [{"w": tensor(np.asarray(p["w"], np.float32), device),
+                 "b": tensor(np.asarray(p["b"], np.float32), device)}
+                for p in params["fcs"]],
+    }
+
+
+def unit_classifier(obj, device="cuda") -> UnitClassifier:
+    """One unit's classifier (centroids, labels, feature_idx, counts,
+    threshold)."""
+    return named_tuple(UnitClassifier, obj, device)
+
+
+def bank(objs, device="cuda") -> list[UnitClassifier]:
+    """A model's per-unit classifier bank."""
+    return [unit_classifier(o, device) for o in objs]

@@ -1,0 +1,668 @@
+"""Vectorized live serving: real agile-model execution inside the fleet path
+(port of :mod:`repro.serve.fleet_engine`).
+
+Per-unit *features* are a pure function of the input — runtime adaptation
+moves only the k-means *centroids* — so the engine precomputes features for
+every (job, unit) once, outside the time loop, and keeps only the centroid
+bank as evolving state.  Each timestep then, for every device at once:
+
+1. runs the step core's admit / drop-expired / pick stages in ``live`` mode;
+2. gathers the selected slot's (task, job, unit) identity;
+3. classifies the completing unit's real features against the device's
+   current centroid bank through the ``l1_topk2`` kernel (one set of
+   centroid rows per device);
+4. injects the ``(margin, passed, correct)`` outcome into
+   :func:`repro_torch.core.step.apply_step` and writes the outcome log;
+5. adapts the bank where the utility test passed for the first time
+   (weighted-average update + centroid propagation, paper §4.3).
+
+``run(mode="fused")`` runs each segment as ONE launch of the
+``serve_fused_steps`` kernel (steps 1-4 per device in one thread; requires
+``adapt=False``).  Bank modes: ``per-device`` (every device owns a bank,
+leading ``D`` axis) or ``shared`` (one bank; every device's first-pass
+exits fold into one ``online_update`` per (task, unit), through the
+``centroid_update`` kernel).
+
+Differences from the reference: the reference's ``lax.cond`` that skips
+adaptation on steps where no utility test passed is a host-side ``if`` here
+— one device synchronisation per step on the card.  Adaptation updates the
+run's own copy of the bank in place.  Telemetry, meshes and ``run_stream``
+are not part of this slice.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core import kmeans as km
+from ..core import step as S
+from ..core.energy import Capacitor, Harvester
+from ..core.scheduler import JobProfile, TaskSpec
+from ..fleet import grid
+from ..fleet.simulator import finalize_fleet
+from ..fleet.state import (
+    FleetConfig,
+    FleetResult,
+    FleetStatics,
+    ServeBank,
+    ServeCarry,
+    ServeLog,
+    init_state,
+)
+from ..kernels import fleet_step, ops
+from .engine import Request, ServeConfig, per_task
+
+_F32 = torch.float32
+_I32 = torch.int32
+
+# padded cluster rows sit this far from everything: never in the L1 top-2
+_FAR = 1e15
+# the second-minimum mask value (repro_torch.kernels.l1_topk2.POS)
+_POS = 1e30
+
+
+class ServeTables(NamedTuple):
+    """Read-only per-request / per-classifier tables of the time loop.
+
+    ``K`` tasks, ``J`` jobs, ``U`` units, ``C`` clusters, ``S`` selected
+    features, ``F`` padded full-feature width (one wider than the largest
+    real feature dim: the extra column is zero everywhere and is where
+    padded ``fidx`` entries point, so padding is L1-exact).  With
+    per-device request streams every feature/label leaf gains a leading
+    ``D`` axis; the classifier metadata never does.
+    """
+
+    sel_feats: torch.Tensor    # ([D,] K, J, U, S) f32 — selected features
+    full_feats: torch.Tensor   # ([D,] K, J, U, F) f32 — full (adaptation)
+    labels: torch.Tensor       # ([D,] K, J) i32 — request ground truth
+    clabels: torch.Tensor      # (K, U, C) i32 — cluster -> class label
+    fidx: torch.Tensor         # (K, U, S) i32 — SelectKBest dims (pad F-1)
+    thr: torch.Tensor          # (K, U) f32 — bank utility thresholds
+
+
+@dataclass(frozen=True)
+class BankMeta:
+    """Static (python) shape metadata for the stacked bank."""
+
+    n_units: tuple           # per task
+    n_clusters: tuple        # per (task, unit)
+    feat_dim: tuple          # per (task, unit) real feature width
+    n_sel: tuple             # per (task, unit) real selected count
+
+
+def stack_banks(models: Sequence, device="cuda"
+                ) -> tuple[ServeBank, dict, BankMeta]:
+    """Stack every model's per-unit classifier bank into the padded
+    ``(K, U, C, F)`` tables of a :class:`ServeBank` (+ the read-only
+    classifier metadata for :class:`ServeTables`).  Dummy cluster rows sit
+    at ``_FAR`` with label -1 and count 1; features are zero-padded to a
+    common ``F`` with one all-zero trailing column for padded ``fidx``."""
+    K = len(models)
+    n_units = tuple(m.n_units for m in models)
+    U = max(n_units)
+    n_clusters = tuple(
+        tuple(int(uc.centroids.shape[0]) for uc in m.bank) for m in models)
+    feat_dim = tuple(
+        tuple(int(uc.centroids.shape[1]) for uc in m.bank) for m in models)
+    n_sel = tuple(
+        tuple(int(uc.feature_idx.shape[0]) for uc in m.bank) for m in models)
+    C = max(max(r) for r in n_clusters)
+    S_ = max(max(r) for r in n_sel)
+    F = max(max(r) for r in feat_dim) + 1    # +1: the all-zero pad column
+
+    cents = np.full((K, U, C, F), _FAR, np.float32)
+    counts = np.ones((K, U, C), np.float32)
+    clabels = np.full((K, U, C), -1, np.int32)
+    fidx = np.full((K, U, S_), F - 1, np.int32)
+    thr = np.zeros((K, U), np.float32)
+    for k, m in enumerate(models):
+        for u, uc in enumerate(m.bank):
+            c = uc.centroids.cpu().numpy().astype(np.float32)
+            kc, fu = c.shape
+            cents[k, u, :kc, :fu] = c
+            cents[k, u, :kc, fu:] = 0.0
+            counts[k, u, :kc] = uc.counts.cpu().numpy()
+            clabels[k, u, :kc] = uc.labels.cpu().numpy()
+            ns = n_sel[k][u]
+            fidx[k, u, :ns] = uc.feature_idx.cpu().numpy()
+            thr[k, u] = float(uc.threshold)
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    bank = ServeBank(centroids=t(cents), counts=t(counts))
+    tables = dict(clabels=t(clabels), fidx=t(fidx), thr=t(thr))
+    return bank, tables, BankMeta(n_units, n_clusters, feat_dim, n_sel)
+
+
+def build_feature_tables(
+    models: Sequence,
+    requests_per_task: Sequence[Sequence[Request]],
+    meta: BankMeta,
+    bank_tables: dict,
+    *,
+    feature_batch: Optional[int] = None,
+    n_jobs: Optional[int] = None,
+) -> dict:
+    """Precompute the (job, unit) feature tables (numpy) for one request
+    stream; the selected-dim gather uses the bank's ``fidx``, which never
+    adapts.  ``n_jobs`` fixes the job axis (default: longest stream)."""
+    K = len(models)
+    J = int(n_jobs or max(len(r) for r in requests_per_task))
+    fidx = bank_tables["fidx"].cpu().numpy()
+    U, S_ = fidx.shape[1], fidx.shape[2]
+    F = max(max(r) for r in meta.feat_dim) + 1
+    sel = np.zeros((K, J, U, S_), np.float32)
+    full = np.zeros((K, J, U, F), np.float32)
+    labels = np.full((K, J), -1, np.int32)
+    for k, (m, reqs) in enumerate(zip(models, requests_per_task)):
+        if not reqs:
+            continue
+        feats = m.unit_features([r.x for r in reqs],
+                                batch_size=feature_batch)
+        for u, f in enumerate(feats):
+            full[k, :len(reqs), u, :f.shape[1]] = f
+            ns = meta.n_sel[k][u]
+            sel[k, :len(reqs), u, :ns] = f[:, fidx[k, u, :ns]]
+        labels[k, :len(reqs)] = [r.label for r in reqs]
+    return dict(sel_feats=sel, full_feats=full, labels=labels)
+
+
+def classify_unit(bank: ServeBank, tables: ServeTables, tk: int, u: int,
+                  job: int):
+    """Single-row live classification (plain tensors, shared tables and
+    bank) — the same arithmetic and order as :func:`kmeans.classify`.
+    Returns ``(margin, cluster_idx, pred)``."""
+    fsel = tables.sel_feats[tk, job, u]                       # (S,)
+    idxs = tables.fidx[tk, u].to(torch.int64)                 # (S,)
+    csel = bank.centroids[tk, u][:, idxs]                     # (C, S)
+    d1, d2, ci = ops.l1_topk2(fsel[None].contiguous(), csel.contiguous())
+    margin = km.margin_of(d1, d2)[0]
+    ci = ci[0]
+    return margin, ci, tables.clabels[tk, u, ci.to(torch.int64)]
+
+
+def _classify_rows(bank: ServeBank, tables: ServeTables, tk, u, job):
+    """Batched classify of every device's selected (task, unit, job).
+
+    ``tk``/``u``/``job`` are ``(D,)``; the bank and the feature tables may
+    or may not carry the leading ``D`` axis (shared vs per-device).  Only
+    the ``S`` selected columns of the ``C`` centroid rows each device needs
+    are gathered; the L1 top-2 then runs through the ``l1_topk2`` kernel
+    with one centroid set per row.  Returns ``(margin, cluster_idx, pred)``.
+    """
+    K, Ub, S_ = tables.fidx.shape
+    Wl = tables.labels.shape[-1]
+    C, F = bank.centroids.shape[-2:]
+    D = tk.shape[0]
+    ku = tk * Ub + u
+    sf = tables.sel_feats.reshape(tables.sel_feats.shape[:-4]
+                                  + (K * Wl * Ub, S_))
+    fsel = S.take_rows(sf, (tk * Wl + job) * Ub + u)          # (D, S)
+    idxs = S.take_rows(tables.fidx.reshape(K * Ub, S_), ku)   # (D, S)
+    cflat = bank.centroids.reshape(-1, K * Ub * C * F)        # (D or 1, N)
+    iota_c = torch.arange(C, device=tk.device, dtype=torch.int64)
+    lin = (((ku.to(torch.int64)[:, None] * C + iota_c[None, :]) * F)[..., None]
+           + idxs.to(torch.int64)[:, None, :])                # (D, C, S)
+    csel = torch.gather(cflat.expand(D, -1), 1,
+                        lin.reshape(D, C * S_)).reshape(D, C, S_)
+    d1, d2, ci = ops.l1_topk2(fsel.contiguous(), csel)
+    margin = km.margin_of(d1, d2)
+    pred = S._take1(tables.clabels.reshape(K * Ub * C), ku * C + ci)
+    return margin, ci, pred
+
+
+def serve_step(cfg: FleetConfig, tables: ServeTables, dev, bank: ServeBank,
+               log: ServeLog, t, job0, *, statics: FleetStatics):
+    """One live-serving timestep for every device (leading ``(D,)`` axis):
+    admit → drop-expired → pick → classify against the bank → inject
+    ``(margin, passed, correct)`` into :func:`apply_step` → latch the
+    utility pass → write the per-job outcome log.
+
+    ``job0`` (``(K,)`` int32) rebases global job ids into the table window
+    (zeros for a whole run).  ``t`` is the f32 clock ``i * dt``; the
+    step's end time is ``t + dt`` (a second rounding), as in the reference.
+    Returns ``(dev, log, (first_pass, tk, u, job, ci))`` — the aux drives
+    the engine's bank adaptation.
+    """
+    K = cfg.period.shape[-1]
+    n_u = cfg.unit_time.shape[-1]
+    Ue = cfg.exit_thr.shape[-1]
+    Wl = tables.labels.shape[-1]
+    Ub = tables.fidx.shape[-2]
+    Q = statics.queue_size
+
+    dev = S.admit(cfg, dev, t, statics, True)
+    dev = S.drop_expired(cfg, dev, t, True)
+    sel, picked, run, e_new = S.pick(cfg, dev, t, statics, True)
+
+    # selected-slot identity, pre-apply
+    tk = S._take1(dev.q_task, sel).clamp(0, K - 1)
+    u = S._take1(dev.q_unit, sel).clamp(0, n_u - 1)
+    job = (S._take1(dev.q_job, sel) - S._take1(job0, tk)).clamp(0, Wl - 1)
+    complete = run & (S._take1(dev.q_time_left, sel) - statics.dt
+                      <= statics.dt_eps)
+    exited_pre = S._take1(dev.q_exited, sel)
+    apass_pre = S._take1(dev.q_apass, sel)
+    ddl = S._take1(dev.q_deadline, sel)
+    nu_sel = S._take1(cfg.n_units, tk)
+    thr_cfg = S._take1(S._flat2(cfg.exit_thr), tk * Ue + u)
+
+    margin, ci, pred = _classify_rows(bank, tables, tk, u, job)
+    label = S._take1(
+        tables.labels.reshape(tables.labels.shape[:-2] + (K * Wl,)),
+        tk * Wl + job)
+    correct = pred == label
+    pass_bank = margin > S._take1(tables.thr.reshape(K * Ub), tk * Ub + u)
+    passed = torch.where(cfg.use_exit_thr, margin > thr_cfg, pass_bank)
+
+    dev = S.apply_step(cfg, dev, t, sel, picked, run, e_new, statics, True,
+                       (margin, passed, correct))
+
+    # engine-owned utility-pass latch: adaptation fires at the FIRST
+    # bank-threshold pass (even under EDF, which never exits early)
+    first_pass = complete & pass_bank & ~apass_pre
+    oh = S._oh_eq(sel, Q)
+    dev = dev._replace(
+        q_apass=dev.q_apass | (oh & (complete & pass_bank)[..., None]))
+
+    # per-job outcome log (mirrors apply_step's completion math)
+    exit_now = complete & cfg.imprecise & (exited_pre < 0) & passed
+    exited_mid = torch.where(exit_now, u, exited_pre)
+    full_mand = complete & (exited_mid < 0) & (u + 1 >= nu_sel)
+    mand_now = exit_now | full_mand
+    sched_now = (t + statics.dt) <= ddl
+    kk = torch.arange(K, device=tk.device, dtype=_I32)[:, None]
+    jj = torch.arange(Wl, device=tk.device, dtype=_I32)[None, :]
+    m_jd = (complete[:, None, None] & (kk == tk[:, None, None])
+            & (jj == job[:, None, None]))
+
+    def put(old, new, mask=None):
+        mm = m_jd if mask is None else m_jd & mask[:, None, None]
+        return torch.where(mm, new[:, None, None].to(old.dtype), old)
+
+    log = ServeLog(
+        units=put(log.units, u + 1),
+        pred=put(log.pred, pred),
+        correct=put(log.correct, correct),
+        margin=put(log.margin, margin),
+        exit_unit=put(log.exit_unit, u, first_pass),
+        sched=put(log.sched, sched_now, mand_now),
+    )
+    return dev, log, (first_pass, tk, u, job, ci)
+
+
+@dataclass
+class FleetServeResult:
+    """Outcome of one vectorized live-serving run.
+
+    ``fleet`` holds the step core's ``(D,)`` aggregates (live-mode
+    finalize); the per-job arrays are the numpy view of the
+    :class:`ServeLog` (``(D, K, J)`` each); ``carry`` is the end-of-horizon
+    :class:`ServeCarry`.  ``wall_s`` times the time loop and finalize only
+    (feature precompute excluded), ending in a device synchronisation.
+    """
+
+    fleet: FleetResult
+    units: np.ndarray
+    pred: np.ndarray
+    correct: np.ndarray
+    margin: np.ndarray
+    exit_unit: np.ndarray
+    sched: np.ndarray
+    carry: ServeCarry
+    jobs: int
+    wall_s: float
+
+    @property
+    def jobs_per_sec(self) -> float:
+        return self.jobs / max(self.wall_s, 1e-9)
+
+
+class FleetServeEngine:
+    """Vectorized live serving of agile-model tasks across a device fleet.
+
+    ``bank_mode`` is ``"per-device"`` or ``"shared"``; ``feature_batch``
+    chunks the feature precompute; ``device`` is where every tensor of the
+    run lives (the models' parameters must live there too).
+    """
+
+    def __init__(
+        self,
+        models: Sequence,
+        harvester: Harvester,
+        eta: float,
+        cap: Optional[Capacitor] = None,
+        config: Optional[ServeConfig] = None,
+        *,
+        bank_mode: str = "per-device",
+        feature_batch: Optional[int] = None,
+        adapt_weight: float = 32.0,
+        device="cuda",
+    ):
+        if bank_mode not in ("per-device", "shared"):
+            raise ValueError(f"unknown bank_mode {bank_mode!r}")
+        self.models = list(models)
+        self.harvester = harvester
+        self.eta = eta
+        self.cap = cap or Capacitor()
+        self.config = config or ServeConfig()
+        self.bank_mode = bank_mode
+        self.feature_batch = feature_batch
+        self.adapt_weight = float(adapt_weight)
+        self.device = torch.device(device)
+        self.bank0, self._bank_tables, self.meta = stack_banks(
+            self.models, device=self.device)
+
+    # ------------------------------------------------------------------ #
+    # Builders.
+    # ------------------------------------------------------------------ #
+
+    def _task_specs(self, n_jobs_per_task: Sequence[int]) -> list[TaskSpec]:
+        """TaskSpecs with *dummy* zero profiles: live mode never reads the
+        replay tables, but the grid builder sizes ``n_releases`` and the
+        clip bounds from them."""
+        cfg = self.config
+        periods = per_task(cfg.period, len(self.models))
+        deadlines = per_task(cfg.deadline, len(self.models))
+        tasks = []
+        for tid, (m, n_jobs) in enumerate(zip(self.models,
+                                              n_jobs_per_task)):
+            nu = m.n_units
+            ut = (np.asarray(cfg.unit_time, float)
+                  if cfg.unit_time is not None else np.full(nu, 0.2))
+            ue = (np.asarray(cfg.unit_energy, float)
+                  if cfg.unit_energy is not None else np.full(nu, 5e-3))
+            zeros = JobProfile(np.zeros(nu), np.zeros(nu, bool),
+                               np.zeros(nu, bool))
+            tasks.append(TaskSpec(
+                task_id=tid, period=periods[tid], deadline=deadlines[tid],
+                unit_time=ut[:nu], unit_energy=ue[:nu],
+                profiles=[zeros] * n_jobs,
+                fragments_per_unit=cfg.fragments_per_unit,
+            ))
+        return tasks
+
+    def build(
+        self,
+        requests,
+        n_devices: Optional[int] = None,
+        *,
+        seeds: Optional[Sequence[int]] = None,
+    ) -> tuple[FleetConfig, FleetStatics, ServeTables, ServeCarry, bool]:
+        """Materialise configs, statics, feature tables and the t=0 carry.
+
+        ``requests`` is one stream shared by every device
+        (``requests[task][job]``) or per-device streams
+        (``requests[device][task][job]``).  Returns ``(cfg, statics,
+        tables, carry0, per_dev_tables)``.
+        """
+        cfg = self.config
+        per_dev = not isinstance(requests[0][0], Request)
+        if per_dev:
+            D = len(requests)
+            if n_devices is not None and n_devices != D:
+                raise ValueError(
+                    f"n_devices={n_devices} but {D} request streams given")
+            streams = requests
+        else:
+            D = int(n_devices or 1)
+            streams = [requests] * D
+        if len(streams[0]) != len(self.models):
+            raise ValueError(
+                f"{len(streams[0])} request streams per device for "
+                f"{len(self.models)} models")
+
+        n_jobs = [max(len(s[k]) for s in streams)
+                  for k in range(len(self.models))]
+        tasks = self._task_specs(n_jobs)
+        dt = grid._check_dt(
+            grid._default_dt(tasks) if cfg.sim_dt is None
+            else float(cfg.sim_dt), tasks)
+        statics = FleetStatics(queue_size=cfg.queue_size, dt=dt,
+                               horizon=cfg.horizon,
+                               slot_s=self.harvester.slot_s)
+        seeds = (list(seeds) if seeds is not None else [cfg.seed] * D)
+        if len(seeds) != D:
+            raise ValueError(f"{len(seeds)} seeds for {D} devices")
+        events = {s: grid.sample_events(self.harvester, cfg.horizon, s)
+                  for s in set(seeds)}
+        devs = [grid.device_config(
+            tasks, self.harvester, self.eta, self.cap,
+            policy=cfg.policy, horizon=cfg.horizon, events=events[s],
+            e_opt_fraction=cfg.e_opt_fraction,
+            start_charged=cfg.start_charged,
+        ) for s in seeds]
+        fleet_cfg = grid.stack_configs(devs, device=self.device)
+
+        feat_streams = streams if per_dev else streams[:1]
+        feats = [build_feature_tables(
+            self.models, s, self.meta, self._bank_tables,
+            feature_batch=self.feature_batch, n_jobs=max(n_jobs))
+            for s in feat_streams]
+        if per_dev:
+            stacked = {k: np.stack([f[k] for f in feats]) for k in feats[0]}
+        else:
+            stacked = feats[0]
+        tables = ServeTables(
+            **{k: torch.from_numpy(v).to(self.device)
+               for k, v in stacked.items()},
+            **self._bank_tables)
+
+        dev0 = init_state(fleet_cfg, statics)
+        bank0 = self.bank0
+        if self.bank_mode == "per-device":
+            bank0 = ServeBank(*[
+                l.expand((D,) + tuple(l.shape)).contiguous() for l in bank0])
+        K, J = len(self.models), max(n_jobs)
+
+        def full(value, dtype):
+            return torch.full((D, K, J), value, dtype=dtype,
+                              device=self.device)
+
+        log0 = ServeLog(units=full(0, _I32), pred=full(-1, _I32),
+                        correct=full(False, torch.bool),
+                        margin=full(0.0, _F32), exit_unit=full(-1, _I32),
+                        sched=full(False, torch.bool))
+        return (fleet_cfg, statics, tables,
+                ServeCarry(dev=dev0, bank=bank0, log=log0), per_dev)
+
+    # ------------------------------------------------------------------ #
+    # Bank adaptation (updates the run's own bank copy in place).
+    # ------------------------------------------------------------------ #
+
+    def _adapt_per_device(self, bank: ServeBank, x_full, tk, u, ci, do):
+        """Every adapting device's weighted-average update of its own row
+        ``(w c + x) / (w + 1)`` and the propagation chain that refreshes row
+        ``ci`` of each deeper unit from the progressively updated shallower
+        tables, as the reference's per-device loop does."""
+        w = self.adapt_weight
+        cents, counts = bank
+        D = cents.shape[0]
+        ar = torch.arange(D, device=cents.device)
+        tk_, u_, ci_ = (v.to(torch.int64) for v in (tk, u, ci))
+        rows = cents[ar, tk_, u_, ci_]                        # (D, F)
+        denom = torch.full((), w + 1.0, dtype=_F32, device=cents.device)
+        new_rows = (w * rows + x_full) / denom
+        cents[ar, tk_, u_, ci_] = torch.where(do[:, None], new_rows, rows)
+        counts[ar, tk_, u_, ci_] += do.to(_F32)
+        for k, m in enumerate(self.models):
+            for v in range(m.n_units - 1):
+                act = (do & (tk == k) & (u <= v)).nonzero()[:, 0]
+                if act.numel() == 0:
+                    continue
+                kc = self.meta.n_clusters[k][v]
+                f_in = self.meta.feat_dim[k][v]
+                f_out = self.meta.feat_dim[k][v + 1]
+                r = counts[act, k, v, :kc][..., None]          # (A, kc, 1)
+                src = cents[act, k, v, :kc, :f_in]
+                img = torch.relu(m.unit_apply_flat(
+                    v + 1, (r * src).reshape(-1, f_in))).reshape(
+                        act.numel(), kc, f_out) / r
+                row = (torch.arange(kc, device=cents.device)[None, :]
+                       == ci_[act][:, None])
+                old = cents[act, k, v + 1, :kc, :f_out]
+                cents[act, k, v + 1, :kc, :f_out] = torch.where(
+                    row[..., None], img, old)
+        return ServeBank(cents, counts)
+
+    def _adapt_shared(self, bank: ServeBank, x_full, tk, u, ci, do):
+        """Collaborative shared-bank update: all devices exiting at
+        ``(k, u)`` this step fold into ONE :func:`km.online_update`
+        (batch-averaged), then one propagation sweep refreshes every touched
+        row of the deeper units."""
+        cents, counts = bank
+        C_ = cents.shape[2]
+        iota_c = torch.arange(C_, device=cents.device)
+        for k, m in enumerate(self.models):
+            hot = torch.zeros(C_, dtype=torch.bool, device=cents.device)
+            for v in range(m.n_units):
+                kc = self.meta.n_clusters[k][v]
+                fu = self.meta.feat_dim[k][v]
+                mrow = do & (tk == k) & (u == v)
+                idxk = torch.where(mrow, ci, torch.full_like(ci, -1))
+                new_c, new_n = km.online_update(
+                    cents[k, v, :kc, :fu], counts[k, v, :kc],
+                    x_full[:, :fu], idxk, weight=self.adapt_weight)
+                cents[k, v, :kc, :fu] = new_c
+                counts[k, v, :kc] = new_n
+                if v == m.n_units - 1:
+                    break
+                hot = hot | (mrow[:, None]
+                             & (iota_c[None, :] == ci[:, None])).any(0)
+                f_out = self.meta.feat_dim[k][v + 1]
+                r = counts[k, v, :kc, None]
+                src = cents[k, v, :kc, :fu]
+                img = torch.relu(m.unit_apply_flat(v + 1, r * src)) / r
+                cents[k, v + 1, :kc, :f_out] = torch.where(
+                    hot[:kc, None], img, cents[k, v + 1, :kc, :f_out])
+        return ServeBank(cents, counts)
+
+    # ------------------------------------------------------------------ #
+    # The time loop.
+    # ------------------------------------------------------------------ #
+
+    def _scan_steps(self, cfg: FleetConfig, tables: ServeTables,
+                    carry: ServeCarry, i0: int, job0=None, *,
+                    statics: FleetStatics, n_steps: int,
+                    adapt: bool) -> ServeCarry:
+        """Run ``n_steps`` live timesteps from step index ``i0``: the
+        batch-polymorphic :func:`serve_step`, plus the bank adaptation from
+        its aux outputs on steps where some device's utility test passed
+        for the first time (a host-side check: one device sync per step).
+        A shared bank has 4-D centroids; per-device request streams give
+        5-D feature tables."""
+        K = cfg.period.shape[1]
+        J = tables.labels.shape[-1]
+        if job0 is None:
+            job0 = torch.zeros(K, dtype=_I32, device=cfg.policy.device)
+        dev, bank, log = carry
+        shared = bank.centroids.dim() == 4
+        per_dev_tables = tables.sel_feats.dim() == 5
+        if adapt:
+            bank = ServeBank(*[l.clone() for l in bank])
+        for i in range(i0, i0 + n_steps):
+            t = fleet_step.step_time(i, statics.dt, cfg.policy.device)
+            dev, log, (first_pass, tk, u, job, ci) = serve_step(
+                cfg, tables, dev, bank, log, t, job0, statics=statics)
+            if not adapt or not bool(first_pass.any()):
+                continue
+            Ub = tables.fidx.shape[-2]
+            if per_dev_tables:
+                x_full = tables.full_feats[
+                    torch.arange(tk.shape[0], device=tk.device),
+                    tk.to(torch.int64), job.to(torch.int64),
+                    u.to(torch.int64)]
+            else:
+                ff = tables.full_feats.reshape(
+                    K * J * Ub, tables.full_feats.shape[-1])
+                x_full = S.take_rows(ff, (tk * J + job) * Ub + u)
+            if shared:
+                bank = self._adapt_shared(bank, x_full, tk, u, ci,
+                                          first_pass)
+            else:
+                bank = self._adapt_per_device(bank, x_full, tk, u, ci,
+                                              first_pass)
+        return ServeCarry(dev=dev, bank=bank, log=log)
+
+    # ------------------------------------------------------------------ #
+    # Public entry point.
+    # ------------------------------------------------------------------ #
+
+    def run(
+        self,
+        requests,
+        n_devices: Optional[int] = None,
+        *,
+        seeds: Optional[Sequence[int]] = None,
+        n_segments: int = 1,
+        carry: Optional[ServeCarry] = None,
+        mesh=None,
+        telemetry=None,
+        mode: str = "scan",
+    ) -> FleetServeResult:
+        """Serve every request stream live over the whole horizon.
+
+        ``n_segments > 1`` materialises the :class:`ServeCarry` at segment
+        boundaries (bit-identical to ``n_segments=1``); ``carry`` resumes
+        from a previous run's carry.  ``mode="fused"`` runs each segment as
+        ONE launch of the ``serve_fused_steps`` kernel (``adapt=False``
+        only).  ``mesh=`` and ``telemetry=`` are not ported yet.
+        """
+        if mode not in ("scan", "fused"):
+            raise ValueError(f"unknown serve mode {mode!r}")
+        if mesh is not None or telemetry is not None:
+            raise NotImplementedError(
+                "mesh= and telemetry= are not part of the port yet")
+        adapt = bool(self.config.adapt)
+        if mode == "fused" and adapt:
+            raise ValueError(
+                "mode='fused' requires adapt=False: bank adaptation "
+                "propagates centroids through whole-model convs that "
+                "cannot run inside a device thread")
+        cfg, statics, tables, carry0, _ = self.build(
+            requests, n_devices, seeds=seeds)
+        if carry is not None:
+            carry0 = carry
+        K = len(self.models)
+        job0 = torch.zeros(K, dtype=_I32, device=self.device)
+        sizes = [len(c) for c in
+                 np.array_split(np.arange(statics.n_steps), n_segments)]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        i0 = 0
+        out = carry0
+        for n in sizes:
+            if not n:
+                continue
+            if mode == "fused":
+                out = fleet_step.serve_fused_steps(
+                    cfg, out, tables, i0, job0, statics=statics, n_steps=n)
+            else:
+                out = self._scan_steps(
+                    cfg, tables, out, i0, job0, statics=statics, n_steps=n,
+                    adapt=adapt)
+            i0 += n
+        fleet = finalize_fleet(cfg, out.dev, statics, live=True)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+
+        log = out.log
+        return FleetServeResult(
+            fleet=fleet,
+            units=log.units.cpu().numpy(),
+            pred=log.pred.cpu().numpy(),
+            correct=log.correct.cpu().numpy(),
+            margin=log.margin.cpu().numpy(),
+            exit_unit=log.exit_unit.cpu().numpy(),
+            sched=log.sched.cpu().numpy(),
+            carry=out,
+            jobs=int(fleet.released.sum()),
+            wall_s=wall,
+        )

@@ -1,0 +1,305 @@
+"""The port's agile CNNs, k-means bank and the plain versions of its two
+k-means kernels (``l1_topk2``, ``centroid_update``) against the JAX package.
+
+Inputs are numpy arrays made from a seed and handed to both packages.  CNN
+features are held to ``rtol=1e-5, atol=1e-5``: an f32 convolution or matmul
+sums in another order in each framework.  Everything else is bit-equal: the
+L1 distances take the reference's own summation order.  The kernels
+themselves are held against these plain versions on the card by
+``tests/test_torch_gpu.py``.
+"""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from repro.core import kmeans as JK
+from repro.core.agile import AgileCNN as JAgileCNN
+from repro.kernels import ops as JO
+from repro.models import cnn as JC
+
+from repro_torch import convert
+from repro_torch.core import kmeans as PK
+from repro_torch.core.agile import AgileCNN
+from repro_torch.kernels import centroid_update as PCU
+from repro_torch.kernels import l1_topk2 as PL1
+from repro_torch.kernels import ops as PO
+from repro_torch.models import cnn as PC
+
+TINY = ("tiny", (16, 16, 1), ((4, 5, True), (8, 5, True)), (16,), 3)
+CNN_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _bits(a):
+    a = np.atleast_1d(np.asarray(a))
+    return a.view(np.uint8) if a.dtype != np.bool_ else a
+
+
+def _cnn(name, seed=0):
+    jcfg = JC.CNNConfig(*TINY) if name == "tiny" else JC.PAPER_CNNS[name]
+    pcfg = PC.CNNConfig(*TINY) if name == "tiny" else PC.PAPER_CNNS[name]
+    params = JC.init_cnn_params(jcfg, jax.random.PRNGKey(seed))
+    return jcfg, pcfg, params, convert.cnn_params(
+        jax.tree.map(np.asarray, params), "cpu")
+
+
+@pytest.mark.parametrize("name,batch", [("tiny", 5), ("mnist", 4)])
+def test_cnn_unit_forward_matches_jax(name, batch):
+    jcfg, pcfg, params, pparams = _cnn(name)
+    x = np.random.default_rng(1).normal(
+        size=(batch,) + jcfg.input_shape).astype(np.float32)
+    hj, hp = jnp.asarray(x), torch.from_numpy(x)
+    for u in range(jcfg.n_units):
+        hj, fj = JC.cnn_unit_forward(jcfg, params, hj, u)
+        hp, fp = PC.cnn_unit_forward(pcfg, pparams, hp, u)
+        assert fp.dtype == torch.float32 and fp.shape == fj.shape
+        np.testing.assert_allclose(fp.numpy(), np.asarray(fj), **CNN_TOL,
+                                   err_msg=f"unit {u}")
+        assert tuple(hp.shape) == tuple(hj.shape)
+
+
+def test_cnn_features_are_nhwc_flattened():
+    """Unit-0 features flatten the pooled NHWC activation, channel
+    fastest: feature ``(h * W + w) * C + c`` is channel ``c`` at
+    ``(h, w)`` of the conv output."""
+    _, pcfg, _, pparams = _cnn("tiny")
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2,) + pcfg.input_shape).astype(np.float32))
+    act, feat = PC.cnn_unit_forward(pcfg, pparams, x, 0)
+    B, H, W, C = act.shape
+    assert (H, W, C) == (8, 8, 4)
+    ref = torch.nn.functional.max_pool2d(torch.relu(torch.nn.functional.conv2d(
+        x.permute(0, 3, 1, 2), pparams["convs"][0]["w"],
+        pparams["convs"][0]["b"], padding=2)), 2)          # NCHW
+    for h, w, c in [(0, 0, 1), (3, 5, 2), (7, 7, 3)]:
+        assert torch.equal(feat[:, (h * W + w) * C + c], ref[:, c, h, w])
+
+
+def _feats(seed, n, dims):
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 3, n).astype(np.int32)
+    feats = [(rng.normal(size=(n, d)) + 2.0 * y[:, None] * (
+        rng.random(d) < 0.3)).astype(np.float32) for d in dims]
+    return feats, y
+
+
+def test_select_k_best_and_fit_match_jax():
+    feats, y = _feats(0, 60, (256, 40))
+    for f in feats:
+        np.testing.assert_array_equal(PK.select_k_best(f, y, 30),
+                                      JK.select_k_best(f, y, 30))
+        pj = JK.fit_unit_classifier(f, y, n_sel=30, threshold=0.07, seed=3)
+        pp = PK.fit_unit_classifier(f, y, n_sel=30, threshold=0.07, seed=3,
+                                    device="cpu")
+        for fld, a, b in zip(pp._fields, pp, pj):
+            assert a.numpy().dtype == np.asarray(b).dtype, fld
+            np.testing.assert_array_equal(_bits(a.numpy()), _bits(b),
+                                          err_msg=fld)
+
+
+def test_classify_adapt_propagate_match_jax():
+    """kmeans.classify (kernel D's plain version), adapt (kernel E's) and
+    propagate on a fitted bank, one sample as the serving path runs it."""
+    jcfg, pcfg, params, pparams = _cnn("tiny")
+    x = np.random.default_rng(3).normal(size=(40, 16, 16, 1)).astype(
+        np.float32)
+    y = (np.arange(40) % 3).astype(np.int32)
+    fj = [np.array(f) for f in JC.cnn_forward_all(jcfg, params,
+                                                   jnp.asarray(x))]
+    bank = JK.fit_bank(fj, y, thresholds=[0.02] * 3)
+    pbank = convert.bank([jax.tree.map(np.asarray, uc) for uc in bank],
+                         "cpu")
+    for u, (uc, pu) in enumerate(zip(bank, pbank)):
+        rj = JK.classify(uc, jnp.asarray(fj[u]))
+        rp = PK.classify(pu, torch.from_numpy(fj[u]))
+        for a, b in zip(rp, rj):
+            np.testing.assert_array_equal(_bits(a.numpy()), _bits(b))
+    # adapt unit 0 with one sample, then propagate to unit 1
+    one = fj[0][:1]
+    _, _, _, idx, _ = JK.classify(bank[0], jnp.asarray(one))
+    aj = JK.adapt(bank[0], jnp.asarray(one), idx)
+    ap = PK.adapt(pbank[0], torch.from_numpy(one),
+                  torch.from_numpy(np.array(idx)))
+    np.testing.assert_array_equal(ap.centroids.numpy(),
+                                  np.asarray(aj.centroids))
+    np.testing.assert_array_equal(ap.counts.numpy(), np.asarray(aj.counts))
+    jm = JAgileCNN(jcfg, params, bank)
+    pm = AgileCNN(pcfg, pparams, pbank)
+    pj = JK.propagate(aj, bank[1], lambda f: jm.unit_apply_flat(1, f), idx)
+    pp = PK.propagate(ap, pbank[1], lambda f: pm.unit_apply_flat(1, f),
+                      torch.from_numpy(np.array(idx)))
+    np.testing.assert_allclose(pp.centroids.numpy(),
+                               np.asarray(pj.centroids), **CNN_TOL)
+
+
+def _tiny_agile(n=40, seed=3):
+    """The tiny CNN in both packages, with one bank fitted by the JAX
+    package on its features and converted; plus the inputs it was fit on."""
+    jcfg, pcfg, params, pparams = _cnn("tiny")
+    x = np.random.default_rng(seed).normal(size=(n, 16, 16, 1)).astype(
+        np.float32)
+    y = (np.arange(n) % 3).astype(np.int32)
+    fj = [np.array(f) for f in JC.cnn_forward_all(jcfg, params,
+                                                   jnp.asarray(x))]
+    bank = JK.fit_bank(fj, y, thresholds=[0.02] * 3)
+    pbank = convert.bank([jax.tree.map(np.asarray, uc) for uc in bank],
+                         "cpu")
+    return (JAgileCNN(jcfg, params, bank), AgileCNN(pcfg, pparams, pbank),
+            x, y, fj)
+
+
+def test_classify_batch_and_bank_accuracy_match_jax():
+    """kmeans.classify_batch on a fleet-shaped batch against a raw table
+    (idx, d1, d2, margin bit-equal) and bank_accuracy on the same features
+    (equal)."""
+    jm, pm, _, y, fj = _tiny_agile()
+    for u, f in enumerate(fj):
+        table = np.array(jm.bank[u].centroids)
+        xb = f[:36].reshape(4, 9, f.shape[1])
+        ref = JK.classify_batch(jnp.asarray(table), jnp.asarray(xb))
+        out = PK.classify_batch(torch.from_numpy(table),
+                                torch.from_numpy(xb))
+        for name, a, b in zip(("idx", "d1", "d2", "margin"), out, ref):
+            assert tuple(a.shape) == (4, 9), name
+            assert a.numpy().dtype == np.asarray(b).dtype, name
+            np.testing.assert_array_equal(_bits(a.numpy()), _bits(b),
+                                          err_msg=f"unit {u} {name}")
+    assert PK.bank_accuracy(pm.bank, fj, y) == JK.bank_accuracy(jm.bank, fj,
+                                                                y)
+
+
+def test_profile_batch_matches_jax():
+    """AgileCNN.profile_batch on inputs neither bank was fit on: passes and
+    correctness exact, margins within the CNN tolerance (each package
+    computes its own features)."""
+    jm, pm, _, _, _ = _tiny_agile()
+    x = np.random.default_rng(8).normal(size=(24, 16, 16, 1)).astype(
+        np.float32)
+    y = (np.arange(24) % 3).astype(np.int32)
+    pj = jm.profile_batch(jnp.asarray(x), y)
+    pp = pm.profile_batch(x, y)
+    assert len(pp) == len(pj) == 24
+    for i, (a, b) in enumerate(zip(pp, pj)):
+        np.testing.assert_array_equal(a.passes, b.passes, err_msg=str(i))
+        np.testing.assert_array_equal(a.correct, b.correct, err_msg=str(i))
+        np.testing.assert_allclose(a.margins, b.margins, **CNN_TOL,
+                                   err_msg=str(i))
+
+
+@pytest.mark.parametrize("adapt,budget", [(True, None), (False, 2)])
+def test_infer_matches_jax(adapt, budget):
+    """AgileCNN.infer over a stream of single inputs, the bank adapting and
+    propagating between them: every discrete outcome exact, margins and the
+    evolving centroids within the CNN tolerance, counts exact."""
+    jm, pm, _, _, _ = _tiny_agile()
+    x = np.random.default_rng(11).normal(size=(12, 16, 16, 1)).astype(
+        np.float32)
+    exits = 0
+    for i in range(len(x)):
+        rj = jm.infer(jnp.asarray(x[i]), adapt=adapt, unit_budget=budget)
+        rp = pm.infer(x[i], adapt=adapt, unit_budget=budget)
+        for f in ("prediction", "exit_unit", "units_executed", "adapted"):
+            assert getattr(rp, f) == getattr(rj, f), (i, f)
+        np.testing.assert_allclose(rp.margin, rj.margin, **CNN_TOL)
+        exits += rj.exit_unit >= 0
+    assert exits > 0
+    for u, (a, b) in enumerate(zip(pm.bank, jm.bank)):
+        np.testing.assert_allclose(a.centroids.numpy(),
+                                   np.asarray(b.centroids), **CNN_TOL,
+                                   err_msg=f"unit {u}")
+        np.testing.assert_array_equal(a.counts.numpy(), np.asarray(b.counts),
+                                      err_msg=f"unit {u}")
+
+
+L1_CASES = [(1, 1, 1), (7, 33, 3), (50, 150, 5), (13, 257, 4), (9, 1025, 2),
+            (5, 8193, 5), (64, 31, 8), (250, 150, 5)]
+
+
+def _l1_inputs(B, d, k, seed=0):
+    rng = np.random.default_rng(seed + B * 7 + d)
+    x = (rng.normal(size=(B, d)) * rng.uniform(0.1, 30)).astype(np.float32)
+    c = rng.normal(size=(k, d)).astype(np.float32)
+    c[0] = x[0]                 # an identical point: d1 == 0
+    if k > 2:
+        c[2] = c[1]             # a tie between two centroids
+    return x, c
+
+
+@pytest.mark.parametrize("B,d,k", L1_CASES)
+def test_l1_topk2_plain_matches_jax(B, d, k):
+    """The plain version vs the Pallas kernel (interpret mode): d1, d2 and
+    idx bit-equal, odd sizes, ties (first index) and an identical point."""
+    x, c = _l1_inputs(B, d, k)
+    ref = JO.l1_topk2(x, c)
+    out = PL1.l1_topk2(torch.from_numpy(x), torch.from_numpy(c))
+    for a, b in zip(out, ref):
+        assert a.numpy().dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(_bits(a.numpy()), _bits(b))
+
+
+def test_l1_topk2_per_row_centroids():
+    """One centroid set per row (the serve scan's shape) == row by row."""
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(6, 70)).astype(np.float32)
+    c = rng.normal(size=(6, 4, 70)).astype(np.float32)
+    d1, d2, idx = PL1.l1_topk2(torch.from_numpy(x), torch.from_numpy(c))
+    for b in range(6):
+        r = JO.l1_topk2(x[b:b + 1], c[b])
+        for a, e in zip((d1[b:b + 1], d2[b:b + 1], idx[b:b + 1]), r):
+            np.testing.assert_array_equal(_bits(a.numpy()), _bits(e))
+
+
+@pytest.mark.parametrize("B,d,k", [(8, 300, 5), (64, 8192, 5), (3, 17, 4)])
+def test_centroid_update_plain_matches_jax(B, d, k):
+    """At most one row per cluster (the serve path): bit-equal.  Several
+    rows per cluster, an empty cluster and ignored (``< 0``) rows: within
+    1e-6 relative (the reference's matmul may sum rows in another order)."""
+    rng = np.random.default_rng(B + d)
+    c = rng.normal(size=(k, d)).astype(np.float32)
+    x = rng.normal(size=(B, d)).astype(np.float32)
+    one = np.where(np.arange(B) < k, np.arange(B), -1).astype(np.int32)
+    rng.shuffle(one)
+    ref = np.asarray(JO.fleet_centroid_update(c, x, one, 32.0))
+    out = PCU.centroid_update(torch.from_numpy(c), torch.from_numpy(x),
+                              torch.from_numpy(one), 32.0).numpy()
+    np.testing.assert_array_equal(out, ref)
+    many = rng.integers(-1, k - 1, B).astype(np.int32)  # cluster k-1 empty
+    ref = np.asarray(JO.fleet_centroid_update(c, x, many, 32.0))
+    out = PCU.centroid_update(torch.from_numpy(c), torch.from_numpy(x),
+                              torch.from_numpy(many), 32.0).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(out[k - 1], ref[k - 1])
+
+
+def test_online_update_matches_jax():
+    rng = np.random.default_rng(9)
+    c = rng.normal(size=(5, 40)).astype(np.float32)
+    n = rng.uniform(1, 9, 5).astype(np.float32)
+    x = rng.normal(size=(2, 3, 40)).astype(np.float32)
+    idx = np.array([[0, -1, 3], [-1, 2, -1]], np.int32)
+    cj, nj = JK.online_update(c, n, x, idx, weight=32.0)
+    cp, np_ = PK.online_update(torch.from_numpy(c), torch.from_numpy(n),
+                               torch.from_numpy(x), torch.from_numpy(idx),
+                               weight=32.0)
+    np.testing.assert_array_equal(cp.numpy(), np.asarray(cj))
+    np.testing.assert_array_equal(np_.numpy(), np.asarray(nj))
+
+
+def test_kernel_wrappers_reject_bad_inputs():
+    x = torch.zeros(4, 8)
+    with pytest.raises(TypeError):
+        PO.l1_topk2(x.double(), torch.zeros(3, 8).double())
+    with pytest.raises(ValueError):
+        PO.l1_topk2(x, torch.zeros(3, 9))
+    with pytest.raises(ValueError):
+        PO.l1_topk2(x, torch.zeros(5, 3, 8))
+    with pytest.raises(TypeError):
+        PO.centroid_update(torch.zeros(3, 8), x, torch.zeros(4), 32.0)
+    with pytest.raises(ValueError):
+        PO.centroid_update(torch.zeros(3, 8), x,
+                           torch.zeros(5, dtype=torch.int32), 32.0)
+    before = PO.launch_counts()
+    PO.l1_topk2(x, torch.zeros(3, 8))          # the CPU never launches
+    assert PO.launch_counts() == before
