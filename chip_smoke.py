@@ -6,7 +6,8 @@
 Phases, each printing one line (any failure exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``), then the build of every
-   CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc``;
+   CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one
+   process per source, all started together);
 2. the k-means kernels ``l1_topk2`` and ``centroid_update`` at the serve
    path's shapes, each held bit for bit against its plain PyTorch version
    on the same inputs, with times (CUDA events), the plain version's time
@@ -19,8 +20,18 @@ Phases, each printing one line (any failure exits non-zero):
    ``serve_fused_steps`` kernel, one launch per segment) without adaptation,
    which must agree on every carry leaf; the scan's serve loop must also
    equal the CPU's plain run from the same built state.  The launch counts
-   of the three kernels are zeroed before this phase and read after it;
-4. one JSON line naming every kernel with its launches, error, times and
+   are zeroed before this phase and read after it (kernels C, D, E);
+4. the replay fleet of the same two models as a sweep: job profiles from
+   250 test samples per task, policies x eta x capacitor x seed = 1,600
+   devices, 255 s at dt = 55 ms.  ``simulate_fleet`` in the ``vmap``,
+   ``pallas`` (the ``fleet_priority`` kernel, one launch per step) and
+   ``fused`` (the ``fleet_fused_steps`` kernel, one launch per segment)
+   modes, ``run_segments`` in four fused segments and ``sweep`` must agree
+   on every result leaf; the card's run equals the CPU's plain run over
+   the first steps on a slice of devices; both kernels are held bit for
+   bit against their plain versions and timed.  The launch counts are
+   zeroed before this phase and read after it (kernels A, B);
+5. one JSON line naming every kernel with its launches, error, times and
    bound.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit;
@@ -30,11 +41,11 @@ the script exits non-zero and prints no result.  It imports only
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
-from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
@@ -47,19 +58,26 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 
 SRC = "src/repro_torch/kernels/csrc/"
+# the kernels each main path runs
+SERVE_KERNELS = ("serve_fused_steps", "l1_topk2", "centroid_update")
+REPLAY_KERNELS = ("fleet_priority", "fleet_fused_steps")
 REPLACES = {
+    "fleet_priority": "src/repro/kernels/fleet_priority.py:83",
+    "fleet_fused_steps": "src/repro/kernels/fleet_step.py:114",
+    "serve_fused_steps": "src/repro/kernels/fleet_step.py:226",
     "l1_topk2": "src/repro/kernels/l1_topk2.py:46",
     "centroid_update": "src/repro/kernels/centroid_update.py:34",
-    "serve_fused_steps": "src/repro/kernels/fleet_step.py:226",
 }
 SOURCES = {
+    "fleet_priority": SRC + "fleet_priority.cu",
+    "fleet_fused_steps": SRC + "fleet_fused.cu",
+    "serve_fused_steps": SRC + "serve_fused.cu",
     "l1_topk2": SRC + "l1_topk2.cu",
     "centroid_update": SRC + "centroid_update.cu",
-    "serve_fused_steps": SRC + "serve_fused.cu",
 }
 
 
-@dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True)
 class Scale:
     """What the run serves; ``FULL`` is the configuration run on the card, the
     narrow one rehearses the same phases on the CPU."""
@@ -74,12 +92,24 @@ class Scale:
     l1_dim: int          # selected features S of the serve tables
     l1_k: int            # centroid rows C of the serve bank
     cu_shape: tuple      # kernel E check: (k, d, B)
+    replay_jobs: int     # test samples profiled per replay task
+    policies: tuple      # the replay sweep's axes
+    etas: tuple
+    capacitors_f: tuple
+    seeds: int
+    big_seeds: int       # seeds of the second sweep kernel B is timed on
+    cpu_check_steps: int
+    cpu_check_devices: int
 
 
 FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
              n_requests=25, n_devices=64, big_devices=1024, n_segments=4,
              l1_rows=2 * 25 * 5, l1_dim=150, l1_k=5,
-             cu_shape=(5, 8192, 64))
+             cu_shape=(5, 8192, 64), replay_jobs=250,
+             policies=("zygarde", "edf", "edf-m", "rr"),
+             etas=(0.2, 0.5, 0.71, 0.9, 1.0),
+             capacitors_f=(0.01, 0.025, 0.05, 0.1, 0.2), seeds=16,
+             big_seeds=160, cpu_check_steps=300, cpu_check_devices=64)
 
 
 def _narrow():
@@ -93,7 +123,10 @@ def _narrow():
                                 ((4, 5, True), (4, 5, True), (8, 5, True)),
                                 (8,), 2))),
         n_train=48, n_requests=4, n_devices=3, big_devices=5, n_segments=2,
-        l1_rows=2 * 4 * 5, l1_dim=150, l1_k=5, cu_shape=(5, 256, 3))
+        l1_rows=2 * 4 * 5, l1_dim=150, l1_k=5, cu_shape=(5, 256, 3),
+        replay_jobs=6, policies=("zygarde", "rr"), etas=(0.5, 1.0),
+        capacitors_f=(0.05,), seeds=2, big_seeds=3, cpu_check_steps=20,
+        cpu_check_devices=3)
 
 
 # --------------------------------------------------------------------------- #
@@ -282,7 +315,8 @@ def _models(device, scale: Scale):
     models, sets = [], []
     for seed, (name, narrow) in enumerate(scale.cnns):
         cfg = narrow or cnn.PAPER_CNNS[name]
-        ds = make_dataset(name, n_train=scale.n_train, n_test=128, seed=seed)
+        ds = make_dataset(name, n_train=scale.n_train,
+                          n_test=max(128, scale.replay_jobs), seed=seed)
         params = cnn.init_cnn_params(
             cfg, torch.Generator().manual_seed(seed), device=device)
         with torch.no_grad():
@@ -295,7 +329,7 @@ def _models(device, scale: Scale):
     return models, sets
 
 
-def _serve_phase(device, scale: Scale) -> dict:
+def _serve_phase(device, scale: Scale, models, sets) -> dict:
     import torch
 
     from repro_torch.core import energy
@@ -303,7 +337,6 @@ def _serve_phase(device, scale: Scale) -> dict:
     from repro_torch.serve import FleetServeEngine, Request, ServeConfig
 
     t0 = time.perf_counter()
-    models, sets = _models(device, scale)
     harvester = energy.calibrate_harvester(0.71, 0.35, name="solar")
     n = scale.n_requests
     requests = [[Request(ds.x_test[i], int(ds.y_test[i]), release=float(i))
@@ -333,7 +366,7 @@ def _serve_phase(device, scale: Scale) -> dict:
             ("scan adapt shared", True, "scan", "shared"),
             ("scan", False, "scan", "per-device"),
             ("fused", False, "fused", "per-device")):
-        before = fleet_step.launches
+        before = fleet_step.serve_launches
         r = engine(adapt, bank_mode).run(
             requests, scale.n_devices, seeds=seeds,
             n_segments=scale.n_segments, mode=mode)
@@ -343,14 +376,15 @@ def _serve_phase(device, scale: Scale) -> dict:
               f"{int(r.fleet.scheduled.sum())} on time, "
               f"{int(r.fleet.units_executed.sum())} units")
         if mode == "fused" and device.type == "cuda":
-            rose = fleet_step.launches - before
+            rose = fleet_step.serve_launches - before
             if rose != scale.n_segments:
                 raise AssertionError(f"fused run launched serve_fused_steps "
                                      f"{rose} times, not {scale.n_segments}")
     launches = ops.launch_counts()
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
-    print(f"main path launches {json.dumps(launches)}, peak device memory "
+    launches = {k: launches[k] for k in SERVE_KERNELS}
+    print(f"serve path launches {json.dumps(launches)}, peak device memory "
           f"{peak / 2**20:.1f} MiB")
     if device.type == "cuda":
         missing = [k for k, v in launches.items() if v == 0]
@@ -454,24 +488,32 @@ def _serve_phase(device, scale: Scale) -> dict:
 
 
 def _profile_phase(device, eng, cfg, statics, tables, carry0):
-    """Where the scan's time goes: ``torch.profiler`` over a window of scan
-    steps (no adaptation) from the built state — kernel launches per step,
-    device-busy time and share of the window's wall time, and the kernels
-    with the most device time."""
+    """Where the serve scan's time goes, over 100 steps (no adaptation)
+    from the built state."""
+    kw = dict(statics=statics, adapt=False)
+    _profile(device, "scan", cfg.policy.shape[0], min(100, statics.n_steps),
+             lambda n: eng._scan_steps(cfg, tables, carry0, 0, n_steps=n,
+                                       **kw))
+
+
+def _profile(device, label: str, n_dev: int, n: int, run_steps,
+             watch: str = "") -> None:
+    """``torch.profiler`` over ``run_steps(n)`` after a warm-up of 5 steps:
+    kernel launches per step, device-busy time and its share of the
+    window's wall time, the kernels with the most device time, and the
+    device time per launch of the kernel named ``watch``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     if device.type != "cuda":
-        print("scan profile: not measured (no card)")
+        print(f"{label} profile: not measured (no card)")
         return
-    n = min(100, statics.n_steps)
-    kw = dict(statics=statics, adapt=False)
-    eng._scan_steps(cfg, tables, carry0, 0, n_steps=5, **kw)   # warm-up
+    run_steps(5)                                            # warm-up
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng._scan_steps(cfg, tables, carry0, 0, n_steps=n, **kw)
+        run_steps(n)
         torch.cuda.synchronize(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -479,17 +521,263 @@ def _profile_phase(device, eng, cfg, statics, tables, carry0):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     if not kernels:
-        print("scan profile: not measured (the profiler saw no device "
+        print(f"{label} profile: not measured (the profiler saw no device "
               "activity)")
         return
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
-    print(f"scan profile ({n} steps, D={cfg.policy.shape[0]}): wall "
+    print(f"{label} profile ({n} steps, D={n_dev}): wall "
           f"{wall_ms:.1f} ms ({wall_ms / n:.3f} ms/step, profiler on), "
           f"{launches / n:.1f} kernel launches/step, device busy "
           f"{busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% of wall; "
           "top: " + "; ".join(
               f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms "
               f"x{e.count}" for e in top))
+    for e in kernels:
+        if watch and watch in e.key:
+            per = e.self_device_time_total / e.count
+            print(f"{label} profile: {watch} {per:.2f} us device time per "
+                  f"launch (x{e.count})")
+
+
+def _replay_tasks(models, sets, scale: Scale):
+    """The replay workload: one periodic task per model, its job profiles
+    from ``scale.replay_jobs`` test samples (``AgileCNN.profile_batch``),
+    period 1 s, deadline 2 s, 0.22 s and 7 mJ per unit."""
+    from repro_torch.core.scheduler import TaskSpec
+
+    n = scale.replay_jobs
+    return tuple(
+        TaskSpec(task_id=k, period=1.0, deadline=2.0,
+                 unit_time=np.full(m.n_units, 0.22),
+                 unit_energy=np.full(m.n_units, 7e-3),
+                 profiles=m.profile_batch(ds.x_test[:n], ds.y_test[:n]))
+        for k, (m, ds) in enumerate(zip(models, sets)))
+
+
+def _replay_grid(tasks, scale: Scale, seeds: int):
+    from repro_torch.core import energy
+    from repro_torch.fleet import SweepGrid
+
+    return SweepGrid(
+        task=tasks, policies=scale.policies, etas=scale.etas,
+        harvesters=(energy.calibrate_harvester(0.71, 0.35, name="solar"),),
+        capacitors=tuple(energy.Capacitor(c) for c in scale.capacitors_f),
+        seeds=tuple(range(seeds)), horizon=scale.replay_jobs + 5.0, dt=0.055)
+
+
+def _steps(statics, n: int):
+    """``statics`` cut to a horizon of ``n`` steps."""
+    return dataclasses.replace(statics, horizon=n * statics.dt)
+
+
+def _timed(fn, device):
+    """``fn()`` and its wall seconds on the host clock, ending in a
+    device synchronisation."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+def _equal_leaves(a, b, what: str) -> None:
+    import torch
+
+    for f, x, y in zip(a._fields, a, b):
+        if not torch.equal(x, y.to(x.device)):
+            raise AssertionError(f"{what}: leaf {f} differs")
+
+
+def _replay_phase(device, scale: Scale, models, sets) -> dict:
+    """The replay fleet sweep: the main path through every mode, then the
+    kernels A and B against their plain versions, with times."""
+    import torch
+
+    from repro_torch.core import step as S
+    from repro_torch.fleet import (build, init_fleet, run_segments,
+                                   simulate_fleet, sweep)
+    from repro_torch.kernels import fleet_priority as FP
+    from repro_torch.kernels import fleet_step as FS
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    tasks = _replay_tasks(models, sets, scale)
+    grid = _replay_grid(tasks, scale, scale.seeds)
+    cfg, statics, meta = build(grid, device)
+    D, n_steps = len(meta), statics.n_steps
+    print(f"replay setup: {len(tasks)} tasks x {scale.replay_jobs} profiled "
+          f"jobs, {D} devices ({len(scale.policies)} policies x "
+          f"{len(scale.etas)} etas x {len(scale.capacitors_f)} capacitors x "
+          f"{scale.seeds} seeds), {n_steps} steps of {statics.dt} s, built "
+          f"in {time.perf_counter() - t0:.2f} s")
+
+    # load both kernels once, so no mode's time includes it
+    for mode in ("pallas", "fused"):
+        run_segments(cfg, _steps(statics, 1), 1, mode=mode)
+
+    # ---- the main path: counts zeroed just before, read just after ------
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    res, rate = {}, {}
+    for mode in ("vmap", "pallas", "fused"):
+        r, secs = _timed(lambda: simulate_fleet(cfg, statics, mode=mode),
+                         device)
+        res[mode] = r
+        rate[mode] = float(r.released.sum()) / secs
+        print(f"replay {mode}: {int(r.released.sum())} jobs on {D} devices "
+              f"in {secs:.3f} s = {rate[mode]:.1f} jobs/s, "
+              f"{int(r.scheduled.sum())} on time, "
+              f"{int(r.units_executed.sum())} units")
+    (seg, carry), secs = _timed(lambda: run_segments(
+        cfg, statics, scale.n_segments, mode="fused"), device)
+    print(f"replay run_segments (fused, {scale.n_segments} segments): "
+          f"{secs:.3f} s")
+    (swept, _), secs = _timed(lambda: sweep(grid, mode="fused",
+                                            device=device), device)
+    print(f"replay sweep (fused, grid built anew): {secs:.3f} s")
+    launches = ops.launch_counts()
+    launches = {k: launches[k] for k in REPLAY_KERNELS}
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+    print(f"replay path launches {json.dumps(launches)}, peak device memory "
+          f"{peak / 2**20:.1f} MiB")
+    if device.type == "cuda":
+        want = {"fleet_priority": n_steps,
+                "fleet_fused_steps": 2 + scale.n_segments}
+        if launches != want:
+            raise AssertionError(f"replay path launched {launches}, not "
+                                 f"{want} (A once per step of the pallas "
+                                 f"run, B once per segment)")
+
+    # ---- outputs are right ------------------------------------------------
+    for label, other in (("pallas", res["pallas"]), ("fused", res["fused"]),
+                         ("run_segments", seg), ("sweep", swept)):
+        _equal_leaves(res["vmap"], other, f"replay {label} != vmap")
+    r = res["vmap"]
+    K = len(tasks)
+    if r.task_released.shape != (D, K) or not bool(
+            (r.released == K * scale.replay_jobs).all()):
+        raise AssertionError("replay: malformed result or releases")
+    if int(r.units_executed.sum()) == 0 or not bool(
+            torch.isfinite(r.busy_time).all()):
+        raise AssertionError("replay: no unit executed or non-finite times")
+    if not bool((r.task_scheduled + r.task_misses
+                 == r.task_released).all()):
+        raise AssertionError("replay: jobs not conserved per task")
+    print("replay fused == pallas == vmap == run_segments == sweep on every "
+          "result leaf; jobs conserved per task")
+
+    # the card's vmap loop == the CPU's plain loop on a slice of devices
+    cpu = torch.device("cpu")
+    n_chk, d_chk = min(scale.cpu_check_steps, n_steps), min(
+        scale.cpu_check_devices, D)
+    sl = S.StepParams(*[x[:d_chk].contiguous() for x in cfg])
+    on_dev = FS.fleet_fused_steps_plain(sl, init_fleet(sl, statics), 0,
+                                        statics=statics, n_steps=n_chk)
+    sl_cpu = S.StepParams(*[x.to(cpu) for x in sl])
+    on_cpu = FS.fleet_fused_steps_plain(sl_cpu, init_fleet(sl_cpu, statics),
+                                        0, statics=statics, n_steps=n_chk)
+    _equal_leaves(on_cpu, on_dev, f"replay loop on {device} != CPU")
+    print(f"replay loop on {device} == plain CPU reference over {n_chk} "
+          f"steps on {d_chk} devices, every carry leaf")
+
+    for mode in ("vmap", "pallas"):
+        _profile(device, f"replay {mode}", D, 50, lambda n: run_segments(
+            cfg, _steps(statics, n), 1, mode=mode),
+            watch="fleet_priority_kernel")
+
+    a_row = _priority_check(device, cfg, statics, FP, FS, S)
+    b_row = _fused_check(device, cfg, statics, FS, init_fleet)
+    big = _replay_grid(tasks, scale, scale.big_seeds)
+    cfg_big, st_big, meta_big = build(big, device)
+    c_big = init_fleet(cfg_big, st_big)
+    ms_big = _ms(lambda: FS.fleet_fused_steps(
+        cfg_big, c_big, 0, statics=st_big, n_steps=b_row["segment_steps"]),
+        device, reps=3, warmup=1)
+    print(f"fleet_fused_steps at D={len(meta_big)}: {ms_big:.3f} ms per "
+          f"{b_row['segment_steps']}-step segment")
+    del cfg_big, c_big
+    b_row.update(ms_big_fleet=ms_big, big_fleet=len(meta_big))
+    return dict(launches=launches, a_row=a_row, b_row=b_row)
+
+
+def _priority_check(device, cfg, statics, FP, FS, S) -> dict:
+    """Kernel A at the replay path's shape, from the state the fused run
+    reaches mid-horizon, and at an odd (prime) device count."""
+    import torch
+
+    mid = statics.n_steps // 2
+    carry = FS.fleet_fused_steps(cfg, S.init_carry(cfg, statics), 0,
+                                 statics=statics, n_steps=mid)
+    t = S.step_clock(mid, statics.dt, device)
+    carry = S.drop_expired(cfg, S.admit(cfg, carry, t, statics), t)
+    lax, util, mand, gate_e, drain, power, forced, _ = S.pick_inputs(
+        cfg, carry, t, statics)
+    args = (cfg.policy, carry.q_active, lax, carry.q_release, util, mand,
+            cfg.alpha, cfg.beta, cfg.eta, cfg.persistent, carry.energy,
+            cfg.e_opt, power, cfg.capacity, gate_e, drain, forced,
+            carry.q_task, carry.rr_cursor)
+    args = tuple(a.contiguous() for a in args)
+    kw = dict(n_tasks=cfg.period.shape[-1], dt=statics.dt)
+    D = cfg.policy.shape[0]
+    odd = max(d for d in range(1, D + 1)
+              if all(d % p for p in range(2, int(d ** 0.5) + 1)))
+    err = 0.0
+    for n in (D, odd):
+        sub = tuple(a[:n] for a in args)
+        out = FP.fleet_priority(*sub, **kw)
+        ref = FP.fleet_priority_plain(*sub, **kw)
+        for name, a, b in zip(("sel", "picked", "run", "e_new"), out, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"fleet_priority != plain at D={n}: "
+                                     f"{name}")
+            err = max(err, _max_err(a, b))
+    ms = _ms(lambda: FP.fleet_priority(*args, **kw), device, reps=50)
+    plain_ms = _ms(lambda: FP.fleet_priority_plain(*args, **kw), device)
+    out_bytes = D * (4 + 1 + 1 + 4)
+    Q = carry.q_active.shape[-1]
+    # per slot: the score's ~20 operations and the argmax compare; per
+    # device: the rank, threshold, gate and capacitor update (~10)
+    bound_ms, by = _bound(_nbytes(*args) + out_bytes,
+                          float(D * (21 * Q + 10)))
+    print(f"fleet_priority (D={D}, Q={Q}; also D={odd}): bit-equal to "
+          f"plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=by, library_ms=None,
+                shape=f"D={D}, Q={Q}; odd D={odd}")
+
+
+def _fused_check(device, cfg, statics, FS, init_fleet) -> dict:
+    """Kernel B over one whole segment (a quarter of the horizon) against
+    its plain version, on every carry leaf, with times and the bound."""
+    n = statics.n_steps // 4
+    c0 = init_fleet(cfg, statics)
+    out = FS.fleet_fused_steps(cfg, c0, 0, statics=statics, n_steps=n)
+    ref, plain_s = _timed(lambda: FS.fleet_fused_steps_plain(
+        cfg, c0, 0, statics=statics, n_steps=n), device)
+    _equal_leaves(ref, out, "fleet_fused_steps != plain")
+    err = max(_max_err(a, b) for a, b in zip(out, ref))
+    ms = _ms(lambda: FS.fleet_fused_steps(cfg, c0, 0, statics=statics,
+                                          n_steps=n), device, reps=5,
+             warmup=1)
+    D, Q = cfg.policy.shape[0], statics.queue_size
+    units = int(out.m_units.sum())
+    scalars = sum(_nbytes(getattr(cfg, f)) for f in FS._CFG_FIELDS)
+    # the config once, the carry in and out, and per completed unit the
+    # margin, pass and correctness entries it reads
+    nbytes = scalars + 2 * _nbytes(*c0) + units * 6
+    nops = float(D * n * 40 * Q)
+    bound_ms, by = _bound(nbytes, nops)
+    print(f"fleet_fused_steps (D={D}, {n} steps, {units} units): bit-equal "
+          f"to plain on every carry leaf; kernel {ms:.3f} ms/launch, plain "
+          f"{plain_s * 1e3:.1f} ms, bound {bound_ms:.6f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3,
+                bound_ms=bound_ms, bound_by=by, library_ms=None,
+                segment_steps=n, shape=f"D={D}, {n} steps")
 
 
 def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
@@ -502,13 +790,18 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
         _build_phase()
     d_row = _l1_phase(device, scale, rng)
     e_row = _cu_phase(device, scale, rng)
-    serve = _serve_phase(device, scale)
+    models, sets = _models(device, scale)
+    serve = _serve_phase(device, scale, models, sets)
+    replay = _replay_phase(device, scale, models, sets)
+    launches = dict(serve["launches"], **replay["launches"])
     rows = []
-    for name, row in (("l1_topk2", d_row), ("centroid_update", e_row),
-                      ("serve_fused_steps", serve["c_row"])):
+    for name, row in (("fleet_priority", replay["a_row"]),
+                      ("fleet_fused_steps", replay["b_row"]),
+                      ("serve_fused_steps", serve["c_row"]),
+                      ("l1_topk2", d_row), ("centroid_update", e_row)):
         rows.append(dict(name=name, route="cuda", source=SOURCES[name],
-                         replaces=REPLACES[name],
-                         launches=serve["launches"][name], **row))
+                         replaces=REPLACES[name], launches=launches[name],
+                         **row))
     return {"kernels": rows}
 
 

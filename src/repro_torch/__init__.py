@@ -9,9 +9,12 @@ Every entry point takes an explicit ``device`` (default ``"cuda"``); a
 wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
 PyTorch version for a CPU tensor — there is no environment switch.
 
-This slice ports live fleet serving: the device-step core, the k-means
-classifier bank, the paper's agile CNNs and
-:class:`repro_torch.serve.fleet_engine.FleetServeEngine` (scan and fused
-modes), with the kernels ``l1_topk2``, ``centroid_update`` and
-``serve_fused_steps``.
+Ported so far: the device-step core and the scalar
+:func:`repro_torch.core.scheduler.simulate_stepped`; the replay fleet
+simulator (:mod:`repro_torch.fleet`: ``sweep``, ``simulate_fleet`` and
+``run_segments`` in the ``vmap``, ``pallas`` and ``fused`` modes); live
+fleet serving of the paper's agile CNNs with the k-means classifier bank
+(:class:`repro_torch.serve.fleet_engine.FleetServeEngine`, scan and fused
+modes).  Kernels: ``fleet_priority``, ``fleet_fused_steps``,
+``serve_fused_steps``, ``l1_topk2`` and ``centroid_update``.
 """

@@ -16,7 +16,8 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..kernels import ops
+from ..kernels import centroid_update as _cu
+from ..kernels import l1_topk2 as _l1
 
 
 class UnitClassifier(NamedTuple):
@@ -140,7 +141,7 @@ def classify(uc: UnitClassifier, feats: torch.Tensor):
     fidx = uc.feature_idx.to(torch.int64)
     fsel = feats[:, fidx].to(torch.float32).contiguous()
     csel = uc.centroids[:, fidx].contiguous()
-    d1, d2, idx = ops.l1_topk2(fsel, csel)
+    d1, d2, idx = _l1.l1_topk2(fsel, csel)
     pred = uc.labels[idx.to(torch.int64)]
     return pred, d1, d2, idx, margin_of(d1, d2)
 
@@ -152,7 +153,7 @@ def adapt(
     """Weighted-average centroid update (runs when the utility test passes);
     ``weight`` is the mass of the current centroid (paper §11.3)."""
     cluster_idx = cluster_idx.to(torch.int32).contiguous()
-    new_c = ops.centroid_update(
+    new_c = _cu.centroid_update(
         uc.centroids.contiguous(), feats.to(torch.float32).contiguous(),
         cluster_idx, weight)
     k = uc.counts.shape[0]
@@ -191,7 +192,7 @@ def classify_batch(centroids: torch.Tensor, x: torch.Tensor):
     Returns ``(idx, d1, d2, margin)`` shaped like the batch."""
     batch = x.shape[:-1]
     flat = x.to(torch.float32).reshape(-1, x.shape[-1]).contiguous()
-    d1, d2, idx = ops.l1_topk2(flat, centroids.to(torch.float32).contiguous())
+    d1, d2, idx = _l1.l1_topk2(flat, centroids.to(torch.float32).contiguous())
     d1, d2, idx = d1.reshape(batch), d2.reshape(batch), idx.reshape(batch)
     return idx, d1, d2, margin_of(d1, d2)
 
@@ -209,7 +210,7 @@ def online_update(
     k, f = centroids.shape
     flat = x.to(torch.float32).reshape(-1, f).contiguous()
     aflat = idx.to(torch.int32).reshape(-1).contiguous()
-    new_c = ops.centroid_update(centroids.contiguous(), flat, aflat, weight)
+    new_c = _cu.centroid_update(centroids.contiguous(), flat, aflat, weight)
     hits = torch.where(aflat >= 0, aflat, k).to(torch.int64)
     new_counts = counts + torch.bincount(hits, minlength=k + 1)[:k].to(
         torch.float32)

@@ -1,19 +1,23 @@
 """Scheduler policy/priority logic as pure tensor functions (paper Eqs. 6-7).
 
 Port of :mod:`repro.core.policy`.  The priority functions use only
-arithmetic and comparisons (booleans are blended by multiplication), so
-they accept python floats and tensors alike; :func:`policy_scores` is the
-batched form the step core calls with ``(..., Q)`` queue tensors.  Larger
-score = higher priority everywhere; EDF-style "earliest wins" keys are
-negated deadlines.
+arithmetic and comparisons (booleans are blended by multiplication) on
+tensors; :func:`policy_scores` is the batched form the step core calls
+with ``(..., Q)`` queue tensors.  Larger score = higher priority
+everywhere; EDF-style "earliest wins" keys are negated deadlines.
 
-Numerics: every product and sum is its own f32 rounding (PyTorch runs each
-operator as its own kernel and the CUDA kernels build with
-``-fmad=false``).  ``jnp.select`` becomes nested :func:`torch.where`.
+Numerics: three multiply-adds are one f32 rounding, as the compiled
+reference forms them (:mod:`repro_torch.core._fma`): ``1 - alpha *
+laxity``, ``1 - beta * utility`` and the EDF key's ``deadline + 1e-9 *
+release``.  Every other product and sum is its own rounding (the CUDA
+kernels build with ``-fmad=false``).  ``jnp.select`` becomes nested
+:func:`torch.where`.
 """
 from __future__ import annotations
 
 import torch
+
+from ._fma import fma_f32
 
 # Policy identifiers shared by the scalar and fleet paths.
 POLICY_IDS = {"zygarde": 0, "edf": 1, "edf-m": 2, "rr": 3}
@@ -44,17 +48,23 @@ def exit_test(margin, threshold):
     return margin > threshold
 
 
+def _base(laxity, utility, alpha, beta):
+    """``(1 - alpha * laxity) + (1 - beta * utility)``, each term one
+    rounding."""
+    return fma_f32(-alpha, laxity, 1.0) + fma_f32(-beta, utility, 1.0)
+
+
 def zeta_priority(laxity, utility, mandatory, alpha, beta):
     """Eq. 6 (continuous power): dynamic priority zeta."""
     gamma = _num(mandatory)
-    return (1.0 - alpha * laxity) + (1.0 - beta * utility) + gamma
+    return _base(laxity, utility, alpha, beta) + gamma
 
 
 def zeta_intermittent_priority(laxity, utility, mandatory, alpha, beta,
                                eta, energy, e_opt):
     """Eq. 7 (intermittent power): the eta-weighted energy gate zeroes the
     priority of optional units while the store is below E_opt."""
-    base = (1.0 - alpha * laxity) + (1.0 - beta * utility)
+    base = _base(laxity, utility, alpha, beta)
     gamma = _num(mandatory)
     gate = _num(eta * energy >= e_opt)
     return gate * (base + gamma) + (1.0 - gate) * gamma * base
@@ -62,7 +72,7 @@ def zeta_intermittent_priority(laxity, utility, mandatory, alpha, beta,
 
 def edf_key(deadline, release):
     """Earliest-deadline-first as a max-score key (release breaks ties)."""
-    return -(deadline + _TIE * release)
+    return -fma_f32(_TIE, release, deadline)
 
 
 def edfm_key(deadline, release, mandatory):

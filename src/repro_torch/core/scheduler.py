@@ -1,12 +1,13 @@
 """Workload and clock types of the imprecise real-time scheduler (paper §5).
 
-Port of the type half of :mod:`repro.core.scheduler`: the dataclasses that
-the fleet grid builder and the serving engine consume.  The event-driven
-``simulate`` and the scalar ``simulate_stepped`` oracle are not part of
-this slice of the port.
+Port of :mod:`repro.core.scheduler`: the dataclasses that the fleet grid
+builder and the serving engine consume, :class:`SimResult`, and the
+fixed-step single-device frontend :func:`simulate_stepped` over the step
+core.  The event-driven ``simulate`` (and its ``Job``) is not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
@@ -88,3 +89,62 @@ class SimConfig:
     seed: int = 0
     clock: Clock = field(default_factory=Clock)
     start_charged: bool = False
+
+
+@dataclass
+class SimResult:
+    released: int = 0
+    scheduled: int = 0            # mandatory complete before deadline
+    correct: int = 0              # scheduled AND final prediction correct
+    deadline_misses: int = 0
+    units_executed: int = 0
+    optional_units: int = 0
+    busy_time: float = 0.0
+    idle_no_energy: float = 0.0
+    reboots: int = 0
+    wasted_reexec: float = 0.0
+    sim_time: float = 0.0
+    # per-task breakdowns, (K,) int arrays aligned with the ``tasks``
+    # argument (the aggregate counters above are their sums)
+    task_released: Optional[np.ndarray] = None
+    task_scheduled: Optional[np.ndarray] = None
+    task_correct: Optional[np.ndarray] = None
+    task_misses: Optional[np.ndarray] = None
+
+    def as_dict(self) -> dict:
+        return {k: v.tolist() if isinstance(v, np.ndarray) else v
+                for k, v in dataclasses.asdict(self).items()}
+
+
+def simulate_stepped(tasks: Sequence[TaskSpec], harvester, eta: float,
+                     cap=None, sim: Optional[SimConfig] = None,
+                     dt: Optional[float] = None,
+                     device="cuda") -> SimResult:
+    """Fixed-step single-device frontend over the step core: the device of
+    :func:`repro_torch.fleet.grid.from_sim_config` run by
+    :func:`repro_torch.core.step.simulate_device` on ``device``.  ``dt``
+    defaults to one fragment time of the finest-grained task."""
+    from ..fleet.grid import from_sim_config
+    from .step import simulate_device
+
+    cfg, statics = from_sim_config(tasks, harvester, eta, cap=cap, sim=sim,
+                                   dt=dt, device=device)
+    params = type(cfg)(*[leaf[0] for leaf in cfg])   # strip the device axis
+    r = simulate_device(params, statics)
+    return SimResult(
+        released=int(r.released),
+        scheduled=int(r.scheduled),
+        correct=int(r.correct),
+        deadline_misses=int(r.deadline_misses),
+        units_executed=int(r.units_executed),
+        optional_units=int(r.optional_units),
+        busy_time=float(r.busy_time),
+        idle_no_energy=float(r.idle_no_energy),
+        reboots=int(r.reboots),
+        wasted_reexec=float(r.wasted_reexec),
+        sim_time=float(r.sim_time),
+        task_released=r.task_released.cpu().numpy().astype(np.int64),
+        task_scheduled=r.task_scheduled.cpu().numpy().astype(np.int64),
+        task_correct=r.task_correct.cpu().numpy().astype(np.int64),
+        task_misses=r.task_misses.cpu().numpy().astype(np.int64),
+    )

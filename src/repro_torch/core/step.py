@@ -18,9 +18,14 @@ Table lookups are :func:`torch.gather` with clamped indices; every call
 site whose index can be out of range masks the looked-up value downstream,
 as the reference does.
 
-Numerics (held bit for bit against the reference on the CPU):
+Numerics (held bit for bit against the reference as XLA compiles it on
+the CPU):
 
-* each product and sum is its own f32 rounding — no fused multiply-add;
+* each product and sum is its own f32 rounding, except the multiply-adds
+  the compiled reference contracts into one rounding: the capacitor charge
+  ``energy + power * dt`` (:func:`select_and_charge`) and the priority
+  terms of :mod:`repro_torch.core.policy`, formed with
+  :func:`repro_torch.core._fma.fma_f32`;
 * a python scalar never sits on the left of a division (PyTorch turns
   ``s / x`` into ``s * (1 / x)``): the constant becomes an f32 tensor;
 * ``jnp.mod`` is floor-mod (:func:`torch.remainder`), every arg-min/max
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 
 from . import policy as P
+from ._fma import fma_f32
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -102,11 +108,11 @@ def _flat3(t):
 
 
 def _put(mask, value, old):
-    """``torch.where(mask, value, old)`` in ``old``'s dtype (python values
-    become tensors of that dtype, so no promotion can creep in)."""
-    if not isinstance(value, torch.Tensor):
-        value = torch.full((), value, dtype=old.dtype, device=old.device)
-    return torch.where(mask, value.to(old.dtype), old)
+    """``torch.where(mask, value, old)`` in ``old``'s dtype (a python
+    scalar takes the tensor's dtype, so no promotion can creep in)."""
+    if isinstance(value, torch.Tensor):
+        value = value.to(old.dtype)
+    return torch.where(mask, value, old)
 
 
 def f32_const(x: float, device) -> torch.Tensor:
@@ -401,8 +407,9 @@ def pick_inputs(params: StepParams, st: DeviceCarry, t,
     laxity = st.q_deadline - t
     n_slots = params.events.shape[-1]
     slot = torch.clamp((t / statics.slot_s).to(_I32), max=n_slots - 1)
-    amp = _take1(params.events, slot)
-    charge = amp * params.power_on * statics.dt
+    # harvested power this slot; the charge power * dt is formed inside the
+    # capacitor update (select_and_charge), fused with its add
+    power = _take1(params.events, slot) * params.power_on
     # limited preemption: a slot mid-unit is forced until the unit boundary
     # (unless it expired or its slot was recycled for a newer job)
     ls = st.lock_slot.clamp(0, st.q_active.shape[-1] - 1)
@@ -412,21 +419,22 @@ def pick_inputs(params: StepParams, st: DeviceCarry, t,
     # rr task rotation: distance of each slot's task from the rr cursor
     task_rank = torch.remainder(tk - st.rr_cursor[..., None],
                                 n_tasks).to(_F32)
-    return (laxity, utility, mandatory, gate_e, drain, charge, forced,
+    return (laxity, utility, mandatory, gate_e, drain, power, forced,
             task_rank)
 
 
-def select_and_charge(scores, threshold, forced, energy, charge, capacity,
-                      gate_e, drain):
+def select_and_charge(scores, threshold, forced, energy, power, capacity,
+                      gate_e, drain, dt: float):
     """Post-score selection + fused capacitor update (reduces over the
-    trailing queue axis; leading axes batch)."""
+    trailing queue axis; leading axes batch).  The charge ``energy + power
+    * dt`` is one rounding, as the compiled reference forms it."""
     sel = torch.where(forced >= 0, forced,
                       torch.argmax(scores, dim=-1).to(_I32))
     picked = (forced >= 0) | (scores.amax(dim=-1) > threshold)
     gate_sel = _take1(gate_e, sel)
     drain_sel = _take1(drain, sel)
     run = picked & (energy >= gate_sel)
-    e_new = (torch.minimum(energy + charge, capacity)
+    e_new = (torch.minimum(fma_f32(power, dt, energy), capacity)
              - run.to(_F32) * drain_sel)
     return sel, picked, run, e_new
 
@@ -434,15 +442,15 @@ def select_and_charge(scores, threshold, forced, energy, charge, capacity,
 def pick(params: StepParams, st: DeviceCarry, t, statics: StepStatics,
          live: bool = False):
     """Priority-argmax + fused capacitor charge/discharge."""
-    (laxity, utility, mandatory, gate_e, drain, charge, forced,
+    (laxity, utility, mandatory, gate_e, drain, power, forced,
      task_rank) = pick_inputs(params, st, t, statics, live)
     scores, thr = P.policy_scores(
         params.policy[..., None], st.q_active, laxity, st.q_release,
         utility, mandatory, params.alpha[..., None], params.beta[..., None],
         params.eta[..., None], st.energy[..., None], params.e_opt[..., None],
         params.persistent[..., None], task_rank)
-    return select_and_charge(scores, thr[..., 0], forced, st.energy, charge,
-                             params.capacity, gate_e, drain)
+    return select_and_charge(scores, thr[..., 0], forced, st.energy, power,
+                             params.capacity, gate_e, drain, statics.dt)
 
 
 def apply_step(params: StepParams, st: DeviceCarry, t, sel, picked, run,
@@ -603,3 +611,30 @@ def finalize(params: StepParams, st: DeviceCarry,
         task_units=st.m_units,
         task_optional=st.m_optional,
     )
+
+
+def step_clock(i: int, dt: float, device) -> torch.Tensor:
+    """The replay clock ``f32(i) * f32(dt)`` as an f32 0-d tensor: one
+    correctly rounded product, formed on the host."""
+    t = np.float32(i) * np.float32(dt)
+    return torch.full((), float(t), dtype=_F32, device=device)
+
+
+def run_steps(params: StepParams, st: DeviceCarry, i0: int, n_steps: int,
+              statics: StepStatics) -> DeviceCarry:
+    """``n_steps`` calls of :func:`device_step` from step index ``i0`` on
+    the replay clock ``t = i * dt``, ``t_end = (i + 1) * dt``."""
+    dev = params.policy.device
+    for i in range(i0, i0 + n_steps):
+        st = device_step(params, st, step_clock(i, statics.dt, dev), statics,
+                         t_end=step_clock(i + 1, statics.dt, dev))
+    return st
+
+
+def simulate_device(params: StepParams, statics: StepStatics) -> StepResult:
+    """Simulate the device(s) of ``params`` over the whole horizon
+    (:func:`run_steps` from the initial carry, then :func:`finalize`).
+    ``params`` may carry leading batch axes or none (one device)."""
+    st = run_steps(params, init_carry(params, statics), 0, statics.n_steps,
+                   statics)
+    return finalize(params, st, statics)

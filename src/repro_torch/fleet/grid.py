@@ -1,5 +1,5 @@
 """Host-side (numpy) builders for the fleet configuration tensors (port of
-the part of :mod:`repro.fleet.grid` that live serving needs).
+:mod:`repro.fleet.grid`).
 
 They translate :class:`repro_torch.core.scheduler.TaskSpec` task sets,
 :class:`repro_torch.core.energy.Harvester` and ``Capacitor`` objects into
@@ -7,20 +7,26 @@ per-device numpy dicts, and :func:`stack_configs` stacks those into one
 :class:`repro_torch.fleet.state.FleetConfig` of ``(D, ...)`` tensors.  The
 per-task tables land on a ``K`` axis, padded to common ``U`` (units) /
 ``J`` (jobs); per-task ``n_units`` / ``n_releases`` bound the live region.
-``SweepGrid``/``build``/``sweep``/``from_sim_config`` belong to the replay
-simulator and come with it.
+
+The cartesian sweep (:class:`SweepGrid`, :func:`build`, :func:`sweep`)
+mirrors the paper's benchmark grids (Figs. 17-21, 24-25): policy x eta x
+harvester x capacitor x seed, one device per grid point, all simulated by
+one :func:`repro_torch.fleet.simulator.simulate_fleet` call.
+:func:`from_sim_config` is the one-device bridge from the scalar
+``SimConfig``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..core import policy as P
-from ..core.energy import Capacitor, Harvester
-from ..core.scheduler import TaskSpec
-from .state import FleetConfig
+from ..core.energy import PERSISTENT, Capacitor, Harvester
+from ..core.scheduler import Clock, SimConfig, TaskSpec
+from .state import FleetConfig, FleetStatics
 
 _F32 = np.float32
 
@@ -212,3 +218,141 @@ def stack_configs(devices: Sequence[dict], device="cuda") -> FleetConfig:
             np.stack([d[f] for d in devices]))).to(device)
         for f in FleetConfig._fields
     })
+
+
+def from_sim_config(
+    tasks: TaskSet,
+    harvester: Harvester,
+    eta: float,
+    cap: Optional[Capacitor] = None,
+    sim: Optional[SimConfig] = None,
+    dt: Optional[float] = None,
+    device="cuda",
+) -> tuple[FleetConfig, FleetStatics]:
+    """One-device FleetConfig mirroring the scalar simulator's setup for
+    ``(tasks, harvester, eta, cap, sim)``; ``tasks`` may be one TaskSpec or
+    a task set."""
+    tasks = as_task_set(tasks)
+    sim = sim or SimConfig()
+    cap = cap or Capacitor()
+    clock_drift = 0.0
+    if type(sim.clock) is not Clock:
+        if hasattr(sim.clock, "equivalent_drift"):
+            # the scalar clock's random per-read error maps onto a
+            # deterministic per-device drift rate
+            clock_drift = sim.clock.equivalent_drift(sim.horizon)
+        else:
+            raise NotImplementedError(
+                f"fleet path has no model for clock {type(sim.clock)}")
+    # default dt = one fragment time: the scalar path's execution quantum
+    dt = _check_dt(_default_dt(tasks) if dt is None else float(dt), tasks)
+    statics = FleetStatics(queue_size=sim.queue_size, dt=dt,
+                           horizon=sim.horizon, slot_s=harvester.slot_s)
+    dev = device_config(
+        tasks, harvester, eta, cap,
+        policy=sim.policy, horizon=sim.horizon,
+        events=sample_events(harvester, sim.horizon, sim.seed),
+        e_opt_fraction=sim.e_opt_fraction, e_man=sim.e_man,
+        start_charged=sim.start_charged, clock_drift=clock_drift,
+    )
+    return stack_configs([dev], device), statics
+
+
+# --------------------------------------------------------------------------- #
+# Sweep API.
+# --------------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepGrid:
+    """Cartesian benchmark grid: one device per (policy, eta, harvester,
+    capacitor, seed, clock drift) tuple, sharing one task-set workload
+    (``task`` accepts one TaskSpec or a sequence)."""
+
+    task: TaskSet
+    policies: Sequence[str] = ("zygarde",)
+    etas: Sequence[float] = (1.0,)
+    harvesters: Sequence[Harvester] = ()
+    capacitors: Sequence[Capacitor] = ()
+    seeds: Sequence[int] = (0,)
+    clock_drifts: Sequence[float] = (0.0,)   # fleet CHRT drift-rate axis
+    horizon: float = 600.0
+    dt: Optional[float] = None      # default: one fragment time
+    queue_size: int = 3
+    e_opt_fraction: float = 0.7
+    e_man: Optional[float] = None
+    start_charged: bool = False
+
+    @property
+    def tasks(self) -> tuple[TaskSpec, ...]:
+        return as_task_set(self.task)
+
+    def points(self):
+        harvesters = self.harvesters or (PERSISTENT,)
+        capacitors = self.capacitors or (Capacitor(),)
+        for pol in self.policies:
+            for eta in self.etas:
+                for hi, h in enumerate(harvesters):
+                    for cap in capacitors:
+                        for seed in self.seeds:
+                            for drift in self.clock_drifts:
+                                yield dict(policy=pol, eta=eta, harvester=h,
+                                           harvester_idx=hi, capacitor=cap,
+                                           seed=seed, clock_drift=drift)
+
+
+def build(grid: SweepGrid, device="cuda"
+          ) -> tuple[FleetConfig, FleetStatics, list[dict]]:
+    """Materialise the grid as a FleetConfig on ``device`` plus one
+    metadata row per device."""
+    points = list(grid.points())
+    if not points:
+        raise ValueError("empty sweep grid")
+    tasks = grid.tasks
+    slot_lens = {pt["harvester"].slot_s for pt in points}
+    if len(slot_lens) != 1:
+        raise ValueError("all harvesters in one sweep must share slot_s")
+    dt = _check_dt(_default_dt(tasks) if grid.dt is None else grid.dt, tasks)
+    statics = FleetStatics(queue_size=grid.queue_size, dt=dt,
+                           horizon=grid.horizon, slot_s=slot_lens.pop())
+
+    events_cache: dict[tuple[int, int], np.ndarray] = {}
+    devices, meta = [], []
+    for pt in points:
+        key = (pt["harvester_idx"], pt["seed"])
+        if key not in events_cache:
+            events_cache[key] = sample_events(
+                pt["harvester"], grid.horizon, pt["seed"])
+        devices.append(device_config(
+            tasks, pt["harvester"], pt["eta"], pt["capacitor"],
+            policy=pt["policy"], horizon=grid.horizon,
+            events=events_cache[key],
+            e_opt_fraction=grid.e_opt_fraction, e_man=grid.e_man,
+            start_charged=grid.start_charged,
+            clock_drift=pt["clock_drift"],
+        ))
+        meta.append(dict(
+            policy=pt["policy"], eta=pt["eta"],
+            harvester=pt["harvester"].name, seed=pt["seed"],
+            capacitance_f=pt["capacitor"].capacitance_f,
+            clock_drift=pt["clock_drift"],
+            n_tasks=len(tasks),
+        ))
+    return stack_configs(devices, device), statics, meta
+
+
+def sweep(grid: SweepGrid, use_pallas=None, mesh=None, mode=None,
+          device="cuda"):
+    """Simulate the whole grid in one :func:`simulate_fleet` call.
+
+    Returns ``(FleetResult, meta)``: the stacked ``(D,)`` metrics (plus the
+    ``(D, K)`` per-task breakdowns) and the per-device metadata rows.
+    ``mesh`` (device-axis sharding) comes with a later slice of the port
+    and raises ``NotImplementedError``."""
+    from .simulator import simulate_fleet
+
+    if mesh is not None:
+        raise NotImplementedError("sweep(mesh=...) is not ported yet")
+    cfg, statics, meta = build(grid, device)
+    return simulate_fleet(cfg, statics, use_pallas=use_pallas,
+                          mode=mode), meta

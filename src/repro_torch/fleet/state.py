@@ -7,7 +7,9 @@ same tensors with a leading ``D`` (device) axis on every leaf:
 :class:`DeviceCarry`, :class:`FleetResult` = :class:`StepResult`,
 :class:`FleetStatics` = :class:`StepStatics`.
 
-Live serving adds the runtime k-means state (:class:`ServeBank`) and a
+:func:`pack_carry` / :func:`unpack_carry` give the carry a
+checkpoint layout (booleans as int32 0/1).  Live serving adds the runtime
+k-means state (:class:`ServeBank`) and a
 per-job outcome log (:class:`ServeLog`); :class:`ServeCarry` bundles them
 with the device state into one checkpointable carry.
 """
@@ -30,6 +32,26 @@ FleetConfig = StepParams
 DeviceState = DeviceCarry
 FleetResult = StepResult
 init_state = init_carry
+
+#: the DeviceCarry leaves that are booleans
+BOOL_CARRY_FIELDS = ("was_off", "q_active", "q_correct", "q_apass")
+
+
+def pack_carry(carry: DeviceCarry) -> DeviceCarry:
+    """The carry with its boolean leaves as int32 0/1 — the layout the
+    reference's checkpoints use.  Round-trips exactly through
+    :func:`unpack_carry`."""
+    return DeviceCarry(*[
+        v.to(torch.int32) if f in BOOL_CARRY_FIELDS else v
+        for f, v in zip(DeviceCarry._fields, carry)])
+
+
+def unpack_carry(carry: DeviceCarry) -> DeviceCarry:
+    """Inverse of :func:`pack_carry`: the int32 0/1 leaves as booleans
+    (``!= 0``)."""
+    return DeviceCarry(*[
+        (v != 0) if f in BOOL_CARRY_FIELDS else v
+        for f, v in zip(DeviceCarry._fields, carry)])
 
 
 class ServeBank(NamedTuple):
@@ -72,4 +94,6 @@ __all__ = [
     "ServeCarry",
     "ServeLog",
     "init_state",
+    "pack_carry",
+    "unpack_carry",
 ]

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-``ops`` holds the public entry points; ``csrc/`` the CUDA sources, built by
-``_build`` with ``nvcc`` for ``sm_90a`` at first use.  Nothing here imports
-a compiler or touches a GPU at import time.
+``ops`` holds the public entry points (``fleet_priority``,
+``fleet_fused_steps``, ``serve_fused_steps``, ``l1_topk2``,
+``centroid_update``) and their launch counters; ``csrc/`` the CUDA
+sources, built by ``_build`` with ``nvcc`` for ``sm_90a`` at first use.
+Nothing here imports a compiler or touches a GPU at import time.
 """

@@ -9,8 +9,9 @@ changed source is rebuilt and a stale library is never loaded.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` — the port holds
 its kernels bit for bit against their plain PyTorch versions, so no product
-may be contracted into a fused multiply-add.  No ``--use_fast_math``:
-divisions stay IEEE divisions.
+is contracted into a fused multiply-add behind the source's back; the few
+the reference forms are written out as ``__fmaf_rn``.  No
+``--use_fast_math``: divisions stay IEEE divisions.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("l1_topk2", "centroid_update", "serve_fused")
+SOURCES = ("l1_topk2", "centroid_update", "serve_fused", "fleet_fused",
+           "fleet_priority")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,29 +1,37 @@
-"""Fused live serving: a whole segment of ``serve_step`` in ONE launch.
+"""Whole-segment fleet kernels: ``n_steps`` timesteps of every device in
+ONE launch.
 
-Replaces the Pallas TPU kernel ``repro/kernels/fleet_step.py:
-serve_fused_steps``.  Per device and per step it runs admit -> drop-expired
--> pick -> classify the completing unit against the centroid bank (the
-shared L1 top-2 of ``csrc/l1_topk2.cuh``) -> apply -> latch the utility
-pass -> write the outcome log, exactly as
-:func:`repro_torch.serve.fleet_engine.serve_step` does.  The CUDA kernel
-(``csrc/serve_fused.cu``) runs one thread per device with the queue and
-task registers in local arrays; what bounds it and why is noted there.
+* :func:`fleet_fused_steps` (kernel B) replaces the Pallas TPU kernel
+  ``repro/kernels/fleet_step.py:fleet_fused_steps``: per device and per
+  step it runs the replay :func:`repro_torch.core.step.device_step`
+  (admit -> drop-expired -> pick -> apply against the ``margins`` /
+  ``passes`` / ``correct`` tables) on the replay clock ``t = (i0 + s) *
+  dt``, ``t_end = (i0 + s + 1) * dt``.
+* :func:`serve_fused_steps` (kernel C) replaces ``serve_fused_steps``: the
+  same step in live mode, plus the classify of the completing unit against
+  the centroid bank (the shared L1 top-2 of ``csrc/l1_topk2.cuh``), the
+  utility-pass latch and the outcome log, exactly as
+  :func:`repro_torch.serve.fleet_engine.serve_step` does.
 
-Like the reference it takes ``adapt=False`` only: bank adaptation
-propagates centroids through whole-model convolutions.  The bank passes
-through unchanged.  Booleans stay ``torch.bool`` (one byte); the int32
-packing of the reference exists for the TPU compiler only.
+Both CUDA kernels (``csrc/fleet_fused.cu``, ``csrc/serve_fused.cu``) run one
+thread per device with the queue and task registers in local arrays, and
+take their stages from one header, ``csrc/device_step.cuh``, so they cannot
+drift apart; what bounds them and why is noted in the sources.  Booleans
+stay ``torch.bool`` (one byte); the int32 packing of the reference exists
+for the TPU compiler only.  Kernel C takes ``adapt=False`` only, like the
+reference: bank adaptation propagates centroids through whole-model
+convolutions, so the bank passes through unchanged.
 
-The wrapper clones the device carry and the outcome log, and the kernel
+Each wrapper clones the carry (and C the outcome log), and the kernel
 updates the clone in place: the caller's carry is never written.
 """
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
+from ..core import step as S
 from ..core.step import DeviceCarry, StepParams
 from ..fleet.state import ServeCarry, ServeLog
 from . import _build
@@ -34,8 +42,16 @@ KMAX = 8
 _MAX_S = 32 ** 4      # the shared OrderedSum tracks at most 3 window levels
 _THREADS = 128
 
-#: launches of the CUDA kernel (the plain version never counts)
-launches = 0
+#: launches of the CUDA kernels B and C (the plain versions never count)
+fleet_launches = 0
+serve_launches = 0
+
+
+def fleet_fused_steps_plain(cfg: StepParams, carry: DeviceCarry, i0: int, *,
+                            statics, n_steps: int) -> DeviceCarry:
+    """The plain version of kernel B: ``n_steps`` calls of the replay
+    ``device_step`` on the replay clock."""
+    return S.run_steps(cfg, carry, i0, n_steps, statics)
 
 
 def serve_fused_steps_plain(cfg, carry, tables, i0, job0, *, statics,
@@ -46,17 +62,10 @@ def serve_fused_steps_plain(cfg, carry, tables, i0, job0, *, statics,
 
     dev, bank, log = carry
     for i in range(i0, i0 + n_steps):
-        t = step_time(i, statics.dt, cfg.policy.device)
+        t = S.step_clock(i, statics.dt, cfg.policy.device)
         dev, log, _ = serve_step(cfg, tables, dev, bank, log, t, job0,
                                  statics=statics)
     return ServeCarry(dev=dev, bank=bank, log=log)
-
-
-def step_time(i: int, dt: float, device) -> torch.Tensor:
-    """The shared clock ``t = f32(i) * f32(dt)`` as an f32 0-d tensor: one
-    IEEE f32 product (formed on the host), the same the kernel forms."""
-    t = np.float32(i) * np.float32(dt)
-    return torch.full((), float(t), dtype=torch.float32, device=device)
 
 
 # --------------------------------------------------------------------- #
@@ -68,11 +77,27 @@ _CFG_FIELDS = ("policy", "imprecise", "is_edfm", "eta", "alpha", "beta",
                "clock_drift", "use_exit_thr", "exit_thr", "period",
                "rel_deadline", "fragments", "n_units", "n_releases",
                "unit_time", "unit_energy", "events")
+#: kernel B also reads the replay tables
+_FLEET_CFG_FIELDS = _CFG_FIELDS + ("margins", "passes", "correct")
 _TABLE_FIELDS = ("centroids", "sel_feats", "labels", "clabels", "fidx",
                  "thr", "job0")
 _SIZE_FIELDS = ("D", "K", "U", "Q", "W", "C", "F", "S", "NE",
                 "shared_bank", "per_dev_tables", "i0", "n_steps")
 _SCALAR_FIELDS = ("dt", "dt_eps", "slot_s")
+
+
+_FLEET_SIZE_FIELDS = ("D", "K", "U", "J", "Q", "NE", "i0", "n_steps")
+
+
+class _FleetArgs(ctypes.Structure):
+    """Mirror of ``struct FleetArgs`` in ``csrc/fleet_fused.cu``."""
+
+    _fields_ = (
+        [(f, ctypes.c_void_p) for f in _FLEET_CFG_FIELDS]
+        + [(f, ctypes.c_void_p) for f in DeviceCarry._fields]
+        + [(f, ctypes.c_int) for f in _FLEET_SIZE_FIELDS]
+        + [(f, ctypes.c_float) for f in _SCALAR_FIELDS]
+    )
 
 
 class _ServeArgs(ctypes.Structure):
@@ -90,36 +115,28 @@ class _ServeArgs(ctypes.Structure):
 
 def _expect(name, t, shape, dtype, device):
     if t.dtype != dtype:
-        raise TypeError(f"serve_fused_steps: {name} is {t.dtype}, "
-                        f"expected {dtype}")
+        raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"serve_fused_steps: {name} has shape "
-                         f"{tuple(t.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
     if t.device != device:
-        raise ValueError(f"serve_fused_steps: {name} is on {t.device}, "
-                         f"expected {device}")
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
-        raise ValueError(f"serve_fused_steps: {name} is not contiguous")
+        raise ValueError(f"{name} is not contiguous")
 
 
-def _launch(cfg: StepParams, carry: ServeCarry, tables, i0: int, job0,
-            *, statics, n_steps: int) -> ServeCarry:
-    global launches
-    dev0 = cfg.policy.device
-    shared_bank = carry.bank.centroids.dim() == 4
-    per_dev_tables = tables.sel_feats.dim() == 5
+def _check_step_state(kernel: str, cfg: StepParams, dev: DeviceCarry,
+                      fields, Q: int):
+    """Check the config fields a kernel reads and every carry leaf against
+    the shapes and dtypes the CUDA source expects."""
     D, K = cfg.period.shape
     U = cfg.unit_time.shape[-1]
-    Q = statics.queue_size
-    W = tables.labels.shape[-1]
-    C, F = carry.bank.centroids.shape[-2:]
-    S = tables.fidx.shape[-1]
+    J = cfg.margins.shape[-2]
     NE = cfg.events.shape[-1]
     if Q > QMAX or K > KMAX:
-        raise ValueError(f"serve_fused_steps: Q={Q}, K={K} exceed the "
-                         f"kernel's caps Q<={QMAX}, K<={KMAX}")
-    if S > _MAX_S:
-        raise ValueError(f"serve_fused_steps: S={S} exceeds {_MAX_S}")
+        raise ValueError(f"{kernel}: Q={Q}, K={K} exceed the kernel's caps "
+                         f"Q<={QMAX}, K<={KMAX}")
+    dev0 = cfg.policy.device
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     cfg_spec = dict(
         policy=((D,), i32), imprecise=((D,), b8), is_edfm=((D,), b8),
@@ -130,10 +147,11 @@ def _launch(cfg: StepParams, carry: ServeCarry, tables, i0: int, job0,
         period=((D, K), f32), rel_deadline=((D, K), f32),
         fragments=((D, K), f32), n_units=((D, K), i32),
         n_releases=((D, K), i32), unit_time=((D, K, U), f32),
-        unit_energy=((D, K, U), f32), events=((D, NE), f32))
-    for f in _CFG_FIELDS:
-        _expect(f"cfg.{f}", getattr(cfg, f), *cfg_spec[f], dev0)
-    dev_spec = {}
+        unit_energy=((D, K, U), f32), events=((D, NE), f32),
+        margins=((D, K, J, U), f32), passes=((D, K, J, U), b8),
+        correct=((D, K, J, U), b8))
+    for f in fields:
+        _expect(f"{kernel}: cfg.{f}", getattr(cfg, f), *cfg_spec[f], dev0)
     for f in DeviceCarry._fields:
         q_or_k = (Q,) if f.startswith("q_") else (
             (K,) if f in ("next_rel", "m_scheduled", "m_correct",
@@ -143,24 +161,101 @@ def _launch(cfg: StepParams, carry: ServeCarry, tables, i0: int, job0,
                                  "q_time_left", "q_mand_time", "q_margin",
                                  "m_busy", "m_idle", "m_wasted")
                else i32)
-        dev_spec[f] = ((D,) + q_or_k, dt_)
-        _expect(f"dev.{f}", getattr(carry.dev, f), *dev_spec[f], dev0)
+        _expect(f"{kernel}: dev.{f}", getattr(dev, f), (D,) + q_or_k, dt_,
+                dev0)
+    return D, K, U, J, NE
+
+
+def _load(name: str, size_fn: str, struct) -> ctypes.CDLL:
+    lib = _build.load(name)
+    size = getattr(lib, size_fn)
+    size.restype = ctypes.c_int
+    if size() != ctypes.sizeof(struct):
+        raise RuntimeError(f"{name}: the {struct.__name__[1:]} layout "
+                           f"differs between csrc/{name}.cu and this wrapper")
+    return lib
+
+
+def _fleet_launch(cfg: StepParams, carry: DeviceCarry, i0: int, *, statics,
+                  n_steps: int) -> DeviceCarry:
+    global fleet_launches
+    dev0 = cfg.policy.device
+    Q = statics.queue_size
+    D, K, U, J, NE = _check_step_state("fleet_fused_steps", cfg, carry,
+                                       _FLEET_CFG_FIELDS, Q)
+    dev = DeviceCarry(*[l.clone() for l in carry])
+    args = _FleetArgs()
+    for f in _FLEET_CFG_FIELDS:
+        setattr(args, f, getattr(cfg, f).data_ptr())
+    for f in DeviceCarry._fields:
+        setattr(args, f, getattr(dev, f).data_ptr())
+    sizes = dict(D=D, K=K, U=U, J=J, Q=Q, NE=NE, i0=int(i0),
+                 n_steps=int(n_steps))
+    for f in _FLEET_SIZE_FIELDS:
+        setattr(args, f, sizes[f])
+    args.dt = statics.dt
+    args.dt_eps = statics.dt_eps
+    args.slot_s = statics.slot_s
+    lib = _load("fleet_fused", "fleet_args_size", _FleetArgs)
+    fn = lib.fleet_fused_launch
+    fn.argtypes = [ctypes.POINTER(_FleetArgs), ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    if D > 0 and n_steps > 0:
+        err = fn(ctypes.byref(args), _THREADS, _build.stream_handle(dev0))
+        _build.check(err, "fleet_fused_steps")
+        fleet_launches += 1
+    return dev
+
+
+def fleet_fused_steps(cfg: StepParams, carry: DeviceCarry, i0: int, *,
+                      statics, n_steps: int) -> DeviceCarry:
+    """Advance the replay fleet ``n_steps`` timesteps from step ``i0``:
+    same carry in, same carry out as ``n_steps`` calls of the replay
+    ``device_step``.  Every leaf carries a leading ``D`` axis.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel ONCE for the
+    whole segment."""
+    dev = cfg.policy.device
+    if dev.type == "cpu":
+        return fleet_fused_steps_plain(cfg, carry, i0, statics=statics,
+                                       n_steps=n_steps)
+    if dev.type != "cuda":
+        raise ValueError(f"fleet_fused_steps: unsupported device {dev}")
+    return _fleet_launch(cfg, carry, i0, statics=statics, n_steps=n_steps)
+
+
+def _serve_launch(cfg: StepParams, carry: ServeCarry, tables, i0: int, job0,
+            *, statics, n_steps: int) -> ServeCarry:
+    global serve_launches
+    dev0 = cfg.policy.device
+    shared_bank = carry.bank.centroids.dim() == 4
+    per_dev_tables = tables.sel_feats.dim() == 5
+    Q = statics.queue_size
+    D, K, U, _, NE = _check_step_state("serve_fused_steps", cfg, carry.dev,
+                                       _CFG_FIELDS, Q)
+    W = tables.labels.shape[-1]
+    C, F = carry.bank.centroids.shape[-2:]
+    S_ = tables.fidx.shape[-1]
+    if S_ > _MAX_S:
+        raise ValueError(f"serve_fused_steps: S={S_} exceeds {_MAX_S}")
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
     bank_lead = () if shared_bank else (D,)
     tab_lead = (D,) if per_dev_tables else ()
-    _expect("bank.centroids", carry.bank.centroids,
+    _expect("serve_fused_steps: bank.centroids", carry.bank.centroids,
             bank_lead + (K, U, C, F), f32, dev0)
-    _expect("tables.sel_feats", tables.sel_feats,
-            tab_lead + (K, W, U, S), f32, dev0)
-    _expect("tables.labels", tables.labels, tab_lead + (K, W), i32, dev0)
-    _expect("tables.clabels", tables.clabels, (K, U, C), i32, dev0)
-    _expect("tables.fidx", tables.fidx, (K, U, S), i32, dev0)
-    _expect("tables.thr", tables.thr, (K, U), f32, dev0)
-    _expect("job0", job0, (K,), i32, dev0)
+    _expect("serve_fused_steps: tables.sel_feats", tables.sel_feats,
+            tab_lead + (K, W, U, S_), f32, dev0)
+    for name, t, shape, dtype in (
+            ("labels", tables.labels, tab_lead + (K, W), i32),
+            ("clabels", tables.clabels, (K, U, C), i32),
+            ("fidx", tables.fidx, (K, U, S_), i32),
+            ("thr", tables.thr, (K, U), f32)):
+        _expect(f"serve_fused_steps: tables.{name}", t, shape, dtype, dev0)
+    _expect("serve_fused_steps: job0", job0, (K,), i32, dev0)
     log_dt = dict(units=i32, pred=i32, correct=b8, margin=f32,
                   exit_unit=i32, sched=b8)
     for f in ServeLog._fields:
-        _expect(f"log.{f}", getattr(carry.log, f), (D, K, W), log_dt[f],
-                dev0)
+        _expect(f"serve_fused_steps: log.{f}", getattr(carry.log, f),
+                (D, K, W), log_dt[f], dev0)
 
     # the kernel updates these clones in place
     dev = DeviceCarry(*[l.clone() for l in carry.dev])
@@ -179,7 +274,7 @@ def _launch(cfg: StepParams, carry: ServeCarry, tables, i0: int, job0,
     args.job0 = job0.data_ptr()
     for f in ServeLog._fields:
         setattr(args, "log_" + f, getattr(log, f).data_ptr())
-    sizes = dict(D=D, K=K, U=U, Q=Q, W=W, C=C, F=F, S=S, NE=NE,
+    sizes = dict(D=D, K=K, U=U, Q=Q, W=W, C=C, F=F, S=S_, NE=NE,
                  shared_bank=int(shared_bank),
                  per_dev_tables=int(per_dev_tables), i0=int(i0),
                  n_steps=int(n_steps))
@@ -189,11 +284,7 @@ def _launch(cfg: StepParams, carry: ServeCarry, tables, i0: int, job0,
     args.dt_eps = statics.dt_eps
     args.slot_s = statics.slot_s
 
-    lib = _build.load("serve_fused")
-    lib.serve_args_size.restype = ctypes.c_int
-    if lib.serve_args_size() != ctypes.sizeof(_ServeArgs):
-        raise RuntimeError("serve_fused_steps: ServeArgs layout differs "
-                           "between csrc/serve_fused.cu and this wrapper")
+    lib = _load("serve_fused", "serve_args_size", _ServeArgs)
     fn = lib.serve_fused_launch
     fn.argtypes = [ctypes.POINTER(_ServeArgs), ctypes.c_int,
                    ctypes.c_void_p]
@@ -201,9 +292,8 @@ def _launch(cfg: StepParams, carry: ServeCarry, tables, i0: int, job0,
     if D > 0 and n_steps > 0:
         err = fn(ctypes.byref(args), _THREADS, _build.stream_handle(dev0))
         _build.check(err, "serve_fused_steps")
-        launches += 1
+        serve_launches += 1
     return ServeCarry(dev=dev, bank=carry.bank, log=log)
-
 
 
 def serve_fused_steps(cfg: StepParams, carry: ServeCarry, tables, i0: int,
@@ -222,5 +312,5 @@ def serve_fused_steps(cfg: StepParams, carry: ServeCarry, tables, i0: int,
                                        statics=statics, n_steps=n_steps)
     if dev.type != "cuda":
         raise ValueError(f"serve_fused_steps: unsupported device {dev}")
-    return _launch(cfg, carry, tables, i0, job0, statics=statics,
-                   n_steps=n_steps)
+    return _serve_launch(cfg, carry, tables, i0, job0, statics=statics,
+                         n_steps=n_steps)

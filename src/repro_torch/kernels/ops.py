@@ -13,21 +13,27 @@ them, so a run can show that its main path went through the kernels.
 from __future__ import annotations
 
 from . import centroid_update as _cu
+from . import fleet_priority as _fp
 from . import fleet_step as _fs
 from . import l1_topk2 as _l1
 from .centroid_update import centroid_update  # noqa: F401
-from .fleet_step import serve_fused_steps  # noqa: F401
+from .fleet_priority import fleet_priority  # noqa: F401
+from .fleet_step import fleet_fused_steps, serve_fused_steps  # noqa: F401
 from .l1_topk2 import l1_topk2  # noqa: F401
 
-_MODULES = {"l1_topk2": _l1, "centroid_update": _cu,
-            "serve_fused_steps": _fs}
+#: kernel name -> (module, name of its launch counter)
+_MODULES = {"fleet_priority": (_fp, "launches"),
+            "fleet_fused_steps": (_fs, "fleet_launches"),
+            "serve_fused_steps": (_fs, "serve_launches"),
+            "l1_topk2": (_l1, "launches"),
+            "centroid_update": (_cu, "launches")}
 
 
 def launch_counts() -> dict[str, int]:
     """CUDA launches per kernel since the last reset."""
-    return {name: m.launches for name, m in _MODULES.items()}
+    return {name: getattr(m, attr) for name, (m, attr) in _MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    for m in _MODULES.values():
-        m.launches = 0
+    for m, attr in _MODULES.values():
+        setattr(m, attr, 0)

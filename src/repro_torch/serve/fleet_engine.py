@@ -566,7 +566,7 @@ class FleetServeEngine:
         if adapt:
             bank = ServeBank(*[l.clone() for l in bank])
         for i in range(i0, i0 + n_steps):
-            t = fleet_step.step_time(i, statics.dt, cfg.policy.device)
+            t = S.step_clock(i, statics.dt, cfg.policy.device)
             dev, log, (first_pass, tk, u, job, ci) = serve_step(
                 cfg, tables, dev, bank, log, t, job0, statics=statics)
             if not adapt or not bool(first_pass.any()):

@@ -9,10 +9,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import fleet
 from repro_torch.core import energy
 from repro_torch.core import kmeans as km
+from repro_torch.core import step as S
 from repro_torch.core.agile import AgileCNN
+from repro_torch.core.scheduler import JobProfile, TaskSpec
 from repro_torch.kernels import centroid_update as CU
+from repro_torch.kernels import fleet_priority as FP
 from repro_torch.kernels import fleet_step
 from repro_torch.kernels import l1_topk2 as L1
 from repro_torch.kernels import ops
@@ -116,7 +120,7 @@ def test_fused_kernel_matches_scan(cuda, bank_mode):
         a_p, b_p = getattr(scan.carry, part), getattr(fused.carry, part)
         for f, a, b in zip(a_p._fields, a_p, b_p):
             assert torch.equal(a, b), f"{part}.{f}"
-    assert fleet_step.launches >= 3
+    assert fleet_step.serve_launches >= 3
 
 
 def test_scan_on_card_matches_cpu(cuda):
@@ -149,3 +153,101 @@ def test_adaptive_serving_runs_through_the_kernels(cuda, bank_mode):
         assert counts["centroid_update"] > 0
     assert (res.exit_unit >= 0).any()
     assert np.isfinite(res.margin).all()
+
+
+# --------------------------------------------------------------------------- #
+# The replay fleet: kernels A (fleet_priority) and B (fleet_fused_steps).
+# --------------------------------------------------------------------------- #
+
+
+def _replay_cfg(device, n_seeds, horizon=6.0):
+    """Two random periodic tasks (numpy seed 5) over all four policies, a
+    bursty and a weak intermittent harvester and ``n_seeds`` seeds."""
+    rng = np.random.default_rng(5)
+    tasks = []
+    for tid, (n_units, period) in enumerate(((3, 1.0), (5, 0.8))):
+        profiles = [JobProfile(np.sort(rng.uniform(0.05, 0.6, n_units)),
+                               rng.random(n_units) < 0.4,
+                               rng.random(n_units) < 0.7)
+                    for _ in range(int(horizon / period) + 2)]
+        tasks.append(TaskSpec(tid, period, 1.8 * period,
+                              np.full(n_units, 0.04),
+                              np.full(n_units, 6e-3), profiles))
+    grid = fleet.SweepGrid(
+        task=tasks, policies=("zygarde", "edf", "edf-m", "rr"),
+        etas=(0.7, 1.0), harvesters=(
+            energy.Harvester("rf", 0.93, 0.93, 0.07),
+            energy.Harvester("rf-strong", 0.93, 0.93, 0.7)),
+        seeds=tuple(range(n_seeds)), horizon=horizon, dt=0.01)
+    cfg, statics, _ = fleet.build(grid, device)
+    return cfg, statics
+
+
+@pytest.mark.parametrize("n_seeds", [1, 3])
+def test_fleet_priority_kernel_matches_plain(cuda, n_seeds):
+    """Kernel A == its plain version on all four outputs, at every step of
+    a plain run, at D = 16 and at the odd D = 48 - 1 (a prime)."""
+    cfg, statics = _replay_cfg(cuda, n_seeds)
+    D = cfg.policy.shape[0]
+    carry = fleet.init_fleet(cfg, statics)
+    n0 = FP.launches
+    for i in range(0, statics.n_steps, 3):
+        t = S.step_clock(i, statics.dt, cuda)
+        carry = S.drop_expired(cfg, S.admit(cfg, carry, t, statics), t)
+        lax, util, mand, gate_e, drain, power, forced, _ = S.pick_inputs(
+            cfg, carry, t, statics)
+        args = (cfg.policy, carry.q_active, lax, carry.q_release, util,
+                mand, cfg.alpha, cfg.beta, cfg.eta, cfg.persistent,
+                carry.energy, cfg.e_opt, power, cfg.capacity, gate_e, drain,
+                forced, carry.q_task, carry.rr_cursor)
+        kw = dict(n_tasks=2, dt=statics.dt)
+        n = D if n_seeds == 1 else D - 1
+        sub = tuple(a[:n] for a in args)
+        out = FP.fleet_priority(*sub, **kw)
+        ref = FP.fleet_priority_plain(*sub, **kw)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b), i
+        pick = FP.fleet_priority_plain(*args, **kw)
+        carry = S.apply_step(cfg, carry, t, *pick, statics,
+                             t_end=S.step_clock(i + 1, statics.dt, cuda))
+    torch.cuda.synchronize()
+    assert FP.launches - n0 == len(range(0, statics.n_steps, 3))
+
+
+@pytest.mark.parametrize("n_steps", [1, 97])
+def test_fleet_fused_kernel_matches_plain(cuda, n_steps):
+    """Kernel B == its plain version on every carry leaf, from the initial
+    carry and from mid-horizon, at an odd device count."""
+    cfg, statics = _replay_cfg(cuda, 3)
+    cfg = S.StepParams(*[x[:-1].contiguous() for x in cfg])   # D = 47
+    carry = fleet.init_fleet(cfg, statics)
+    for i0 in (0, 250):
+        if i0:
+            carry = fleet_step.fleet_fused_steps_plain(
+                cfg, carry, 0, statics=statics, n_steps=i0)
+        out = fleet_step.fleet_fused_steps(cfg, carry, i0, statics=statics,
+                                           n_steps=n_steps)
+        ref = fleet_step.fleet_fused_steps_plain(cfg, carry, i0,
+                                                 statics=statics,
+                                                 n_steps=n_steps)
+        for f, a, b in zip(out._fields, out, ref):
+            assert torch.equal(a, b), (i0, f)
+
+
+def test_replay_modes_agree_and_launch_per_segment(cuda):
+    """simulate_fleet in the three modes and run_segments (fused) agree on
+    every result leaf; A launches once per step, B once per segment."""
+    cfg, statics = _replay_cfg(cuda, 2)
+    ops.reset_launch_counts()
+    ref = fleet.simulate_fleet(cfg, statics, mode="vmap")
+    assert ops.launch_counts()["fleet_priority"] == 0
+    ker = fleet.simulate_fleet(cfg, statics, mode="pallas")
+    assert ops.launch_counts()["fleet_priority"] == statics.n_steps
+    fused = fleet.simulate_fleet(cfg, statics, mode="fused")
+    assert ops.launch_counts()["fleet_fused_steps"] == 1
+    seg, _ = fleet.run_segments(cfg, statics, 3, mode="fused")
+    assert ops.launch_counts()["fleet_fused_steps"] == 4
+    for other in (ker, fused, seg):
+        for f, a, b in zip(ref._fields, ref, other):
+            assert torch.equal(a, b), f
+    assert int(ref.units_executed.sum()) > 0

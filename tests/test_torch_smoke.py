@@ -84,7 +84,7 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 def test_chip_smoke_rehearsal_on_cpu():
     """Every phase at narrow widths on the CPU: the kernels report names
-    C, D and E with the contract's keys (no launches on the CPU)."""
+    A to E with the contract's keys (no launches on the CPU)."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
@@ -95,8 +95,9 @@ def test_chip_smoke_rehearsal_on_cpu():
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"}
     rows = report["kernels"]
-    assert [r["name"] for r in rows] == ["l1_topk2", "centroid_update",
-                                         "serve_fused_steps"]
+    assert [r["name"] for r in rows] == [
+        "fleet_priority", "fleet_fused_steps", "serve_fused_steps",
+        "l1_topk2", "centroid_update"]
     for r in rows:
         assert keys <= set(r)
         assert r["launches"] == 0 and r["max_abs_err"] == 0.0
