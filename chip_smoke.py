@@ -31,7 +31,27 @@ Phases, each printing one line (any failure exits non-zero):
    the first steps on a slice of devices; both kernels are held bit for
    bit against their plain versions and timed.  The launch counts are
    zeroed before this phase and read after it (kernels A, B);
-5. one JSON line naming every kernel with its launches, error, times and
+5. kernel F ``pairwise_l1`` held bit for bit against its plain version at
+   the forecaster's first-batch shape (256 x 256 x 6), at a ``d`` that
+   spans two blocks (33 x 17 x 1,100) and at 4,096 x 4,096 x 512, with
+   times, ``torch.cdist(p=1)`` as the one-call yardstick, and the bound;
+6. offline tuning, the ``examples/adapt_tune.py`` problem at a size its
+   users tune with: three harvesters x seeds 0-15 (48 cells), 30 s at
+   dt = 25 ms, driver ``es`` with budget 128 and population 16, so 768
+   devices per objective call (one launch of kernel B each).  The tuned
+   score must beat the paper default, and one population block scored on
+   the card must equal the same block scored on the CPU.  The launch
+   counts are zeroed before the search and read after it (kernel B);
+7. online adaptation: ``examples/online_adapt.py``'s demo (seed 11, the
+   solar -> RF -> occluded trace, 318 s, 127 segments; the 10 x 10 static
+   grid, the paper default, the feedback and the forecast arms, all fused)
+   with its three assertions; then the forecast arm on a fleet of 256
+   devices (trace seeds 0-255), where the forecaster's first batch seeds
+   its table through kernel F.  The launch counts are zeroed before the
+   demo and read after the fleet arm (kernels B, D, E, F; F must launch).
+   Over one cycle (106 s) the card's feedback and forecast arms equal the
+   CPU's plain runs on every history entry and result leaf;
+8. one JSON line naming every kernel with its launches, error, times and
    bound.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit;
@@ -61,12 +81,16 @@ SRC = "src/repro_torch/kernels/csrc/"
 # the kernels each main path runs
 SERVE_KERNELS = ("serve_fused_steps", "l1_topk2", "centroid_update")
 REPLAY_KERNELS = ("fleet_priority", "fleet_fused_steps")
+TUNE_KERNELS = ("fleet_fused_steps",)
+ONLINE_KERNELS = ("fleet_fused_steps", "l1_topk2", "centroid_update",
+                  "pairwise_l1")
 REPLACES = {
     "fleet_priority": "src/repro/kernels/fleet_priority.py:83",
     "fleet_fused_steps": "src/repro/kernels/fleet_step.py:114",
     "serve_fused_steps": "src/repro/kernels/fleet_step.py:226",
     "l1_topk2": "src/repro/kernels/l1_topk2.py:46",
     "centroid_update": "src/repro/kernels/centroid_update.py:34",
+    "pairwise_l1": "src/repro/kernels/pairwise_l1.py:32",
 }
 SOURCES = {
     "fleet_priority": SRC + "fleet_priority.cu",
@@ -74,6 +98,7 @@ SOURCES = {
     "serve_fused_steps": SRC + "serve_fused.cu",
     "l1_topk2": SRC + "l1_topk2.cu",
     "centroid_update": SRC + "centroid_update.cu",
+    "pairwise_l1": SRC + "pairwise_l1.cu",
 }
 
 
@@ -100,6 +125,17 @@ class Scale:
     big_seeds: int       # seeds of the second sweep kernel B is timed on
     cpu_check_steps: int
     cpu_check_devices: int
+    pw_shapes: tuple     # kernel F checks: (B1, B2, d); the first is the
+    #                      main path's, the last is timed beside it
+    tune_seeds: int      # offline tuning: seeds per harvester
+    tune_horizon: float
+    tune_budget: int
+    tune_pop: int
+    demo_horizon: float  # online adaptation: the demo's horizon (s)
+    demo_grid: int       # static (eta, E_opt) grid points per axis
+    fleet_devices: int   # devices of the fleet forecast arm
+    cpu_check_s: float   # horizon of the card == CPU online check
+    check_gains: bool    # the examples' score assertions (need full depth)
 
 
 FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
@@ -109,7 +145,11 @@ FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
              policies=("zygarde", "edf", "edf-m", "rr"),
              etas=(0.2, 0.5, 0.71, 0.9, 1.0),
              capacitors_f=(0.01, 0.025, 0.05, 0.1, 0.2), seeds=16,
-             big_seeds=160, cpu_check_steps=300, cpu_check_devices=64)
+             big_seeds=160, cpu_check_steps=300, cpu_check_devices=64,
+             pw_shapes=((256, 256, 6), (33, 17, 1100), (4096, 4096, 512)),
+             tune_seeds=16, tune_horizon=30.0, tune_budget=128, tune_pop=16,
+             demo_horizon=318.0, demo_grid=10, fleet_devices=256,
+             cpu_check_s=106.0, check_gains=True)
 
 
 def _narrow():
@@ -126,7 +166,11 @@ def _narrow():
         l1_rows=2 * 4 * 5, l1_dim=150, l1_k=5, cu_shape=(5, 256, 3),
         replay_jobs=6, policies=("zygarde", "rr"), etas=(0.5, 1.0),
         capacitors_f=(0.05,), seeds=2, big_seeds=3, cpu_check_steps=20,
-        cpu_check_devices=3)
+        cpu_check_devices=3,
+        pw_shapes=((16, 16, 6), (9, 5, 600), (64, 64, 64)),
+        tune_seeds=1, tune_horizon=2.0, tune_budget=8, tune_pop=4,
+        demo_horizon=10.0, demo_grid=2, fleet_devices=4, cpu_check_s=5.0,
+        check_gains=False)
 
 
 # --------------------------------------------------------------------------- #
@@ -780,6 +824,361 @@ def _fused_check(device, cfg, statics, FS, init_fleet) -> dict:
                 segment_steps=n, shape=f"D={D}, {n} steps")
 
 
+# --------------------------------------------------------------------------- #
+# The adaptation path: kernel F, offline tuning, online adaptation.
+# --------------------------------------------------------------------------- #
+
+
+def _pw_phase(device, scale: Scale, rng) -> dict:
+    """Kernel F at the shapes of ``scale.pw_shapes``, each held bit for bit
+    against its plain version; times at the main path's shape (the fleet
+    forecast arm's first window batch) and at the largest shape."""
+    import torch
+
+    from repro_torch.kernels import pairwise_l1 as PW
+
+    def pair(B1, B2, d):
+        return tuple(torch.from_numpy(rng.normal(size=(n, d)).astype(
+            np.float32)).to(device) for n in (B1, B2))
+
+    err = 0.0
+    for B1, B2, d in scale.pw_shapes:
+        x, y = pair(B1, B2, d)
+        out, ref = PW.pairwise_l1(x, y), PW.pairwise_l1_plain(x, y)
+        if not torch.equal(out, ref):
+            raise AssertionError(f"pairwise_l1 kernel != plain version at "
+                                 f"{(B1, B2, d)}")
+        err = max(err, _max_err(out, ref))
+
+    def times(B1, B2, d):
+        x, y = pair(B1, B2, d)
+        big = B1 * B2 * d > 1 << 26
+        ms = _ms(lambda: PW.pairwise_l1(x, y), device)
+        plain_ms = _ms(lambda: PW.pairwise_l1_plain(x, y), device,
+                       reps=3 if big else 20, warmup=1)
+        lib_ms = _ms(lambda: torch.cdist(x, y, p=1), device)
+        bound_ms, by = _bound(_nbytes(x, y) + B1 * B2 * 4, 3.0 * B1 * B2 * d)
+        print(f"pairwise_l1 ({B1} x {B2} x {d}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, cdist(p=1) {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms ({by})")
+        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bound_ms, bound_by=by, shape=f"{B1} x {B2} x {d}")
+
+    print(f"pairwise_l1: bit-equal to plain at {list(scale.pw_shapes)}")
+    row = times(*scale.pw_shapes[0])
+    row["large"] = times(*scale.pw_shapes[-1])
+    row["max_abs_err"] = err
+    return row
+
+
+def _tune_task(n_jobs=30, n_units=4, exit_at=1, correct_from=2):
+    """``examples/adapt_tune.py``'s task: the utility test passes after
+    unit 1, predictions are correct from unit 2."""
+    from repro_torch.core.scheduler import JobProfile, TaskSpec
+
+    margins = np.linspace(0.05, 0.5, n_units)
+    passes = np.zeros(n_units, bool)
+    passes[exit_at:] = True
+    correct = np.zeros(n_units, bool)
+    correct[correct_from:] = True
+    prof = JobProfile(margins, passes, correct)
+    return TaskSpec(task_id=0, period=1.0, deadline=2.0,
+                    unit_time=np.full(n_units, 0.1),
+                    unit_energy=np.full(n_units, 8e-3),
+                    profiles=[prof] * n_jobs)
+
+
+def _tune_phase(device, scale: Scale) -> dict:
+    """Offline tuning of (eta, E_opt fraction) with the ES driver; one
+    objective call is one fused fleet run (kernel B)."""
+    import torch
+
+    from repro_torch import adapt
+    from repro_torch.core import energy
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    problem = adapt.TuneProblem(
+        task=_tune_task(),
+        harvesters=(energy.Harvester("solar", 0.95, 0.95, 0.08),
+                    energy.Harvester("rf", 0.85, 0.85, 0.05),
+                    energy.Harvester("piezo", 0.90, 0.90, 0.06)),
+        seeds=tuple(range(scale.tune_seeds)), horizon=scale.tune_horizon,
+        device=device)
+    base, statics = problem._base
+    space = adapt.SearchSpace.of(eta=(0.05, 1.0),
+                                 e_opt_fraction=(0.05, 0.95))
+    d0 = base.n_devices
+    print(f"tune setup: {d0} cells (3 harvesters x {scale.tune_seeds} "
+          f"seeds), {statics.n_steps} steps of {statics.dt} s, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    objective = problem.objective()
+    calls = []
+
+    def timed(params):
+        t = time.perf_counter()
+        out = objective(params)
+        calls.append((time.perf_counter() - t, len(out)))
+        return out
+
+    # ---- the main path: counts zeroed just before, read just after ------
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    default_score = problem.score(problem.default_params())
+    result = adapt.tune(timed, space, budget=scale.tune_budget, driver="es",
+                        seed=0, pop_size=scale.tune_pop)
+    wall = time.perf_counter() - t0
+    launches = {k: ops.launch_counts()[k] for k in TUNE_KERNELS}
+    secs = sum(c[0] for c in calls)
+    n_pad = 1 << (scale.tune_pop - 1).bit_length()
+    rate = n_pad * d0 * statics.n_steps * len(calls) / secs
+    print(f"tune es (budget {scale.tune_budget}, population "
+          f"{scale.tune_pop}): {len(calls)} objective calls of "
+          f"{n_pad * d0} devices in {wall:.3f} s, {1e3 * secs / len(calls):.2f}"
+          f" ms per call = {rate:.4g} device-steps/s; best "
+          f"{result.best_score:.4f} (eta={result.best_params['eta']:.3f}, "
+          f"e_opt_fraction={result.best_params['e_opt_fraction']:.3f}) vs "
+          f"paper default {default_score:.4f}; launches {json.dumps(launches)}")
+    if device.type == "cuda" and launches["fleet_fused_steps"] != len(
+            calls) + 1:
+        raise AssertionError(f"tuning launched fleet_fused_steps "
+                             f"{launches} times, not once per objective "
+                             f"call ({len(calls) + 1})")
+    if scale.check_gains and not result.best_score > default_score:
+        raise AssertionError("the tuned score does not beat the paper "
+                             "default")
+
+    # ---- one population block: the card's scores == the CPU's -----------
+    params = space.to_dict(space.sample(np.random.default_rng(0),
+                                        scale.tune_pop))
+    on_dev = objective(params)
+    cpu_problem = dataclasses.replace(problem, device=torch.device("cpu"))
+    on_cpu, cpu_s = _timed(lambda: cpu_problem.objective()(params),
+                           torch.device("cpu"))
+    if not np.array_equal(on_dev, on_cpu):
+        raise AssertionError("tuning block scored on the card != the CPU")
+    print(f"tune block of {scale.tune_pop} candidates: card == CPU plain "
+          f"run on every score ({cpu_s:.1f} s on the CPU)")
+    return dict(launches=launches, calls=len(calls),
+                ms_per_call=1e3 * secs / len(calls), device_steps_s=rate,
+                best=result.best_score, default=default_score)
+
+
+# examples/online_adapt.py's demo (that file imports the JAX package)
+DEMO_SEED = 11
+DEMO_P_ON = 0.06
+DEMO_REGIMES_S = (32, 40, 34)          # solar, RF, occluded
+DEMO_HORIZON = float(sum(DEMO_REGIMES_S) * 3)
+DEMO_CAPACITANCE_F = 0.1
+DEMO_MISS_WEIGHT = 1.5
+DEMO_SEGMENT_S = 2.5
+FEEDBACK_KW = dict(rho=0.5, window_s=20.0, n_max=4, supply_window_s=5.0,
+                   supply_rho=0.7, e_opt_bounds=(0.05, 0.95),
+                   miss_target=0.1)
+
+
+def _demo_task():
+    from repro_torch.core.scheduler import JobProfile, TaskSpec
+
+    n_units = 5
+    margins = np.linspace(0.05, 0.5, n_units)
+    passes = np.zeros(n_units, bool)
+    passes[1:] = True
+    correct = np.zeros(n_units, bool)
+    correct[n_units - 1:] = True
+    prof = JobProfile(margins, passes, correct)
+    return TaskSpec(task_id=0, period=1.0, deadline=1.3,
+                    unit_time=np.full(n_units, 0.1),
+                    unit_energy=np.full(n_units, 8e-3),
+                    profiles=[prof] * (int(DEMO_HORIZON) + 2))
+
+
+def _demo_trace(seed: int) -> np.ndarray:
+    """solar -> RF -> occluded, three times; one slot per second (+2)."""
+    from repro_torch.core import energy
+
+    rng = np.random.default_rng(seed)
+    rf = energy.Harvester("rf", 0.50, 0.72, DEMO_P_ON)
+    occ = energy.Harvester("occluded", 0.20, 0.97, DEMO_P_ON)
+    solar_s, rf_s, occ_s = DEMO_REGIMES_S
+    segs = []
+    for _ in range(3):
+        segs.append(np.ones(solar_s))
+        segs.append(rf.sample_events(rng, rf_s, init=1))
+        segs.append(occ.sample_events(rng, occ_s, init=0))
+    segs.append(np.zeros(2))
+    return np.concatenate(segs).astype(np.float32)
+
+
+def _demo_default(events: np.ndarray) -> float:
+    from repro_torch.core import energy
+
+    return max(energy.eta_factor((events > 0).astype(np.int8)), 0.05)
+
+
+def _demo_fleet(items, horizon: float, device):
+    """One device per (events, eta, e_opt fraction) on the demo's task."""
+    from repro_torch import fleet
+    from repro_torch.core import energy
+    from repro_torch.fleet import grid as fgrid
+
+    task = _demo_task()
+    cap = energy.Capacitor(capacitance_f=DEMO_CAPACITANCE_F)
+    harv = energy.Harvester("nonstationary", 0.5, 0.5, DEMO_P_ON)
+    devices = [fgrid.device_config(task, harv, eta, cap, policy="zygarde",
+                                   horizon=horizon, events=ev,
+                                   e_opt_fraction=frac)
+               for ev, eta, frac in items]
+    statics = fleet.FleetStatics(queue_size=3, dt=0.025, horizon=horizon,
+                                 slot_s=1.0)
+    return fgrid.stack_configs(devices, device), statics
+
+
+def _demo_score(res) -> np.ndarray:
+    from repro_torch.core.utility import scalarized_objective
+
+    return scalarized_objective(res.correct, res.released,
+                                res.deadline_misses,
+                                miss_weight=DEMO_MISS_WEIGHT).cpu().numpy()
+
+
+def _adapter(arm: str, statics, cfg):
+    from repro_torch import adapt
+
+    if arm == "feedback":
+        return adapt.OnlineAdapter(statics, cfg, **FEEDBACK_KW)
+    return adapt.OnlineAdapter(statics, cfg, controllers=[
+        adapt.EtaController(rho=0.5, window_s=20.0, n_max=4),
+        adapt.ForecastController(
+            window_s=8.0, horizon_s=10.0, n_clusters=4, supply_window_s=5.0,
+            supply_rho=0.7, e_opt_bounds=(0.05, 0.95), miss_target=0.1)])
+
+
+def _online_phase(device, scale: Scale) -> dict:
+    """The online demo and the fleet forecast arm (the main path), then the
+    card against the CPU over one cycle."""
+    import torch
+
+    from repro_torch import fleet
+    from repro_torch.kernels import ops
+
+    horizon = scale.demo_horizon
+    n_seg = int(horizon / DEMO_SEGMENT_S)
+    events = _demo_trace(DEMO_SEED)
+    g = scale.demo_grid
+    grid_pts = [(eta, frac) for eta in np.linspace(0.1, 1.0, g)
+                for frac in np.linspace(0.05, 0.95, g)]
+    eta0 = _demo_default(events)
+    t0 = time.perf_counter()
+    cfg_g, st = _demo_fleet([(events, e, f) for e, f in grid_pts], horizon,
+                            device)
+    cfg1, st1 = _demo_fleet([(events, eta0, 0.7)], horizon, device)
+    fleet_items = [(ev, _demo_default(ev), 0.7) for ev in
+                   map(_demo_trace, range(scale.fleet_devices))]
+    cfg_f, st_f = _demo_fleet(fleet_items, horizon, device)
+    print(f"online setup: demo trace {horizon:.0f} s, {n_seg} segments; "
+          f"{len(grid_pts)} static points; a fleet of {scale.fleet_devices} "
+          f"traces; built in {time.perf_counter() - t0:.2f} s")
+
+    # ---- the main path: counts zeroed just before, read just after ------
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    static_scores = _demo_score(fleet.simulate_fleet(cfg_g, st,
+                                                     mode="fused"))
+    best = int(np.argmax(static_scores))
+    default_score = float(_demo_score(fleet.simulate_fleet(
+        cfg1, st1, mode="fused"))[0])
+    arms = {}
+    for arm in ("feedback", "forecast"):
+        ad = _adapter(arm, st1, cfg1)
+        r, _ = fleet.run_segments(cfg1, st1, n_seg, hook=ad.hook,
+                                  mode="fused")
+        arms[arm] = float(_demo_score(r)[0])
+    demo_s = time.perf_counter() - t0
+    demo_launches = dict(ops.launch_counts())
+    print(f"online demo ({demo_s:.2f} s): best static eta="
+          f"{grid_pts[best][0]:.2f} e_opt={grid_pts[best][1]:.2f} "
+          f"{static_scores[best]:+.4f}; paper default {default_score:+.4f}; "
+          f"feedback {arms['feedback']:+.4f}; forecast "
+          f"{arms['forecast']:+.4f}")
+
+    t0 = time.perf_counter()
+    ad_f = _adapter("forecast", st_f, cfg_f)
+    setup_s = time.perf_counter() - t0
+    hook_s = [0.0]
+
+    def timed_hook(seg, t_end, c, carry):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        out = ad_f.hook(seg, t_end, c, carry)
+        hook_s[0] += time.perf_counter() - t
+        return out
+
+    (res_f, _), wall = _timed(lambda: fleet.run_segments(
+        cfg_f, st_f, n_seg, hook=timed_hook, mode="fused"), device)
+    total = ops.launch_counts()
+    launches = {k: total[k] for k in ONLINE_KERNELS}
+    arm_launches = {k: total[k] - demo_launches[k] for k in ONLINE_KERNELS}
+    jobs = int(res_f.released.sum())
+    print(f"online fleet forecast arm: {scale.fleet_devices} devices x "
+          f"{n_seg} segments in {wall:.3f} s (adapter set-up {setup_s:.2f} "
+          f"s outside), hook {hook_s[0]:.3f} s = "
+          f"{100 * hook_s[0] / wall:.1f}% of the wall, {jobs} jobs = "
+          f"{jobs / wall:.1f} jobs/s, {int(res_f.scheduled.sum())} on time; "
+          f"launches {json.dumps(arm_launches)}")
+    print(f"online path launches {json.dumps(launches)}")
+    if device.type == "cuda":
+        missing = [k for k, v in launches.items() if v == 0]
+        if missing:
+            raise AssertionError(f"online path never launched {missing}")
+    if scale.check_gains:
+        if not arms["feedback"] > static_scores[best]:
+            raise AssertionError("online adaptation does not beat the best "
+                                 "static constants")
+        if not arms["feedback"] > default_score:
+            raise AssertionError("online adaptation does not beat the "
+                                 "paper default")
+        if not arms["forecast"] >= arms["feedback"]:
+            raise AssertionError("the forecast arm does not beat the "
+                                 "feedback arm")
+        print("online demo: online > best static, online > default, "
+              "forecast >= online")
+    if not (res_f.released.min() > 0 and np.isfinite(_demo_score(res_f)).all()):
+        raise AssertionError("fleet forecast arm: malformed result")
+
+    # ---- the card == the CPU's plain run over one cycle -----------------
+    cpu = torch.device("cpu")
+    for arm in ("feedback", "forecast"):
+        runs = {}
+        for dev in (device, cpu):
+            c1, s1 = _demo_fleet([(events, eta0, 0.7)], scale.cpu_check_s,
+                                 dev)
+            ad = _adapter(arm, s1, c1)
+            r, _ = fleet.run_segments(
+                c1, s1, int(scale.cpu_check_s / DEMO_SEGMENT_S),
+                hook=ad.hook, mode="fused")
+            runs[dev.type] = (r, ad.history)
+        (r_dev, h_dev), (r_cpu, h_cpu) = runs[device.type], runs["cpu"]
+        _equal_leaves(r_cpu, r_dev, f"online {arm} on {device} != CPU")
+        if len(h_dev) != len(h_cpu):
+            raise AssertionError(f"online {arm}: history lengths differ")
+        for a, b in zip(h_dev, h_cpu):
+            for k in b:
+                same = (a[k] == b[k] if b[k] is None or np.isscalar(b[k])
+                        else np.array_equal(a[k], b[k]))
+                if not same:
+                    raise AssertionError(f"online {arm} on {device} != CPU "
+                                         f"at segment {b['seg']}: {k}")
+    print(f"online feedback and forecast arms on {device} == plain CPU runs "
+          f"over {scale.cpu_check_s:.0f} s, every history entry and result "
+          f"leaf")
+    return dict(launches=launches, wall_s=wall, hook_s=hook_s[0],
+                jobs_per_s=jobs / wall, demo=dict(
+                    best_static=float(static_scores[best]),
+                    default=default_score, **arms))
+
+
 def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
     """All phases on ``device_name``; returns the kernels report."""
     import torch
@@ -793,15 +1192,24 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
     models, sets = _models(device, scale)
     serve = _serve_phase(device, scale, models, sets)
     replay = _replay_phase(device, scale, models, sets)
-    launches = dict(serve["launches"], **replay["launches"])
+    f_row = _pw_phase(device, scale, rng)
+    tune = _tune_phase(device, scale)
+    online = _online_phase(device, scale)
+    # each path's launches were counted from zero; a kernel on several
+    # paths reports their sum and the count of each
+    paths = dict(serve=serve["launches"], replay=replay["launches"],
+                 tune=tune["launches"], online=online["launches"])
     rows = []
     for name, row in (("fleet_priority", replay["a_row"]),
                       ("fleet_fused_steps", replay["b_row"]),
                       ("serve_fused_steps", serve["c_row"]),
-                      ("l1_topk2", d_row), ("centroid_update", e_row)):
+                      ("l1_topk2", d_row), ("centroid_update", e_row),
+                      ("pairwise_l1", f_row)):
+        by_path = {p: c[name] for p, c in paths.items() if name in c}
         rows.append(dict(name=name, route="cuda", source=SOURCES[name],
-                         replaces=REPLACES[name], launches=launches[name],
-                         **row))
+                         replaces=REPLACES[name],
+                         launches=sum(by_path.values()),
+                         launches_by_path=by_path, **row))
     return {"kernels": rows}
 
 

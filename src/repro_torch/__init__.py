@@ -15,6 +15,10 @@ simulator (:mod:`repro_torch.fleet`: ``sweep``, ``simulate_fleet`` and
 ``run_segments`` in the ``vmap``, ``pallas`` and ``fused`` modes); live
 fleet serving of the paper's agile CNNs with the k-means classifier bank
 (:class:`repro_torch.serve.fleet_engine.FleetServeEngine`, scan and fused
-modes).  Kernels: ``fleet_priority``, ``fleet_fused_steps``,
-``serve_fused_steps``, ``l1_topk2`` and ``centroid_update``.
+modes); online adaptation (:mod:`repro_torch.adapt`: offline tuning with
+``TuneProblem`` and ``tune``, the runtime eta/E_opt loop of
+``OnlineAdapter`` and the harvest forecaster).  Kernels:
+``fleet_priority``, ``fleet_fused_steps``, ``serve_fused_steps``,
+``l1_topk2``, ``centroid_update`` and ``pairwise_l1``.
 """
+from . import adapt  # noqa: F401

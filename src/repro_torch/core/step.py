@@ -171,6 +171,11 @@ class StepParams(NamedTuple):
     correct: torch.Tensor       # (K, J, U) bool
     events: torch.Tensor        # (S,) f32 harvester event stream
 
+    @property
+    def n_devices(self) -> int:
+        """Fleet-level accessor (leading device axis stacked on every leaf)."""
+        return self.policy.shape[0]
+
 
 class DeviceCarry(NamedTuple):
     """Mutable per-device simulation state (fleet: leading ``D``)."""

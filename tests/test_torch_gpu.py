@@ -20,6 +20,7 @@ from repro_torch.kernels import fleet_priority as FP
 from repro_torch.kernels import fleet_step
 from repro_torch.kernels import l1_topk2 as L1
 from repro_torch.kernels import ops
+from repro_torch.kernels import pairwise_l1 as PW
 from repro_torch.models import cnn
 from repro_torch.serve import FleetServeEngine, Request, ServeConfig
 
@@ -64,6 +65,30 @@ def test_centroid_update_kernel_matches_plain(cuda):
         assert torch.equal(out, CU.centroid_update_plain(c, x, a, 32.0))
 
 
+PW_CASES = [(1, 1, 1, 512), (1, 37, 6, 512), (16, 16, 6, 512),
+            (256, 256, 6, 512), (37, 23, 101, 64), (33, 17, 1100, 512),
+            (48, 72, 200, 512), (19, 1, 513, 512), (130, 97, 33, 512),
+            (7, 5, 2000, 300)]
+
+
+def test_pairwise_l1_kernel_matches_plain(cuda):
+    """Kernel F == its plain version bit for bit at odd sizes, B1 = 1, a
+    two-block ``d`` and the forecaster's shape, one launch per call."""
+    rng = np.random.default_rng(3)
+    for B1, B2, d, bd in PW_CASES:
+        x = torch.from_numpy(rng.normal(size=(B1, d)).astype(np.float32))
+        y = torch.from_numpy(rng.normal(size=(B2, d)).astype(np.float32))
+        x, y = x.to(cuda), y.to(cuda)
+        n0 = PW.launches
+        out = PW.pairwise_l1(x, y, block_d=bd)
+        torch.cuda.synchronize()
+        assert PW.launches == n0 + 1
+        assert torch.equal(out, PW.pairwise_l1_plain(x, y, block_d=bd)), (
+            B1, B2, d, bd)
+    same = PW.pairwise_l1(x, x)
+    assert torch.equal(same, same.t()) and not bool(same.diagonal().any())
+
+
 def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
     x = torch.zeros(8, 16, device=cuda)
     with pytest.raises(ValueError):
@@ -74,6 +99,10 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
         CU.centroid_update(torch.zeros(16, 3, device=cuda).t(), x,
                            torch.zeros(8, dtype=torch.int32, device=cuda),
                            32.0)
+    with pytest.raises(ValueError):
+        PW.pairwise_l1(x.t(), torch.zeros(3, 8, device=cuda))   # strided
+    with pytest.raises(TypeError):
+        PW.pairwise_l1(x.double(), x.double())
 
 
 def _engine(device, adapt, bank_mode):

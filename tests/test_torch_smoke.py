@@ -83,8 +83,10 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 def test_chip_smoke_rehearsal_on_cpu():
-    """Every phase at narrow widths on the CPU: the kernels report names
-    A to E with the contract's keys (no launches on the CPU)."""
+    """Every phase at narrow widths on the CPU — serving, the replay sweep,
+    kernel F, offline tuning and online adaptation with the fleet forecast
+    arm: the kernels report names A to F with the contract's keys (no
+    launches on the CPU), each with the paths that ran it."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
@@ -97,7 +99,12 @@ def test_chip_smoke_rehearsal_on_cpu():
     rows = report["kernels"]
     assert [r["name"] for r in rows] == [
         "fleet_priority", "fleet_fused_steps", "serve_fused_steps",
-        "l1_topk2", "centroid_update"]
+        "l1_topk2", "centroid_update", "pairwise_l1"]
+    paths = {r["name"]: sorted(r["launches_by_path"]) for r in rows}
+    assert paths["fleet_fused_steps"] == ["online", "replay", "tune"]
+    assert paths["pairwise_l1"] == ["online"]
+    assert paths["l1_topk2"] == paths["centroid_update"] == [
+        "online", "serve"]
     for r in rows:
         assert keys <= set(r)
         assert r["launches"] == 0 and r["max_abs_err"] == 0.0
