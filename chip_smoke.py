@@ -51,9 +51,28 @@ Phases, each printing one line (any failure exits non-zero):
    demo and read after the fleet arm (kernels B, D, E, F; F must launch).
    Over one cycle (106 s) the card's feedback and forecast arms equal the
    CPU's plain runs on every history entry and result leaf;
-8. one JSON line naming every kernel with its launches, error, times and
+8. anytime serving of the dense model configs at qwen1.5-0.5b's published
+   widths (24 layers, d_model 1,024, 16 heads, vocab 151,936, bf16; seeded
+   random weights, fresh exit heads): ``prefill`` of one 4,096-token
+   prompt and 64 ``decode_step``s; ``anytime_forward`` on 2 x 512 tokens
+   and ``calibrate_thresholds`` at 0.98 agreement; the
+   ``AnytimeServeEngine`` (16 slots, 16-token prompts, 48 new tokens) on 64
+   requests every 0.25 s with a 2.5 s deadline under
+   ``calibrate_harvester(0.71, 0.35)``, with the calibrated thresholds and
+   again under EDF.  The launch counts are zeroed before and read after
+   (kernel G, once per layer of the prefill and of ``anytime_forward``);
+   then kernel G against its plain version in bf16 and f32 at the main
+   path's shape, causal 4,096, a 4,096 window over 8,192, glm4-9b's GQA
+   geometry, an odd length and a query offset, timed beside
+   ``scaled_dot_product_attention``; and the port on the card against the
+   port on the CPU (a reduced ``forward`` within 1e-4, one EDF engine run
+   equal);
+9. one JSON line naming every kernel with its launches, error, times and
    bound.
 
+TF32 is off for the whole run (``torch.backends.cuda.matmul.allow_tf32``
+and ``torch.backends.cudnn.allow_tf32``): f32 products are full f32, as on
+the CPU.
 The second-to-last line is the card's ``nvidia-smi`` name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card
 the script exits non-zero and prints no result.  It imports only
@@ -73,9 +92,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 outside tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 outside tensor
+# cores, dense bf16 on the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_BF16_S = 989e12
 
 SRC = "src/repro_torch/kernels/csrc/"
 # the kernels each main path runs
@@ -84,6 +105,7 @@ REPLAY_KERNELS = ("fleet_priority", "fleet_fused_steps")
 TUNE_KERNELS = ("fleet_fused_steps",)
 ONLINE_KERNELS = ("fleet_fused_steps", "l1_topk2", "centroid_update",
                   "pairwise_l1")
+ANYTIME_KERNELS = ("flash_attention",)
 REPLACES = {
     "fleet_priority": "src/repro/kernels/fleet_priority.py:83",
     "fleet_fused_steps": "src/repro/kernels/fleet_step.py:114",
@@ -91,6 +113,7 @@ REPLACES = {
     "l1_topk2": "src/repro/kernels/l1_topk2.py:46",
     "centroid_update": "src/repro/kernels/centroid_update.py:34",
     "pairwise_l1": "src/repro/kernels/pairwise_l1.py:32",
+    "flash_attention": "src/repro/kernels/flash_attn.py:90",
 }
 SOURCES = {
     "fleet_priority": SRC + "fleet_priority.cu",
@@ -99,6 +122,7 @@ SOURCES = {
     "l1_topk2": SRC + "l1_topk2.cu",
     "centroid_update": SRC + "centroid_update.cu",
     "pairwise_l1": SRC + "pairwise_l1.cu",
+    "flash_attention": SRC + "flash_attn.cu",
 }
 
 
@@ -136,6 +160,16 @@ class Scale:
     fleet_devices: int   # devices of the fleet forecast arm
     cpu_check_s: float   # horizon of the card == CPU online check
     check_gains: bool    # the examples' score assertions (need full depth)
+    any_narrow: bool     # anytime: qwen1.5-0.5b at full width, or reduced
+    prefill_len: int     # anytime: prompt of the prefill + decode run
+    decode_steps: int
+    fwd_shape: tuple     # anytime_forward's (B, S)
+    any_requests: int    # the engine's request trace
+    any_slots: int
+    any_prompt: int
+    any_new: int
+    flash_shapes: tuple  # kernel G checks: (B, S, Skv, H, KV, hd, causal,
+    #                      window, q_offset); the first is the main path's
 
 
 FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
@@ -149,7 +183,15 @@ FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
              pw_shapes=((256, 256, 6), (33, 17, 1100), (4096, 4096, 512)),
              tune_seeds=16, tune_horizon=30.0, tune_budget=128, tune_pop=16,
              demo_horizon=318.0, demo_grid=10, fleet_devices=256,
-             cpu_check_s=106.0, check_gains=True)
+             cpu_check_s=106.0, check_gains=True, any_narrow=False,
+             prefill_len=4096, decode_steps=64, fwd_shape=(2, 512),
+             any_requests=64, any_slots=16, any_prompt=16, any_new=48,
+             flash_shapes=((2, 512, 512, 16, 16, 64, True, 0, 0),
+                           (1, 4096, 4096, 16, 16, 64, True, 0, 0),
+                           (1, 8192, 8192, 16, 16, 64, True, 4096, 0),
+                           (1, 4096, 4096, 32, 2, 128, True, 0, 0),
+                           (2, 37, 37, 16, 16, 64, True, 0, 0),
+                           (1, 512, 4608, 16, 16, 64, True, 0, 4096)))
 
 
 def _narrow():
@@ -170,7 +212,11 @@ def _narrow():
         pw_shapes=((16, 16, 6), (9, 5, 600), (64, 64, 64)),
         tune_seeds=1, tune_horizon=2.0, tune_budget=8, tune_pop=4,
         demo_horizon=10.0, demo_grid=2, fleet_devices=4, cpu_check_s=5.0,
-        check_gains=False)
+        check_gains=False, any_narrow=True, prefill_len=48, decode_steps=4,
+        fwd_shape=(2, 32), any_requests=4, any_slots=2, any_prompt=4,
+        any_new=4, flash_shapes=((2, 32, 32, 4, 4, 64, True, 0, 0),
+                                 (1, 37, 37, 4, 2, 16, True, 8, 0),
+                                 (1, 16, 80, 4, 4, 16, True, 0, 64)))
 
 
 # --------------------------------------------------------------------------- #
@@ -200,10 +246,10 @@ def _ms(fn, device, reps=20, warmup=2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound(nbytes: float, nops: float):
+def _bound(nbytes: float, nops: float, peak_ops: float = PEAK_F32_S):
     """Least time on the card: the larger of bytes over HBM bandwidth and
-    f32 operations over the f32 peak."""
-    t_b, t_o = nbytes / PEAK_BYTES_S, nops / PEAK_F32_S
+    operations over the peak of their type (f32 by default)."""
+    t_b, t_o = nbytes / PEAK_BYTES_S, nops / peak_ops
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -1178,6 +1224,306 @@ def _online_phase(device, scale: Scale) -> dict:
                     best_static=float(static_scores[best]),
                     default=default_score, **arms))
 
+# --------------------------------------------------------------------------- #
+# Anytime serving of the dense model configs (kernel G).
+# --------------------------------------------------------------------------- #
+
+ANY_ARCH = "qwen1.5-0.5b"
+ANY_PERIOD_S = 0.25
+ANY_DEADLINE_S = 2.5
+ANY_TARGET_AGREEMENT = 0.98
+# kernel G against its plain version: f32 at the JAX sweep's tolerance, bf16
+# at the JAX bf16 test's (each tile's dot products sum in another order, and
+# a bf16 p can round the other way)
+FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (3e-2, 3e-2)}
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to_device(v, device) for v in tree)
+    return tree.to(device)
+
+
+def _any_config(scale: Scale):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ANY_ARCH)
+    if scale.any_narrow:
+        cfg = dataclasses.replace(cfg.reduced(), n_layers=4)
+    return cfg
+
+
+def _any_requests(cfg, scale: Scale, rng):
+    from repro_torch.serve import AnytimeRequest
+
+    return [AnytimeRequest(
+        prompt=rng.integers(0, cfg.vocab, scale.any_prompt).tolist(),
+        n_tokens=scale.any_new, release=ANY_PERIOD_S * i,
+        deadline=ANY_PERIOD_S * i + ANY_DEADLINE_S)
+        for i in range(scale.any_requests)]
+
+
+def _anytime_phase(device, scale: Scale) -> dict:
+    """The main path at qwen1.5-0.5b's published widths (seeded random
+    weights, fresh exit heads): prefill of one 4,096-token prompt and 64
+    decode steps; ``anytime_forward`` on 2 x 512 tokens and the exit
+    thresholds calibrated from it; the anytime engine and EDF on one
+    request trace under a solar harvester.  The launch counts are zeroed
+    before and read after (kernel G: once per layer in the prefill and in
+    ``anytime_forward``)."""
+    import torch
+
+    from repro_torch.core import energy
+    from repro_torch.kernels import ops
+    from repro_torch.models import anytime as A
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import AnytimeConfig, AnytimeServeEngine
+
+    cfg = _any_config(scale)
+    rng = np.random.default_rng(5)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    heads = A.init_heads(cfg, device=device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    tag = " (reduced)" if scale.any_narrow else ""
+    print(f"anytime model: {ANY_ARCH}{tag}, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, vocab "
+          f"{cfg.padded_vocab}, "
+          f"{cfg.dtype}, {cfg.n_units} units ({cfg.resolved_mandatory_units} "
+          f"mandatory), {n_params / 1e6:.1f} M parameters, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+    # ---- the main path: counts zeroed just before, read just after ------
+    ops.reset_launch_counts()
+    P, steps = scale.prefill_len, scale.decode_steps
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, P)).astype(
+        np.int32)).to(device)
+    (logits, state), pre_s = _timed(lambda: T.prefill(
+        cfg, params, {"tokens": toks}, cache_len=P + steps), device)
+    tok = torch.argmax(logits, -1).to(torch.int32)
+
+    def decode(n=steps):
+        nonlocal logits, state, tok
+        for _ in range(n):
+            logits, state = T.decode_step(cfg, params, state, tok)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+
+    _, dec_s = _timed(decode, device)
+    if not (bool(logits.isfinite().all())
+            and int(state["pos"][0]) == P + steps
+            and tuple(logits.shape) == (1, cfg.padded_vocab)):
+        raise AssertionError("prefill + decode: bad logits or state")
+    print(f"prefill {P} tokens: {pre_s:.3f} s; {steps} decode steps: "
+          f"{1e3 * dec_s / steps:.2f} ms per step (host clock, synchronised)")
+
+    B2, S2 = scale.fwd_shape
+    toks2 = torch.from_numpy(rng.integers(0, cfg.vocab, (B2, S2)).astype(
+        np.int32)).to(device)
+    ul, fwd_s = _timed(lambda: A.anytime_forward(cfg, params, heads,
+                                                 {"tokens": toks2}), device)
+    if (tuple(ul.shape) != (cfg.n_units, B2, S2, cfg.padded_vocab)
+            or not bool(ul.isfinite().all())):
+        raise AssertionError("anytime_forward: bad logits")
+    (thr, use), cal_s = _timed(lambda: A.calibrate_thresholds(
+        ul, target_agreement=ANY_TARGET_AGREEMENT), device)
+    agree = [float((ul[u].argmax(-1) == ul[-1].argmax(-1)).float().mean())
+             for u in range(cfg.n_units)]
+    del ul
+    print(f"anytime_forward ({B2} x {S2}): {fwd_s:.3f} s; per-unit "
+          f"agreement with full depth {[round(a, 4) for a in agree]}; "
+          f"thresholds at {ANY_TARGET_AGREEMENT}: "
+          f"{[round(float(t), 3) for t in thr]} enabled "
+          f"{[bool(u) for u in use]} ({cal_s:.3f} s)")
+
+    reqs = _any_requests(cfg, scale, rng)
+    served = {}
+    # the solar harvester of the §9.2 run, then a persistent supply: with
+    # the engine's default energy model a 16-slot full-depth step of the
+    # 8-unit model costs 12.85 J, far above what 0.35 W refills
+    for supply_name, supply, policy in (
+            ("solar", energy.calibrate_harvester(0.71, 0.35), "anytime"),
+            ("solar", energy.calibrate_harvester(0.71, 0.35), "edf"),
+            ("persistent", None, "anytime"), ("persistent", None, "edf")):
+        eng = AnytimeServeEngine(cfg, params, heads, serve_cfg=AnytimeConfig(
+            policy=policy, batch_slots=scale.any_slots,
+            prompt_len=scale.any_prompt, max_new_tokens=scale.any_new),
+            supply=supply, seed=0)
+        knobs = (eng.default_knobs(exit_thr=thr, use_exit_thr=use.float())
+                 if policy == "anytime" else eng.default_knobs())
+        res, wall = _timed(lambda: eng.run(reqs, knobs=knobs), device)
+        steps_run = eng.scfg.max_steps
+        if not (res.n_requests == len(reqs) and np.isfinite(res.horizon)
+                and res.tokens.sum() <= res.requested.sum()
+                and np.all(res.depth_sum <= cfg.n_units * res.tokens)):
+            raise AssertionError(f"anytime engine ({policy}): bad result")
+        served[f"{policy}, {supply_name}"] = res
+        print(f"engine {policy} ({supply_name} supply): {steps_run} steps of "
+              f"{scale.any_slots} slots in {wall:.3f} s "
+              f"({1e3 * wall / steps_run:.2f} ms per step), "
+              f"{res.completed / wall:.2f} requests completed/s, "
+              f"{int(res.tokens.sum()) / wall:.2f} tokens/s; on-time "
+              f"{res.on_time}/{res.n_requests}, completed {res.completed}, "
+              f"mean depth {res.mean_depth:.3f}/{cfg.n_units}, agreement "
+              f"{res.agreement:.4f}, score {res.score:.4f}, simulated "
+              f"horizon {res.horizon:.2f} s")
+    launches = {k: ops.launch_counts()[k] for k in ANYTIME_KERNELS}
+    if device.type == "cuda":
+        want = 2 * cfg.n_layers
+        if launches["flash_attention"] != want:
+            raise AssertionError(f"flash_attention launched "
+                                 f"{launches['flash_attention']} times on "
+                                 f"the anytime path, not {want}")
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        print(f"anytime launches {json.dumps(launches)}; peak device memory "
+              f"{peak:.2f} GiB")
+    # where a decode step's and an engine step's time goes (the prefix
+    # state goes on decoding past its cache: the ring buffer wraps)
+    _profile(device, "decode step", 1, 10, decode)
+    tables = eng.pack(reqs)
+    carry = [eng.init_carry(tables)]
+
+    def engine_steps(n):
+        for _ in range(n):
+            carry[0] = eng._step(tables, carry[0], knobs)
+
+    _profile(device, "engine step", scale.any_slots, 5, engine_steps)
+    return dict(launches=launches, prefill_s=pre_s,
+                decode_ms=1e3 * dec_s / steps, forward_s=fwd_s,
+                engine={p: r.as_dict() for p, r in served.items()})
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, tuple):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _flash_pairs(S, Skv, causal, window, q_offset) -> int:
+    """Unmasked (query, key) pairs of one head: the useful work."""
+    qpos = np.arange(S, dtype=np.int64) + q_offset
+    hi = np.minimum(qpos, Skv - 1) if causal else np.full(S, Skv - 1)
+    lo = np.maximum(qpos - window, 0) if window else np.zeros(S, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def _flash_phase(device, scale: Scale) -> dict:
+    """Kernel G against its plain version at ``scale.flash_shapes`` in bf16
+    and f32, with the times of G, the plain version and one
+    ``scaled_dot_product_attention`` call (the yardstick; never on the
+    port's path) and the bound: the larger of the bytes (q, k, v read
+    once, the f32 output written once) over HBM bandwidth and the useful
+    (unmasked) flops over the dense peak of the input type."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as FA
+
+    g = torch.Generator(device=device).manual_seed(3)
+    rows = []
+    for shape in scale.flash_shapes:
+        B, S, Skv, H, KV, hd, causal, window, qo = shape
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q = torch.randn((B, S, H, hd), generator=g, device=device).to(dt)
+            k = torch.randn((B, Skv, KV, hd), generator=g,
+                            device=device).to(dt)
+            v = torch.randn((B, Skv, KV, hd), generator=g,
+                            device=device).to(dt)
+            kw = dict(causal=causal, window=window, q_offset=qo)
+            out = FA.flash_attention(q, k, v, **kw)
+            ref = FA.flash_attention_plain(q, k, v, **kw)
+            rtol, atol = FLASH_TOL[dtype]
+            torch.testing.assert_close(out, ref, rtol=rtol, atol=atol)
+            err = _max_err(out, ref)
+            big = B * S * Skv * H > 1 << 28
+            ms = _ms(lambda: FA.flash_attention(q, k, v, **kw), device,
+                     reps=5 if big else 20)
+            plain_ms = _ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
+                           device, reps=2 if big else 5, warmup=1)
+            qt = q.transpose(1, 2).contiguous()
+            kt = k.transpose(1, 2).contiguous()
+            vt = v.transpose(1, 2).contiguous()
+            if causal and not window and not qo and S == Skv:
+                sdpa_kw = dict(is_causal=True)
+            else:
+                qpos = torch.arange(S, device=device)[:, None] + qo
+                kpos = torch.arange(Skv, device=device)[None, :]
+                mask = torch.ones((S, Skv), dtype=torch.bool, device=device)
+                if causal:
+                    mask &= qpos >= kpos
+                if window:
+                    mask &= qpos - kpos <= window
+                sdpa_kw = dict(attn_mask=mask)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, enable_gqa=KV != H, **sdpa_kw)
+
+            lib_ms = _ms(sdpa, device, reps=5 if big else 20)
+            pairs = _flash_pairs(S, Skv, causal, window, qo)
+            bound_ms, by = _bound(
+                _nbytes(q, k, v) + out.numel() * 4, 4.0 * hd * pairs * H * B,
+                PEAK_BF16_S if dtype == "bfloat16" else PEAK_F32_S)
+            label = (f"B={B} S={S} Skv={Skv} H={H} KV={KV} hd={hd}"
+                     f"{' causal' if causal else ''}"
+                     f"{f' window={window}' if window else ''}"
+                     f"{f' q_offset={qo}' if qo else ''} {dtype}")
+            print(f"flash_attention ({label}): max err {err:.3g} vs plain; "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+                  f"{lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({by})")
+            rows.append(dict(shape=label, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=bound_ms, bound_by=by))
+    row = dict(rows[0])
+    row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    row["shapes"] = rows[1:]
+    return row
+
+
+def _any_cpu_check(device, scale: Scale) -> None:
+    """The port on the card against the port on the CPU: a reduced
+    qwen1.5-0.5b ``forward`` (f32; kernel G against the chunked path, rtol
+    = atol = 1e-4) and one EDF engine run (the result arrays equal: the
+    depth is fixed and every emitted token agrees with itself)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import AnytimeConfig, AnytimeServeEngine
+
+    cfg = get_config(ANY_ARCH).reduced()
+    cpu = torch.device("cpu")
+    params = T.init_params(cfg, torch.Generator().manual_seed(1), device=cpu)
+    on_dev = _to_device(params, device)
+    rng = np.random.default_rng(9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128)).astype(
+        np.int32))
+    a = T.forward(cfg, on_dev, {"tokens": toks.to(device)})[0].cpu()
+    b = T.forward(cfg, params, {"tokens": toks})[0]
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    sc = AnytimeConfig(policy="edf", batch_slots=2, max_steps=96,
+                       prompt_len=4, max_new_tokens=4)
+    reqs = _any_requests(cfg, dataclasses.replace(
+        scale, any_requests=6, any_prompt=4, any_new=4), rng)
+    r_dev = AnytimeServeEngine(cfg, on_dev, serve_cfg=sc).run(reqs)
+    r_cpu = AnytimeServeEngine(cfg, params, serve_cfg=sc).run(reqs)
+    for f in ("status", "finish", "agree", "tokens", "depth_sum"):
+        if not np.array_equal(getattr(r_dev, f), getattr(r_cpu, f)):
+            raise AssertionError(f"engine on the card != the CPU: {f}")
+    print(f"anytime card vs CPU: reduced forward within 1e-4 (max err "
+          f"{_max_err(a, b):.3g}); EDF engine run equal on every result "
+          f"array ({r_dev.on_time}/{r_dev.n_requests} on time)")
+
 
 def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
     """All phases on ``device_name``; returns the kernels report."""
@@ -1186,6 +1532,9 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
     device = torch.device(device_name)
     rng = np.random.default_rng(0)
     if device.type == "cuda":
+        # f32 products in full f32 on the card (no TF32), as on the CPU
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         _build_phase()
     d_row = _l1_phase(device, scale, rng)
     e_row = _cu_phase(device, scale, rng)
@@ -1195,16 +1544,20 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
     f_row = _pw_phase(device, scale, rng)
     tune = _tune_phase(device, scale)
     online = _online_phase(device, scale)
+    anytime = _anytime_phase(device, scale)
+    g_row = _flash_phase(device, scale)
+    _any_cpu_check(device, scale)
     # each path's launches were counted from zero; a kernel on several
     # paths reports their sum and the count of each
     paths = dict(serve=serve["launches"], replay=replay["launches"],
-                 tune=tune["launches"], online=online["launches"])
+                 tune=tune["launches"], online=online["launches"],
+                 anytime=anytime["launches"])
     rows = []
     for name, row in (("fleet_priority", replay["a_row"]),
                       ("fleet_fused_steps", replay["b_row"]),
                       ("serve_fused_steps", serve["c_row"]),
                       ("l1_topk2", d_row), ("centroid_update", e_row),
-                      ("pairwise_l1", f_row)):
+                      ("pairwise_l1", f_row), ("flash_attention", g_row)):
         by_path = {p: c[name] for p, c in paths.items() if name in c}
         rows.append(dict(name=name, route="cuda", source=SOURCES[name],
                          replaces=REPLACES[name],
@@ -1233,7 +1586,9 @@ def main() -> int:
         return 2
     card = _card_line()
     print(f"card: {card}")
+    t0 = time.perf_counter()
     report = run("cuda", FULL)
+    print(f"chip_smoke: all phases in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(report))
     print(card)
     print(json.dumps({"ok": True, "device": {

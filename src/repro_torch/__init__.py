@@ -17,8 +17,12 @@ fleet serving of the paper's agile CNNs with the k-means classifier bank
 (:class:`repro_torch.serve.fleet_engine.FleetServeEngine`, scan and fused
 modes); online adaptation (:mod:`repro_torch.adapt`: offline tuning with
 ``TuneProblem`` and ``tune``, the runtime eta/E_opt loop of
-``OnlineAdapter`` and the harvest forecaster).  Kernels:
+``OnlineAdapter`` and the harvest forecaster); the model configs
+(:mod:`repro_torch.configs`) and anytime serving of the dense attention
+family (:mod:`repro_torch.models.transformer`,
+:mod:`repro_torch.models.anytime`,
+:class:`repro_torch.serve.anytime.AnytimeServeEngine`).  Kernels:
 ``fleet_priority``, ``fleet_fused_steps``, ``serve_fused_steps``,
-``l1_topk2``, ``centroid_update`` and ``pairwise_l1``.
+``l1_topk2``, ``centroid_update``, ``pairwise_l1`` and ``flash_attention``.
 """
 from . import adapt  # noqa: F401

@@ -37,9 +37,15 @@ kernels)::
     res, carry = fleet.run_segments(cfg, statics, n_segments=24,
                                     hook=adapter.hook, mode="fused")
 
-The anytime-serving knobs (``anytime_space``, ``knobs_from_params``,
-``make_anytime_objective``) come with the model-zoo slice of the port.
+:mod:`repro_torch.adapt.anytime` tunes the anytime serving engine's knobs
+(exit thresholds, the energy gate) the same way: ``anytime_space``,
+``make_anytime_objective``, ``knobs_from_params``.
 """
+from .anytime import (  # noqa: F401
+    anytime_space,
+    knobs_from_params,
+    make_anytime_objective,
+)
 from .forecast import (  # noqa: F401
     FEATURES,
     ForecastController,

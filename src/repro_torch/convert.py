@@ -21,8 +21,14 @@ from .serve.fleet_engine import ServeTables
 
 
 def tensor(a, device="cuda") -> torch.Tensor:
-    """One numpy array (or scalar) as a tensor of the same dtype."""
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    """One numpy array (or scalar) as a tensor of the same dtype; a
+    bfloat16 array (``ml_dtypes``, as JAX hands it to numpy) goes through
+    its bits."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(a.view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _fields(obj, names: Sequence[str]) -> list:
@@ -76,6 +82,30 @@ def cnn_params(params: dict, device="cuda") -> dict:
                  "b": tensor(np.asarray(p["b"], np.float32), device)}
                 for p in params["fcs"]],
     }
+
+
+def tree(obj, device="cuda"):
+    """Dicts, tuples and lists of numpy leaves as the same structure of
+    tensors (tuples stay tuples)."""
+    if isinstance(obj, dict):
+        return {k: tree(v, device) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(tree(v, device) for v in obj)
+    return tensor(obj, device)
+
+
+def transformer_params(params, device="cuda") -> dict:
+    """The reference transformer's parameter pytree (``embed``, ``layers``
+    with its stacked ``stack`` and its ``rem`` blocks, ``final_norm``,
+    ``lm_head``) as the port's: the same nested dicts and tuples, every
+    leaf a tensor of the same dtype and layout (bf16 leaves arrive as
+    ``ml_dtypes.bfloat16`` numpy arrays and become ``torch.bfloat16``)."""
+    return tree(params, device)
+
+
+def anytime_heads(heads, device="cuda") -> dict:
+    """The anytime exit heads (``{"gain": (U, d_model)}``)."""
+    return tree(heads, device)
 
 
 def unit_classifier(obj, device="cuda") -> UnitClassifier:

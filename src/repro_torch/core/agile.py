@@ -2,8 +2,9 @@
 unit-wise inference with cluster-based classification, the utility test,
 runtime centroid adaptation, and centroid propagation past early exits.
 
-This slice ports the CNN frontend (:class:`AgileCNN`); the transformer
-frontend comes with the model zoo.
+Two frontends share one engine: :class:`AgileCNN` (the paper's CNNs, unit
+= one layer) and :class:`AgileTransformer` (the model configs, unit = a
+group of ``cfg.exit_every`` blocks; the dense family in this port).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from ..models import cnn as cnn_mod
+from ..models import transformer as tfm
 from . import kmeans as km
 from .scheduler import JobProfile
 
@@ -158,3 +160,48 @@ class AgileCNN(_AgileBase):
             torch.float32)
         _, feats = cnn_mod.cnn_unit_forward(self.cfg, self.params, x, u)
         return feats
+
+
+class AgileTransformer(_AgileBase):
+    """Unit = ``cfg.exit_every`` transformer blocks; features = mean-pooled
+    hidden states.  For sequence-classification style Zygarde tasks on the
+    model configs; parameters and bank live on the device of ``params``."""
+
+    def __init__(self, cfg, params: dict,
+                 bank: Sequence[km.UnitClassifier]):
+        self.cfg, self.params = cfg, params
+        self.bank = list(bank)
+        self.device = params["embed"].device
+
+    def _initial_state(self, batch):
+        if not isinstance(batch, dict):
+            tokens = torch.as_tensor(np.asarray(batch, np.int32)
+                                     if not isinstance(batch, torch.Tensor)
+                                     else batch, device=self.device)
+            batch = {"tokens": tokens}
+        return tfm.embed_inputs(self.cfg, self.params, batch)
+
+    def _run_unit(self, state, u):
+        x, enc_out = state
+        x, pooled = tfm.unit_forward(self.cfg, self.params, x, u,
+                                     enc_out=enc_out)
+        return (x, enc_out), pooled
+
+    def _all_features(self, batches):
+        state = self._initial_state(batches)
+        feats = []
+        for u in range(self.n_units):
+            state, f = self._run_unit(state, u)
+            feats.append(f)
+        return feats
+
+    def unit_apply_flat(self, u: int, flat: torch.Tensor) -> torch.Tensor:
+        """Propagation for pooled features: the centroid as a length-1
+        sequence hidden state pushed through unit ``u``."""
+        x = flat[:, None, :].to(tfm.dtype_of(self.cfg))
+        _, pooled = tfm.unit_forward(self.cfg, self.params, x, u)
+        return pooled
+
+    @property
+    def n_units_model(self) -> int:
+        return self.cfg.n_units

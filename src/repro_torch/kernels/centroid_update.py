@@ -6,13 +6,28 @@ Replaces the Pallas TPU kernel
     c_j <- (w * c_j + sum_{i: a_i = j} x_i) / (w + n_j)
 
 Rows whose assignment is ``< 0`` (or ``>= k``) are ignored, so the fleet
-caller (``kmeans.online_update``) needs no one-hot.  The CUDA kernel
-(``csrc/centroid_update.cu``) runs one thread per (cluster, column) and sums
-the assigned rows in row order — a deterministic reduction, no float
-atomics; the plain version sums in the same order, so the two agree bit for
-bit.  Against the JAX package the result is bit-equal wherever each cluster
-receives at most one row (the serve path's case); with more rows the
-reference's matmul may sum in another order.
+caller (``kmeans.online_update``) needs no one-hot.
+
+The reference's arithmetic, read off its compiled program on the CPU
+(``ops.fleet_centroid_update`` pads the rows to a multiple of 8 and runs
+the kernel body as one XLA program):
+
+* ``w * c_j + sum`` is one fused multiply-add (one rounding);
+* the one-hot matmul sums a cluster's rows in :func:`row_blocks`' order:
+  the padded rows split into ``P = ceil(N / 608)`` parts of
+  ``8 * ceil(N / 8P)`` rows (the last part takes the rest), a part longer
+  than 384 rows splits into two halves, each block sums its rows in row
+  order from zero, and the block sums are added in order.  Found by
+  probing the reference's summation tree at every multiple of 8 up to
+  2,048 rows with ``k = 2`` and ``4`` clusters and ``F <= 128`` features;
+  there it is bit-exact.  At 4,096 rows, and from ~1,800 rows with
+  ``k >= 5`` (392 with ``k = 16``), the reference reduces in a tree that
+  depends on ``k`` and on the CPUs the process may use (ROADMAP Queue 3).
+
+The CUDA kernel (``csrc/centroid_update.cu``) runs one thread per
+(cluster, column) and forms the same blocks in the same order — a
+deterministic reduction, no float atomics; the plain version below is the
+same arithmetic, so the two agree bit for bit.
 """
 from __future__ import annotations
 
@@ -20,23 +35,48 @@ import ctypes
 
 import torch
 
+from ..core._fma import fma_f32
 from . import _build
 
 #: launches of the CUDA kernel (the plain version never counts)
 launches = 0
 
+#: rows per part of the reference's split, and the longest unsplit block
+PART_ROWS = 608
+BLOCK_ROWS = 384
+
+
+def row_blocks(n_rows: int) -> list[tuple[int, int]]:
+    """``(start, end)`` of the blocks the reference sums a cluster's rows
+    in, for ``n_rows`` rows padded to a multiple of 8."""
+    n8 = -(-n_rows // 8) * 8
+    if n8 == 0:
+        return []
+    n_parts = -(-n8 // PART_ROWS)
+    part = 8 * -(-n8 // (8 * n_parts))
+    sizes = [part] * (n_parts - 1) + [n8 - (n_parts - 1) * part]
+    out, start = [], 0
+    for s in sizes:
+        for b in ((s // 2, s // 2) if s > BLOCK_ROWS else (s,)):
+            out.append((start, start + b))
+            start += b
+    return out
+
 
 def centroid_update_plain(centroids, x, assign, weight):
-    """The plain PyTorch version (same arithmetic, same row order)."""
-    k = centroids.shape[0]
+    """The plain PyTorch version (same arithmetic, same order)."""
+    k, B = centroids.shape[0], x.shape[0]
     hot = assign[:, None].to(torch.int64) == torch.arange(
         k, device=assign.device)                              # (B, k)
     sums = torch.zeros_like(centroids)
-    for b in range(x.shape[0]):
-        sums = torch.where(hot[b][:, None], sums + x[b], sums)
+    for start, end in row_blocks(B):
+        acc = torch.zeros_like(centroids)
+        for b in range(start, min(end, B)):   # rows >= B are the padding
+            acc = torch.where(hot[b][:, None], acc + x[b], acc)
+        sums = sums + acc
     counts = hot.sum(0).to(torch.float32)[:, None]
     w = torch.full((), weight, dtype=torch.float32, device=centroids.device)
-    return (w * centroids + sums) / (w + counts)
+    return fma_f32(w, centroids, sums) / (w + counts)
 
 
 def _check(centroids, x, assign):

@@ -1,0 +1,135 @@
+"""GQA attention: block-sparse chunked prefill + single-token decode (port
+of :mod:`repro.models.attention`).
+
+:func:`chunked_attention` follows the tensor's device, as every kernel of
+the port does: a CUDA tensor launches kernel G
+(:func:`repro_torch.kernels.ops.flash_attention`) and casts its f32 output
+to ``q``'s dtype, as the reference's TPU branch does; a CPU tensor runs the
+port of the reference's XLA path (a static list of the (query-chunk,
+kv-chunk) pairs inside the causal / window footprint, scanned with an
+online-softmax carry), so the CPU port tracks the JAX function the tests
+call.  :func:`decode_attention` is plain PyTorch on both, as the
+reference computes it outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels import ops as kops
+
+NEG_INF = -1e30
+_F32 = torch.float32
+
+
+def _block_pairs(n_chunks: int, chunk: int, window: int) -> np.ndarray:
+    """Static (i, j) list of blocks inside the causal/window footprint."""
+    pairs = []
+    for i in range(n_chunks):
+        if window:
+            # query positions in chunk i attend back at most `window` tokens
+            j_lo = max(0, (i * chunk + chunk - 1 - window) // chunk)
+        else:
+            j_lo = 0
+        for j in range(j_lo, i + 1):
+            pairs.append((i, j))
+    return np.asarray(pairs, dtype=np.int32)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
+    """q: (B, S, H, hd), k/v: (B, Skv, KV, hd) -> (B, S, H, hd) in ``q``'s
+    dtype.  ``q_offset`` shifts query positions (cross-attention uses
+    ``causal=False``)."""
+    if q.device.type == "cuda":
+        o = kops.flash_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+        return o.to(q.dtype)
+    B, S, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if not causal and not window:
+        # encoder / cross-attention: dense (Skv is small for our shapes)
+        return _dense_attention(q, k, v)
+
+    chunk = min(chunk, S, Skv)
+    while S % chunk or Skv % chunk:
+        chunk //= 2
+    nq, nkv = S // chunk, Skv // chunk
+    assert nq == nkv, "causal chunked attention expects S == Skv"
+    G = H // KV
+    scale = hd ** -0.5
+
+    qb = q.reshape(B, nq, chunk, KV, G, hd)
+    kb = k.reshape(B, nkv, chunk, KV, hd)
+    vb = v.reshape(B, nkv, chunk, KV, hd)
+
+    o = torch.zeros((B, nq, chunk, KV, G, hd), dtype=_F32, device=q.device)
+    m = torch.full((B, nq, chunk, KV, G), NEG_INF, dtype=_F32,
+                   device=q.device)
+    l = torch.zeros((B, nq, chunk, KV, G), dtype=_F32, device=q.device)
+    pos_in_chunk = torch.arange(chunk, device=q.device)
+
+    for i, j in _block_pairs(nq, chunk, window).tolist():
+        qi, kj, vj = qb[:, i], kb[:, j], vb[:, j]
+        # scores: (B, chunk_q, KV, G, chunk_k)
+        s = torch.einsum("bqkgh,bckh->bqkgc", qi.to(_F32),
+                         kj.to(_F32)) * scale
+        qpos = i * chunk + pos_in_chunk + q_offset
+        kpos = j * chunk + pos_in_chunk
+        mask = qpos[:, None] >= kpos[None, :]
+        if window:
+            mask = mask & (qpos[:, None] - kpos[None, :] <= window)
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+
+        mi, li, oi = m[:, i], l[:, i], o[:, i]
+        m_new = torch.maximum(mi, s.amax(dim=-1))
+        alpha = torch.exp(mi - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l[:, i] = li * alpha + p.sum(dim=-1)
+        o[:, i] = oi * alpha[..., None] + torch.einsum(
+            "bqkgc,bckh->bqkgh", p, vj.to(_F32))
+        m[:, i] = m_new
+
+    out = o / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def _dense_attention(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    qg = q.reshape(B, S, KV, G, hd)
+    s = torch.einsum("bqkgh,bckh->bqkgc", qg.to(_F32), k.to(_F32)) * scale
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqkgc,bckh->bqkgh", p, v.to(_F32))
+    return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, slot_pos: torch.Tensor,
+                     my_pos: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """Single-token attention against a (ring-buffer) KV cache.
+
+    q: (B, H, hd); k_cache/v_cache: (B, C, KV, hd); slot_pos: (B, C)
+    absolute position stored in each slot (-1 = empty); my_pos: (B,) the
+    query token's position.  Operands in their own dtype with f32 sums (a
+    bf16 product is exact in f32), scores and softmax in f32.
+    """
+    B, H, hd = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    qg = q.reshape(B, KV, G, hd)
+    s = torch.einsum("bkgh,bckh->bkgc", qg.to(_F32),
+                     k_cache.to(_F32)) * scale
+    valid = (slot_pos >= 0) & (slot_pos <= my_pos[:, None])
+    if window:
+        valid = valid & (my_pos[:, None] - slot_pos <= window)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgc,bckh->bkgh", p.to(v_cache.dtype).to(_F32),
+                     v_cache.to(_F32))
+    return o.reshape(B, H, hd).to(q.dtype)

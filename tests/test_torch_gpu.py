@@ -16,12 +16,16 @@ from repro_torch.core import step as S
 from repro_torch.core.agile import AgileCNN
 from repro_torch.core.scheduler import JobProfile, TaskSpec
 from repro_torch.kernels import centroid_update as CU
+from repro_torch.kernels import flash_attn as FA
 from repro_torch.kernels import fleet_priority as FP
 from repro_torch.kernels import fleet_step
 from repro_torch.kernels import l1_topk2 as L1
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_l1 as PW
+from repro_torch.configs import get_config
+from repro_torch.models import anytime as AT
 from repro_torch.models import cnn
+from repro_torch.models import transformer as TF
 from repro_torch.serve import FleetServeEngine, Request, ServeConfig
 
 pytestmark = pytest.mark.gpu
@@ -63,6 +67,62 @@ def test_centroid_update_kernel_matches_plain(cuda):
         out = CU.centroid_update(c, x, a, 32.0)
         torch.cuda.synchronize()
         assert torch.equal(out, CU.centroid_update_plain(c, x, a, 32.0))
+
+
+@pytest.mark.parametrize("B", [392, 400, 448, 500, 512, 600, 768, 1000,
+                               1024, 2048, 4096])
+def test_centroid_update_kernel_row_order(cuda, B):
+    """Kernel E == its plain version bit for bit at the row counts where
+    the reference sums in blocks (k = 4, F = 6, rows from [0, 100),
+    weight 10, so ``w * c`` rounds and the fused multiply-add shows)."""
+    rng = np.random.default_rng(B)
+    c = torch.from_numpy(rng.uniform(0, 100, (4, 6)).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(0, 100, (B, 6)).astype(np.float32))
+    a = torch.from_numpy(rng.integers(-1, 4, B).astype(np.int32))
+    c, x, a = c.to(cuda), x.to(cuda), a.to(cuda)
+    out = CU.centroid_update(c, x, a, 10.0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, CU.centroid_update_plain(c, x, a, 10.0))
+
+
+# kernel G shapes: (B, S, Skv, H, KV, hd, causal, window, q_offset); the
+# main path's (anytime_forward at 2 x 512 on qwen1.5-0.5b), causal 4,096,
+# the long-context window, glm4-9b's GQA geometry, an odd length, a query
+# offset, no mask, and a row that sees no key
+FLASH_CASES = [
+    (2, 512, 512, 16, 16, 64, True, 0, 0),
+    (1, 4096, 4096, 16, 16, 64, True, 0, 0),
+    (1, 8192, 8192, 16, 16, 64, True, 4096, 0),
+    (1, 4096, 4096, 32, 2, 128, True, 0, 0),
+    (2, 37, 37, 4, 1, 16, True, 0, 0),
+    (1, 64, 320, 8, 2, 64, True, 0, 256),
+    (2, 100, 200, 4, 2, 80, False, 0, 0),
+    (1, 256, 256, 2, 2, 256, True, 0, -200),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain(cuda, dtype):
+    """Kernel G against its plain version on the same inputs, one launch
+    per call: f32 within rtol 1e-4 / atol 1e-5 (the JAX sweep's
+    tolerance), bf16 within 3e-2 (the JAX bf16 test's)."""
+    dt = getattr(torch, dtype)
+    tol = (1e-4, 1e-5) if dtype == "float32" else (3e-2, 3e-2)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for B, S, Skv, H, KV, hd, causal, window, qo in FLASH_CASES:
+        q = torch.randn((B, S, H, hd), generator=g, device=cuda).to(dt)
+        k = torch.randn((B, Skv, KV, hd), generator=g, device=cuda).to(dt)
+        v = torch.randn((B, Skv, KV, hd), generator=g, device=cuda).to(dt)
+        n0 = FA.launches
+        out = FA.flash_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=qo)
+        torch.cuda.synchronize()
+        assert FA.launches == n0 + 1
+        assert out.dtype == torch.float32 and bool(out.isfinite().all())
+        want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window, q_offset=qo)
+        torch.testing.assert_close(out, want, rtol=tol[0], atol=tol[1],
+                                   msg=lambda m: f"{(S, H, KV, hd)}: {m}")
 
 
 PW_CASES = [(1, 1, 1, 512), (1, 37, 6, 512), (16, 16, 6, 512),
@@ -280,3 +340,36 @@ def test_replay_modes_agree_and_launch_per_segment(cuda):
         for f, a, b in zip(ref._fields, ref, other):
             assert torch.equal(a, b), f
     assert int(ref.units_executed.sum()) > 0
+
+
+def test_forward_launches_flash_once_per_attention_layer(cuda):
+    """``forward`` and ``anytime_forward`` on the card run every attention
+    layer through kernel G, once each, and agree with the CPU's chunked
+    path within rtol = atol = 1e-4 (f32; another algorithm and summation
+    order)."""
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    params = TF.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))
+    on_card = _to(params, cuda)
+    n0 = FA.launches
+    logits = TF.forward(cfg, on_card, {"tokens": toks.to(cuda)})[0]
+    torch.cuda.synchronize()
+    assert FA.launches - n0 == cfg.n_layers
+    heads = AT.init_heads(cfg, device=cuda)
+    n0 = FA.launches
+    rows = AT.anytime_forward(cfg, on_card, heads, {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert FA.launches - n0 == cfg.n_layers
+    assert torch.equal(rows[-1], logits)
+    want = TF.forward(cfg, params, {"tokens": toks})[0]
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, device) for v in tree)
+    return tree.to(device)

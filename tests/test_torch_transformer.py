@@ -1,0 +1,151 @@
+"""The port's dense transformer against the JAX package.
+
+``qwen1.5-0.5b`` (MHA with QKV bias) and ``glm4-9b`` (GQA, 2 kv heads) at
+their ``reduced()`` sizes (f32), with the reference's random weights carried
+over by ``convert.transformer_params``.  Logits, decode states and pooled
+unit features are held at rtol = atol = 1e-5 (the JAX suite's tolerance
+between two evaluations of one model): an f32 matmul sums in another order
+in each framework.  Every family the port does not run yet raises
+``NotImplementedError``.
+"""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from repro.configs import get_config as jget
+from repro.core.agile import AgileTransformer as JAgile
+from repro.models import transformer as JT
+
+from repro_torch import convert
+from repro_torch.configs import get_config, list_configs
+from repro_torch.core.agile import AgileTransformer
+from repro_torch.models import transformer as PT
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+DENSE = ("qwen1.5-0.5b", "glm4-9b")
+
+
+@pytest.fixture(scope="module", params=DENSE)
+def model(request):
+    arch = request.param
+    jcfg, pcfg = jget(arch).reduced(), get_config(arch).reduced()
+    jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = convert.transformer_params(jax.tree.map(np.asarray, jp), "cpu")
+    return jcfg, pcfg, jp, tp
+
+
+def _tokens(cfg, B=2, S=16, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)
+
+
+def test_configs_resolve_every_reference_name():
+    from repro.configs import list_configs as jlist
+
+    assert list_configs() == jlist()
+    for name in list_configs():
+        j, p = jget(name), get_config(name)
+        assert p == type(p)(**{f: getattr(j, f)
+                               for f in j.__dataclass_fields__})
+        assert p.reduced().n_units == j.reduced().n_units
+        assert p.padded_vocab == j.padded_vocab
+        assert p.resolved_mandatory_units == j.resolved_mandatory_units
+        assert p.with_window(64).window == 64
+
+
+def test_params_layout_matches_reference(model):
+    jcfg, pcfg, jp, tp = model
+    mine = PT.init_params(pcfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    ref = jax.tree_util.tree_flatten_with_path(jp)[0]
+    got = dict(jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda t: np.zeros(t.shape), mine))[0])
+    assert len(ref) == len(got)
+    for path, leaf in ref:
+        assert got[path].shape == leaf.shape, path
+
+
+def test_forward_matches_jax(model):
+    jcfg, pcfg, jp, tp = model
+    toks = _tokens(jcfg)
+    want = np.asarray(JT.forward(jcfg, jp, {"tokens": jnp.asarray(toks)})[0])
+    got, aux = PT.forward(pcfg, tp, {"tokens": torch.from_numpy(toks)})
+    assert got.dtype == torch.float32 and float(aux) == 0.0
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_prefill_then_decode_matches_jax(model):
+    jcfg, pcfg, jp, tp = model
+    toks = _tokens(jcfg, seed=1)
+    lj, sj = JT.prefill(jcfg, jp, {"tokens": jnp.asarray(toks)},
+                        cache_len=20)
+    lp, sp = PT.prefill(pcfg, tp, {"tokens": torch.from_numpy(toks)},
+                        cache_len=20)
+    np.testing.assert_allclose(lp.numpy(), np.asarray(lj), **TOL)
+    rng = np.random.default_rng(2)
+    for _ in range(3):
+        t = rng.integers(0, jcfg.vocab, (2,)).astype(np.int32)
+        lj, sj = JT.decode_step(jcfg, jp, sj, jnp.asarray(t))
+        lp, sp = PT.decode_step(pcfg, tp, sp, torch.from_numpy(t))
+        np.testing.assert_allclose(lp.numpy(), np.asarray(lj), **TOL)
+    flat_j = jax.tree_util.tree_flatten_with_path(sj)[0]
+    flat_p = dict(jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda t: t.numpy(), sp))[0])
+    for path, leaf in flat_j:
+        np.testing.assert_allclose(flat_p[path], np.asarray(leaf), **TOL)
+
+
+def test_unrolled_decode_matches_jax(model):
+    """One buffer per layer (``stacked=False``), the anytime layout."""
+    jcfg, pcfg, jp, tp = model
+    sj = JT.init_decode_state(jcfg, 2, 6, cache_len=6, stacked=False)
+    sp = PT.init_decode_state(pcfg, 2, 6, cache_len=6, stacked=False,
+                              device="cpu")
+    rng = np.random.default_rng(3)
+    for _ in range(8):     # wraps the 6-slot ring buffer
+        t = rng.integers(0, jcfg.vocab, (2,)).astype(np.int32)
+        lj, sj = JT.decode_step(jcfg, jp, sj, jnp.asarray(t), unroll=True)
+        lp, sp = PT.decode_step(pcfg, tp, sp, torch.from_numpy(t))
+        np.testing.assert_allclose(lp.numpy(), np.asarray(lj), **TOL)
+    assert int(sp["pos"][0]) == 8
+
+
+def test_unit_forward_matches_jax(model):
+    jcfg, pcfg, jp, tp = model
+    toks = _tokens(jcfg, seed=4)
+    xj, _ = JT.embed_inputs(jcfg, jp, {"tokens": jnp.asarray(toks)})
+    xp, _ = PT.embed_inputs(pcfg, tp, {"tokens": torch.from_numpy(toks)})
+    for u in range(jcfg.n_units):
+        xj, fj = JT.unit_forward(jcfg, jp, xj, u)
+        xp, fp = PT.unit_forward(pcfg, tp, xp, u)
+        np.testing.assert_allclose(fp.numpy(), np.asarray(fj), **TOL)
+        np.testing.assert_allclose(xp.numpy(), np.asarray(xj), **TOL)
+    logits = PT.readout(pcfg, tp, xp)
+    np.testing.assert_allclose(
+        logits.numpy(), np.asarray(JT.readout(jcfg, jp, xj)), **TOL)
+
+
+def test_agile_transformer_features_match_jax(model):
+    jcfg, pcfg, jp, tp = model
+    toks = _tokens(jcfg, B=3, S=8, seed=5)
+    fj = JAgile(jcfg, jp, [None] * jcfg.n_units)._all_features(toks)
+    agile = AgileTransformer(pcfg, tp, [None] * pcfg.n_units)
+    fp = agile._all_features(toks)
+    for a, b in zip(fp, fj):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+    prop = agile.unit_apply_flat(1, fp[0])
+    assert prop.shape == fp[1].shape
+
+
+@pytest.mark.parametrize("arch", [n for n in (
+    "dbrx-132b", "qwen3-moe-235b-a22b", "recurrentgemma-9b", "xlstm-125m",
+    "internvl2-2b", "seamless-m4t-medium")])
+def test_unsupported_families_raise(arch):
+    cfg = get_config(arch).reduced()
+    with pytest.raises(NotImplementedError):
+        PT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError):
+        PT.init_decode_state(cfg, 1, 4, device="cpu")
