@@ -1232,18 +1232,13 @@ ANY_ARCH = "qwen1.5-0.5b"
 ANY_PERIOD_S = 0.25
 ANY_DEADLINE_S = 2.5
 ANY_TARGET_AGREEMENT = 0.98
-# kernel G against its plain version: f32 at the JAX sweep's tolerance, bf16
-# at the JAX bf16 test's (each tile's dot products sum in another order, and
-# a bf16 p can round the other way)
-FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (3e-2, 3e-2)}
-
-
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(_to_device(v, device) for v in tree)
-    return tree.to(device)
+# kernel G against its plain version (rtol, atol).  Both take the same
+# inputs and compute in f32, p rounded to v's dtype in both; they differ only
+# in the summation order inside a tile's dot products, which the H100 runs
+# show as a largest gap of 4.8e-7 at every shape in either dtype.  f32 keeps
+# the JAX sweep's tolerance; bf16 is held at 1e-5, so a kernel that skipped
+# the bf16 rounding of p (a gap of about 1e-4) or misplaced a mask fails.
+FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-5, 1e-5)}
 
 
 def _any_config(scale: Scale):
@@ -1497,6 +1492,7 @@ def _any_cpu_check(device, scale: Scale) -> None:
     depth is fixed and every emitted token agrees with itself)."""
     import torch
 
+    from repro_torch import convert
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     from repro_torch.serve import AnytimeConfig, AnytimeServeEngine
@@ -1504,7 +1500,7 @@ def _any_cpu_check(device, scale: Scale) -> None:
     cfg = get_config(ANY_ARCH).reduced()
     cpu = torch.device("cpu")
     params = T.init_params(cfg, torch.Generator().manual_seed(1), device=cpu)
-    on_dev = _to_device(params, device)
+    on_dev = convert.tree(params, device)
     rng = np.random.default_rng(9)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128)).astype(
         np.int32))

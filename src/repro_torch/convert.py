@@ -85,12 +85,14 @@ def cnn_params(params: dict, device="cuda") -> dict:
 
 
 def tree(obj, device="cuda"):
-    """Dicts, tuples and lists of numpy leaves as the same structure of
-    tensors (tuples stay tuples)."""
+    """Dicts, tuples and lists of numpy leaves (or tensors) as the same
+    structure of tensors on ``device`` (tuples stay tuples)."""
     if isinstance(obj, dict):
         return {k: tree(v, device) for k, v in obj.items()}
     if isinstance(obj, (tuple, list)):
         return type(obj)(tree(v, device) for v in obj)
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
     return tensor(obj, device)
 
 
@@ -101,11 +103,6 @@ def transformer_params(params, device="cuda") -> dict:
     leaf a tensor of the same dtype and layout (bf16 leaves arrive as
     ``ml_dtypes.bfloat16`` numpy arrays and become ``torch.bfloat16``)."""
     return tree(params, device)
-
-
-def anytime_heads(heads, device="cuda") -> dict:
-    """The anytime exit heads (``{"gain": (U, d_model)}``)."""
-    return tree(heads, device)
 
 
 def unit_classifier(obj, device="cuda") -> UnitClassifier:

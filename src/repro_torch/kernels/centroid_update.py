@@ -20,9 +20,10 @@ the kernel body as one XLA program):
   order from zero, and the block sums are added in order.  Found by
   probing the reference's summation tree at every multiple of 8 up to
   2,048 rows with ``k = 2`` and ``4`` clusters and ``F <= 128`` features;
-  there it is bit-exact.  At 4,096 rows, and from ~1,800 rows with
-  ``k >= 5`` (392 with ``k = 16``), the reference reduces in a tree that
-  depends on ``k`` and on the CPUs the process may use (ROADMAP Queue 3).
+  there it is bit-exact.  Once ``B * k`` passes about 8,900 (on 8 CPUs;
+  about 16,000 on 2), the reference reduces in a threaded tree that
+  depends on the CPUs the process may use; on one CPU it keeps this order
+  (``tools/centroid_order_gap.py``; ROADMAP Queue 3).
 
 The CUDA kernel (``csrc/centroid_update.cu``) runs one thread per
 (cluster, column) and forms the same blocks in the same order — a

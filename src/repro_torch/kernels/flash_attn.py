@@ -15,9 +15,10 @@ A row whose every key is masked is the one place the tiling shows: the
 reference's online softmax then sees ``p = exp(-1e30 + 1e30) = 1`` on every
 key of every tile, so it returns the sum of ``v`` over the real keys
 divided by its padded key count (``Skv`` rounded up to its 128-key tile).
-Both versions here give that value; for every other row, tiles that are
-masked for every row of a query tile are skipped, which changes no bit
-(such a tile adds exact zeros, or is wiped by ``alpha = 0``).
+Both versions here give that value.  The kernel skips the tiles that are
+masked for every row of its query tile; the plain version processes every
+tile, which changes no bit (such a tile adds exact zeros, or is wiped by
+``alpha = 0`` when a live tile comes later).
 
 The CUDA kernel (``csrc/flash_attn.cu``) runs one block per (64 query rows
 of one batch x kv head, i.e. ``64 / G`` positions x ``G`` heads); the kv
@@ -52,30 +53,6 @@ def _ref_kv_count(skv: int) -> int:
     return -(-skv // bk) * bk
 
 
-def _all_rows_live(qmin: int, qmax: int, skv: int, causal: bool,
-                   window: int) -> bool:
-    """Does every query position in ``[qmin, qmax]`` see a real key?  (The
-    conditions are monotone in the position, so the ends decide.)"""
-    ok = skv > 0
-    if causal:
-        ok = ok and qmin >= 0
-    if window:
-        ok = ok and qmax - window <= skv - 1
-    return ok
-
-
-def _tile_live(k0: int, k1: int, qmin: int, qmax: int, causal: bool,
-               window: int) -> bool:
-    """Is any (query in ``[qmin, qmax]``, key in ``[k0, k1)``) pair unmasked?
-    The differences ``q - key`` span ``[qmin - k1 + 1, qmax - k0]``."""
-    lo, hi = qmin - (k1 - 1), qmax - k0
-    if causal:
-        lo = max(lo, 0)
-    if window:
-        hi = min(hi, window)
-    return k1 > k0 and lo <= hi
-
-
 def _mask(qpos, kpos, skv: int, causal: bool, window: int):
     m = kpos[None, :] < skv
     if causal:
@@ -89,10 +66,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
                           window: int = 0,
                           q_offset: int = 0) -> torch.Tensor:
-    """The plain PyTorch version: kv tiles of :data:`BLOCK_K` keys in
-    ascending order, every query row at once (a tile masked for a row with
-    a real key elsewhere changes none of its bits, so processing it for
-    rows the kernel skips it for is exact)."""
+    """The plain PyTorch version: every kv tile of :data:`BLOCK_K` keys in
+    ascending order, every query row at once."""
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -100,15 +75,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     scale = hd ** -0.5
     qf = q.to(torch.float32).reshape(B, S, KV, G, hd)
     qpos = torch.arange(S, device=dev) + q_offset
-    skip = _all_rows_live(q_offset, q_offset + S - 1, Skv, causal, window)
     m = torch.full((B, S, KV, G), NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((B, S, KV, G), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, S, KV, G, hd), dtype=torch.float32, device=dev)
     for j0 in range(0, Skv, BLOCK_K):
         kpos = torch.arange(j0, j0 + BLOCK_K, device=dev)
-        if skip and not _tile_live(j0, min(j0 + BLOCK_K, Skv), q_offset,
-                                   q_offset + S - 1, causal, window):
-            continue
         mask = _mask(qpos, kpos, Skv, causal, window)          # (S, bk)
         kt = k[:, j0:j0 + BLOCK_K].to(torch.float32)
         vt = v[:, j0:j0 + BLOCK_K]

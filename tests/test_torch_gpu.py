@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import fleet
+from repro_torch import convert, fleet
 from repro_torch.core import energy
 from repro_torch.core import kmeans as km
 from repro_torch.core import step as S
@@ -105,9 +105,12 @@ FLASH_CASES = [
 def test_flash_attention_kernel_matches_plain(cuda, dtype):
     """Kernel G against its plain version on the same inputs, one launch
     per call: f32 within rtol 1e-4 / atol 1e-5 (the JAX sweep's
-    tolerance), bf16 within 3e-2 (the JAX bf16 test's)."""
+    tolerance), bf16 within 1e-5.  The two compute the same f32 arithmetic
+    from the same inputs, p rounded to v's dtype in both, and differ only in
+    the summation order inside a tile (a largest gap of 4.8e-7 on the
+    H100), so a kernel that skipped the bf16 rounding of p fails here."""
     dt = getattr(torch, dtype)
-    tol = (1e-4, 1e-5) if dtype == "float32" else (3e-2, 3e-2)
+    tol = (1e-4, 1e-5) if dtype == "float32" else (1e-5, 1e-5)
     g = torch.Generator(device=cuda).manual_seed(0)
     for B, S, Skv, H, KV, hd, causal, window, qo in FLASH_CASES:
         q = torch.randn((B, S, H, hd), generator=g, device=cuda).to(dt)
@@ -352,7 +355,7 @@ def test_forward_launches_flash_once_per_attention_layer(cuda):
                             device="cpu")
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (2, 64)).astype(np.int32))
-    on_card = _to(params, cuda)
+    on_card = convert.tree(params, cuda)
     n0 = FA.launches
     logits = TF.forward(cfg, on_card, {"tokens": toks.to(cuda)})[0]
     torch.cuda.synchronize()
@@ -365,11 +368,3 @@ def test_forward_launches_flash_once_per_attention_layer(cuda):
     assert torch.equal(rows[-1], logits)
     want = TF.forward(cfg, params, {"tokens": toks})[0]
     torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
-
-
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(_to(v, device) for v in tree)
-    return tree.to(device)

@@ -293,6 +293,17 @@ def test_centroid_update_plain_row_order_matches_jax(B):
     np.testing.assert_array_equal(_bits(out.numpy()), _bits(ref))
 
 
+@pytest.mark.parametrize("k,B", [(5, 1664), (8, 1040), (16, 552)])
+def test_centroid_update_plain_row_order_wider_k_matches_jax(k, B):
+    """More clusters at the largest row counts where the reference's sum
+    order does not depend on the CPUs the process may use (B * k below
+    about 8,900; measured on 1, 2 and 8 CPUs): bit-equal."""
+    c, x, a = _cu_inputs(B, k=k)
+    ref = np.asarray(JO.fleet_centroid_update(c, x, a, 10.0))
+    out = PCU.centroid_update(*map(torch.from_numpy, (c, x, a)), 10.0)
+    np.testing.assert_array_equal(_bits(out.numpy()), _bits(ref))
+
+
 def test_centroid_update_plain_fleet_windows_match_jax():
     """The forecaster's fleet shape: (D, W, F) windows flattened to rows,
     k = 4 clusters (256 x 3 = 768 rows, two blocks)."""
