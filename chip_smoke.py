@@ -56,19 +56,34 @@ Phases, each printing one line (any failure exits non-zero):
    random weights, fresh exit heads): ``prefill`` of one 4,096-token
    prompt and 64 ``decode_step``s; ``anytime_forward`` on 2 x 512 tokens
    and ``calibrate_thresholds`` at 0.98 agreement; the
-   ``AnytimeServeEngine`` (16 slots, 16-token prompts, 48 new tokens) on 64
-   requests every 0.25 s with a 2.5 s deadline under
-   ``calibrate_harvester(0.71, 0.35)``, with the calibrated thresholds and
-   again under EDF.  The launch counts are zeroed before and read after
-   (kernel G, once per layer of the prefill and of ``anytime_forward``);
-   then kernel G against its plain version in bf16 and f32 at the main
-   path's shape, causal 4,096, a 4,096 window over 8,192, glm4-9b's GQA
-   geometry, an odd length and a query offset, timed beside
-   ``scaled_dot_product_attention``; and the port on the card against the
-   port on the CPU (a reduced ``forward`` within 1e-4, one EDF engine run
-   equal);
-9. one JSON line naming every kernel with its launches, error, times and
-   bound.
+   ``AnytimeServeEngine`` (16 slots, 16-token prompts, 48 new tokens, 256
+   steps) on 64 requests every 0.25 s with a 2.5 s deadline under
+   ``calibrate_harvester(0.71, 0.35)`` and under a persistent supply, with
+   the calibrated thresholds and again under EDF.  The launch counts are
+   zeroed before and read after (kernel G, once per layer of the prefill
+   and of ``anytime_forward``; kernel H, once per layer of every decode
+   and engine step); then kernel G against its plain version in bf16 and
+   f32 at the main path's shape, causal 4,096, a 4,096 window over 8,192,
+   glm4-9b's GQA geometry, an odd length, a query offset and
+   recurrentgemma-9b's geometry (16 heads on one kv head, hd 256, window
+   2,048), timed beside ``scaled_dot_product_attention``; and the port on
+   the card against the port on the CPU (a reduced ``forward`` and a
+   prefill + decode within 1e-4, one EDF engine run equal);
+9. the same anytime path for the RG-LRU hybrid at recurrentgemma-9b's
+   published widths (38 layers: 26 rec, 12 attn with MQA and a 2,048-token
+   window; d_model 4,096, RG-LRU width 4,096 in 16 blocks, d_ff 12,288,
+   vocab 256,000, bf16, 10 units; 9.19 B parameters): the counts zeroed
+   before and read after (kernel G and kernel I once per attention and
+   recurrent layer of the prefill and of ``anytime_forward``, kernel H once
+   per attention layer of every decode and engine step); kernel H against
+   its plain version at the decode shape, an engine batch, glm4-9b's
+   geometry and a ragged cache, beside ``scaled_dot_product_attention``;
+   kernel I against its plain version bit for bit at the prefill's and
+   ``anytime_forward``'s shapes and an odd one; and the reduced hybrid on
+   the card against the CPU (a ``forward``, a prefill + decode, an EDF
+   engine run);
+10. one JSON line naming every kernel with its launches, error, times and
+    bound.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32``): f32 products are full f32, as on
@@ -105,7 +120,6 @@ REPLAY_KERNELS = ("fleet_priority", "fleet_fused_steps")
 TUNE_KERNELS = ("fleet_fused_steps",)
 ONLINE_KERNELS = ("fleet_fused_steps", "l1_topk2", "centroid_update",
                   "pairwise_l1")
-ANYTIME_KERNELS = ("flash_attention",)
 REPLACES = {
     "fleet_priority": "src/repro/kernels/fleet_priority.py:83",
     "fleet_fused_steps": "src/repro/kernels/fleet_step.py:114",
@@ -114,6 +128,8 @@ REPLACES = {
     "centroid_update": "src/repro/kernels/centroid_update.py:34",
     "pairwise_l1": "src/repro/kernels/pairwise_l1.py:32",
     "flash_attention": "src/repro/kernels/flash_attn.py:90",
+    "decode_gqa": "src/repro/kernels/decode_gqa.py:65",
+    "rglru_scan": "src/repro/kernels/rglru_scan.py:52",
 }
 SOURCES = {
     "fleet_priority": SRC + "fleet_priority.cu",
@@ -123,6 +139,8 @@ SOURCES = {
     "centroid_update": SRC + "centroid_update.cu",
     "pairwise_l1": SRC + "pairwise_l1.cu",
     "flash_attention": SRC + "flash_attn.cu",
+    "decode_gqa": SRC + "decode_gqa.cu",
+    "rglru_scan": SRC + "rglru_scan.cu",
 }
 
 
@@ -160,16 +178,32 @@ class Scale:
     fleet_devices: int   # devices of the fleet forecast arm
     cpu_check_s: float   # horizon of the card == CPU online check
     check_gains: bool    # the examples' score assertions (need full depth)
-    any_narrow: bool     # anytime: qwen1.5-0.5b at full width, or reduced
-    prefill_len: int     # anytime: prompt of the prefill + decode run
-    decode_steps: int
-    fwd_shape: tuple     # anytime_forward's (B, S)
-    any_requests: int    # the engine's request trace
-    any_slots: int
-    any_prompt: int
-    any_new: int
+    anytime: "AnyRun"    # phase 8: the dense anytime path
+    hybrid: "AnyRun"     # phase 9: the RG-LRU hybrid's anytime path
     flash_shapes: tuple  # kernel G checks: (B, S, Skv, H, KV, hd, causal,
     #                      window, q_offset); the first is the main path's
+    decode_shapes: tuple  # kernel H checks: (B, H, KV, hd, C, dtype,
+    #                       round_p, window); the first is phase 9's decode
+    rglru_shapes: tuple   # kernel I checks: (B, S, W, with h0); the first
+    #                       is phase 9's prefill
+
+
+@dataclasses.dataclass(frozen=True)
+class AnyRun:
+    """One anytime-serving path: the model, the prefill + decode run,
+    ``anytime_forward``'s batch and the engine's request trace."""
+
+    arch: str
+    narrow: bool         # the config's reduced() size (CPU rehearsal)
+    prefill_len: int     # prompt of the prefill + decode run
+    decode_steps: int
+    full_cache: bool     # prefill's cache holds prompt + decode (no ring)
+    fwd_shape: tuple     # anytime_forward's (B, S)
+    requests: int        # the engine's request trace
+    slots: int
+    prompt: int
+    new: int
+    max_steps: int       # the engine's horizon in steps
 
 
 FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
@@ -183,15 +217,26 @@ FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
              pw_shapes=((256, 256, 6), (33, 17, 1100), (4096, 4096, 512)),
              tune_seeds=16, tune_horizon=30.0, tune_budget=128, tune_pop=16,
              demo_horizon=318.0, demo_grid=10, fleet_devices=256,
-             cpu_check_s=106.0, check_gains=True, any_narrow=False,
-             prefill_len=4096, decode_steps=64, fwd_shape=(2, 512),
-             any_requests=64, any_slots=16, any_prompt=16, any_new=48,
+             cpu_check_s=106.0, check_gains=True,
+             anytime=AnyRun("qwen1.5-0.5b", False, 4096, 64, True, (2, 512),
+                            64, 16, 16, 48, 256),
+             hybrid=AnyRun("recurrentgemma-9b", False, 4096, 64, False,
+                           (2, 512), 64, 16, 16, 48, 256),
              flash_shapes=((2, 512, 512, 16, 16, 64, True, 0, 0),
                            (1, 4096, 4096, 16, 16, 64, True, 0, 0),
                            (1, 8192, 8192, 16, 16, 64, True, 4096, 0),
                            (1, 4096, 4096, 32, 2, 128, True, 0, 0),
                            (2, 37, 37, 16, 16, 64, True, 0, 0),
-                           (1, 512, 4608, 16, 16, 64, True, 0, 4096)))
+                           (1, 512, 4608, 16, 16, 64, True, 0, 4096),
+                           (1, 4096, 4096, 16, 1, 256, True, 2048, 0)),
+             decode_shapes=((1, 16, 1, 256, 2176, "bfloat16", True, 2048),
+                            (16, 16, 1, 256, 64, "bfloat16", True, 2048),
+                            (1, 16, 16, 64, 4160, "bfloat16", True, 0),
+                            (1, 32, 2, 128, 4096, "float32", False, 16),
+                            (2, 16, 1, 256, 37, "bfloat16", True, 0),
+                            (2, 16, 1, 256, 37, "float32", False, 0)),
+             rglru_shapes=((1, 4096, 4096, False), (2, 512, 4096, False),
+                           (3, 37, 53, True)))
 
 
 def _narrow():
@@ -212,11 +257,17 @@ def _narrow():
         pw_shapes=((16, 16, 6), (9, 5, 600), (64, 64, 64)),
         tune_seeds=1, tune_horizon=2.0, tune_budget=8, tune_pop=4,
         demo_horizon=10.0, demo_grid=2, fleet_devices=4, cpu_check_s=5.0,
-        check_gains=False, any_narrow=True, prefill_len=48, decode_steps=4,
-        fwd_shape=(2, 32), any_requests=4, any_slots=2, any_prompt=4,
-        any_new=4, flash_shapes=((2, 32, 32, 4, 4, 64, True, 0, 0),
-                                 (1, 37, 37, 4, 2, 16, True, 8, 0),
-                                 (1, 16, 80, 4, 4, 16, True, 0, 64)))
+        check_gains=False,
+        anytime=AnyRun("qwen1.5-0.5b", True, 48, 4, True, (2, 32), 4, 2, 4,
+                       4, 40),
+        hybrid=AnyRun("recurrentgemma-9b", True, 48, 4, False, (2, 32), 4, 2,
+                      4, 4, 40),
+        flash_shapes=((2, 32, 32, 4, 4, 64, True, 0, 0),
+                      (1, 37, 37, 4, 2, 16, True, 8, 0),
+                      (1, 16, 80, 4, 4, 16, True, 0, 64)),
+        decode_shapes=((1, 4, 1, 64, 48, "bfloat16", True, 64),
+                       (2, 4, 2, 16, 37, "float32", False, 16)),
+        rglru_shapes=((1, 48, 256, False), (3, 37, 53, True)))
 
 
 # --------------------------------------------------------------------------- #
@@ -1225,10 +1276,9 @@ def _online_phase(device, scale: Scale) -> dict:
                     default=default_score, **arms))
 
 # --------------------------------------------------------------------------- #
-# Anytime serving of the dense model configs (kernel G).
+# Anytime serving of the model configs (kernels G, H, I).
 # --------------------------------------------------------------------------- #
 
-ANY_ARCH = "qwen1.5-0.5b"
 ANY_PERIOD_S = 0.25
 ANY_DEADLINE_S = 2.5
 ANY_TARGET_AGREEMENT = 0.98
@@ -1239,35 +1289,49 @@ ANY_TARGET_AGREEMENT = 0.98
 # the JAX sweep's tolerance; bf16 is held at 1e-5, so a kernel that skipped
 # the bf16 rounding of p (a gap of about 1e-4) or misplaced a mask fails.
 FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-5, 1e-5)}
+# kernel H against its plain version (rtol, atol): the same f32 arithmetic
+# on the same inputs, differing in the summation order of the dot products
+# and of the softmax denominator; with round_p an order difference can move
+# a weight across a bf16 rounding boundary (one bf16 ulp of p times v)
+DECODE_TOL = (1e-5, 1e-5)
 
 
-def _any_config(scale: Scale):
+def _any_config(run: AnyRun):
     from repro_torch.configs import get_config
 
-    cfg = get_config(ANY_ARCH)
-    if scale.any_narrow:
-        cfg = dataclasses.replace(cfg.reduced(), n_layers=4)
+    cfg = get_config(run.arch)
+    if run.narrow:
+        cfg = cfg.reduced()
+        if run.arch == "qwen1.5-0.5b":
+            cfg = dataclasses.replace(cfg, n_layers=4)
     return cfg
 
 
-def _any_requests(cfg, scale: Scale, rng):
+def _any_requests(cfg, run: AnyRun, rng):
     from repro_torch.serve import AnytimeRequest
 
     return [AnytimeRequest(
-        prompt=rng.integers(0, cfg.vocab, scale.any_prompt).tolist(),
-        n_tokens=scale.any_new, release=ANY_PERIOD_S * i,
+        prompt=rng.integers(0, cfg.vocab, run.prompt).tolist(),
+        n_tokens=run.new, release=ANY_PERIOD_S * i,
         deadline=ANY_PERIOD_S * i + ANY_DEADLINE_S)
-        for i in range(scale.any_requests)]
+        for i in range(run.requests)]
 
 
-def _anytime_phase(device, scale: Scale) -> dict:
-    """The main path at qwen1.5-0.5b's published widths (seeded random
-    weights, fresh exit heads): prefill of one 4,096-token prompt and 64
-    decode steps; ``anytime_forward`` on 2 x 512 tokens and the exit
-    thresholds calibrated from it; the anytime engine and EDF on one
-    request trace under a solar harvester.  The launch counts are zeroed
-    before and read after (kernel G: once per layer in the prefill and in
-    ``anytime_forward``)."""
+def _layer_kinds(cfg) -> dict:
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    return {k: kinds.count(k) for k in ("attn", "rec")}
+
+
+def _anytime_phase(device, scale: Scale, run: AnyRun) -> dict:
+    """One anytime path at its config's published widths (seeded random
+    weights, fresh exit heads): the prefill of one prompt and
+    ``decode_steps`` decode steps; ``anytime_forward`` on ``fwd_shape`` and
+    the exit thresholds calibrated from it; the anytime engine and EDF on
+    one request trace under a solar harvester and a persistent supply.  The
+    launch counts are zeroed before and read after: kernel G once per
+    attention layer and kernel I once per recurrent layer in the prefill and
+    in ``anytime_forward``, kernel H once per attention layer in every
+    decode step and engine step."""
     import torch
 
     from repro_torch.core import energy
@@ -1276,30 +1340,35 @@ def _anytime_phase(device, scale: Scale) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.serve import AnytimeConfig, AnytimeServeEngine
 
-    cfg = _any_config(scale)
+    cfg = _any_config(run)
     rng = np.random.default_rng(5)
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=device).manual_seed(0),
                            device=device)
     heads = A.init_heads(cfg, device=device)
     n_params = sum(t.numel() for t in _leaves(params))
-    tag = " (reduced)" if scale.any_narrow else ""
-    print(f"anytime model: {ANY_ARCH}{tag}, {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, vocab "
-          f"{cfg.padded_vocab}, "
-          f"{cfg.dtype}, {cfg.n_units} units ({cfg.resolved_mandatory_units} "
-          f"mandatory), {n_params / 1e6:.1f} M parameters, built in "
+    kinds = _layer_kinds(cfg)
+    tag = " (reduced)" if run.narrow else ""
+    print(f"anytime model: {run.arch}{tag}, {cfg.n_layers} layers "
+          f"({kinds['attn']} attn, {kinds['rec']} rec), d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, hd "
+          f"{cfg.resolved_head_dim}, window {cfg.window}, vocab "
+          f"{cfg.padded_vocab}, {cfg.dtype}, {cfg.n_units} units "
+          f"({cfg.resolved_mandatory_units} mandatory), "
+          f"{n_params / 1e6:.1f} M parameters (param_count "
+          f"{cfg.param_count() / 1e6:.1f} M), built in "
           f"{time.perf_counter() - t0:.2f} s")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
     # ---- the main path: counts zeroed just before, read just after ------
     ops.reset_launch_counts()
-    P, steps = scale.prefill_len, scale.decode_steps
+    P, steps = run.prefill_len, run.decode_steps
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, P)).astype(
         np.int32)).to(device)
+    cache_len = P + steps if run.full_cache else None
     (logits, state), pre_s = _timed(lambda: T.prefill(
-        cfg, params, {"tokens": toks}, cache_len=P + steps), device)
+        cfg, params, {"tokens": toks}, cache_len=cache_len), device)
     tok = torch.argmax(logits, -1).to(torch.int32)
 
     def decode(n=steps):
@@ -1316,7 +1385,7 @@ def _anytime_phase(device, scale: Scale) -> dict:
     print(f"prefill {P} tokens: {pre_s:.3f} s; {steps} decode steps: "
           f"{1e3 * dec_s / steps:.2f} ms per step (host clock, synchronised)")
 
-    B2, S2 = scale.fwd_shape
+    B2, S2 = run.fwd_shape
     toks2 = torch.from_numpy(rng.integers(0, cfg.vocab, (B2, S2)).astype(
         np.int32)).to(device)
     ul, fwd_s = _timed(lambda: A.anytime_forward(cfg, params, heads,
@@ -1335,18 +1404,18 @@ def _anytime_phase(device, scale: Scale) -> dict:
           f"{[round(float(t), 3) for t in thr]} enabled "
           f"{[bool(u) for u in use]} ({cal_s:.3f} s)")
 
-    reqs = _any_requests(cfg, scale, rng)
-    served = {}
+    reqs = _any_requests(cfg, run, rng)
+    served, engine_ms = {}, []
     # the solar harvester of the §9.2 run, then a persistent supply: with
-    # the engine's default energy model a 16-slot full-depth step of the
-    # 8-unit model costs 12.85 J, far above what 0.35 W refills
+    # the engine's default energy model a 16-slot full-depth step costs far
+    # more than 0.35 W refills
     for supply_name, supply, policy in (
             ("solar", energy.calibrate_harvester(0.71, 0.35), "anytime"),
             ("solar", energy.calibrate_harvester(0.71, 0.35), "edf"),
             ("persistent", None, "anytime"), ("persistent", None, "edf")):
         eng = AnytimeServeEngine(cfg, params, heads, serve_cfg=AnytimeConfig(
-            policy=policy, batch_slots=scale.any_slots,
-            prompt_len=scale.any_prompt, max_new_tokens=scale.any_new),
+            policy=policy, batch_slots=run.slots, max_steps=run.max_steps,
+            prompt_len=run.prompt, max_new_tokens=run.new),
             supply=supply, seed=0)
         knobs = (eng.default_knobs(exit_thr=thr, use_exit_thr=use.float())
                  if policy == "anytime" else eng.default_knobs())
@@ -1357,8 +1426,9 @@ def _anytime_phase(device, scale: Scale) -> dict:
                 and np.all(res.depth_sum <= cfg.n_units * res.tokens)):
             raise AssertionError(f"anytime engine ({policy}): bad result")
         served[f"{policy}, {supply_name}"] = res
+        engine_ms.append(1e3 * wall / steps_run)
         print(f"engine {policy} ({supply_name} supply): {steps_run} steps of "
-              f"{scale.any_slots} slots in {wall:.3f} s "
+              f"{run.slots} slots in {wall:.3f} s "
               f"({1e3 * wall / steps_run:.2f} ms per step), "
               f"{res.completed / wall:.2f} requests completed/s, "
               f"{int(res.tokens.sum()) / wall:.2f} tokens/s; on-time "
@@ -1366,13 +1436,16 @@ def _anytime_phase(device, scale: Scale) -> dict:
               f"mean depth {res.mean_depth:.3f}/{cfg.n_units}, agreement "
               f"{res.agreement:.4f}, score {res.score:.4f}, simulated "
               f"horizon {res.horizon:.2f} s")
-    launches = {k: ops.launch_counts()[k] for k in ANYTIME_KERNELS}
+    counts = ops.launch_counts()
+    want = {"flash_attention": 2 * kinds["attn"],
+            "decode_gqa": kinds["attn"] * (steps + 4 * run.max_steps),
+            "rglru_scan": 2 * kinds["rec"]}
+    want = {k: n for k, n in want.items() if n}
+    launches = {k: counts[k] for k in want}
     if device.type == "cuda":
-        want = 2 * cfg.n_layers
-        if launches["flash_attention"] != want:
-            raise AssertionError(f"flash_attention launched "
-                                 f"{launches['flash_attention']} times on "
-                                 f"the anytime path, not {want}")
+        if launches != want:
+            raise AssertionError(f"{run.arch}: launches {launches} on the "
+                                 f"anytime path, not {want}")
         peak = torch.cuda.max_memory_allocated(device) / 2**30
         print(f"anytime launches {json.dumps(launches)}; peak device memory "
               f"{peak:.2f} GiB")
@@ -1386,9 +1459,9 @@ def _anytime_phase(device, scale: Scale) -> dict:
         for _ in range(n):
             carry[0] = eng._step(tables, carry[0], knobs)
 
-    _profile(device, "engine step", scale.any_slots, 5, engine_steps)
-    return dict(launches=launches, prefill_s=pre_s,
-                decode_ms=1e3 * dec_s / steps, forward_s=fwd_s,
+    _profile(device, "engine step", run.slots, 5, engine_steps)
+    return dict(launches=launches, prefill_s=pre_s, decode_ms=1e3 * dec_s / steps,
+                forward_s=fwd_s, engine_ms=engine_ms,
                 engine={p: r.as_dict() for p, r in served.items()})
 
 
@@ -1485,11 +1558,130 @@ def _flash_phase(device, scale: Scale) -> dict:
     return row
 
 
-def _any_cpu_check(device, scale: Scale) -> None:
-    """The port on the card against the port on the CPU: a reduced
-    qwen1.5-0.5b ``forward`` (f32; kernel G against the chunked path, rtol
-    = atol = 1e-4) and one EDF engine run (the result arrays equal: the
-    depth is fixed and every emitted token agrees with itself)."""
+def _decode_inputs(shape, g, device):
+    """Kernel H's inputs at ``shape``: a cache of ``C`` slots holding
+    positions 0 .. pos per row (pos from C - 1 down to C // 2 over the
+    rows),
+    the rest empty (-1)."""
+    import torch
+
+    B, H, KV, hd, C, dtype, round_p, window = shape
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, H, hd), generator=g, device=device).to(dt)
+    k = torch.randn((B, C, KV, hd), generator=g, device=device).to(dt)
+    v = torch.randn((B, C, KV, hd), generator=g, device=device).to(dt)
+    pos = torch.linspace(C - 1, C // 2, B, device=device).to(torch.int32)
+    slots = torch.arange(C, device=device, dtype=torch.int32)
+    slot_pos = torch.where(slots[None, :] <= pos[:, None], slots[None, :],
+                           -1).to(torch.int32)
+    return q, k, v, slot_pos, pos
+
+
+def _decode_phase(device, scale: Scale) -> dict:
+    """Kernel H against its plain version at ``scale.decode_shapes``, with
+    the times of H, the plain version and one
+    ``scaled_dot_product_attention`` call on the same cache with a boolean
+    slot mask (the yardstick; never on the port's path) and the bound: the
+    bytes (q, the caches, the positions read once, the f32 output written
+    once) over HBM bandwidth against the flops (4 * H * C * hd per row)
+    over the f32 peak."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_gqa as DG
+
+    g = torch.Generator(device=device).manual_seed(4)
+    rows = []
+    for shape in scale.decode_shapes:
+        B, H, KV, hd, C, dtype, round_p, window = shape
+        q, k, v, slot_pos, pos = _decode_inputs(shape, g, device)
+        kw = dict(window=window, round_p=round_p)
+        out = DG.decode_gqa(q, k, v, slot_pos, pos, **kw)
+        ref = DG.decode_gqa_plain(q, k, v, slot_pos, pos, **kw)
+        torch.testing.assert_close(out, ref, rtol=DECODE_TOL[0],
+                                   atol=DECODE_TOL[1])
+        err = _max_err(out, ref)
+        ms = _ms(lambda: DG.decode_gqa(q, k, v, slot_pos, pos, **kw), device)
+        plain_ms = _ms(lambda: DG.decode_gqa_plain(q, k, v, slot_pos, pos,
+                                                   **kw), device, reps=5,
+                       warmup=1)
+        valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
+        if window:
+            valid &= pos[:, None] - slot_pos <= window
+        qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        kt, vt = kt.contiguous(), vt.contiguous()
+        mask = valid[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=KV != H)
+
+        lib_ms = _ms(sdpa, device)
+        bound_ms, by = _bound(
+            _nbytes(q, k, v, slot_pos, pos) + out.numel() * 4,
+            4.0 * B * H * C * hd)
+        label = (f"B={B} H={H} KV={KV} hd={hd} C={C} {dtype}"
+                 f"{' round_p' if round_p else ''}"
+                 f"{f' window={window}' if window else ''}")
+        print(f"decode_gqa ({label}): max err {err:.3g} vs plain; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+              f"bound {bound_ms:.6f} ms ({by})")
+        rows.append(dict(shape=label, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=by))
+    row = dict(rows[0])
+    row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    row["shapes"] = rows[1:]
+    return row
+
+
+def _rglru_phase(device, scale: Scale) -> dict:
+    """Kernel I against its plain version, bit for bit, at
+    ``scale.rglru_shapes``, with the times of I and the plain version and
+    the bound: a, b read once, h written once, h0 read and h_last written
+    (bytes over HBM bandwidth; one FMA per element).  PyTorch has no
+    linear-recurrence scan, so there is no one-call yardstick
+    (``library_ms`` is null)."""
+    import torch
+
+    from repro_torch.kernels import rglru_scan as RS
+
+    g = torch.Generator(device=device).manual_seed(5)
+    rows = []
+    for B, S, W, with_h0 in scale.rglru_shapes:
+        a = 0.7 + 0.299 * torch.rand((B, S, W), generator=g, device=device)
+        b = 0.1 * torch.randn((B, S, W), generator=g, device=device)
+        h0 = (torch.randn((B, W), generator=g, device=device) if with_h0
+              else torch.zeros((B, W), device=device))
+        h, hl = RS.rglru_scan(a, b, h0)
+        rh, rhl = RS.rglru_scan_plain(a, b, h0)
+        if not (torch.equal(h, rh) and torch.equal(hl, rhl)):
+            raise AssertionError(f"rglru_scan kernel != plain version at "
+                                 f"{(B, S, W)}")
+        ms = _ms(lambda: RS.rglru_scan(a, b, h0), device)
+        plain_ms = _ms(lambda: RS.rglru_scan_plain(a, b, h0), device, reps=1,
+                       warmup=0)
+        bound_ms, by = _bound(_nbytes(a, b, h0, h, hl), 2.0 * B * S * W)
+        label = f"B={B} S={S} W={W}{' h0' if with_h0 else ''}"
+        print(f"rglru_scan ({label}): equal to plain; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}); no "
+              "one-call PyTorch equivalent (no linear-recurrence scan)")
+        rows.append(dict(shape=label, max_abs_err=0.0, ms=ms,
+                         plain_ms=plain_ms, library_ms=None,
+                         bound_ms=bound_ms, bound_by=by))
+    row = dict(rows[0])
+    row["shapes"] = rows[1:]
+    return row
+
+
+def _any_cpu_check(device, run: AnyRun, S: int) -> None:
+    """The port on the card against the port on the CPU at the config's
+    reduced size (f32): a ``forward`` of 2 x ``S`` tokens (kernels G and I
+    against the chunked path and the associative scan, rtol = atol =
+    1e-4), a prefill of ``S`` tokens and four decode steps (kernel H
+    against the einsum path, 1e-4), and one EDF engine run (the result
+    arrays equal: the depth is fixed and every emitted token agrees with
+    itself)."""
     import torch
 
     from repro_torch import convert
@@ -1497,28 +1689,40 @@ def _any_cpu_check(device, scale: Scale) -> None:
     from repro_torch.models import transformer as T
     from repro_torch.serve import AnytimeConfig, AnytimeServeEngine
 
-    cfg = get_config(ANY_ARCH).reduced()
+    cfg = get_config(run.arch).reduced()
     cpu = torch.device("cpu")
     params = T.init_params(cfg, torch.Generator().manual_seed(1), device=cpu)
     on_dev = convert.tree(params, device)
     rng = np.random.default_rng(9)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128)).astype(
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, S)).astype(
         np.int32))
     a = T.forward(cfg, on_dev, {"tokens": toks.to(device)})[0].cpu()
     b = T.forward(cfg, params, {"tokens": toks})[0]
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    la, sa = T.prefill(cfg, on_dev, {"tokens": toks.to(device)})
+    lb, sb = T.prefill(cfg, params, {"tokens": toks})
+    dec_err = _max_err(la.cpu(), lb)
+    for _ in range(4):
+        torch.testing.assert_close(la.cpu(), lb, rtol=1e-4, atol=1e-4)
+        tok = torch.argmax(lb, -1).to(torch.int32)
+        la, sa = T.decode_step(cfg, on_dev, sa, tok.to(device))
+        lb, sb = T.decode_step(cfg, params, sb, tok)
+        dec_err = max(dec_err, _max_err(la.cpu(), lb))
+    torch.testing.assert_close(la.cpu(), lb, rtol=1e-4, atol=1e-4)
     sc = AnytimeConfig(policy="edf", batch_slots=2, max_steps=96,
                        prompt_len=4, max_new_tokens=4)
     reqs = _any_requests(cfg, dataclasses.replace(
-        scale, any_requests=6, any_prompt=4, any_new=4), rng)
+        run, requests=6, prompt=4, new=4), rng)
     r_dev = AnytimeServeEngine(cfg, on_dev, serve_cfg=sc).run(reqs)
     r_cpu = AnytimeServeEngine(cfg, params, serve_cfg=sc).run(reqs)
     for f in ("status", "finish", "agree", "tokens", "depth_sum"):
         if not np.array_equal(getattr(r_dev, f), getattr(r_cpu, f)):
-            raise AssertionError(f"engine on the card != the CPU: {f}")
-    print(f"anytime card vs CPU: reduced forward within 1e-4 (max err "
-          f"{_max_err(a, b):.3g}); EDF engine run equal on every result "
-          f"array ({r_dev.on_time}/{r_dev.n_requests} on time)")
+            raise AssertionError(f"{run.arch} engine on the card != the "
+                                 f"CPU: {f}")
+    print(f"anytime card vs CPU ({run.arch} reduced): forward within 1e-4 "
+          f"(max err {_max_err(a, b):.3g}); prefill + 4 decode steps within "
+          f"1e-4 (max err {dec_err:.3g}); EDF engine run equal on every "
+          f"result array ({r_dev.on_time}/{r_dev.n_requests} on time)")
 
 
 def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
@@ -1540,20 +1744,25 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
     f_row = _pw_phase(device, scale, rng)
     tune = _tune_phase(device, scale)
     online = _online_phase(device, scale)
-    anytime = _anytime_phase(device, scale)
+    anytime = _anytime_phase(device, scale, scale.anytime)
     g_row = _flash_phase(device, scale)
-    _any_cpu_check(device, scale)
+    _any_cpu_check(device, scale.anytime, 128)
+    hybrid = _anytime_phase(device, scale, scale.hybrid)
+    h_row = _decode_phase(device, scale)
+    i_row = _rglru_phase(device, scale)
+    _any_cpu_check(device, scale.hybrid, 128)
     # each path's launches were counted from zero; a kernel on several
     # paths reports their sum and the count of each
     paths = dict(serve=serve["launches"], replay=replay["launches"],
                  tune=tune["launches"], online=online["launches"],
-                 anytime=anytime["launches"])
+                 anytime=anytime["launches"], hybrid=hybrid["launches"])
     rows = []
     for name, row in (("fleet_priority", replay["a_row"]),
                       ("fleet_fused_steps", replay["b_row"]),
                       ("serve_fused_steps", serve["c_row"]),
                       ("l1_topk2", d_row), ("centroid_update", e_row),
-                      ("pairwise_l1", f_row), ("flash_attention", g_row)):
+                      ("pairwise_l1", f_row), ("flash_attention", g_row),
+                      ("decode_gqa", h_row), ("rglru_scan", i_row)):
         by_path = {p: c[name] for p, c in paths.items() if name in c}
         rows.append(dict(name=name, route="cuda", source=SOURCES[name],
                          replaces=REPLACES[name],

@@ -19,10 +19,11 @@ modes); online adaptation (:mod:`repro_torch.adapt`: offline tuning with
 ``TuneProblem`` and ``tune``, the runtime eta/E_opt loop of
 ``OnlineAdapter`` and the harvest forecaster); the model configs
 (:mod:`repro_torch.configs`) and anytime serving of the dense attention
-family (:mod:`repro_torch.models.transformer`,
-:mod:`repro_torch.models.anytime`,
+family and the RG-LRU hybrid (:mod:`repro_torch.models.transformer`,
+:mod:`repro_torch.models.rglru`, :mod:`repro_torch.models.anytime`,
 :class:`repro_torch.serve.anytime.AnytimeServeEngine`).  Kernels:
 ``fleet_priority``, ``fleet_fused_steps``, ``serve_fused_steps``,
-``l1_topk2``, ``centroid_update``, ``pairwise_l1`` and ``flash_attention``.
+``l1_topk2``, ``centroid_update``, ``pairwise_l1``, ``flash_attention``,
+``decode_gqa`` and ``rglru_scan``.
 """
 from . import adapt  # noqa: F401

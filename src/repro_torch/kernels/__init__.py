@@ -2,8 +2,8 @@
 
 ``ops`` holds the public entry points (``fleet_priority``,
 ``fleet_fused_steps``, ``serve_fused_steps``, ``l1_topk2``,
-``centroid_update``, ``pairwise_l1``, ``flash_attention``) and their
-launch counters;
+``centroid_update``, ``pairwise_l1``, ``flash_attention``,
+``decode_gqa``, ``rglru_scan``) and their launch counters;
 ``csrc/`` the CUDA sources, built by ``_build`` with ``nvcc`` for
 ``sm_90a`` at first use.
 Nothing here imports a compiler or touches a GPU at import time.

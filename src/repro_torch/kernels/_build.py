@@ -25,7 +25,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("l1_topk2", "centroid_update", "serve_fused", "fleet_fused",
-           "fleet_priority", "pairwise_l1", "flash_attn")
+           "fleet_priority", "pairwise_l1", "flash_attn", "decode_gqa",
+           "rglru_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

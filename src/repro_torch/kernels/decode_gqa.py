@@ -1,0 +1,165 @@
+"""One-token GQA attention against a ring-buffer KV cache (kernel H).
+
+Replaces the Pallas TPU kernel ``repro/kernels/decode_gqa.py:decode_gqa``:
+``q`` ``(B, H, hd)``, caches ``(B, C, KV, hd)``, ``slot_pos`` ``(B, C)``
+(the absolute position in each slot, -1 = empty) and ``my_pos`` ``(B,)``
+-> ``(B, H, hd)`` f32, the ``G = H // KV`` query heads of a kv head sharing
+its cache.  Scores are f32 ``q . k * hd**-0.5``; a slot is valid iff ``0 <=
+slot <= pos`` (and ``pos - slot <= window`` when ``window``); invalid
+scores are ``-1e30``.  Two functions, chosen by ``round_p``:
+
+* ``round_p=False`` is the Pallas kernel's: ``sum_c exp(s_c - m) v_c /
+  max(l, 1e-30)`` with ``l = sum_c exp(s_c - m)``, the division last.  A
+  query that sees no valid slot takes ``p = 1`` on every slot, as the
+  reference's online softmax does while its running max is still
+  ``-1e30``, and its ``l`` is the reference's padded slot count (``C``
+  rounded up to its 512-slot tile): the mean of ``v`` over that count.
+* ``round_p=True`` is the model's :func:`repro_torch.models.attention
+  .decode_attention`: the normalised softmax ``p = exp(s - m) / l`` is
+  rounded to the cache's dtype before the PV product (the reference's
+  ``p.astype(v_cache.dtype)``).  A query that sees no valid slot gets the
+  softmax of all ``-1e30``: ``p = 1 / C`` on every slot.
+
+Both need the row max (and for ``round_p`` the denominator) over all valid
+slots before the PV product, so both versions take two passes over the
+cache instead of the online update; the result differs from the online form
+only by rounding.  The CUDA kernel (``csrc/decode_gqa.cu``) reads bf16 or
+f32 caches as stored; :func:`decode_gqa_plain` computes the same function
+with PyTorch ops and the kernel's weights: each score is the same
+sequential chain of fused multiply-adds over ``hd`` (:func:`~repro_torch
+.core._fma.fma_f32`), ``exp`` and the denominator are taken in f64 and
+rounded to f32 (order-independent at f32 precision), so ``p`` agrees bit
+for bit, also after its rounding to bf16; the two differ only in the
+summation order of the PV product.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core._fma import fma_f32
+from . import _build
+
+#: launches of the CUDA kernel (the plain version never counts)
+launches = 0
+
+NEG = -1e30
+#: the reference's cache tile (``choose_block(C, 512)``)
+REF_BLOCK_C = 512
+#: the largest head dim and query-group size the kernel takes
+MAX_HEAD_DIM = 256
+MAX_GROUP = 32
+
+
+def _ref_slot_count(c: int) -> int:
+    """The reference's padded slot count: ``C`` rounded up to its tile."""
+    bc = min(REF_BLOCK_C, c)
+    return -(-c // bc) * bc
+
+
+def decode_gqa_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, slot_pos: torch.Tensor,
+                     my_pos: torch.Tensor, *, window: int = 0,
+                     round_p: bool = False) -> torch.Tensor:
+    """The plain PyTorch version: the whole cache at once, two passes."""
+    B, H, hd = q.shape
+    C, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    f32 = torch.float32
+    qg = q.to(f32).reshape(B, KV, G, hd)
+    kt = k_cache.to(f32).permute(0, 2, 3, 1)[:, :, None]   # (B, KV, 1, hd, C)
+    s = torch.zeros((B, KV, G, C), dtype=f32, device=q.device)
+    for d in range(hd):      # the kernel's order: d = 0 .. hd-1, one rounding
+        s = fma_f32(qg[..., d, None], kt[..., d, :], s)
+    s = s * hd ** -0.5
+    slot_pos, my_pos = slot_pos.to(torch.int64), my_pos.to(torch.int64)
+    valid = (slot_pos >= 0) & (slot_pos <= my_pos[:, None])
+    if window:
+        valid = valid & (my_pos[:, None] - slot_pos <= window)
+    s = torch.where(valid[:, None, None, :], s, NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp((s - m).to(torch.float64)).to(f32)
+    l = p.to(torch.float64).sum(dim=-1, keepdim=True).to(f32)
+    if round_p:
+        p = (p / l).to(v_cache.dtype).to(f32)
+        o = torch.einsum("bkgc,bckh->bkgh", p, v_cache.to(f32))
+    else:
+        l = torch.where(m == NEG, float(_ref_slot_count(C)), l)
+        o = torch.einsum("bkgc,bckh->bkgh", p, v_cache.to(f32))
+        o = o / torch.clamp(l, min=1e-30)
+    return o.reshape(B, H, hd)
+
+
+def _check(q, k_cache, v_cache, slot_pos, my_pos):
+    if q.dim() != 3 or k_cache.dim() != 4:
+        raise ValueError("decode_gqa: q (B, H, hd), caches (B, C, KV, hd)")
+    B, H, hd = q.shape
+    if (k_cache.shape != v_cache.shape or k_cache.shape[0] != B
+            or k_cache.shape[3] != hd or H % k_cache.shape[2]
+            or slot_pos.shape != (B, k_cache.shape[1])
+            or my_pos.shape != (B,)):
+        raise ValueError(
+            f"decode_gqa: q {tuple(q.shape)}, caches {tuple(k_cache.shape)}"
+            f"/{tuple(v_cache.shape)}, slot_pos {tuple(slot_pos.shape)}, "
+            f"my_pos {tuple(my_pos.shape)}")
+    if not (q.dtype == k_cache.dtype == v_cache.dtype) or q.dtype not in (
+            torch.float32, torch.bfloat16):
+        raise TypeError("decode_gqa takes float32 or bfloat16 q and caches "
+                        "of one dtype")
+    if slot_pos.dtype.is_floating_point or my_pos.dtype.is_floating_point:
+        raise TypeError("decode_gqa takes integer slot_pos and my_pos")
+    if len({t.device for t in (q, k_cache, v_cache, slot_pos,
+                               my_pos)}) != 1:
+        raise ValueError("decode_gqa: inputs on different devices")
+
+
+def decode_gqa(q: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, slot_pos: torch.Tensor,
+               my_pos: torch.Tensor, *, window: int = 0,
+               round_p: bool = False) -> torch.Tensor:
+    """``(B, H, hd)`` f32 attention output.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (``hd <= 256``, ``G = H //
+    KV <= 32``; positions are cast to int32)."""
+    global launches
+    _check(q, k_cache, v_cache, slot_pos, my_pos)
+    if q.device.type == "cpu":
+        return decode_gqa_plain(q, k_cache, v_cache, slot_pos, my_pos,
+                                window=window, round_p=round_p)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_gqa: unsupported device {q.device}")
+    B, H, hd = q.shape
+    C, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    if hd > MAX_HEAD_DIM or G > MAX_GROUP:
+        raise ValueError(f"decode_gqa: the kernel takes hd <= "
+                         f"{MAX_HEAD_DIM} and G <= {MAX_GROUP}; got hd={hd},"
+                         f" G={G}")
+    if C == 0:
+        raise ValueError("decode_gqa: an empty cache")
+    out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    q, k_cache, v_cache = (q.contiguous(), k_cache.contiguous(),
+                           v_cache.contiguous())
+    slot_pos = slot_pos.to(torch.int32).contiguous()
+    my_pos = my_pos.to(torch.int32).contiguous()
+    # the scores, then the softmax weights, of every (row, kv head, head,
+    # slot): the scratch between the kernel's passes
+    scratch = torch.empty((B, KV, G, C), dtype=torch.float32,
+                          device=q.device)
+    lib = _build.load("decode_gqa")
+    fn = lib.decode_gqa_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int]
+                   + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+             slot_pos.data_ptr(), my_pos.data_ptr(), B, C, H, KV, hd,
+             int(window), int(round_p), hd ** -0.5,
+             float(_ref_slot_count(C)),
+             1 if q.dtype == torch.bfloat16 else 0, scratch.data_ptr(),
+             out.data_ptr(), _build.stream_handle(q.device))
+    _build.check(err, "decode_gqa")
+    launches += 1
+    return out

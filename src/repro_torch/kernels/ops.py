@@ -13,17 +13,21 @@ them, so a run can show that its main path went through the kernels.
 from __future__ import annotations
 
 from . import centroid_update as _cu
+from . import decode_gqa as _dg
 from . import flash_attn as _fa
 from . import fleet_priority as _fp
 from . import fleet_step as _fs
 from . import l1_topk2 as _l1
 from . import pairwise_l1 as _pw
+from . import rglru_scan as _rg
 from .centroid_update import centroid_update  # noqa: F401
+from .decode_gqa import decode_gqa  # noqa: F401
 from .flash_attn import flash_attention  # noqa: F401
 from .fleet_priority import fleet_priority  # noqa: F401
 from .fleet_step import fleet_fused_steps, serve_fused_steps  # noqa: F401
 from .l1_topk2 import l1_topk2  # noqa: F401
 from .pairwise_l1 import pairwise_l1  # noqa: F401
+from .rglru_scan import rglru_scan  # noqa: F401
 
 #: kernel name -> (module, name of its launch counter)
 _MODULES = {"fleet_priority": (_fp, "launches"),
@@ -32,7 +36,9 @@ _MODULES = {"fleet_priority": (_fp, "launches"),
             "l1_topk2": (_l1, "launches"),
             "centroid_update": (_cu, "launches"),
             "pairwise_l1": (_pw, "launches"),
-            "flash_attention": (_fa, "launches")}
+            "flash_attention": (_fa, "launches"),
+            "decode_gqa": (_dg, "launches"),
+            "rglru_scan": (_rg, "launches")}
 
 
 def launch_counts() -> dict[str, int]:

@@ -8,8 +8,14 @@ to ``q``'s dtype, as the reference's TPU branch does; a CPU tensor runs the
 port of the reference's XLA path (a static list of the (query-chunk,
 kv-chunk) pairs inside the causal / window footprint, scanned with an
 online-softmax carry), so the CPU port tracks the JAX function the tests
-call.  :func:`decode_attention` is plain PyTorch on both, as the
-reference computes it outside any Pallas kernel.
+call.  :func:`decode_attention` does the same with kernel H
+(:func:`repro_torch.kernels.ops.decode_gqa` with ``round_p=True``: the
+normalised softmax rounded to the cache's dtype before the PV product, as
+the reference's ``p.astype(v_cache.dtype)``), its output cast to ``q``'s
+dtype; a CPU tensor keeps the plain einsum path.  The reference computes
+``decode_attention`` with einsums and never reaches its Pallas kernel; the
+port takes the kernel's place on the card as it does for
+``chunked_attention``.
 """
 from __future__ import annotations
 
@@ -118,6 +124,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     query token's position.  Operands in their own dtype with f32 sums (a
     bf16 product is exact in f32), scores and softmax in f32.
     """
+    if q.device.type == "cuda":
+        o = kops.decode_gqa(q, k_cache, v_cache, slot_pos, my_pos,
+                            window=window, round_p=True)
+        return o.to(q.dtype)
     B, H, hd = q.shape
     KV = k_cache.shape[2]
     G = H // KV

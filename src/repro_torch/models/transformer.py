@@ -1,5 +1,5 @@
-"""Model assembly for the dense attention family (port of
-:mod:`repro.models.transformer`).
+"""Model assembly for the dense attention family and the RG-LRU hybrid
+(port of :mod:`repro.models.transformer`).
 
 Parameters keep the reference's stacked layout, so a converted JAX pytree
 drops straight in (:func:`repro_torch.convert.transformer_params`):
@@ -8,12 +8,14 @@ of dicts whose leaves carry a leading ``(n_scan, ...)`` layer axis, and
 ``params["layers"]["rem"]`` holds the remainder blocks.  The reference
 scans over that axis under ``jit``; the port loops over it eagerly.
 
-This slice ports the ``"attn"`` block kind with a dense FFN (the ``dense``
-family: qwen1.5-0.5b, glm4-9b, minitron-8b, stablelm-3b).  The other block
-kinds, the MoE FFN, the encoder-decoder's cross-attention and the VLM's
-frontend tokens raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.  ``remat`` / ``remat_attention`` are training knobs: accepted
-and ignored in the forward pass.  JAX's arrays are immutable; the port's
+The port runs the ``"attn"`` block kind with a dense FFN (the ``dense``
+family: qwen1.5-0.5b, glm4-9b, minitron-8b, stablelm-3b) and the ``"rec"``
+block kind (conv1d + RG-LRU, :mod:`repro_torch.models.rglru`; the hybrid
+recurrentgemma-9b).  The xLSTM block kinds, the MoE FFN, the
+encoder-decoder's cross-attention and the VLM's frontend tokens raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
+``remat`` / ``remat_attention`` are training knobs: accepted and ignored
+in the forward pass.  JAX's arrays are immutable; the port's
 functions return new state dicts too (a KV-cache write copies the cache of
 that layer), so a caller's state is never changed in place.
 
@@ -28,6 +30,7 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import rglru as rg
 from .attention import chunked_attention, decode_attention
 from .common import (
     apply_norm,
@@ -44,9 +47,10 @@ from .common import (
 _F32 = torch.float32
 _I32 = torch.int32
 
+#: the block kinds the port runs
+_KINDS = ("attn", "rec")
 #: what each unported part of the model zoo waits for
 _TODO = {
-    "rec": "the RG-LRU block (models/rglru.py) and kernel I",
     "mlstm": "the xLSTM blocks (models/xlstm.py)",
     "slstm": "the xLSTM blocks (models/xlstm.py)",
     "moe": "the MoE FFN (models/moe.py)",
@@ -62,10 +66,11 @@ def _unported(what: str):
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense attention
-    model (block kind ``"attn"``, no experts, no encoder, no frontend)."""
+    """Raise ``NotImplementedError`` unless ``cfg`` is built of the block
+    kinds ``"attn"`` and ``"rec"`` with no experts, no encoder and no
+    frontend."""
     for kind in cfg.block_pattern:
-        if kind != "attn":
+        if kind not in _KINDS:
             raise _unported(kind)
     if cfg.n_experts:
         raise _unported("moe")
@@ -106,13 +111,21 @@ def _init_ffn(g, cfg, dtype) -> dict:
 
 
 def init_block(g, cfg, kind: str) -> dict:
-    if kind != "attn":
+    if kind not in _KINDS:
         raise _unported(kind)
     dtype = dtype_of(cfg)
     d = cfg.d_model
-    p: dict = {"norm1": norm_init(cfg.norm, d, dtype, g.device),
-               "attn": _init_attn(g, cfg, dtype),
-               "norm2": norm_init(cfg.norm, d, dtype, g.device)}
+    p: dict = {"norm1": norm_init(cfg.norm, d, dtype, g.device)}
+    if kind == "attn":
+        p["attn"] = _init_attn(g, cfg, dtype)
+    else:
+        w = cfg.resolved_rglru_width
+        p["gate_proj"] = dense_init(g, d, (w,), dtype)
+        p["rec_proj"] = dense_init(g, d, (w,), dtype)
+        p["conv"] = rg.init_conv1d(g, w, cfg.conv1d_width, dtype)
+        p["rglru"] = rg.init_rglru(g, w, dtype, n_blocks=cfg.n_heads)
+        p["out_proj"] = dense_init(g, w, (d,), dtype)
+    p["norm2"] = norm_init(cfg.norm, d, dtype, g.device)
     if cfg.d_ff:
         p["ffn"] = _init_ffn(g, cfg, dtype)
     return p
@@ -138,13 +151,16 @@ def block_seq(p: dict, cfg, kind: str, x: torch.Tensor, *,
               enc_out: Optional[torch.Tensor] = None, causal: bool = True,
               window: Optional[int] = None, collect_cache: bool = False):
     """x: (B, S, D) -> (x, aux_loss, cache_kv or None)."""
-    if kind != "attn":
+    if kind not in _KINDS:
         raise _unported(kind)
     if "xattn" in p or enc_out is not None:
         raise _unported("xattn")
     if "moe" in p:
         raise _unported("moe")
     aux = torch.zeros((), dtype=_F32, device=x.device)
+    if kind == "rec":
+        x, _, _ = _rec_seq(p, cfg, x)
+        return x, aux, None
     cache = None
     B, S, D = x.shape
     window = cfg.window if window is None else window
@@ -160,6 +176,22 @@ def block_seq(p: dict, cfg, kind: str, x: torch.Tensor, *,
     y = (_apply_ffn(p["ffn"], cfg, h2) if "ffn" in p
          else torch.zeros_like(x))
     return x + y, aux, cache
+
+
+def _rec_seq(p: dict, cfg, x: torch.Tensor):
+    """The ``"rec"`` block over a sequence: (x, the RG-LRU's last state
+    (B, W) f32, the conv's pre-conv input r (B, S, W))."""
+    h = apply_norm(cfg.norm, p["norm1"], x)
+    gate = F.gelu(torch.einsum("bsd,dw->bsw", h, p["gate_proj"]),
+                  approximate="tanh")
+    r = torch.einsum("bsd,dw->bsw", h, p["rec_proj"])
+    rc = rg.conv1d_seq(p["conv"], r)
+    ry, h_last = rg.rglru_seq(p["rglru"], rc)
+    x = x + torch.einsum("bsw,wd->bsd", gate * ry, p["out_proj"])
+    if cfg.d_ff:
+        h2 = apply_norm(cfg.norm, p["norm2"], x)
+        x = x + _apply_ffn(p["ffn"], cfg, h2)
+    return x, h_last, r
 
 
 def _apply_ffn(p: dict, cfg, h: torch.Tensor) -> torch.Tensor:
@@ -203,7 +235,7 @@ def block_step(p: dict, cfg, kind: str, x: torch.Tensor, state: dict,
                pos: torch.Tensor, *, window: Optional[int] = None):
     """x: (B, D); state: per-block decode state; pos: (B,) current
     position."""
-    if kind != "attn":
+    if kind not in _KINDS:
         raise _unported(kind)
     if "xattn" in p:
         raise _unported("xattn")
@@ -211,6 +243,18 @@ def block_step(p: dict, cfg, kind: str, x: torch.Tensor, state: dict,
         raise _unported("moe")
     window = cfg.window if window is None else window
     new_state = dict(state)
+    if kind == "rec":
+        h = apply_norm(cfg.norm, p["norm1"], x)
+        gate = F.gelu(torch.einsum("bd,dw->bw", h, p["gate_proj"]),
+                      approximate="tanh")
+        r = torch.einsum("bd,dw->bw", h, p["rec_proj"])
+        r, new_state["buf"] = rg.conv1d_step(p["conv"], r, state["buf"])
+        r, new_state["h"] = rg.rglru_step(p["rglru"], r, state["h"])
+        x = x + torch.einsum("bw,wd->bd", gate * r, p["out_proj"])
+        if cfg.d_ff:
+            h2 = apply_norm(cfg.norm, p["norm2"], x)
+            x = x + _apply_ffn(p["ffn"], cfg, h2[:, None])[:, 0]
+        return x, new_state
     h = apply_norm(cfg.norm, p["norm1"], x)[:, None]            # (B, 1, D)
     q, k, v = _qkv(p["attn"], cfg, h, pos[:, None])
     q, k, v = q[:, 0], k[:, 0], v[:, 0]
@@ -332,9 +376,14 @@ def forward(cfg, params, batch: dict, *, window: Optional[int] = None,
 
 def _block_state(cfg, kind: str, batch: int, cache_len: int,
                  device) -> dict:
-    if kind != "attn":
+    if kind not in _KINDS:
         raise _unported(kind)
     dtype = dtype_of(cfg)
+    if kind == "rec":
+        w = cfg.resolved_rglru_width
+        return {"h": torch.zeros((batch, w), dtype=_F32, device=device),
+                "buf": torch.zeros((batch, cfg.conv1d_width - 1, w),
+                                   dtype=dtype, device=device)}
     hd, KV = cfg.resolved_head_dim, cfg.n_kv_heads
     return {"k": torch.zeros((batch, cache_len, KV, hd), dtype=dtype,
                              device=device),
@@ -427,9 +476,10 @@ def decode_step(cfg, params, state: dict, token: torch.Tensor, *,
 def prefill(cfg, params, batch: dict, *, window: Optional[int] = None,
             cache_len: Optional[int] = None):
     """Run the full prompt, returning last-position logits + a (stacked)
-    decode state whose KV caches hold the last ``cache_len`` positions.
-    For full-attention serving pass ``cache_len >= prompt +
-    max_new_tokens``."""
+    decode state whose KV caches hold the last ``cache_len`` positions and
+    whose recurrent blocks hold the RG-LRU's last state and the conv's last
+    ``k - 1`` inputs.  For full-attention serving pass ``cache_len >=
+    prompt + max_new_tokens``."""
     _check_batch(cfg, batch)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -437,6 +487,11 @@ def prefill(cfg, params, batch: dict, *, window: Optional[int] = None,
     x = _embed(cfg, params, tokens)
     new_layers = []
     for kind, bp in _blocks(cfg, params):
+        if kind == "rec":
+            x, h_last, r = _rec_seq(bp, cfg, x)
+            new_layers.append({"h": h_last, "buf": _conv_tail(
+                r, bp["conv"]["w"].shape[0])})
+            continue
         x, _, (k, v) = block_seq(bp, cfg, kind, x, window=window,
                                  collect_cache=True)
         new_layers.append({"k": _ring_fill(k, cache_len),
@@ -444,6 +499,14 @@ def prefill(cfg, params, batch: dict, *, window: Optional[int] = None,
     pos = torch.full((B,), x.shape[1], dtype=_I32, device=x.device)
     logits = _readout(cfg, params, x[:, -1:])[:, 0]
     return logits, _assemble_state(cfg, pos, new_layers, stacked=True)
+
+
+def _conv_tail(r: torch.Tensor, kw: int) -> torch.Tensor:
+    """The conv's rolling buffer after a sequence: its last ``kw - 1``
+    pre-conv inputs, zeros before the sequence's start as the causal conv
+    pads (the reference takes ``r[:, -(kw - 1):]``, which a prompt shorter
+    than ``kw - 1`` leaves short)."""
+    return F.pad(r, (0, 0, kw - 1, 0))[:, r.shape[1]:]
 
 
 def _ring_fill(kv: torch.Tensor, cache_len: int) -> torch.Tensor:

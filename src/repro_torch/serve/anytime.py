@@ -270,7 +270,9 @@ def _add_at(values: torch.Tensor, idx: torch.Tensor,
 
 
 class AnytimeServeEngine:
-    """Continuous-batching anytime engine for one dense model config.
+    """Continuous-batching anytime engine for one model config (the dense
+    family or the RG-LRU hybrid; admission resets a slot's KV caches and
+    recurrent states alike).
 
     ``supply`` is a :class:`repro_torch.core.energy.Harvester` (its power
     trace is sampled with ``seed``), a precomputed watts array, or ``None``

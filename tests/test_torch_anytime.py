@@ -1,5 +1,6 @@
-"""Anytime serving in the port: exit heads over the dense transformer and
-the continuous-batching engine, against the JAX package.
+"""Anytime serving in the port: exit heads over the transformer (dense and
+the RG-LRU hybrid) and the continuous-batching engine, against the JAX
+package.
 
 * Within the port, the full-depth rows of ``anytime_forward`` /
   ``unit_decode_step`` equal ``forward`` / ``decode_step`` bit for bit
@@ -9,7 +10,8 @@ the continuous-batching engine, against the JAX package.
   inputs.
 * The engine's result arrays equal the JAX engine's bit for bit on the
   tiny model of ``tests/test_anytime.py`` (weights carried over), for
-  ``anytime``, ``edf`` and ``edf-m`` and for 1 and 4 segments; with a
+  ``anytime``, ``edf`` and ``edf-m`` and for 1 and 4 segments, and on the
+  reduced recurrentgemma-9b (rec, rec, attn: 3 units); with a
   small capacitor the clock and the charge also match after every step.
   The model's logits differ from JAX's at f32 round-off, so a margin at a
   threshold or a near-tie of two logits could flip a decision: the
@@ -66,7 +68,8 @@ def tiny():
 # --------------------------------------------------------------------- #
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "glm4-9b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "glm4-9b",
+                                  "recurrentgemma-9b"])
 def test_full_depth_rows_bit_exact(arch):
     _, cfg, _, params = _port_model(arch, n_layers=4, exit_every=2)
     heads = A.init_heads(cfg, device="cpu")
@@ -204,6 +207,19 @@ def test_engine_clock_and_charge_match_jax_every_step(tiny, policy):
                   hook=lambda s, c, k: ph.append((float(c.now),
                                                   float(c.energy))))
     assert ph == jh
+    _assert_same(jres, pres)
+
+
+@pytest.mark.parametrize("policy", ["anytime", "edf", "edf-m"])
+def test_hybrid_engine_matches_jax(policy):
+    """The reduced recurrentgemma-9b behind the engine: admission resets a
+    slot's recurrent state (``h``, the conv buffer) with its KV cache, and
+    the result arrays equal the JAX engine's."""
+    hybrid = _port_model("recurrentgemma-9b")
+    je, pe = _engines(hybrid, policy=policy, max_steps=96)
+    jreqs, preqs = _requests(ragged=True)
+    jres, pres = je.run(jreqs), pe.run(preqs)
+    assert pres.completed == len(preqs) and pres.n_units == 3
     _assert_same(jres, pres)
 
 

@@ -16,12 +16,14 @@ from repro_torch.core import step as S
 from repro_torch.core.agile import AgileCNN
 from repro_torch.core.scheduler import JobProfile, TaskSpec
 from repro_torch.kernels import centroid_update as CU
+from repro_torch.kernels import decode_gqa as DG
 from repro_torch.kernels import flash_attn as FA
 from repro_torch.kernels import fleet_priority as FP
 from repro_torch.kernels import fleet_step
 from repro_torch.kernels import l1_topk2 as L1
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_l1 as PW
+from repro_torch.kernels import rglru_scan as RS
 from repro_torch.configs import get_config
 from repro_torch.models import anytime as AT
 from repro_torch.models import cnn
@@ -88,8 +90,10 @@ def test_centroid_update_kernel_row_order(cuda, B):
 # kernel G shapes: (B, S, Skv, H, KV, hd, causal, window, q_offset); the
 # main path's (anytime_forward at 2 x 512 on qwen1.5-0.5b), causal 4,096,
 # the long-context window, glm4-9b's GQA geometry, an odd length, a query
-# offset, no mask, and a row that sees no key
+# offset, no mask, a row that sees no key, and recurrentgemma-9b's MQA
+# geometry (16 heads on one kv head, hd 256) under a window
 FLASH_CASES = [
+    (1, 1024, 1024, 16, 1, 256, True, 512, 0),
     (2, 512, 512, 16, 16, 64, True, 0, 0),
     (1, 4096, 4096, 16, 16, 64, True, 0, 0),
     (1, 8192, 8192, 16, 16, 64, True, 4096, 0),
@@ -368,3 +372,118 @@ def test_forward_launches_flash_once_per_attention_layer(cuda):
     assert torch.equal(rows[-1], logits)
     want = TF.forward(cfg, params, {"tokens": toks})[0]
     torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# kernel I shapes: (B, S, W, with h0): the JAX sweep's, its odd shape,
+# ragged widths and a prefill-sized lane count
+RGLRU_CASES = [(1, 8, 16, False), (4, 64, 96, True), (2, 100, 33, True),
+               (8, 17, 128, False), (3, 37, 53, True), (1, 7, 1, True),
+               (2, 300, 4096, False), (1, 1030, 4100, True)]
+
+
+def test_rglru_scan_kernel_matches_plain(cuda):
+    """Kernel I == its plain version bit for bit (both form ``a * h + b``
+    with one rounding), one launch per call."""
+    rng = np.random.default_rng(11)
+    for B, S, W, with_h0 in RGLRU_CASES:
+        a = rng.uniform(0.7, 0.999, (B, S, W)).astype(np.float32)
+        b = (rng.normal(size=(B, S, W)) * 0.1).astype(np.float32)
+        h0 = (rng.normal(size=(B, W)) if with_h0
+              else np.zeros((B, W))).astype(np.float32)
+        a, b, h0 = (torch.from_numpy(t).to(cuda) for t in (a, b, h0))
+        n0 = RS.launches
+        h, hl = RS.rglru_scan(a, b, h0)
+        torch.cuda.synchronize()
+        assert RS.launches == n0 + 1
+        rh, rhl = RS.rglru_scan_plain(a, b, h0)
+        assert torch.equal(h, rh) and torch.equal(hl, rhl), (B, S, W)
+
+
+# kernel H shapes: (B, H, KV, hd, C, window); each runs in f32 and bf16,
+# with and without round_p: recurrentgemma-9b's decode and engine batch,
+# glm4-9b's geometry, qwen1.5-0.5b's, the JAX sweep's and a ragged cache
+DECODE_CASES = [(1, 16, 1, 256, 2176, 2048), (16, 16, 1, 256, 64, 2048),
+                (1, 32, 2, 128, 4096, 16), (1, 16, 16, 64, 4160, 0),
+                (4, 8, 2, 32, 128, 16), (5, 4, 2, 16, 37, 0),
+                (3, 8, 8, 32, 96, 0)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("round_p", [False, True])
+def test_decode_gqa_kernel_matches_plain(cuda, dtype, round_p):
+    """Kernel H against its plain version on the same inputs, one launch
+    per call, at rtol = atol = 1e-5: the same f32 arithmetic, differing in
+    the summation order of the dot products and the denominator.  Each
+    batch has a row whose cache holds no valid slot."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    for B, H, KV, hd, C, window in DECODE_CASES:
+        q = torch.randn((B, H, hd), generator=g, device=cuda).to(dt)
+        k = torch.randn((B, C, KV, hd), generator=g, device=cuda).to(dt)
+        v = torch.randn((B, C, KV, hd), generator=g, device=cuda).to(dt)
+        pos = torch.randint(1, C + 1, (B,), generator=g, device=cuda)
+        slots = torch.arange(C, device=cuda)
+        slot_pos = torch.where(slots[None] < pos[:, None], slots[None], -1)
+        if B > 1:
+            slot_pos[-1] = -1                 # a row with no valid slot
+        n0 = DG.launches
+        out = DG.decode_gqa(q, k, v, slot_pos, pos - 1, window=window,
+                            round_p=round_p)
+        torch.cuda.synchronize()
+        assert DG.launches == n0 + 1
+        assert out.dtype == torch.float32 and bool(out.isfinite().all())
+        want = DG.decode_gqa_plain(q, k, v, slot_pos, pos - 1,
+                                   window=window, round_p=round_p)
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5,
+                                   msg=lambda m: f"{(B, H, KV, hd, C)}: {m}")
+
+
+def _hybrid(cuda):
+    cfg = get_config("recurrentgemma-9b").reduced()
+    params = TF.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    return cfg, params, convert.tree(params, cuda)
+
+
+def test_hybrid_forward_launches_rglru_and_flash_per_layer(cuda):
+    """The reduced recurrentgemma-9b's ``forward`` and ``anytime_forward``
+    on the card launch kernel I once per recurrent layer and kernel G once
+    per attention layer, and agree with the CPU's path (associative scan,
+    chunked attention) within rtol = atol = 1e-4."""
+    cfg, params, on_card = _hybrid(cuda)
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 128)).astype(np.int32))
+    ops.reset_launch_counts()
+    logits = TF.forward(cfg, on_card, {"tokens": toks.to(cuda)})[0]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["rglru_scan"] == kinds.count("rec") == 2
+    assert counts["flash_attention"] == kinds.count("attn") == 1
+    heads = AT.init_heads(cfg, device=cuda)
+    rows = AT.anytime_forward(cfg, on_card, heads, {"tokens": toks.to(cuda)})
+    assert torch.equal(rows[-1], logits)
+    want = TF.forward(cfg, params, {"tokens": toks})[0]
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_hybrid_decode_step_launches_decode_gqa_per_attention_layer(cuda):
+    """A prefill and ``decode_step``s of the reduced hybrid on the card:
+    each step launches kernel H once per attention layer and no scan; the
+    logits and the recurrent state agree with the CPU within 1e-4."""
+    cfg, params, on_card = _hybrid(cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))
+    la, sa = TF.prefill(cfg, on_card, {"tokens": toks.to(cuda)})
+    lb, sb = TF.prefill(cfg, params, {"tokens": toks})
+    for step in range(3):
+        tok = torch.argmax(lb, -1).to(torch.int32)
+        ops.reset_launch_counts()
+        la, sa = TF.decode_step(cfg, on_card, sa, tok.to(cuda))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts["decode_gqa"] == 1 and counts["rglru_scan"] == 0
+        lb, sb = TF.decode_step(cfg, params, sb, tok)
+        torch.testing.assert_close(la.cpu(), lb, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(sa["stack"][0]["h"].cpu(), sb["stack"][0]["h"],
+                               rtol=1e-4, atol=1e-4)

@@ -8,6 +8,9 @@ L1 distances take the reference's own summation order.  The kernels
 themselves are held against these plain versions on the card by
 ``tests/test_torch_gpu.py``.
 """
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
@@ -27,6 +30,8 @@ from repro_torch.kernels import centroid_update as PCU
 from repro_torch.kernels import l1_topk2 as PL1
 from repro_torch.kernels import ops as PO
 from repro_torch.models import cnn as PC
+
+from _subproc import sub_env
 
 TINY = ("tiny", (16, 16, 1), ((4, 5, True), (8, 5, True)), (16,), 3)
 CNN_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -327,6 +332,67 @@ def test_centroid_update_plain_4096_rows_within_jax_tolerance():
     tree on more), so it is no fixed function of its inputs; held at the
     JAX suite's own rtol = atol = 1e-5 (``test_centroid_update_sweep``)."""
     c, x, a = _cu_inputs(4096)
+    ref = np.asarray(JO.fleet_centroid_update(c, x, a, 10.0))
+    out = PCU.centroid_update(*map(torch.from_numpy, (c, x, a)), 10.0)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+#: (k, rows) where the reference's sum order depends on the CPU set (B * k
+#: past ~8,900 on 8 CPUs, ROADMAP Queue 3)
+WIDE_K = [(5, 1792), (5, 1800), (5, 2048), (8, 1200), (8, 2048), (16, 568),
+          (16, 576), (16, 1024), (16, 2048)]
+
+_PINNED = """
+import os, sys
+os.sched_setaffinity(0, {min(os.sched_getaffinity(0))})
+import numpy as np
+from repro.kernels import ops
+data = np.load(sys.argv[1])
+out = {}
+for key in sorted({k.split("_")[0] for k in data.files}):
+    out[key] = np.asarray(ops.fleet_centroid_update(
+        data[key + "_c"], data[key + "_x"], data[key + "_a"], 10.0))
+np.savez(sys.argv[2], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def single_cpu_reference(tmp_path_factory):
+    """The reference's centroid update at every ``WIDE_K`` case, computed in
+    one subprocess that may use one CPU only (its affinity set before JAX
+    is imported, so the runtime's thread pool has one thread)."""
+    tmp = tmp_path_factory.mktemp("centroid_order")
+    inputs = {}
+    for k, B in WIDE_K:
+        c, x, a = _cu_inputs(B, k=k)
+        inputs.update({f"k{k}B{B}_c": c, f"k{k}B{B}_x": x,
+                       f"k{k}B{B}_a": a})
+    src, dst = tmp / "inputs.npz", tmp / "reference.npz"
+    np.savez(src, **inputs)
+    subprocess.run([sys.executable, "-c", _PINNED, str(src), str(dst)],
+                   env=sub_env(), check=True, timeout=600)
+    with np.load(dst) as ref:
+        return {key: ref[key] for key in ref.files}
+
+
+@pytest.mark.parametrize("k,B", WIDE_K)
+def test_centroid_update_plain_wider_k_matches_single_cpu_jax(
+        single_cpu_reference, k, B):
+    """Past B * k ~ 8,900 the reference's one-hot matmul switches to a
+    threaded tree that depends on the CPUs the process may use; on one CPU
+    it keeps the sequential block order that ``row_blocks`` forms, and the
+    port's plain version equals it bit for bit."""
+    c, x, a = _cu_inputs(B, k=k)
+    out = PCU.centroid_update(*map(torch.from_numpy, (c, x, a)), 10.0)
+    np.testing.assert_array_equal(_bits(out.numpy()),
+                                  _bits(single_cpu_reference[f"k{k}B{B}"]))
+
+
+@pytest.mark.parametrize("k,B", WIDE_K)
+def test_centroid_update_plain_wider_k_within_jax_tolerance(k, B):
+    """The same cases against the reference on every CPU of the host, at
+    the JAX suite's rtol = atol = 1e-5 (``test_centroid_update_sweep``)."""
+    c, x, a = _cu_inputs(B, k=k)
     ref = np.asarray(JO.fleet_centroid_update(c, x, a, 10.0))
     out = PCU.centroid_update(*map(torch.from_numpy, (c, x, a)), 10.0)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)

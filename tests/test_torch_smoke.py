@@ -85,9 +85,10 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 def test_chip_smoke_rehearsal_on_cpu():
     """Every phase at narrow widths on the CPU — serving, the replay sweep,
     kernel F, offline tuning, online adaptation with the fleet forecast
-    arm and anytime serving with kernel G's checks: the kernels report
-    names A to G with the contract's keys (no launches on the CPU), each
-    with the paths that ran it."""
+    arm, anytime serving of the dense model with kernel G's checks and of
+    the RG-LRU hybrid with kernel H's and I's: the kernels report names A
+    to I with the contract's keys (no launches on the CPU), each with the
+    paths that ran it."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
@@ -100,11 +101,14 @@ def test_chip_smoke_rehearsal_on_cpu():
     rows = report["kernels"]
     assert [r["name"] for r in rows] == [
         "fleet_priority", "fleet_fused_steps", "serve_fused_steps",
-        "l1_topk2", "centroid_update", "pairwise_l1", "flash_attention"]
+        "l1_topk2", "centroid_update", "pairwise_l1", "flash_attention",
+        "decode_gqa", "rglru_scan"]
     paths = {r["name"]: sorted(r["launches_by_path"]) for r in rows}
     assert paths["fleet_fused_steps"] == ["online", "replay", "tune"]
     assert paths["pairwise_l1"] == ["online"]
-    assert paths["flash_attention"] == ["anytime"]
+    assert paths["flash_attention"] == paths["decode_gqa"] == [
+        "anytime", "hybrid"]
+    assert paths["rglru_scan"] == ["hybrid"]
     assert paths["l1_topk2"] == paths["centroid_update"] == [
         "online", "serve"]
     for r in rows:

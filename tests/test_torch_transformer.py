@@ -1,11 +1,19 @@
-"""The port's dense transformer against the JAX package.
+"""The port's transformer against the JAX package.
 
-``qwen1.5-0.5b`` (MHA with QKV bias) and ``glm4-9b`` (GQA, 2 kv heads) at
-their ``reduced()`` sizes (f32), with the reference's random weights carried
-over by ``convert.transformer_params``.  Logits, decode states and pooled
-unit features are held at rtol = atol = 1e-5 (the JAX suite's tolerance
-between two evaluations of one model): an f32 matmul sums in another order
-in each framework.  Every family the port does not run yet raises
+``qwen1.5-0.5b`` (MHA with QKV bias), ``glm4-9b`` (GQA, 2 kv heads) and the
+RG-LRU hybrid ``recurrentgemma-9b`` (rec, rec, attn with MQA and a 64-token
+window) at their ``reduced()`` sizes (f32), with the reference's random
+weights carried over by ``convert.transformer_params``.  Logits, decode
+states and pooled unit features are held at rtol = atol = 1e-5 (the JAX
+suite's tolerance between two evaluations of one model): an f32 matmul sums
+in another order in each framework.  Two of the hybrid's comparisons are
+held at 2e-5: its decode states after a prefill and three steps (largest
+gap 1.35e-5, one element of the attention layer's ``v`` cache) and the
+logits of the window-8 ring-buffer decode after a 23-token prefill
+(1.43e-5).  Its recurrences carry every step's round-off forward: the
+gates' ``1 - a * a`` cancels for the slow lanes (``a`` within 1e-4 of 1),
+so an f32 summation-order difference in a gate's input grows along the
+sequence (ROADMAP Queue 3).  Every family the port does not run yet raises
 ``NotImplementedError``.
 """
 import numpy as np
@@ -25,10 +33,13 @@ from repro_torch.core.agile import AgileTransformer
 from repro_torch.models import transformer as PT
 
 TOL = dict(rtol=1e-5, atol=1e-5)
-DENSE = ("qwen1.5-0.5b", "glm4-9b")
+ARCHS = ("qwen1.5-0.5b", "glm4-9b", "recurrentgemma-9b")
+#: the hybrid's tolerance for its decode states and windowed decode (see
+#: the module docstring); the other comparisons use TOL
+RECURRENT_TOL = {"recurrentgemma-9b": dict(rtol=2e-5, atol=2e-5)}
 
 
-@pytest.fixture(scope="module", params=DENSE)
+@pytest.fixture(scope="module", params=ARCHS)
 def model(request):
     arch = request.param
     jcfg, pcfg = jget(arch).reduced(), get_config(arch).reduced()
@@ -94,8 +105,10 @@ def test_prefill_then_decode_matches_jax(model):
     flat_j = jax.tree_util.tree_flatten_with_path(sj)[0]
     flat_p = dict(jax.tree_util.tree_flatten_with_path(
         jax.tree.map(lambda t: t.numpy(), sp))[0])
+    assert len(flat_p) == len(flat_j)
     for path, leaf in flat_j:
-        np.testing.assert_allclose(flat_p[path], np.asarray(leaf), **TOL)
+        np.testing.assert_allclose(flat_p[path], np.asarray(leaf),
+                                   **RECURRENT_TOL.get(jcfg.name, TOL))
 
 
 def test_unrolled_decode_matches_jax(model):
@@ -140,8 +153,62 @@ def test_agile_transformer_features_match_jax(model):
     assert prop.shape == fp[1].shape
 
 
+def test_sliding_window_decode_matches_jax(model):
+    """The ring-buffer decode with a window override (8 tokens, a 128-slot
+    cache over a 23-token prefill): the last token's logits equal JAX's,
+    and the windowed full-sequence forward within the JAX suite's own 2e-2
+    (``test_sliding_window_decode_matches_windowed_forward``)."""
+    jcfg, pcfg, jp, tp = model
+    window, S = 8, 24
+    toks = _tokens(jcfg, S=S, seed=6)
+    full = PT.forward(pcfg, tp, {"tokens": torch.from_numpy(toks)},
+                      window=window)[0]
+    _, sj = JT.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :-1])},
+                       window=window)
+    _, sp = PT.prefill(pcfg, tp, {"tokens": torch.from_numpy(toks[:, :-1])},
+                       window=window)
+    lj, _ = JT.decode_step(jcfg, jp, sj, jnp.asarray(toks[:, -1]),
+                           window=window)
+    lp, _ = PT.decode_step(pcfg, tp, sp, torch.from_numpy(toks[:, -1]),
+                           window=window)
+    np.testing.assert_allclose(lp.numpy(), np.asarray(lj),
+                               **RECURRENT_TOL.get(jcfg.name, TOL))
+    np.testing.assert_allclose(lp.numpy(), full[:, -1].numpy(), rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_convert_hybrid_params_drop_in():
+    """Every leaf of the reference's recurrentgemma-9b pytree crosses over
+    under its own path, shape and dtype: the rec blocks' ``gate_proj``,
+    ``rec_proj``, ``out_proj``, ``conv.{w,b}``, ``rglru.{wa,ba,wx,bx,lam}``
+    and their ``norm2``/``ffn``."""
+    jcfg = jget("recurrentgemma-9b").reduced()
+    jp = JT.init_params(jcfg, jax.random.PRNGKey(1))
+    tp = convert.transformer_params(jax.tree.map(np.asarray, jp), "cpu")
+    ref = jax.tree_util.tree_flatten_with_path(jp)[0]
+    got = dict(jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda t: t, tp))[0])
+    assert len(got) == len(ref)
+    for path, leaf in ref:
+        assert tuple(got[path].shape) == leaf.shape, path
+        assert str(got[path].dtype).split(".")[-1] == str(leaf.dtype), path
+        np.testing.assert_array_equal(got[path].numpy(), np.asarray(leaf))
+    rec = tp["layers"]["stack"][0]
+    assert set(rec) == {"norm1", "gate_proj", "rec_proj", "conv", "rglru",
+                        "out_proj", "norm2", "ffn"}
+    assert set(rec["rglru"]) == {"wa", "ba", "wx", "bx", "lam"}
+
+
+def test_full_hybrid_config_is_supported():
+    cfg = get_config("recurrentgemma-9b")
+    PT.check_supported(cfg)
+    assert cfg.n_layers == 38 and cfg.n_units == 10
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    assert kinds.count("rec") == 26 and kinds.count("attn") == 12
+
+
 @pytest.mark.parametrize("arch", [n for n in (
-    "dbrx-132b", "qwen3-moe-235b-a22b", "recurrentgemma-9b", "xlstm-125m",
+    "dbrx-132b", "qwen3-moe-235b-a22b", "xlstm-125m",
     "internvl2-2b", "seamless-m4t-medium")])
 def test_unsupported_families_raise(arch):
     cfg = get_config(arch).reduced()
