@@ -1583,9 +1583,10 @@ def _decode_phase(device, scale: Scale) -> dict:
     the times of H, the plain version and one
     ``scaled_dot_product_attention`` call on the same cache with a boolean
     slot mask (the yardstick; never on the port's path) and the bound: the
-    bytes (q, the caches, the positions read once, the f32 output written
-    once) over HBM bandwidth against the flops (4 * H * C * hd per row)
-    over the f32 peak."""
+    bytes that the function needs (q, the positions, the k and v rows of
+    the slots that each row's mask keeps, each read once, the f32 output
+    written once) over HBM bandwidth against the flops (4 * H * hd per kept
+    slot of a row) over the f32 peak."""
     import torch
     import torch.nn.functional as F
 
@@ -1618,9 +1619,11 @@ def _decode_phase(device, scale: Scale) -> dict:
                 qt, kt, vt, attn_mask=mask, enable_gqa=KV != H)
 
         lib_ms = _ms(sdpa, device)
+        n_valid = int(valid.sum())             # kept (row, slot) pairs
+        kv_row = KV * hd * k.element_size()  # one slot's k (or v) row
         bound_ms, by = _bound(
-            _nbytes(q, k, v, slot_pos, pos) + out.numel() * 4,
-            4.0 * B * H * C * hd)
+            _nbytes(q, slot_pos, pos) + 2 * n_valid * kv_row
+            + out.numel() * 4, 4.0 * H * hd * n_valid)
         label = (f"B={B} H={H} KV={KV} hd={hd} C={C} {dtype}"
                  f"{' round_p' if round_p else ''}"
                  f"{f' window={window}' if window else ''}")

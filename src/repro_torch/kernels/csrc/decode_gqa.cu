@@ -12,16 +12,15 @@
 // round_p = 1 computes the model's decode_attention: p_c = exp(s_c - m) / l
 // rounded to the cache's dtype, out = sum_c p_c v_c.
 //
-// Bound on the H100: bytes (the caches are read once: 2 * C * KV * hd
-// elements per row against 4 * G * C * hd flops per kv head), far below the
-// f32 rate at these sizes; with one block per (row, kv head) a decode at
+// Bound on the H100: bytes (the k and v rows of the valid slots are read
+// once: 2 * n_valid * hd elements per (row, kv head) against
+// 4 * G * n_valid * hd flops), far below the f32 rate at these sizes; with one block per (row, kv head) a decode at
 // batch 1 runs on one SM, so it is latency-bound in practice.
 //
 // Design: one block of 256 threads per (batch row, kv head); the G query
 // heads of the group sit in shared memory as f32.  Pass 1 stages 64-slot
-// tiles of k (converted to f32 in registers, zero-filled past C; 16 loads
-// in flight per thread, since at batch 1 the block is alone on its SM and
-// few warps hide no latency) in shared memory and computes the G x 64 scores with threads over (head, slot),
+// tiles of k (converted to f32 in registers, zero-filled past C) in shared
+// memory and computes the G x 64 scores with threads over (head, slot),
 // each a sequential __fmaf_rn dot over d = 0 .. hd-1; masked scores are
 // -1e30; scores go to a global scratch (B, KV, G, C) that the wrapper
 // allocates.  Pass 2 gives each query head to one warp: its max, then
@@ -82,30 +81,15 @@ __device__ __forceinline__ double warp_sum(double v) {
 }
 
 // Stage rows c0 .. c0 + TILE - 1 (zeros past C) of a cache's ``width``
-// columns, converted to f32, at dst[row * dst_stride + col].  Each thread
-// issues LOADS loads before it stores any: a block holds only a few warps,
-// so the tile's load latency is hidden by loads in flight, not by warps.
+// columns, converted to f32, at dst[row * dst_stride + col].
 template <typename T>
 __device__ __forceinline__ void stage_tile(float* dst, int dst_stride,
                                            const T* src, long src_stride,
                                            int c0, int C, int width) {
-  constexpr int LOADS = 16;
-  const int n = TILE * width;
-  for (int i0 = threadIdx.x; i0 < n; i0 += THREADS * LOADS) {
-    float x[LOADS];
-#pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int i = i0 + u * THREADS;
-      const int r = i / width, d = i % width;
-      x[u] = (i < n && c0 + r < C) ? to_f32(src[(long)(c0 + r) * src_stride
-                                                 + d])
-                                   : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < LOADS; ++u) {
-      const int i = i0 + u * THREADS;
-      if (i < n) dst[(i / width) * dst_stride + i % width] = x[u];
-    }
+  for (int i = threadIdx.x; i < TILE * width; i += THREADS) {
+    const int r = i / width, d = i % width;
+    dst[r * dst_stride + d] =
+        c0 + r < C ? to_f32(src[(long)(c0 + r) * src_stride + d]) : 0.f;
   }
 }
 

@@ -16,17 +16,21 @@ reference's combine ``(a1 * a2, a2 * b1 + b2)`` in two roundings, which is
 bit-equal to the JAX function on the same ``a, b``.  The two paths differ
 by rounding only (kernel I forms ``a * h + b`` with one rounding per step).
 
-The gates follow the reference as the model runs it (its ``forward``
-equals its op-by-op ``unit_forward`` chain bit for bit): ``sigmoid(z) = 1 /
-(exp(-z) + 1)``, ``softplus(x) = max(x, 0) + log1p(exp(-|x|))``
-(``jnp.logaddexp(x, 0)``), ``a = exp(log_a)`` and ``1 - a * a`` as
-written.  ``a`` sits within 1e-4 of 1 for the slowest lanes, so an ulp of
-``a`` is a large relative change of ``1 - a * a``; ``a`` therefore takes
-XLA's own ``exp`` (:func:`repro_torch.core._fma.xla_exp_f32`), so that
-the exponential rounds as the reference's does.  The other transcendentals are torch's and
-differ from XLA's by an ulp here and there, which the gates carry without
-amplification.  (The standalone jitted ``_gates`` is another program: XLA
-folds its ``exp(y) * exp(y)`` into ``exp(y + y)``.)
+The gates follow the reference as the model runs it.  Op by op (the
+reference's ``unit_forward``, its unrolled decode, and the layers it runs
+outside its layer scan): ``sigmoid(z) = 1 / (exp(-z) + 1)``,
+``softplus(x) = max(x, 0) + log1p(exp(-|x|))`` (``jnp.logaddexp(x, 0)``),
+``a = exp(log_a)`` and ``1 - a * a`` as written.  Inside the reference's
+``lax.scan`` over layers (its prefill, its stacked decode step and the
+remat groups of its ``forward``) XLA compiles the block and folds ``a * a
+= exp(log_a) * exp(log_a)`` into ``exp(log_a + log_a)``; ``scanned=True``
+forms that.  ``a`` sits within 1e-4 of 1 for the slowest lanes, so an ulp
+of ``a`` is a large relative change of ``1 - a * a``: the two forms are up
+to 1.5e-5 apart after three layers, and both exponentials take XLA's own
+``exp`` (:func:`repro_torch.core._fma.xla_exp_f32`), so that they round as
+the reference's do.  The other transcendentals are torch's and differ from
+XLA's by an ulp here and there, which the gates carry without
+amplification.
 """
 from __future__ import annotations
 
@@ -80,13 +84,15 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(x), x, y)
 
 
-def _gates(p: dict, x: torch.Tensor):
+def _gates(p: dict, x: torch.Tensor, scanned: bool = False):
+    """``(a, gated_x)`` in f32; ``scanned`` forms ``a * a`` as
+    ``exp(log_a + log_a)``, as the reference's compiled layer scan does."""
     r = _sigmoid(_block_mm(p["wa"], x).to(_F32) + p["ba"])
     i = _sigmoid(_block_mm(p["wx"], x).to(_F32) + p["bx"])
     log_a = (_softplus(p["lam"]) * -C_FACTOR) * r
     a = xla_exp_f32(log_a)
-    gated_x = torch.sqrt(torch.clamp(1.0 - a * a,
-                                     min=1e-12)) * (i * x.to(_F32))
+    a2 = xla_exp_f32(log_a + log_a) if scanned else a * a
+    gated_x = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * (i * x.to(_F32))
     return a, gated_x
 
 
@@ -142,17 +148,18 @@ def _scan(a: torch.Tensor, b: torch.Tensor,
 
 
 def rglru_seq(p: dict, x: torch.Tensor,
-              h0: Optional[torch.Tensor] = None):
+              h0: Optional[torch.Tensor] = None, *, scanned: bool = False):
     """Full-sequence RG-LRU.  x: (B, S, W) -> (y (B, S, W) in ``x``'s
     dtype, h_last (B, W) f32)."""
-    a, b = _gates(p, x)
+    a, b = _gates(p, x, scanned)
     h = _scan(a, b, h0)
     return h.to(x.dtype), h[:, -1]
 
 
-def rglru_step(p: dict, x: torch.Tensor, h: torch.Tensor):
+def rglru_step(p: dict, x: torch.Tensor, h: torch.Tensor, *,
+               scanned: bool = False):
     """One decode step.  x: (B, W), h: (B, W) -> (y, h_new)."""
-    a, b = _gates(p, x)
+    a, b = _gates(p, x, scanned)
     h_new = a * h.to(_F32) + b
     return h_new.to(x.dtype), h_new
 

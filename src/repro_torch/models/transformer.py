@@ -149,8 +149,11 @@ def _qkv(p: dict, cfg, h: torch.Tensor, positions: torch.Tensor):
 
 def block_seq(p: dict, cfg, kind: str, x: torch.Tensor, *,
               enc_out: Optional[torch.Tensor] = None, causal: bool = True,
-              window: Optional[int] = None, collect_cache: bool = False):
-    """x: (B, S, D) -> (x, aux_loss, cache_kv or None)."""
+              window: Optional[int] = None, collect_cache: bool = False,
+              scanned: bool = False):
+    """x: (B, S, D) -> (x, aux_loss, cache_kv or None).  ``scanned``: the
+    reference runs this layer inside its compiled layer scan (see
+    :mod:`repro_torch.models.rglru`)."""
     if kind not in _KINDS:
         raise _unported(kind)
     if "xattn" in p or enc_out is not None:
@@ -159,7 +162,7 @@ def block_seq(p: dict, cfg, kind: str, x: torch.Tensor, *,
         raise _unported("moe")
     aux = torch.zeros((), dtype=_F32, device=x.device)
     if kind == "rec":
-        x, _, _ = _rec_seq(p, cfg, x)
+        x, _, _ = _rec_seq(p, cfg, x, scanned)
         return x, aux, None
     cache = None
     B, S, D = x.shape
@@ -178,7 +181,7 @@ def block_seq(p: dict, cfg, kind: str, x: torch.Tensor, *,
     return x + y, aux, cache
 
 
-def _rec_seq(p: dict, cfg, x: torch.Tensor):
+def _rec_seq(p: dict, cfg, x: torch.Tensor, scanned: bool = False):
     """The ``"rec"`` block over a sequence: (x, the RG-LRU's last state
     (B, W) f32, the conv's pre-conv input r (B, S, W))."""
     h = apply_norm(cfg.norm, p["norm1"], x)
@@ -186,7 +189,7 @@ def _rec_seq(p: dict, cfg, x: torch.Tensor):
                   approximate="tanh")
     r = torch.einsum("bsd,dw->bsw", h, p["rec_proj"])
     rc = rg.conv1d_seq(p["conv"], r)
-    ry, h_last = rg.rglru_seq(p["rglru"], rc)
+    ry, h_last = rg.rglru_seq(p["rglru"], rc, scanned=scanned)
     x = x + torch.einsum("bsw,wd->bsd", gate * ry, p["out_proj"])
     if cfg.d_ff:
         h2 = apply_norm(cfg.norm, p["norm2"], x)
@@ -232,9 +235,10 @@ def _write_slot(cache: torch.Tensor, val: torch.Tensor,
 
 
 def block_step(p: dict, cfg, kind: str, x: torch.Tensor, state: dict,
-               pos: torch.Tensor, *, window: Optional[int] = None):
+               pos: torch.Tensor, *, window: Optional[int] = None,
+               scanned: bool = False):
     """x: (B, D); state: per-block decode state; pos: (B,) current
-    position."""
+    position; ``scanned`` as in :func:`block_seq`."""
     if kind not in _KINDS:
         raise _unported(kind)
     if "xattn" in p:
@@ -249,7 +253,8 @@ def block_step(p: dict, cfg, kind: str, x: torch.Tensor, state: dict,
                       approximate="tanh")
         r = torch.einsum("bd,dw->bw", h, p["rec_proj"])
         r, new_state["buf"] = rg.conv1d_step(p["conv"], r, state["buf"])
-        r, new_state["h"] = rg.rglru_step(p["rglru"], r, state["h"])
+        r, new_state["h"] = rg.rglru_step(p["rglru"], r, state["h"],
+                                          scanned=scanned)
         x = x + torch.einsum("bw,wd->bd", gate * r, p["out_proj"])
         if cfg.d_ff:
             h2 = apply_norm(cfg.norm, p["norm2"], x)
@@ -358,13 +363,18 @@ def _readout(cfg, params, x: torch.Tensor) -> torch.Tensor:
 def forward(cfg, params, batch: dict, *, window: Optional[int] = None,
             remat: bool = True):
     """batch: {"tokens": (B, S) int32}.  Returns (logits (B, S, V) f32,
-    aux_loss scalar).  ``remat`` is accepted and ignored."""
-    del remat
+    aux_loss scalar).  ``remat`` only says which layers the reference
+    scans: its groups of ``remat_every`` periods (every period without
+    ``remat``); the leftover periods and the remainder run op by op."""
     _check_batch(cfg, batch)
+    period, n_scan, _ = _layer_plan(cfg)
+    k = max(1, cfg.remat_every) if remat else 1
+    n_scanned = (n_scan // k) * k * period
     x = _embed(cfg, params, batch["tokens"])
     aux = torch.zeros((), dtype=_F32, device=x.device)
-    for kind, bp in _blocks(cfg, params):
-        x, a, _ = block_seq(bp, cfg, kind, x, window=window)
+    for i, (kind, bp) in enumerate(_blocks(cfg, params)):
+        x, a, _ = block_seq(bp, cfg, kind, x, window=window,
+                            scanned=i < n_scanned)
         aux = aux + a
     return _readout(cfg, params, x), aux
 
@@ -457,19 +467,23 @@ def decode_step(cfg, params, state: dict, token: torch.Tensor, *,
                 window: Optional[int] = None, unroll: bool = False):
     """One serving step: token (B,) int32 -> (logits (B, V) f32, new
     state).  Takes both state layouts; ``unroll`` is accepted for the
-    reference's signature (the port always runs the layers in order)."""
+    reference's signature (the port always runs the layers in order).  A
+    stacked state is the reference's scanned decode: its periods run as
+    ``scanned`` layers; an unstacked one its unrolled, op-by-op decode."""
     del unroll
     check_supported(cfg)
+    period, n_scan, _ = _layer_plan(cfg)
+    stacked = bool(state["stack"]) and isinstance(state["stack"][0], dict)
+    n_scanned = n_scan * period if stacked else 0
     x = _embed(cfg, params, token)
     pos = state["pos"]
     new_layers = []
     for i, (kind, bp) in enumerate(_blocks(cfg, params)):
         x, ns = block_step(bp, cfg, kind, x, _layer_state(cfg, state, i),
-                           pos, window=window)
+                           pos, window=window, scanned=i < n_scanned)
         new_layers.append(ns)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = torch.einsum("bd,dv->bv", x, _head(cfg, params)).to(_F32)
-    stacked = bool(state["stack"]) and isinstance(state["stack"][0], dict)
     return logits, _assemble_state(cfg, pos + 1, new_layers, stacked)
 
 
@@ -484,11 +498,13 @@ def prefill(cfg, params, batch: dict, *, window: Optional[int] = None,
     tokens = batch["tokens"]
     B, S = tokens.shape
     cache_len = cache_len or cache_capacity(cfg, S, window)
+    period, n_scan, _ = _layer_plan(cfg)
     x = _embed(cfg, params, tokens)
     new_layers = []
-    for kind, bp in _blocks(cfg, params):
+    for i, (kind, bp) in enumerate(_blocks(cfg, params)):
         if kind == "rec":
-            x, h_last, r = _rec_seq(bp, cfg, x)
+            # the reference scans its periods; the remainder runs op by op
+            x, h_last, r = _rec_seq(bp, cfg, x, i < n_scan * period)
             new_layers.append({"h": h_last, "buf": _conv_tail(
                 r, bp["conv"]["w"].shape[0])})
             continue

@@ -47,8 +47,10 @@ def _inputs(B, H, KV, hd, C, seed, pos=None):
 def test_decode_gqa_plain_matches_jax(B, H, KV, hd, C, blocks, window):
     args = _inputs(B, H, KV, hd, C, seed=B * H + C)
     want = ops.decode_gqa(*args, window=window, **blocks)
+    before = DG.launches
     got = DG.decode_gqa(*map(torch.from_numpy, args), window=window)
-    assert got.dtype == torch.float32 and DG.launches == 0
+    assert got.dtype == torch.float32
+    assert DG.launches == before               # the CPU never launches
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 

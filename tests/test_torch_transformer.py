@@ -6,15 +6,12 @@ window) at their ``reduced()`` sizes (f32), with the reference's random
 weights carried over by ``convert.transformer_params``.  Logits, decode
 states and pooled unit features are held at rtol = atol = 1e-5 (the JAX
 suite's tolerance between two evaluations of one model): an f32 matmul sums
-in another order in each framework.  Two of the hybrid's comparisons are
-held at 2e-5: its decode states after a prefill and three steps (largest
-gap 1.35e-5, one element of the attention layer's ``v`` cache) and the
-logits of the window-8 ring-buffer decode after a 23-token prefill
-(1.43e-5).  Its recurrences carry every step's round-off forward: the
-gates' ``1 - a * a`` cancels for the slow lanes (``a`` within 1e-4 of 1),
-so an f32 summation-order difference in a gate's input grows along the
-sequence (ROADMAP Queue 3).  Every family the port does not run yet raises
-``NotImplementedError``.
+in another order in each framework.  The hybrid's gates follow the
+reference's program: ``1 - a * a`` op by op, ``1 - exp(2 log_a)`` in the
+layers the reference compiles in its layer scan (prefill, the stacked
+decode step, ``forward`` without remat; see
+:mod:`repro_torch.models.rglru`).  Every family the port does not run yet
+raises ``NotImplementedError``.
 """
 import numpy as np
 import pytest
@@ -34,9 +31,6 @@ from repro_torch.models import transformer as PT
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ("qwen1.5-0.5b", "glm4-9b", "recurrentgemma-9b")
-#: the hybrid's tolerance for its decode states and windowed decode (see
-#: the module docstring); the other comparisons use TOL
-RECURRENT_TOL = {"recurrentgemma-9b": dict(rtol=2e-5, atol=2e-5)}
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -88,6 +82,19 @@ def test_forward_matches_jax(model):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+def test_forward_without_remat_matches_jax(model):
+    """With remat the reduced models' one period is a leftover group that
+    the reference runs op by op; without it the reference scans (compiles)
+    that period, and the port forms the hybrid's gates as XLA does there."""
+    jcfg, pcfg, jp, tp = model
+    toks = _tokens(jcfg, seed=7)
+    want = np.asarray(JT.forward(jcfg, jp, {"tokens": jnp.asarray(toks)},
+                                 remat=False)[0])
+    got, _ = PT.forward(pcfg, tp, {"tokens": torch.from_numpy(toks)},
+                        remat=False)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
 def test_prefill_then_decode_matches_jax(model):
     jcfg, pcfg, jp, tp = model
     toks = _tokens(jcfg, seed=1)
@@ -107,8 +114,7 @@ def test_prefill_then_decode_matches_jax(model):
         jax.tree.map(lambda t: t.numpy(), sp))[0])
     assert len(flat_p) == len(flat_j)
     for path, leaf in flat_j:
-        np.testing.assert_allclose(flat_p[path], np.asarray(leaf),
-                                   **RECURRENT_TOL.get(jcfg.name, TOL))
+        np.testing.assert_allclose(flat_p[path], np.asarray(leaf), **TOL)
 
 
 def test_unrolled_decode_matches_jax(model):
@@ -171,8 +177,7 @@ def test_sliding_window_decode_matches_jax(model):
                            window=window)
     lp, _ = PT.decode_step(pcfg, tp, sp, torch.from_numpy(toks[:, -1]),
                            window=window)
-    np.testing.assert_allclose(lp.numpy(), np.asarray(lj),
-                               **RECURRENT_TOL.get(jcfg.name, TOL))
+    np.testing.assert_allclose(lp.numpy(), np.asarray(lj), **TOL)
     np.testing.assert_allclose(lp.numpy(), full[:, -1].numpy(), rtol=2e-2,
                                atol=2e-2)
 
