@@ -54,19 +54,23 @@ Phases, each printing one line (any failure exits non-zero):
 8. anytime serving of the dense model configs at qwen1.5-0.5b's published
    widths (24 layers, d_model 1,024, 16 heads, vocab 151,936, bf16; seeded
    random weights, fresh exit heads): ``prefill`` of one 4,096-token
-   prompt and 64 ``decode_step``s; ``anytime_forward`` on 2 x 512 tokens
+   prompt (twice, each timed) and 64 ``decode_step``s (timed in two
+   halves); ``anytime_forward`` on 2 x 512 tokens
    and ``calibrate_thresholds`` at 0.98 agreement; the
    ``AnytimeServeEngine`` (16 slots, 16-token prompts, 48 new tokens, 256
    steps) on 64 requests every 0.25 s with a 2.5 s deadline under
    ``calibrate_harvester(0.71, 0.35)`` and under a persistent supply, with
    the calibrated thresholds and again under EDF.  The launch counts are
-   zeroed before and read after (kernel G, once per layer of the prefill
+   zeroed before and read after (kernel G, once per layer of each prefill
    and of ``anytime_forward``; kernel H, once per layer of every decode
-   and engine step); then kernel G against its plain version in bf16 and
-   f32 at the main path's shape, causal 4,096, a 4,096 window over 8,192,
-   glm4-9b's GQA geometry, an odd length, a query offset and
-   recurrentgemma-9b's geometry (16 heads on one kv head, hd 256, window
-   2,048), timed beside ``scaled_dot_product_attention``; and the port on
+   and engine step); then kernel G against its plain version in bf16 (the
+   tensor-core kernel) and f32 (the SIMT kernel) at the main path's shape,
+   causal 4,096, a 4,096 window over 8,192, glm4-9b's GQA geometry, an odd
+   length, a query offset and recurrentgemma-9b's geometry (16 heads on one
+   kv head, hd 256, window 2,048), timed beside
+   ``scaled_dot_product_attention``, each row with its kernel's path, the
+   instance's registers as ``-Xptxas -v`` reported them and its useful
+   TFLOP/s beside the bound; and the port on
    the card against the port on the CPU (a reduced ``forward`` and a
    prefill + decode within 1e-4, one EDF engine run equal);
 9. the same anytime path for the RG-LRU hybrid at recurrentgemma-9b's
@@ -74,10 +78,12 @@ Phases, each printing one line (any failure exits non-zero):
    window; d_model 4,096, RG-LRU width 4,096 in 16 blocks, d_ff 12,288,
    vocab 256,000, bf16, 10 units; 9.19 B parameters): the counts zeroed
    before and read after (kernel G and kernel I once per attention and
-   recurrent layer of the prefill and of ``anytime_forward``, kernel H once
+   recurrent layer of each prefill and of ``anytime_forward``, kernel H once
    per attention layer of every decode and engine step); kernel H against
-   its plain version at the decode shape, an engine batch, glm4-9b's
-   geometry and a ragged cache, beside ``scaled_dot_product_attention``;
+   its plain version at the decode shape, an engine batch, qwen1.5-0.5b's
+   and glm4-9b's geometry and a ragged cache, beside
+   ``scaled_dot_product_attention``, each row with its split of the cache
+   and the GB/s it reached of the bound's bytes;
    kernel I against its plain version bit for bit at the prefill's and
    ``anytime_forward``'s shapes and an odd one; and the reduced hybrid on
    the card against the CPU (a ``forward``, a prefill + decode, an EDF
@@ -332,6 +338,38 @@ def _card_line() -> str:
         return "nvidia-smi not available"
 
 
+#: kernel G's instances as ``-Xptxas -v`` reported them in this run's build:
+#: (path, padded head dim) -> "N registers, M bytes spilled"
+FLASH_REGISTERS: dict = {}
+
+
+def _flash_registers(log: str) -> dict:
+    """Kernel G's instances in a ``-Xptxas -v`` log: the entry function
+    names ``flash_tc_kernel<HDP>`` (tensor cores) and
+    ``flash_attn_kernel<HDP>`` (SIMT), each with its register count and
+    spill stores."""
+    import re
+
+    found, entry, spill = {}, None, "0"
+    for line in log.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            hdp = re.search(r"kernelILi(\d+)E", name)
+            path = ("tensor-core" if "flash_tc_kernel" in name else
+                    "simt" if "flash_attn_kernel" in name else None)
+            entry = (path, int(hdp.group(1))) if path and hdp else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            found[entry] = f"{m.group(1)} registers, {spill} bytes spilled"
+            entry = None
+    return found
+
+
 def _build_phase() -> None:
     from repro_torch.kernels import _build
 
@@ -343,10 +381,14 @@ def _build_phase() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 usage.append(f"{name}: {line.strip()}")
+    FLASH_REGISTERS.update(_flash_registers(logs.get("flash_attn", "")))
     print(f"build: {len(_build.SOURCES)} kernels in {secs:.2f} s "
           f"({len(logs)} compiled this run)")
     for line in usage:
         print("  ptxas " + line)
+    for (path, hdp), regs in sorted(FLASH_REGISTERS.items()):
+        print(f"  flash_attention {path} instance, head dim padded to {hdp}: "
+              f"{regs}")
 
 
 def _l1_phase(device, scale: Scale, rng) -> dict:
@@ -1283,11 +1325,15 @@ ANY_PERIOD_S = 0.25
 ANY_DEADLINE_S = 2.5
 ANY_TARGET_AGREEMENT = 0.98
 # kernel G against its plain version (rtol, atol).  Both take the same
-# inputs and compute in f32, p rounded to v's dtype in both; they differ only
-# in the summation order inside a tile's dot products, which the H100 runs
-# show as a largest gap of 4.8e-7 at every shape in either dtype.  f32 keeps
-# the JAX sweep's tolerance; bf16 is held at 1e-5, so a kernel that skipped
-# the bf16 rounding of p (a gap of about 1e-4) or misplaced a mask fails.
+# inputs, p rounded to v's dtype in both.  In bf16 both form each score as
+# the f32 rounding of its exact dot product (the kernel on the f64 tensor
+# cores), so they differ only in the summation order of the PV product; the
+# f32 (SIMT) kernel's scores are f32 multiply-add chains.  The H100 runs
+# show a largest gap of 4.8e-7 in bf16 and 2.4e-6 in f32.  f32 keeps the
+# JAX sweep's tolerance; bf16 is held at 1e-5, so a kernel that skipped the
+# bf16 rounding of p (a gap of about 1e-4), misplaced a mask, or formed its
+# scores in another order (p crossing bf16 rounding boundaries: up to
+# 1.4e-3, tools/flash_p_rounding_witness.py) fails.
 FLASH_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-5, 1e-5)}
 # kernel H against its plain version (rtol, atol): both form each score in
 # the same order and take exp and the softmax denominator in f64, so their
@@ -1325,13 +1371,13 @@ def _layer_kinds(cfg) -> dict:
 
 def _anytime_phase(device, scale: Scale, run: AnyRun) -> dict:
     """One anytime path at its config's published widths (seeded random
-    weights, fresh exit heads): the prefill of one prompt and
+    weights, fresh exit heads): the prefill of one prompt (twice) and
     ``decode_steps`` decode steps; ``anytime_forward`` on ``fwd_shape`` and
     the exit thresholds calibrated from it; the anytime engine and EDF on
     one request trace under a solar harvester and a persistent supply.  The
     launch counts are zeroed before and read after: kernel G once per
-    attention layer and kernel I once per recurrent layer in the prefill and
-    in ``anytime_forward``, kernel H once per attention layer in every
+    attention layer and kernel I once per recurrent layer in each prefill
+    and in ``anytime_forward``, kernel H once per attention layer in every
     decode step and engine step."""
     import torch
 
@@ -1363,28 +1409,36 @@ def _anytime_phase(device, scale: Scale, run: AnyRun) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
 
     # ---- the main path: counts zeroed just before, read just after ------
+    # host-clock times spread between calls, so the prefill runs twice and
+    # the decode steps are timed in two halves
     ops.reset_launch_counts()
     P, steps = run.prefill_len, run.decode_steps
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, P)).astype(
         np.int32)).to(device)
     cache_len = P + steps if run.full_cache else None
-    (logits, state), pre_s = _timed(lambda: T.prefill(
-        cfg, params, {"tokens": toks}, cache_len=cache_len), device)
+    pre_s = []
+    for _ in range(2):
+        (logits, state), secs = _timed(lambda: T.prefill(
+            cfg, params, {"tokens": toks}, cache_len=cache_len), device)
+        pre_s.append(secs)
     tok = torch.argmax(logits, -1).to(torch.int32)
 
-    def decode(n=steps):
+    def decode(n):
         nonlocal logits, state, tok
         for _ in range(n):
             logits, state = T.decode_step(cfg, params, state, tok)
             tok = torch.argmax(logits, -1).to(torch.int32)
 
-    _, dec_s = _timed(decode, device)
+    halves = (steps // 2, steps - steps // 2)
+    dec_ms = [1e3 * _timed(lambda: decode(n), device)[1] / n for n in halves]
     if not (bool(logits.isfinite().all())
             and int(state["pos"][0]) == P + steps
             and tuple(logits.shape) == (1, cfg.padded_vocab)):
         raise AssertionError("prefill + decode: bad logits or state")
-    print(f"prefill {P} tokens: {pre_s:.3f} s; {steps} decode steps: "
-          f"{1e3 * dec_s / steps:.2f} ms per step (host clock, synchronised)")
+    print(f"prefill {P} tokens: {pre_s[0]:.3f} s, again {pre_s[1]:.3f} s; "
+          f"{steps} decode steps: {dec_ms[0]:.2f} ms per step over the "
+          f"first {halves[0]}, {dec_ms[1]:.2f} over the next {halves[1]} "
+          f"(host clock, synchronised)")
 
     B2, S2 = run.fwd_shape
     toks2 = torch.from_numpy(rng.integers(0, cfg.vocab, (B2, S2)).astype(
@@ -1438,9 +1492,9 @@ def _anytime_phase(device, scale: Scale, run: AnyRun) -> dict:
               f"{res.agreement:.4f}, score {res.score:.4f}, simulated "
               f"horizon {res.horizon:.2f} s")
     counts = ops.launch_counts()
-    want = {"flash_attention": 2 * kinds["attn"],
+    want = {"flash_attention": 3 * kinds["attn"],
             "decode_gqa": kinds["attn"] * (steps + 4 * run.max_steps),
-            "rglru_scan": 2 * kinds["rec"]}
+            "rglru_scan": 3 * kinds["rec"]}
     want = {k: n for k, n in want.items() if n}
     launches = {k: counts[k] for k in want}
     if device.type == "cuda":
@@ -1461,7 +1515,7 @@ def _anytime_phase(device, scale: Scale, run: AnyRun) -> dict:
             carry[0] = eng._step(tables, carry[0], knobs)
 
     _profile(device, "engine step", run.slots, 5, engine_steps)
-    return dict(launches=launches, prefill_s=pre_s, decode_ms=1e3 * dec_s / steps,
+    return dict(launches=launches, prefill_s=pre_s, decode_ms=dec_ms,
                 forward_s=fwd_s, engine_ms=engine_ms,
                 engine={p: r.as_dict() for p, r in served.items()})
 
@@ -1540,19 +1594,26 @@ def _flash_phase(device, scale: Scale) -> dict:
 
             lib_ms = _ms(sdpa, device, reps=5 if big else 20)
             pairs = _flash_pairs(S, Skv, causal, window, qo)
+            flops = 4.0 * hd * pairs * H * B
             bound_ms, by = _bound(
-                _nbytes(q, k, v) + out.numel() * 4, 4.0 * hd * pairs * H * B,
+                _nbytes(q, k, v) + out.numel() * 4, flops,
                 PEAK_BF16_S if dtype == "bfloat16" else PEAK_F32_S)
+            path = FA.kernel_path(dt, hd)
+            hdp = 64 if hd <= 64 else 128 if hd <= 128 else 256
+            regs = FLASH_REGISTERS.get((path, hdp), "registers not reported")
             label = (f"B={B} S={S} Skv={Skv} H={H} KV={KV} hd={hd}"
                      f"{' causal' if causal else ''}"
                      f"{f' window={window}' if window else ''}"
                      f"{f' q_offset={qo}' if qo else ''} {dtype}")
-            print(f"flash_attention ({label}): max err {err:.3g} vs plain; "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-                  f"{lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({by})")
-            rows.append(dict(shape=label, max_abs_err=err, ms=ms,
+            print(f"flash_attention ({label}): {path} kernel ({regs}); max "
+                  f"err {err:.3g} vs plain; kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.2f} TFLOP/s useful), plain "
+                  f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+                  f"{bound_ms:.6f} ms ({by})")
+            rows.append(dict(shape=label, path=path, max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=bound_ms, bound_by=by))
+                             bound_ms=bound_ms, bound_by=by,
+                             tflop_s=flops / ms / 1e9))
     row = dict(rows[0])
     row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     row["shapes"] = rows[1:]
@@ -1621,18 +1682,25 @@ def _decode_phase(device, scale: Scale) -> dict:
         lib_ms = _ms(sdpa, device)
         n_valid = int(valid.sum())             # kept (row, slot) pairs
         kv_row = KV * hd * k.element_size()  # one slot's k (or v) row
-        bound_ms, by = _bound(
-            _nbytes(q, slot_pos, pos) + 2 * n_valid * kv_row
-            + out.numel() * 4, 4.0 * H * hd * n_valid)
+        nbytes = (_nbytes(q, slot_pos, pos) + 2 * n_valid * kv_row
+                  + out.numel() * 4)
+        bound_ms, by = _bound(nbytes, 4.0 * H * hd * n_valid)
+        nsplit, chunk = DG.split_plan(
+            B, KV, C, torch.cuda.get_device_properties(
+                device).multi_processor_count if device.type == "cuda"
+            else 132)
         label = (f"B={B} H={H} KV={KV} hd={hd} C={C} {dtype}"
                  f"{' round_p' if round_p else ''}"
                  f"{f' window={window}' if window else ''}")
-        print(f"decode_gqa ({label}): max err {err:.3g} vs plain; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
-              f"bound {bound_ms:.6f} ms ({by})")
-        rows.append(dict(shape=label, max_abs_err=err, ms=ms,
+        print(f"decode_gqa ({label}): {nsplit} split(s) of {chunk} slots; "
+              f"max err {err:.3g} vs plain; kernel {ms:.4f} ms "
+              f"({nbytes / ms / 1e6:.2f} GB/s of the bound's bytes), plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms ({by})")
+        rows.append(dict(shape=label, splits=nsplit, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=by))
+                         bound_ms=bound_ms, bound_by=by,
+                         gb_s=nbytes / ms / 1e6))
     row = dict(rows[0])
     row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     row["shapes"] = rows[1:]
@@ -1685,15 +1753,23 @@ def _any_cpu_check(device, run: AnyRun, S: int) -> None:
     1e-4), a prefill of ``S`` tokens and four decode steps (kernel H
     against the einsum path, 1e-4), and one EDF engine run (the result
     arrays equal: the depth is fixed and every emitted token agrees with
-    itself)."""
+    itself).  The config's window must be a multiple of the CPU path's
+    chunk (``attention.chunk_size``): on any other window the reference's
+    chunked path, which the CPU port mirrors, drops keys that kernel G
+    keeps (ROADMAP Queue 3), so the check asserts it first."""
     import torch
 
     from repro_torch import convert
     from repro_torch.configs import get_config
+    from repro_torch.models import attention
     from repro_torch.models import transformer as T
     from repro_torch.serve import AnytimeConfig, AnytimeServeEngine
 
     cfg = get_config(run.arch).reduced()
+    chunk = attention.chunk_size(S, S, cfg.attn_chunk)
+    if cfg.window % chunk:
+        raise AssertionError(f"{run.arch} reduced: window {cfg.window} is no "
+                             f"multiple of the CPU path's chunk {chunk}")
     cpu = torch.device("cpu")
     params = T.init_params(cfg, torch.Generator().manual_seed(1), device=cpu)
     on_dev = convert.tree(params, device)

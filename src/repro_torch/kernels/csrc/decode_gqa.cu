@@ -14,31 +14,55 @@
 //
 // Bound on the H100: bytes (the k and v rows of the valid slots are read
 // once: 2 * n_valid * hd elements per (row, kv head) against
-// 4 * G * n_valid * hd flops), far below the f32 rate at these sizes; with one block per (row, kv head) a decode at
-// batch 1 runs on one SM, so it is latency-bound in practice.
+// 4 * G * n_valid * hd flops).  A decode at batch 1 has one or a few
+// (row, kv head) pairs, so the cache is split across blocks to reach the
+// card's 132 SMs.
 //
-// Design: one block of 256 threads per (batch row, kv head); the G query
-// heads of the group sit in shared memory as f32.  Pass 1 stages 64-slot
-// tiles of k (converted to f32 in registers, zero-filled past C) in shared
-// memory and computes the G x 64 scores with threads over (head, slot),
-// each a sequential __fmaf_rn dot over d = 0 .. hd-1; masked scores are
-// -1e30; scores go to a global scratch (B, KV, G, C) that the wrapper
-// allocates.  Pass 2 gives each query head to one warp: its max, then
-// p = exp(s - m) and their sum l, each lane over slots lane, lane + 32, ...
-// in order and the lanes joined by a fixed xor tree (no float atomics),
-// then for round_p the normalised, rounded p written back.  exp and the
-// sum are taken in f64 and rounded to f32: exp then rounds as the plain
+// Arithmetic, the same in every launch plan: each (head, slot) score is a
+// sequential __fmaf_rn dot over d = 0 .. hd-1, then * scale, then the mask;
+// the row max is exact in any order; p = exp(s - m) and the denominator
+// are taken in f64 and rounded to f32: exp then rounds as the plain
 // version's f64 exp does, and the sum's f32 value does not depend on its
 // order (its f64 error is far below an f32 ulp), so the plain version,
 // which forms each score in the same order, gets the same weights bit for
 // bit, and a weight rounded to bf16 cannot land on the other side of a
-// rounding boundary in one version only.  Pass 3 stages 64-slot tiles of p
-// and of v (read as stored, coalesced, converted to f32) in shared memory;
-// thread d owns output column d and sums p_c * v[c, d] over the slots in
-// order for every head of the group.  The library builds with -fmad=false;
-// every multiply-add here is an explicit __fmaf_rn.
+// rounding boundary in one version only.  Only the summation order of the
+// PV product differs.  No float atomics; the library builds with
+// -fmad=false and every multiply-add here is an explicit __fmaf_rn.
+//
+// Two launch plans, chosen by the wrapper (nsplit):
+//
+// * nsplit = 1 (B * KV fills the card, or the cache is one tile): one block
+//   of 256 threads per (batch row, kv head), three passes in the block.
+//   Pass 1 stages 64-slot tiles of k (converted to f32, zero-filled past
+//   the end) in shared memory and computes the G x 64 scores with threads
+//   over (head, slot); scores go to a global scratch (B, KV, G, C).
+//   Pass 2 gives each query head to one warp: its max, then p and l, each
+//   lane over slots lane, lane + 32, ... and the lanes joined by a fixed
+//   xor tree, then for round_p the normalised, rounded p written back.
+//   Pass 3 stages 64-slot tiles of p and of v (read as stored, coalesced)
+//   in shared memory; thread d owns output column d and sums p_c * v[c, d]
+//   over the slots in order for every head of the group.
+// * nsplit > 1: the cache is cut into nsplit chunks of `chunk` slots (whole
+//   tiles, the last one ragged) and each pass is a grid of (B * KV, nsplit)
+//   blocks, four launches in order on the stream: split_scores (pass 1 on
+//   a chunk, plus the chunk's max per head), split_weights (the global max
+//   from the chunk maxima, p for the chunk, the chunk's f64 sum of p),
+//   split_pv (l as the f64 sum of the chunk sums in a fixed order; for
+//   round_p the chunk's weights normalised and rounded; the chunk's PV sums
+//   per head and column, in slot order) and split_combine (one block per
+//   (row, kv head, head): the chunks' PV sums added in split order,
+//   divided by the denominator last without round_p).  The partial
+//   maxima, sums and PV sums live in scratch the wrapper allocates.
+//
+// Tiles of q and of the cache are read with 16-byte loads where the rows
+// allow it (hd a multiple of 8 bf16 or 4 f32 values), several in flight.
+// The PV pass is instanced on a bound of the group size (1, 2, 4, 8, 16,
+// 32), so its accumulators stay in registers and a slot costs no work for
+// heads the group does not have.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -80,75 +104,193 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-// Stage rows c0 .. c0 + TILE - 1 (zeros past C) of a cache's ``width``
-// columns, converted to f32, at dst[row * dst_stride + col].
+// elements of T in one 16-byte load, and such a load unpacked to f32
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void unpack(uint4 u, float* x) {
+    x[0] = __uint_as_float(u.x);
+    x[1] = __uint_as_float(u.y);
+    x[2] = __uint_as_float(u.z);
+    x[3] = __uint_as_float(u.w);
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void unpack(uint4 u, float* x) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[2 * i] = __uint_as_float(w[i] << 16);
+      x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+// Stage rows c0 .. c0 + TILE - 1 (zeros from c_end on) of a cache's
+// ``width`` columns, converted to f32, at dst[row * dst_stride + col]; with
+// ``vec`` (rows of whole, aligned 16-byte pieces) one 16-byte load at a
+// time, several in flight.
 template <typename T>
 __device__ __forceinline__ void stage_tile(float* dst, int dst_stride,
                                            const T* src, long src_stride,
-                                           int c0, int C, int width) {
+                                           int c0, int c_end, int width,
+                                           bool vec) {
+  if (vec) {
+    constexpr int V = Vec<T>::N;
+    const int per_row = width / V;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < TILE * per_row; i += THREADS) {
+      const int r = i / per_row, d = (i - r * per_row) * V;
+      float x[V];
+      if (c0 + r < c_end) {
+        Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(
+                           src + (long)(c0 + r) * src_stride + d)),
+                       x);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) x[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) dst[r * dst_stride + d + e] = x[e];
+    }
+    return;
+  }
   for (int i = threadIdx.x; i < TILE * width; i += THREADS) {
     const int r = i / width, d = i % width;
     dst[r * dst_stride + d] =
-        c0 + r < C ? to_f32(src[(long)(c0 + r) * src_stride + d]) : 0.f;
+        c0 + r < c_end ? to_f32(src[(long)(c0 + r) * src_stride + d]) : 0.f;
   }
 }
 
+// Where a block's pieces sit: its (row, kv head), the group's query heads
+// in shared memory, and its views of the cache, positions and scratch.
 template <typename T>
+struct Block {
+  int row, kvh, G, pos;
+  bool vec;                // 16-byte loads of q and the cache rows
+  long cstride;            // cache stride per slot
+  const T* kr;             // this kv head's k column block at slot 0
+  const T* vr;
+  const int* sp;           // this row's slot positions
+  float* sc;               // scores, then weights: G x C
+  float *Qs, *Ts, *Ps, *den;  // shared: G x hd, tile, G x TILE, GMAX
+
+  __device__ Block(int rowkv, const T* k, const T* v, const int* slot_pos,
+                   const int* my_pos, int C, int H, int KV, int hd, int vec_,
+                   float* scratch, float* smem) {
+    vec = vec_;
+    row = rowkv / KV;
+    kvh = rowkv % KV;
+    G = H / KV;
+    pos = my_pos[row];
+    cstride = (long)KV * hd;
+    kr = k + (long)row * C * cstride + (long)kvh * hd;
+    vr = v + (long)row * C * cstride + (long)kvh * hd;
+    sp = slot_pos + (long)row * C;
+    sc = scratch + (long)rowkv * G * C;
+    Qs = smem;
+    Ts = Qs + G * hd;
+    Ps = Ts + TILE * (hd + 1);
+    den = Ps + G * TILE;
+  }
+};
+
+// The group's query heads kvh*G .. kvh*G + G - 1 (contiguous in q) as f32.
+template <typename T>
+__device__ __forceinline__ void load_q(const Block<T>& bl, const T* q, int H,
+                                       int hd) {
+  const T* qr = q + ((long)bl.row * H + (long)bl.kvh * bl.G) * hd;
+  if (bl.vec) {
+    constexpr int V = Vec<T>::N;
+    for (int i = threadIdx.x; i < bl.G * hd / V; i += THREADS)
+      Vec<T>::unpack(__ldg(reinterpret_cast<const uint4*>(qr) + i),
+                     bl.Qs + V * i);
+    return;
+  }
+  for (int i = threadIdx.x; i < bl.G * hd; i += THREADS)
+    bl.Qs[i] = to_f32(qr[i]);
+}
+
+// Pass 1 on slots [c_begin, c_end): sc[g * C + c] = the masked score.
+template <typename T>
+__device__ void scores(const Block<T>& bl, int c_begin, int c_end, int C,
+                       int hd, int window, float scale) {
+  const int ks = hd + 1;  // padded k row stride
+  for (int c0 = c_begin; c0 < c_end; c0 += TILE) {
+    __syncthreads();  // Qs written / the previous tile consumed
+    stage_tile(bl.Ts, ks, bl.kr, bl.cstride, c0, c_end, hd, bl.vec);
+    __syncthreads();
+    for (int i = threadIdx.x; i < bl.G * TILE; i += THREADS) {
+      const int g = i / TILE, c = c0 + i % TILE;
+      if (c >= c_end) continue;
+      const float* qg = bl.Qs + g * hd;
+      const float* kc = bl.Ts + (c - c0) * ks;
+      float s = 0.f;
+      for (int d = 0; d < hd; ++d) s = __fmaf_rn(qg[d], kc[d], s);
+      const int p = bl.sp[c];
+      const bool valid =
+          p >= 0 && p <= bl.pos && (window == 0 || bl.pos - p <= window);
+      bl.sc[(long)g * C + c] = valid ? __fmul_rn(s, scale) : NEG;
+    }
+  }
+}
+
+// Pass 3 on slots [c_begin, c_end): acc[g] += w_gc * v[c, d] in slot order
+// for thread d < hd, with w = sc, or round(sc / lnorm[g]) when lnorm is set.
+// GT >= G bounds the group at compile time (the accumulators stay in
+// registers, and no slot pays for heads the group does not have).
+template <typename T, int GT>
+__device__ void pv(const Block<T>& bl, int c_begin, int c_end, int C, int hd,
+                   const float* lnorm, float (&acc)[GT]) {
+  const int tid = threadIdx.x;
+  for (int c0 = c_begin; c0 < c_end; c0 += TILE) {
+    __syncthreads();  // the weights / the previous tiles consumed
+    for (int i = tid; i < bl.G * TILE; i += THREADS) {
+      const int g = i / TILE, c = c0 + i % TILE;
+      float w = c < c_end ? bl.sc[(long)g * C + c] : 0.f;
+      if (lnorm != nullptr) w = round_like<T>(__fdiv_rn(w, lnorm[g]));
+      bl.Ps[i] = w;
+    }
+    stage_tile(bl.Ts, hd, bl.vr, bl.cstride, c0, c_end, hd, bl.vec);
+    __syncthreads();
+    if (tid < hd) {
+      const int n = min(TILE, c_end - c0);
+      for (int cc = 0; cc < n; ++cc) {
+        const float vv = bl.Ts[cc * hd + tid];
+#pragma unroll
+        for (int g = 0; g < GT; ++g)
+          if (g < bl.G) acc[g] = __fmaf_rn(bl.Ps[g * TILE + cc], vv, acc[g]);
+      }
+    }
+  }
+}
+
+// ---- nsplit = 1: the three passes in one block per (row, kv head) --------
+
+template <typename T, int GT>
 __global__ void __launch_bounds__(THREADS)
     decode_gqa_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v,
                       const int* __restrict__ slot_pos,
                       const int* __restrict__ my_pos, int C, int H, int KV,
-                      int hd, int window, int round_p, float scale,
+                      int hd, int vec, int window, int round_p, float scale,
                       float ref_count, float* scratch,
                       float* __restrict__ out) {
   extern __shared__ float smem[];
-  const int G = H / KV;
-  const int ks = hd + 1;                       // padded k row stride
-  float* Qs = smem;                            // G x hd
-  float* Ts = Qs + G * hd;                     // k tile, then v tile
-  float* Ps = Ts + TILE * ks;                  // G x TILE weights
-  float* den = Ps + G * TILE;                  // G denominators
-
-  const int row = blockIdx.x / KV;
-  const int kvh = blockIdx.x % KV;
-  const int tid = threadIdx.x;
-  const int pos = my_pos[row];
-  const long cstride = (long)KV * hd;          // cache stride per slot
-  const T* kr = k + (long)row * C * cstride + (long)kvh * hd;
-  const T* vr = v + (long)row * C * cstride + (long)kvh * hd;
-  const int* sp = slot_pos + (long)row * C;
-  float* sc = scratch + ((long)row * KV + kvh) * G * C;
-
-  // the group's query heads kvh*G .. kvh*G + G - 1 are contiguous in q
-  const T* qr = q + ((long)row * H + (long)kvh * G) * hd;
-  for (int i = tid; i < G * hd; i += THREADS) Qs[i] = to_f32(qr[i]);
-
-  // ---- pass 1: scores ----------------------------------------------------
-  for (int c0 = 0; c0 < C; c0 += TILE) {
-    __syncthreads();  // Qs written / the previous tile consumed
-    stage_tile(Ts, ks, kr, cstride, c0, C, hd);
-    __syncthreads();
-    for (int i = tid; i < G * TILE; i += THREADS) {
-      const int g = i / TILE, cc = i % TILE;
-      const int c = c0 + cc;
-      if (c >= C) continue;
-      const float* qg = Qs + g * hd;
-      const float* kc = Ts + cc * ks;
-      float s = 0.f;
-      for (int d = 0; d < hd; ++d) s = __fmaf_rn(qg[d], kc[d], s);
-      const int p = sp[c];
-      const bool valid =
-          p >= 0 && p <= pos && (window == 0 || pos - p <= window);
-      sc[(long)g * C + c] = valid ? __fmul_rn(s, scale) : NEG;
-    }
-  }
+  const Block<T> bl(blockIdx.x, k, v, slot_pos, my_pos, C, H, KV, hd, vec,
+                    scratch, smem);
+  load_q(bl, q, H, hd);
+  scores(bl, 0, C, C, hd, window, scale);
   __syncthreads();  // every score is in the scratch
 
-  // ---- pass 2: softmax weights, one warp per query head ------------------
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int g = warp; g < G; g += THREADS / 32) {
-    float* sg = sc + (long)g * C;
+  // pass 2: softmax weights, one warp per query head
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int g = warp; g < bl.G; g += THREADS / 32) {
+    float* sg = bl.sc + (long)g * C;
     float m = NEG;
     for (int c = lane; c < C; c += 32) m = fmaxf(m, sg[c]);
     m = warp_max(m);
@@ -165,56 +307,224 @@ __global__ void __launch_bounds__(THREADS)
     } else if (m == NEG) {
       l = ref_count;  // no valid slot: the reference's padded count
     }
-    if (lane == 0) den[g] = fmaxf(l, 1e-30f);
+    if (lane == 0) bl.den[g] = fmaxf(l, 1e-30f);
   }
 
-  // ---- pass 3: out = p @ v, thread d owns column d -----------------------
-  float acc[GMAX];
+  float acc[GT];
 #pragma unroll
-  for (int g = 0; g < GMAX; ++g) acc[g] = 0.f;
-  for (int c0 = 0; c0 < C; c0 += TILE) {
-    __syncthreads();  // pass 2's weights / the previous tiles consumed
-    for (int i = tid; i < G * TILE; i += THREADS) {
-      const int g = i / TILE, cc = i % TILE;
-      const int c = c0 + cc;
-      Ps[i] = c < C ? sc[(long)g * C + c] : 0.f;
-    }
-    stage_tile(Ts, hd, vr, cstride, c0, C, hd);
-    __syncthreads();
-    if (tid < hd) {
-      const int n = min(TILE, C - c0);
-      for (int cc = 0; cc < n; ++cc) {
-        const float vv = Ts[cc * hd + tid];
-#pragma unroll
-        for (int g = 0; g < GMAX; ++g)
-          if (g < G) acc[g] = __fmaf_rn(Ps[g * TILE + cc], vv, acc[g]);
-      }
-    }
-  }
+  for (int g = 0; g < GT; ++g) acc[g] = 0.f;
+  pv(bl, 0, C, C, hd, nullptr, acc);
+  const int tid = threadIdx.x;
   if (tid < hd) {
-    float* o = out + ((long)row * H + (long)kvh * G) * hd + tid;
+    float* o = out + ((long)bl.row * H + (long)bl.kvh * bl.G) * hd + tid;
 #pragma unroll
-    for (int g = 0; g < GMAX; ++g)
-      if (g < G) o[(long)g * hd] = round_p ? acc[g] : __fdiv_rn(acc[g], den[g]);
+    for (int g = 0; g < GT; ++g)
+      if (g < bl.G)
+        o[(long)g * hd] = round_p ? acc[g] : __fdiv_rn(acc[g], bl.den[g]);
   }
 }
 
+// ---- nsplit > 1: four launches over (row x kv head, chunk) blocks --------
+// Partial results of head g of (row, kv head) rk and chunk s sit at
+// [(rk * G + g) * nsplit + s] (and times hd + d for the PV sums).
+
 template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    split_scores(const T* __restrict__ q, const T* __restrict__ k,
+                 const int* __restrict__ slot_pos,
+                 const int* __restrict__ my_pos, int C, int H, int KV, int hd,
+                 int vec, int window, float scale, int chunk, float* scratch,
+                 float* __restrict__ pmax) {
+  extern __shared__ float smem[];
+  const Block<T> bl(blockIdx.x, k, k, slot_pos, my_pos, C, H, KV, hd, vec,
+                    scratch, smem);
+  const int s = blockIdx.y, ns = gridDim.y;
+  const int c_begin = s * chunk, c_end = min(C, c_begin + chunk);
+  load_q(bl, q, H, hd);
+  scores(bl, c_begin, c_end, C, hd, window, scale);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int g = warp; g < bl.G; g += THREADS / 32) {
+    float m = NEG;
+    for (int c = c_begin + lane; c < c_end; c += 32)
+      m = fmaxf(m, bl.sc[(long)g * C + c]);
+    m = warp_max(m);
+    if (lane == 0) pmax[((long)blockIdx.x * bl.G + g) * ns + s] = m;
+  }
+}
+
+// l of head hg, by one warp: the chunk sums of p added lane by lane and
+// the lanes joined by a fixed xor tree, rounded to f32 (every lane)
+__device__ __forceinline__ float split_l(const double* psum, long hg,
+                                         int ns) {
+  double l = 0.0;
+  for (int j = threadIdx.x & 31; j < ns; j += 32)
+    l = __dadd_rn(l, psum[hg * ns + j]);
+  return (float)warp_sum(l);
+}
+
+// the max of head hg over its chunks, by one warp (every lane)
+__device__ __forceinline__ float split_m(const float* pmax, long hg, int ns) {
+  float m = NEG;
+  for (int j = threadIdx.x & 31; j < ns; j += 32)
+    m = fmaxf(m, pmax[hg * ns + j]);
+  return warp_max(m);
+}
+
+__global__ void __launch_bounds__(THREADS)
+    split_weights(int C, int G, int chunk, float* scratch,
+                  const float* __restrict__ pmax, double* __restrict__ psum) {
+  const int s = blockIdx.y, ns = gridDim.y;
+  const int c_begin = s * chunk, c_end = min(C, c_begin + chunk);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int g = warp; g < G; g += THREADS / 32) {
+    const long hg = (long)blockIdx.x * G + g;
+    const float m = split_m(pmax, hg, ns);  // exact in any order
+    float* sg = scratch + hg * C;
+    double ld = 0.0;
+    for (int c = c_begin + lane; c < c_end; c += 32) {
+      const float p = (float)exp((double)__fsub_rn(sg[c], m));
+      sg[c] = p;
+      ld = __dadd_rn(ld, (double)p);
+    }
+    ld = warp_sum(ld);
+    if (lane == 0) psum[hg * ns + s] = ld;
+  }
+}
+
+template <typename T, int GT>
+__global__ void __launch_bounds__(THREADS)
+    split_pv(const T* __restrict__ v, const int* __restrict__ slot_pos,
+             const int* __restrict__ my_pos, int C, int H, int KV, int hd,
+             int vec, int round_p, int chunk, float* scratch,
+             const double* __restrict__ psum, float* __restrict__ ppv) {
+  extern __shared__ float smem[];
+  const Block<T> bl(blockIdx.x, v, v, slot_pos, my_pos, C, H, KV, hd, vec,
+                    scratch, smem);
+  const int s = blockIdx.y, ns = gridDim.y;
+  const int c_begin = s * chunk, c_end = min(C, c_begin + chunk);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  if (round_p)
+    for (int g = warp; g < bl.G; g += THREADS / 32) {
+      const float l = split_l(psum, (long)blockIdx.x * bl.G + g, ns);
+      if ((tid & 31) == 0) bl.den[g] = l;
+    }
+  float acc[GT];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) acc[g] = 0.f;
+  pv(bl, c_begin, c_end, C, hd, round_p ? bl.den : nullptr, acc);
+  if (tid < hd) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g)
+      if (g < bl.G)
+        ppv[(((long)blockIdx.x * bl.G + g) * ns + s) * hd + tid] = acc[g];
+  }
+}
+
+// one block per (row, kv head, head): thread d adds the chunks' PV sums of
+// column d in split order
+__global__ void __launch_bounds__(THREADS)
+    split_combine(int hd, int ns, int round_p, float ref_count,
+                  const float* __restrict__ pmax,
+                  const double* __restrict__ psum,
+                  const float* __restrict__ ppv, float* __restrict__ out) {
+  __shared__ float den;
+  const long hg = blockIdx.x;
+  if (!round_p && threadIdx.x < 32) {
+    const float m = split_m(pmax, hg, ns);
+    const float l = split_l(psum, hg, ns);
+    // no valid slot: the reference's padded count
+    if (threadIdx.x == 0) den = fmaxf(m == NEG ? ref_count : l, 1e-30f);
+  }
+  __syncthreads();
+  const int d = threadIdx.x;
+  if (d >= hd) return;
+  const float* pd = ppv + hg * ns * hd + d;
+  float o = 0.f;
+#pragma unroll 8
+  for (int j = 0; j < ns; ++j) o = __fadd_rn(o, pd[(long)j * hd]);
+  out[hg * hd + d] = round_p ? o : __fdiv_rn(o, den);
+}
+
+// the most shared memory a block of these kernels takes (G = 32, hd = 256)
+constexpr int SMEM_MAX =
+    sizeof(float) * (GMAX * 256 + TILE * 257 + GMAX * TILE + GMAX);
+
+template <typename K>
+int allow_smem(K kern) {
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+}
+
+// allow the kernels of one cache dtype and group bound SMEM_MAX bytes, once
+template <typename T, int GT>
+int allow_smem_once() {
+  static const int err = [] {
+    int e = allow_smem(decode_gqa_kernel<T, GT>);
+    if (!e) e = allow_smem(split_scores<T>);
+    if (!e) e = allow_smem(split_pv<T, GT>);
+    return e;
+  }();
+  return err;
+}
+
+template <typename T, int GT>
 int launch(const void* q, const void* k, const void* v, const int* slot_pos,
            const int* my_pos, int B, int C, int H, int KV, int hd,
-           int window, int round_p, float scale, float ref_count,
-           float* scratch, float* out, cudaStream_t stream) {
+           int window, int round_p, float scale, float ref_count, int nsplit,
+           int chunk, float* scratch, float* pmax, double* psum, float* ppv,
+           float* out, cudaStream_t stream) {
   const int G = H / KV;
   const size_t smem = sizeof(float) * ((size_t)G * hd + TILE * (hd + 1) +
                                        (size_t)G * TILE + GMAX);
-  auto kern = decode_gqa_kernel<T>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<B * KV, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, slot_pos, my_pos, C, H, KV, hd,
-      window, round_p, scale, ref_count, scratch, out);
+  const T *qt = (const T*)q, *kt = (const T*)k, *vt = (const T*)v;
+  // 16-byte loads: rows of whole 16-byte pieces at 16-byte aligned bases
+  const int vec = hd % Vec<T>::N == 0 && (uintptr_t)q % 16 == 0 &&
+                  (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
+  int e = allow_smem_once<T, GT>();
+  if (e) return e;
+  if (nsplit == 1) {
+    decode_gqa_kernel<T, GT><<<B * KV, THREADS, smem, stream>>>(
+        qt, kt, vt, slot_pos, my_pos, C, H, KV, hd, vec, window, round_p,
+        scale, ref_count, scratch, out);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid(B * KV, nsplit);
+  split_scores<T><<<grid, THREADS, smem, stream>>>(
+      qt, kt, slot_pos, my_pos, C, H, KV, hd, vec, window, scale, chunk,
+      scratch, pmax);
+  if ((e = (int)cudaGetLastError())) return e;
+  split_weights<<<grid, THREADS, 0, stream>>>(C, G, chunk, scratch, pmax,
+                                              psum);
+  if ((e = (int)cudaGetLastError())) return e;
+  split_pv<T, GT><<<grid, THREADS, smem, stream>>>(
+      vt, slot_pos, my_pos, C, H, KV, hd, vec, round_p, chunk, scratch, psum,
+      ppv);
+  if ((e = (int)cudaGetLastError())) return e;
+  split_combine<<<B * H, (hd + 31) / 32 * 32, 0, stream>>>(
+      hd, nsplit, round_p, ref_count, pmax, psum, ppv, out);
   return (int)cudaGetLastError();
+}
+
+// the instance whose group bound GT is the least power of two >= G
+template <typename T>
+int launch_group(int G, const void* q, const void* k, const void* v,
+                 const int* slot_pos, const int* my_pos, int B, int C, int H,
+                 int KV, int hd, int window, int round_p, float scale,
+                 float ref_count, int nsplit, int chunk, float* scratch,
+                 float* pmax, double* psum, float* ppv, float* out,
+                 cudaStream_t st) {
+#define DECODE_GQA_LAUNCH(GT)                                                \
+  launch<T, GT>(q, k, v, slot_pos, my_pos, B, C, H, KV, hd, window, round_p, \
+                scale, ref_count, nsplit, chunk, scratch, pmax, psum, ppv,   \
+                out, st)
+  if (G <= 1) return DECODE_GQA_LAUNCH(1);
+  if (G <= 2) return DECODE_GQA_LAUNCH(2);
+  if (G <= 4) return DECODE_GQA_LAUNCH(4);
+  if (G <= 8) return DECODE_GQA_LAUNCH(8);
+  if (G <= 16) return DECODE_GQA_LAUNCH(16);
+  return DECODE_GQA_LAUNCH(GMAX);
+#undef DECODE_GQA_LAUNCH
 }
 
 }  // namespace
@@ -223,13 +533,17 @@ extern "C" int decode_gqa_launch(const void* q, const void* k, const void* v,
                                  const int* slot_pos, const int* my_pos,
                                  int B, int C, int H, int KV, int hd,
                                  int window, int round_p, float scale,
-                                 float ref_count, int bf16, float* scratch,
-                                 float* out, void* stream) {
+                                 float ref_count, int bf16, int nsplit,
+                                 int chunk, float* scratch, float* pmax,
+                                 double* psum, float* ppv, float* out,
+                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const int G = H / KV;
   if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, slot_pos, my_pos, B, C, H, KV, hd,
-                                 window, round_p, scale, ref_count, scratch,
-                                 out, st);
-  return launch<float>(q, k, v, slot_pos, my_pos, B, C, H, KV, hd, window,
-                       round_p, scale, ref_count, scratch, out, st);
+    return launch_group<__nv_bfloat16>(
+        G, q, k, v, slot_pos, my_pos, B, C, H, KV, hd, window, round_p, scale,
+        ref_count, nsplit, chunk, scratch, pmax, psum, ppv, out, st);
+  return launch_group<float>(G, q, k, v, slot_pos, my_pos, B, C, H, KV, hd,
+                             window, round_p, scale, ref_count, nsplit, chunk,
+                             scratch, pmax, psum, ppv, out, st);
 }

@@ -12,51 +12,90 @@
 // Bound on the H100: operations (4 * S * Skv_visible * hd flops per head
 // against ~2 bytes per element of q, k, v and 4 of the output).
 //
-// Design: one block of 128 threads per (64 query rows, batch x kv head);
-// a query row is (position, head of the kv group), so a block covers 64/G
-// positions and all G heads, and each k/v tile is loaded once into shared
-// memory for the whole group.  The kv loop lives inside the block (Hopper
-// blocks run in no order; the TPU grid's sequential kv axis becomes this
-// loop).  Thread (ty, tx) = (tid / 8, tid % 8) owns rows 4*ty .. 4*ty+3,
-// the keys tx + 8 j of each tile's score matrix and the columns tx + 8 c
-// of the output; a row's max and sum reduce over its 8 threads, which are
-// 8 neighbouring lanes of one warp.  Tiles masked for every row of the
-// block are skipped when every row sees at least one real key (such a
-// tile changes no bit of the result).  A row that sees no real key at all
-// gets the reference's value: its online softmax takes p = 1 on every key,
-// so acc is the sum of v, and l becomes the reference's padded key count.
-// Ragged edges are masked in the kernel (zero-filled shared tiles), never
-// padded in memory.  Products are plain f32 fused multiply-adds on the
-// CUDA cores (__fmaf_rn; the library builds with -fmad=false); no library
-// attention or matmul.
+// Two kernels, picked by the dtype (no fallback from one to the other):
+//
+// * bf16: flash_tc_kernel, on the tensor cores.  One warpgroup (128
+//   threads) per 64 query rows, one per block (two at hd 256); a query row
+//   is (position, head of the kv group), so a block covers 64/G positions
+//   (128/G) and all G heads and each k/v tile is loaded once for the whole
+//   group.  Causal blocks run longest first.  TMA
+//   brings the q tile and a ring of two (k, v) tile stages into shared
+//   memory as bf16 (128-byte swizzle, completion on mbarriers), issued by
+//   one thread: the load of tile t + 2 runs while tile t + 1 is computed.
+//   The head dim is padded to 64, 128 or 256 with zeros by the TMA's
+//   out-of-bounds fill, and keys past Skv arrive as zero rows.
+//   S = Q K^T runs on the f64 tensor cores (mma.sync m16n8k16, operands
+//   converted from the bf16 tiles): a bf16 product is exact in f64 and so
+//   are the sums, so each score is the f32 rounding of its exact dot
+//   product, which the plain version forms too (an f64 einsum).  The
+//   scores must agree bit for bit: p is rounded to bf16 before the PV
+//   product, and a score an ulp off moves p across a rounding boundary in
+//   one version only (a gap of up to ~1e-3 at 1e-5 tolerance); the bf16
+//   wgmma's own sum order did that on the H100, and wgmma has no f64 form.
+//   The online softmax runs in registers on the accumulator layout (a
+//   row's 64 scores over the 4 lanes of a quad); l sums the unrounded f32
+//   p; p is rounded to bf16 and fed as wgmma's register A operand for
+//   O += P V (m64n64k16, f32 accumulators), v read from shared memory as
+//   an MN-major operand.  A tile's PV product goes into its own
+//   accumulator 64 output columns at a time, then acc = acc * alpha + pv,
+//   as the plain version writes it.  At hd 256 the output accumulator is
+//   128 f32 registers a thread.
+// * f32: flash_attn_kernel, SIMT (the CUDA cores), 128 threads per block
+//   of 64 query rows: thread (ty, tx) = (tid / 8, tid % 8) owns rows
+//   4*ty .. 4*ty+3, the keys tx + 8 j of each tile's score matrix and the
+//   columns tx + 8 c of the output; tiles staged as f32 in shared memory,
+//   products as __fmaf_rn chains.
+//
+// In both, the kv loop lives inside the block (Hopper blocks run in no
+// order; the TPU grid's sequential kv axis becomes this loop).  Tiles
+// masked for every row of the block are skipped when every row sees at
+// least one real key (such a tile changes no bit of the result).  A row
+// that sees no real key at all gets the reference's value: its online
+// softmax takes p = 1 on every key, so acc is the sum of v, and l becomes
+// the reference's padded key count.  Ragged edges are masked in the
+// kernel, never padded in memory.  No library attention or matmul.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 128;  // 16 row groups x 8 lanes
+constexpr int THREADS = 128;  // SIMT: 16 row groups x 8 lanes
 constexpr float NEG = -1e30f;
+constexpr int ROW_BYTES = 128;  // 64 bf16: one swizzled row of a tile block
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ bool unmasked(int qpos, int kpos, int Skv,
+                                         int causal, int window) {
+  return kpos < Skv && (!causal || qpos >= kpos) &&
+         (!window || qpos - kpos <= window);
 }
 
-// p rounded to v's dtype (the reference's p.astype(v.dtype))
-template <typename T>
-__device__ __forceinline__ float round_like(float p);
-template <>
-__device__ __forceinline__ float round_like<float>(float p) { return p; }
-template <>
-__device__ __forceinline__ float round_like<__nv_bfloat16>(float p) {
-  return __bfloat162float(__float2bfloat16_rn(p));
+// The kv tiles [t_lo, t_hi] that a block of query positions p0 .. pos_hi
+// must visit: all of them unless every row sees a real key, in which case
+// the tiles masked for every row are dropped.
+__device__ __forceinline__ void tile_range(int p0, int pos_hi, int Skv,
+                                           int causal, int window,
+                                           int q_offset, int* t_lo,
+                                           int* t_hi) {
+  const int n_tiles = (Skv + BK - 1) / BK;
+  const int qmin = p0 + q_offset, qmax = pos_hi + q_offset;
+  const bool all_live = Skv > 0 && (!causal || qmin >= 0) &&
+                        (!window || qmax - window <= Skv - 1);
+  *t_lo = 0;
+  *t_hi = n_tiles - 1;
+  if (all_live) {
+    if (causal) *t_hi = min(*t_hi, qmax / BK);
+    if (window) *t_lo = max(0, (qmin - window) / BK);
+  }
 }
+
+// --------------------------------------------------------------------------
+// f32: SIMT kernel
+// --------------------------------------------------------------------------
 
 __device__ __forceinline__ float row_max8(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -72,16 +111,11 @@ __device__ __forceinline__ float row_sum8(float v) {
   return v;
 }
 
-__device__ __forceinline__ bool unmasked(int qpos, int kpos, int Skv,
-                                         int causal, int window) {
-  return kpos < Skv && (!causal || qpos >= kpos) &&
-         (!window || qpos - kpos <= window);
-}
-
-template <typename T, int HDMAX>
+template <int HDMAX>
 __global__ void __launch_bounds__(THREADS)
-    flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, int S, int Skv, int H,
+    flash_attn_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, int S, int Skv, int H,
                       int KV, int hd, int causal, int window, int q_offset,
                       float scale, float ref_kv_count,
                       float* __restrict__ out) {
@@ -109,22 +143,13 @@ __global__ void __launch_bounds__(THREADS)
     int pos = p0 + r / G;
     float x = 0.f;
     if (pos < S)
-      x = to_f32(q[((long)b * S + pos) * qrow + (long)(kvh * G + r % G) * hd
-                   + d]);
+      x = q[((long)b * S + pos) * qrow + (long)(kvh * G + r % G) * hd + d];
     Qs[r * ks + d] = x;
   }
 
-  // which kv tiles this block must visit
-  const int n_tiles = (Skv + BK - 1) / BK;
-  const int pos_hi = min(p0 + ppb, S) - 1;
-  const int qmin = p0 + q_offset, qmax = pos_hi + q_offset;
-  bool all_live = Skv > 0 && (!causal || qmin >= 0) &&
-                  (!window || qmax - window <= Skv - 1);
-  int t_lo = 0, t_hi = n_tiles - 1;
-  if (all_live) {
-    if (causal) t_hi = min(t_hi, qmax / BK);
-    if (window) t_lo = max(0, (qmin - window) / BK);
-  }
+  int t_lo, t_hi;
+  tile_range(p0, min(p0 + ppb, S) - 1, Skv, causal, window, q_offset, &t_lo,
+             &t_hi);
 
   float m[4], l[4], acc[4][CPT];
 #pragma unroll
@@ -147,8 +172,8 @@ __global__ void __launch_bounds__(THREADS)
       float kx = 0.f, vx = 0.f;
       if (kpos < Skv) {
         long off = ((long)b * Skv + kpos) * krow + (long)kvh * hd + d;
-        kx = to_f32(k[off]);
-        vx = to_f32(v[off]);
+        kx = k[off];
+        vx = v[off];
       }
       Ks[kk * ks + d] = kx;
       Vs[kk * hd + d] = vx;
@@ -194,7 +219,7 @@ __global__ void __launch_bounds__(THREADS)
         float p = expf(__fsub_rn(s[i][j], m_new));
         ps = __fadd_rn(ps, p);
         // padded keys past Skv carry v = 0; p only matters for l there
-        Ps[(ty * 4 + i) * (BK + 1) + tx + 8 * j] = round_like<T>(p);
+        Ps[(ty * 4 + i) * (BK + 1) + tx + 8 * j] = p;
       }
       l[i] = __fadd_rn(__fmul_rn(l[i], alpha[i]), row_sum8(ps));
       m[i] = m_new;
@@ -249,43 +274,508 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename T, int HDMAX>
-int launch(const void* q, const void* k, const void* v, int B, int S,
-           int Skv, int H, int KV, int hd, int causal, int window,
-           int q_offset, float scale, float ref_kv_count, float* out,
-           cudaStream_t stream) {
-  size_t smem = sizeof(float) *
-                ((size_t)BQ * (hd + 1) + (size_t)BK * (hd + 1) +
-                 (size_t)BK * hd + (size_t)BQ * (BK + 1));
-  auto kern = flash_attn_kernel<T, HDMAX>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+template <int HDMAX>
+int launch_simt(const void* q, const void* k, const void* v, int B, int S,
+                int Skv, int H, int KV, int hd, int causal, int window,
+                int q_offset, float scale, float ref_kv_count, float* out,
+                cudaStream_t stream) {
+  auto smem_for = [](int d) {
+    return (int)sizeof(float) * (BQ * (d + 1) + BK * (d + 1) + BK * d +
+                                 BQ * (BK + 1));
+  };
+  auto kern = flash_attn_kernel<HDMAX>;
+  static const int e = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_for(HDMAX));
+  if (e) return e;
+  const int smem = smem_for(hd);
   int G = H / KV;
   dim3 grid((S + BQ / G - 1) / (BQ / G), B * KV);
   kern<<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, S, Skv, H, KV, hd, causal,
-      window, q_offset, scale, ref_kv_count, out);
+      (const float*)q, (const float*)k, (const float*)v, S, Skv, H, KV, hd,
+      causal, window, q_offset, scale, ref_kv_count, out);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, int B, int S,
-             int Skv, int H, int KV, int hd, int causal, int window,
-             int q_offset, float scale, float ref_kv_count, float* out,
-             cudaStream_t stream) {
-  if (hd <= 64)
-    return launch<T, 64>(q, k, v, B, S, Skv, H, KV, hd, causal, window,
-                         q_offset, scale, ref_kv_count, out, stream);
-  if (hd <= 128)
-    return launch<T, 128>(q, k, v, B, S, Skv, H, KV, hd, causal, window,
-                          q_offset, scale, ref_kv_count, out, stream);
-  return launch<T, 256>(q, k, v, B, S, Skv, H, KV, hd, causal, window,
-                        q_offset, scale, ref_kv_count, out, stream);
+// --------------------------------------------------------------------------
+// bf16: tensor-core kernel (TMA, mbarriers, wgmma)
+// --------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival that also announces the bytes the TMA copies will deliver
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the phase of parity ``parity`` to complete.  A wait that never
+// completes (a load that was never issued) traps after ~2^26 polls instead
+// of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// a 4-D TMA box (coordinates innermost first) into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: 128-byte swizzle, byte offsets
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keep the compiler from reading an accumulator before the wait
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D32                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define WG_D32_OUT(d)                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+
+// d (64 x 64 f32) += a (64 x 16 bf16 in registers) * b (16 x 64,
+// MN-major in shared memory)
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+      : WG_D32_OUT(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (16 x 8 f64) += a (16 x 16) * b (16 x 8) on the f64 tensor cores, with
+// g = lane/4, t = lane%4: a[i] = a[g + 8 (i & 1)][t + 4 (i >> 1)],
+// b_m = b[t + 4m][g], d[2h + i] = d[g + 8h][2t + i]
+__device__ __forceinline__ void dmma16(double (&d)[4], const double (&a)[8],
+                                       double b0, double b1, double b2,
+                                       double b3) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, "
+      "{%0, %1, %2, %3};"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+        "d"(a[6]), "d"(a[7]), "d"(b0), "d"(b1), "d"(b2), "d"(b3));
+}
+
+// the two bf16 at (row r, columns d and d + 1; d even) of a tile stored as
+// 64-column blocks of ``rows`` swizzled 128-byte rows, as TMA wrote it
+__device__ __forceinline__ uint32_t tile_pair(const uint8_t* t, int rows,
+                                              int r, int d) {
+  const int off = (d >> 6) * rows * ROW_BYTES + r * ROW_BYTES +
+                  ((((d & 63) >> 3) ^ (r & 7)) << 4) + (d & 7) * 2;
+  return *reinterpret_cast<const uint32_t*>(t + off);
+}
+
+// two packed bf16 as exact f64 values (low half first)
+__device__ __forceinline__ void bf16x2_f64(uint32_t u, double (&x)[2]) {
+  x[0] = (double)__uint_as_float(u << 16);
+  x[1] = (double)__uint_as_float(u & 0xffff0000u);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// The tensor-core kernel's block for a padded head dim: NWG consumer
+// warpgroups of 64 query rows each (two at hd 256, where one warpgroup's
+// registers leave the SM one block: the second overlaps its softmax with
+// the first's products and shares its k/v tiles), and its shared memory,
+// each part 1,024-byte aligned: q as HDP/64 blocks of [ROWS rows][64
+// columns], then two stages of k and of v, each HDP/64 blocks of [64
+// keys][64 columns], then the mbarriers.
+template <int HDP>
+struct TcShape {
+  static constexpr int NB = HDP / 64;
+  static constexpr int NWG = HDP == 256 ? 2 : 1;
+  static constexpr int ROWS = 64 * NWG;
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int Q_BYTES = ROWS * HDP * 2;
+  static constexpr int T_BYTES = BK * HDP * 2;
+  static constexpr int BAR_OFF = Q_BYTES + 4 * T_BYTES;
+  static constexpr int BYTES = BAR_OFF + 64 + 1024;  // + alignment slack
+};
+
+// tile i of a block's range into stage i % 2: k and v, all NB column blocks
+template <int NB>
+__device__ __forceinline__ void load_kv(uint8_t* Ks, uint8_t* Vs, int t_bytes,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv, uint64_t* bars,
+                                        int i, int t_lo, int kvh, int b) {
+  const int s = i & 1, k0 = (t_lo + i) * BK;
+  mbar_expect_tx(&bars[1 + s], 2 * t_bytes);
+#pragma unroll
+  for (int c = 0; c < NB; ++c) {
+    tma_load(Ks + s * t_bytes + c * BK * ROW_BYTES, tk, &bars[1 + s], c * 64,
+             kvh, k0, b);
+    tma_load(Vs + s * t_bytes + c * BK * ROW_BYTES, tv, &bars[1 + s], c * 64,
+             kvh, k0, b);
+  }
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(TcShape<HDP>::THREADS, 1)
+    flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, int S, int Skv,
+                    int H, int KV, int hd, int causal, int window,
+                    int q_offset, float scale, float ref_kv_count,
+                    float* __restrict__ out) {
+  using L = TcShape<HDP>;
+  constexpr int NB = L::NB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = base;
+  uint8_t* Ks = base + L::Q_BYTES;                    // stage s at s * T_BYTES
+  uint8_t* Vs = base + L::Q_BYTES + 2 * L::T_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + L::BAR_OFF);
+  // bars[0]: q; bars[1 + s]: stage s of (k, v)
+
+  // one block per (query tile, batch x kv head), the last query tiles (the
+  // longest under a causal mask) first
+  const int G = H / KV;
+  const int ppb = L::ROWS / G;
+  const int nbk = gridDim.x / ((S + ppb - 1) / ppb);  // B * KV
+  const int lin = gridDim.x - 1 - blockIdx.x;
+  const int p0 = lin / nbk * ppb;
+  const int b = lin % nbk / KV;
+  const int kvh = lin % nbk % KV;
+  const int tid = threadIdx.x;
+
+  int t_lo, t_hi;
+  tile_range(p0, min(p0 + ppb, S) - 1, Skv, causal, window, q_offset, &t_lo,
+             &t_hi);
+  const int n = t_hi - t_lo + 1;
+  const int qmin = p0 + q_offset, qmax = min(p0 + ppb, S) - 1 + q_offset;
+
+  if (tid == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 1);
+    mbar_init(&bars[2], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid == 0) {
+    mbar_expect_tx(&bars[0], L::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+      tma_load(Qs + c * L::ROWS * ROW_BYTES, &tq, &bars[0], c * 64, kvh * G,
+               p0, b);
+    for (int i = 0; i < 2 && i < n; ++i)
+      load_kv<NB>(Ks, Vs, L::T_BYTES, &tk, &tv, bars, i, t_lo, kvh, b);
+  }
+  __syncwarp();
+
+  // accumulator layout of a 64 x 64 wgmma: warp w holds rows 16 w + lane/4
+  // (elements e with e & 2 == 0) and 16 w + lane/4 + 8 (e & 2 != 0), at
+  // columns 8 (e / 4) + 2 (lane % 4) + (e & 1)
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = warp * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  const int hd16 = (hd + 15) & ~15;  // head dims the score products visit
+  const int qpos[2] = {p0 + r0 / G + q_offset, p0 + (r0 + 8) / G + q_offset};
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float acc[NB][32];
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+
+  mbar_wait(&bars[0], 0);
+  for (int i = 0; i < n; ++i) {
+    const int s = i & 1;
+    const int k0 = (t_lo + i) * BK;
+    mbar_wait(&bars[1 + s], (i >> 1) & 1);
+    __syncwarp();
+
+    // ---- S = Q K^T, each score the f32 rounding of its exact dot ---------
+    // product: bf16 products are exact in f64 and the f64 sums of this
+    // data are too, so the order does not matter and the plain version's
+    // f64 einsum rounds to the same f32.  Warp w computes its 16 rows
+    // against keys 8 j + lane/4 in m16n8k16 steps on the f64 tensor cores;
+    // step k16 at head dims D .. D + 15 gives lane % 4 = t the dims D + 2t,
+    // D + 2t + 1, D + 8 + 2t and D + 9 + 2t (two bf16 pairs per row or
+    // key), for A and B alike.  The f64 result lands in the wgmma
+    // accumulator layout: rows 16 w + lane/4 (+ 8), keys 8 j + 2t + 0/1.
+    // At hd 256 half of the keys at a time keeps the f64 accumulators at
+    // 32 registers beside the 128 of the output.
+    constexpr int NJ = HDP == 256 ? 4 : 8;  // key blocks of 8 per pass
+    float sc[32];
+    const uint8_t* Kst = Ks + s * L::T_BYTES;
+#pragma unroll
+    for (int j0 = 0; j0 < 8; j0 += NJ) {
+      double sd[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sd[j][i] = 0.0;
+#pragma unroll 2
+      for (int d0 = cq; d0 < hd16; d0 += 16) {
+        double a[8];  // a[2m + h]: row r0 + 8h, dim d(m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          double x[2], y[2];
+          bf16x2_f64(tile_pair(Qs, L::ROWS, r0 + 8 * h, d0), x);
+          bf16x2_f64(tile_pair(Qs, L::ROWS, r0 + 8 * h, d0 + 8), y);
+          a[h] = x[0];
+          a[2 + h] = x[1];
+          a[4 + h] = y[0];
+          a[6 + h] = y[1];
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int key = 8 * (j0 + j) + (lane >> 2);
+          double bx[2], by[2];
+          bf16x2_f64(tile_pair(Kst, BK, key, d0), bx);
+          bf16x2_f64(tile_pair(Kst, BK, key, d0 + 8), by);
+          dmma16(sd[j], a, bx[0], bx[1], by[0], by[1]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[4 * (j0 + j) + i] = (float)sd[j][i];
+    }
+
+    // ---- online softmax in registers -------------------------------------
+    // a tile every row of the block sees whole needs no mask test
+    const bool whole = k0 + BK <= Skv && (!causal || qmin >= k0 + BK - 1) &&
+                       (!window || qmax - k0 <= window);
+    float mx[2] = {NEG, NEG};
+    if (whole) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        sc[e] = __fmul_rn(sc[e], scale);
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int h = (e >> 1) & 1;
+        const int kpos = k0 + 8 * (e >> 2) + cq + (e & 1);
+        sc[e] = unmasked(qpos[h], kpos, Skv, causal, window)
+                    ? __fmul_rn(sc[e], scale)
+                    : NEG;
+        mx[h] = fmaxf(mx[h], sc[e]);
+      }
+    }
+    float alpha[2], ps[2] = {0.f, 0.f}, m_new[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_new[h] = fmaxf(m[h], quad_max(mx[h]));
+      alpha[h] = expf(__fsub_rn(m[h], m_new[h]));
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int h = (e >> 1) & 1;
+      sc[e] = expf(__fsub_rn(sc[e], m_new[h]));
+      ps[h] = __fadd_rn(ps[h], sc[e]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = __fadd_rn(__fmul_rn(l[h], alpha[h]), quad_sum(ps[h]));
+      m[h] = m_new[h];
+    }
+    // p rounded to bf16 as wgmma's A fragments, 16 keys each: rows r0 and
+    // r0 + 8, keys 16 kc + cq (+1) and 16 kc + 8 + cq (+1)
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      pa[kc][0] = pack_bf16(sc[8 * kc + 0], sc[8 * kc + 1]);
+      pa[kc][1] = pack_bf16(sc[8 * kc + 2], sc[8 * kc + 3]);
+      pa[kc][2] = pack_bf16(sc[8 * kc + 4], sc[8 * kc + 5]);
+      pa[kc][3] = pack_bf16(sc[8 * kc + 6], sc[8 * kc + 7]);
+    }
+
+    // ---- acc = acc * alpha + P V, 64 output columns at a time ------------
+#pragma unroll
+    for (int c = 0; c < NB; ++c) {
+      float pv[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) pv[e] = 0.f;
+      wg_fence();
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc)
+        mma_rs(pv, pa[kc],
+               gmma_desc(Vs + s * L::T_BYTES + c * BK * ROW_BYTES +
+                             kc * 16 * ROW_BYTES,
+                         BK * ROW_BYTES, 1024));
+      wg_commit();
+      wg_wait_all();
+      fence_regs(pv);
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        acc[c][e] =
+            __fadd_rn(__fmul_rn(acc[c][e], alpha[(e >> 1) & 1]), pv[e]);
+    }
+
+    __syncthreads();  // every warp is done with stage s
+    if (tid == 0 && i + 2 < n)
+      load_kv<NB>(Ks, Vs, L::T_BYTES, &tk, &tv, bars, i + 2, t_lo, kvh, b);
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    const int pos = p0 + r / G;
+    if (pos >= S) continue;
+    const float li = m[h] == NEG ? ref_kv_count : l[h];
+    const float den = fmaxf(li, 1e-30f);
+    float* o = out + (((long)b * S + pos) * H + kvh * G + r % G) * hd;
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = c * 64 + 8 * j + cq;
+        if (col < hd)
+          *reinterpret_cast<float2*>(o + col) =
+              make_float2(__fdiv_rn(acc[c][4 * j + 2 * h], den),
+                          __fdiv_rn(acc[c][4 * j + 2 * h + 1], den));
+      }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which the process has loaded
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    if (h != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+constexpr int ERR_NO_ENCODER = 1000;  // libcuda has no TMA encoder
+constexpr int ERR_ENCODE = 2000;      // + the encoder's CUresult
+
+// A bf16 tensor (d3, d2, d1, hd) row-major as a 4-D TMA map whose box is
+// 64 columns x b1 x b2 x 1, 128-byte swizzle, zeros out of bounds.
+int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int hd, int d1,
+           int d2, int d3, int b1, int b2) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)d1, (cuuint64_t)d2,
+                              (cuuint64_t)d3};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
+                                 (cuuint64_t)hd * d1 * 2,
+                                 (cuuint64_t)hd * d1 * d2 * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)b1, (cuuint32_t)b2, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(ptr), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
+}
+
+template <int HDP>
+int launch_tc(const void* q, const void* k, const void* v, int B, int S,
+              int Skv, int H, int KV, int hd, int causal, int window,
+              int q_offset, float scale, float ref_kv_count, float* out,
+              cudaStream_t stream) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return ERR_NO_ENCODER;
+  using L = TcShape<HDP>;
+  const int G = H / KV, ppb = L::ROWS / G;
+  CUtensorMap tq, tk, tv;
+  int err = encode(fn, &tq, q, hd, H, S, B, G, ppb);
+  if (!err) err = encode(fn, &tk, k, hd, KV, Skv, B, 1, BK);
+  if (!err) err = encode(fn, &tv, v, hd, KV, Skv, B, 1, BK);
+  if (err) return err;
+  const int smem = L::BYTES;
+  auto kern = flash_tc_kernel<HDP>;
+  static const int e = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e) return e;
+  const long blocks = (long)((S + ppb - 1) / ppb) * B * KV;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  kern<<<(unsigned)blocks, L::THREADS, smem, stream>>>(
+      tq, tk, tv, S, Skv, H, KV, hd, causal, window, q_offset, scale,
+      ref_kv_count, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// bf16 takes the tensor-core kernel (hd <= 256, hd % 8 == 0: the TMA
+// strides are whole 16 bytes), f32 the SIMT kernel (hd <= 256); the wrapper
+// checks both before it calls.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  int B, int S, int Skv, int H, int KV, int hd,
                                  int causal, int window, int q_offset,
@@ -294,10 +784,22 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
   int bk = Skv < 128 ? Skv : 128;  // the reference's kv tile
   float ref_kv_count = bk > 0 ? (float)((Skv + bk - 1) / bk * bk) : 0.f;
   cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, B, S, Skv, H, KV, hd, causal,
-                                   window, q_offset, scale, ref_kv_count,
-                                   out, st);
-  return dispatch<float>(q, k, v, B, S, Skv, H, KV, hd, causal, window,
-                         q_offset, scale, ref_kv_count, out, st);
+  if (bf16) {
+    if (hd <= 64)
+      return launch_tc<64>(q, k, v, B, S, Skv, H, KV, hd, causal, window,
+                           q_offset, scale, ref_kv_count, out, st);
+    if (hd <= 128)
+      return launch_tc<128>(q, k, v, B, S, Skv, H, KV, hd, causal, window,
+                            q_offset, scale, ref_kv_count, out, st);
+    return launch_tc<256>(q, k, v, B, S, Skv, H, KV, hd, causal, window,
+                          q_offset, scale, ref_kv_count, out, st);
+  }
+  if (hd <= 64)
+    return launch_simt<64>(q, k, v, B, S, Skv, H, KV, hd, causal, window,
+                           q_offset, scale, ref_kv_count, out, st);
+  if (hd <= 128)
+    return launch_simt<128>(q, k, v, B, S, Skv, H, KV, hd, causal, window,
+                            q_offset, scale, ref_kv_count, out, st);
+  return launch_simt<256>(q, k, v, B, S, Skv, H, KV, hd, causal, window,
+                          q_offset, scale, ref_kv_count, out, st);
 }

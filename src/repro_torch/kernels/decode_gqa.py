@@ -24,12 +24,15 @@ Both need the row max (and for ``round_p`` the denominator) over all valid
 slots before the PV product, so both versions take two passes over the
 cache instead of the online update; the result differs from the online form
 only by rounding.  The CUDA kernel (``csrc/decode_gqa.cu``) reads bf16 or
-f32 caches as stored; :func:`decode_gqa_plain` computes the same function
-with PyTorch ops and the kernel's weights: each score is the same
-sequential chain of fused multiply-adds over ``hd`` (:func:`~repro_torch
-.core._fma.fma_f32`), ``exp`` and the denominator are taken in f64 and
-rounded to f32 (order-independent at f32 precision), so ``p`` agrees bit
-for bit, also after its rounding to bf16; the two differ only in the
+f32 caches as stored; where the ``B * KV`` (row, kv head) pairs leave SMs
+idle it splits the cache into chunks across blocks (:func:`split_plan`)
+and combines the chunks' maxima, f64 sums and PV sums in a fixed order.
+:func:`decode_gqa_plain` computes the same function with PyTorch ops and
+the kernel's weights: each score is the same sequential chain of fused
+multiply-adds over ``hd`` (:func:`~repro_torch.core._fma.fma_f32`),
+``exp`` and the denominator are taken in f64 and rounded to f32
+(order-independent at f32 precision), so ``p`` agrees bit for bit, also
+after its rounding to bf16, whatever the split; the two differ only in the
 summation order of the PV product.
 """
 from __future__ import annotations
@@ -50,6 +53,34 @@ REF_BLOCK_C = 512
 #: the largest head dim and query-group size the kernel takes
 MAX_HEAD_DIM = 256
 MAX_GROUP = 32
+#: cache slots per tile of the kernel; a chunk of a split is whole tiles
+TILE = 64
+#: blocks per SM a split aims at (a block is 256 threads)
+BLOCKS_PER_SM = 4
+
+_SMS: dict[int, int] = {}
+
+
+def split_plan(B: int, KV: int, C: int, sms: int) -> tuple[int, int]:
+    """``(nsplit, chunk)``: the kernel cuts each (row, kv head)'s cache of
+    ``C`` slots into ``nsplit`` chunks of ``chunk`` slots (whole tiles, the
+    last chunk ragged), up to :data:`BLOCKS_PER_SM` blocks on each of the
+    card's ``sms`` SMs.  One chunk when the ``B * KV`` pairs fill the SMs
+    or the cache is a single tile."""
+    tiles = -(-C // TILE)
+    n = min(BLOCKS_PER_SM * sms // (B * KV), tiles) if B * KV < sms else 1
+    if n <= 1:
+        return 1, C
+    chunk = TILE * -(-tiles // n)
+    return -(-C // chunk), chunk
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def _ref_slot_count(c: int) -> int:
@@ -114,6 +145,22 @@ def _check(q, k_cache, v_cache, slot_pos, my_pos):
         raise ValueError("decode_gqa: inputs on different devices")
 
 
+_LAUNCH = None
+
+
+def _launcher():
+    """``decode_gqa_launch`` of the built library, its prototype set once."""
+    global _LAUNCH
+    if _LAUNCH is None:
+        fn = _build.load("decode_gqa").decode_gqa_launch
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_float]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6)
+        fn.restype = ctypes.c_int
+        _LAUNCH = fn
+    return _LAUNCH
+
+
 def decode_gqa(q: torch.Tensor, k_cache: torch.Tensor,
                v_cache: torch.Tensor, slot_pos: torch.Tensor,
                my_pos: torch.Tensor, *, window: int = 0,
@@ -144,22 +191,26 @@ def decode_gqa(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache.contiguous())
     slot_pos = slot_pos.to(torch.int32).contiguous()
     my_pos = my_pos.to(torch.int32).contiguous()
-    # the scores, then the softmax weights, of every (row, kv head, head,
-    # slot): the scratch between the kernel's passes
-    scratch = torch.empty((B, KV, G, C), dtype=torch.float32,
-                          device=q.device)
-    lib = _build.load("decode_gqa")
-    fn = lib.decode_gqa_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int]
-                   + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
-    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             slot_pos.data_ptr(), my_pos.data_ptr(), B, C, H, KV, hd,
-             int(window), int(round_p), hd ** -0.5,
-             float(_ref_slot_count(C)),
-             1 if q.dtype == torch.bfloat16 else 0, scratch.data_ptr(),
-             out.data_ptr(), _build.stream_handle(q.device))
+    nsplit, chunk = split_plan(B, KV, C, _sm_count(q.device))
+    # the scratch between the kernel's passes, one allocation: the f64 sum
+    # of p of each (row, kv head, head, chunk), then in f32 the scores and
+    # weights of every (row, kv head, head, slot), each chunk's max and its
+    # PV sums (the per-chunk parts are empty without a split)
+    n = B * KV * G
+    ns = nsplit if nsplit > 1 else 0
+    buf = torch.empty(2 * n * ns + n * C + n * ns + n * ns * hd,
+                      dtype=torch.float32, device=q.device)
+    base = buf.data_ptr()
+    psum = base
+    scratch = psum + 8 * n * ns
+    pmax = scratch + 4 * n * C
+    ppv = pmax + 4 * n * ns
+    err = _launcher()(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        slot_pos.data_ptr(), my_pos.data_ptr(), B, C, H, KV, hd, int(window),
+        int(round_p), hd ** -0.5, float(_ref_slot_count(C)),
+        1 if q.dtype == torch.bfloat16 else 0, nsplit, chunk, scratch, pmax,
+        psum, ppv, out.data_ptr(), _build.stream_handle(q.device))
     _build.check(err, "decode_gqa")
     launches += 1
     return out

@@ -20,11 +20,19 @@ masked for every row of its query tile; the plain version processes every
 tile, which changes no bit (such a tile adds exact zeros, or is wiped by
 ``alpha = 0`` when a live tile comes later).
 
-The CUDA kernel (``csrc/flash_attn.cu``) runs one block per (64 query rows
+The CUDA kernels (``csrc/flash_attn.cu``) run one block per (64 query rows
 of one batch x kv head, i.e. ``64 / G`` positions x ``G`` heads); the kv
-loop lives inside the block.  :func:`flash_attention_plain` computes the
-same function tile by tile in the same order with PyTorch ops; the two
-differ only in the summation order inside a tile's dot products.
+loop lives inside the block.  The dtype picks the kernel
+(:func:`kernel_path`): bf16 runs on the tensor cores (TMA loads of bf16
+tiles, ``Q K^T`` on the f64 tensor cores, ``P V`` by ``wgmma`` with f32
+accumulators; ``hd`` a multiple of 8), f32 on the CUDA cores (SIMT).
+:func:`flash_attention_plain` computes the same function tile by tile in
+the same order with PyTorch ops.  It and the bf16 kernel form each score as
+the f32 rounding of its exact dot product (bf16 products are exact in f64:
+the kernel's f64 tensor cores, the plain version's f64 einsum), so the
+bf16 rounding of ``p`` sees the same value in both and they differ only in
+the summation order of the PV product; the f32 kernel's scores are f32
+fused multiply-add chains, a few ulps from the plain version's.
 """
 from __future__ import annotations
 
@@ -45,6 +53,23 @@ BLOCK_K = 64
 MAX_HEAD_DIM = 256
 #: the reference's kv tile (``choose_block(Skv, 128)``)
 REF_BLOCK_K = 128
+#: the two kernels of ``csrc/flash_attn.cu``, by input dtype
+PATHS = {torch.bfloat16: "tensor-core", torch.float32: "simt"}
+
+
+def kernel_path(dtype: torch.dtype, hd: int) -> str:
+    """Which kernel a CUDA call of ``dtype`` and head dim ``hd`` launches:
+    ``"tensor-core"`` (bf16) or ``"simt"`` (f32).  Raises for what neither
+    takes: ``hd > 256``, or bf16 with ``hd`` not a multiple of 8 (the TMA
+    copies need rows of whole 16 bytes)."""
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: the kernel takes hd <= "
+                         f"{MAX_HEAD_DIM}; got hd={hd}")
+    path = PATHS[dtype]
+    if path == "tensor-core" and hd % 8:
+        raise ValueError(f"flash_attention: the bf16 tensor-core kernel "
+                         f"takes hd a multiple of 8; got hd={hd}")
+    return path
 
 
 def _ref_kv_count(skv: int) -> int:
@@ -67,13 +92,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           window: int = 0,
                           q_offset: int = 0) -> torch.Tensor:
     """The plain PyTorch version: every kv tile of :data:`BLOCK_K` keys in
-    ascending order, every query row at once."""
+    ascending order, every query row at once.  A score is the f32 rounding
+    of its dot product taken in f64 (exact for bf16 inputs), as the
+    kernel's."""
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
     dev = q.device
     scale = hd ** -0.5
-    qf = q.to(torch.float32).reshape(B, S, KV, G, hd)
+    qf = q.to(torch.float64).reshape(B, S, KV, G, hd)
     qpos = torch.arange(S, device=dev) + q_offset
     m = torch.full((B, S, KV, G), NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((B, S, KV, G), dtype=torch.float32, device=dev)
@@ -81,10 +108,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     for j0 in range(0, Skv, BLOCK_K):
         kpos = torch.arange(j0, j0 + BLOCK_K, device=dev)
         mask = _mask(qpos, kpos, Skv, causal, window)          # (S, bk)
-        kt = k[:, j0:j0 + BLOCK_K].to(torch.float32)
+        kt = k[:, j0:j0 + BLOCK_K].to(torch.float64)
         vt = v[:, j0:j0 + BLOCK_K]
         n = kt.shape[1]
-        s = torch.einsum("bqkgh,bckh->bqkgc", qf, kt) * scale
+        s = torch.einsum("bqkgh,bckh->bqkgc", qf, kt).to(torch.float32)
+        s = s * scale
         s = torch.where(mask[None, :, None, None, :n], s, NEG)
         if n < BLOCK_K:   # the ragged tile's padded keys: masked, v = 0
             s = torch.cat([s, s.new_full((*s.shape[:-1], BLOCK_K - n),
@@ -122,12 +150,34 @@ def _check(q, k, v):
         raise ValueError("flash_attention: inputs on different devices")
 
 
+_LAUNCH = None
+
+
+def _launcher():
+    """``flash_attn_launch`` of the built library, its prototype set once."""
+    global _LAUNCH
+    if _LAUNCH is None:
+        fn = _build.load("flash_attn").flash_attn_launch
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _LAUNCH = fn
+    return _LAUNCH
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the TMA copies need both)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
     """``(B, S, H, hd)`` f32 attention output.  A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel (``hd <= 256`` and
-    ``G = H // KV`` dividing 64)."""
+    plain version; a CUDA tensor launches the kernel of
+    :func:`kernel_path` (``G = H // KV`` dividing 64)."""
     global launches
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -138,24 +188,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
-    if hd > MAX_HEAD_DIM or BLOCK_Q % G:
-        raise ValueError(f"flash_attention: the kernel takes hd <= "
-                         f"{MAX_HEAD_DIM} and G dividing {BLOCK_Q}; got "
-                         f"hd={hd}, G={G}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    path = kernel_path(q.dtype, hd)
+    if BLOCK_Q % G:
+        raise ValueError(f"flash_attention: the kernel takes G dividing "
+                         f"{BLOCK_Q}; got G={G}")
+    q, k, v = _dense(q), _dense(k), _dense(v)
     out = torch.empty((B, S, H, hd), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
-    lib = _build.load("flash_attn")
-    fn = lib.flash_attn_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, Skv, H, KV, hd,
-             int(causal), int(window), int(q_offset), hd ** -0.5,
-             1 if q.dtype == torch.bfloat16 else 0, out.data_ptr(),
-             _build.stream_handle(q.device))
+    err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, Skv, H,
+                      KV, hd, int(causal), int(window), int(q_offset),
+                      hd ** -0.5, int(path == "tensor-core"), out.data_ptr(),
+                      _build.stream_handle(q.device))
     _build.check(err, "flash_attention")
     launches += 1
     return out

@@ -42,6 +42,18 @@ def _block_pairs(n_chunks: int, chunk: int, window: int) -> np.ndarray:
     return np.asarray(pairs, dtype=np.int32)
 
 
+def chunk_size(S: int, Skv: int, chunk: int) -> int:
+    """The chunk the CPU path of :func:`chunked_attention` uses: ``chunk``
+    cut to the lengths and halved until it divides both.  With a window
+    that is no multiple of it, the reference's XLA path drops keys from the
+    first rows of each query chunk (its block list starts at the block the
+    chunk's last row needs), where kernel G on the card keeps them."""
+    chunk = min(chunk, S, Skv)
+    while S % chunk or Skv % chunk:
+        chunk //= 2
+    return chunk
+
+
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: int = 0,
                       chunk: int = 1024, q_offset: int = 0) -> torch.Tensor:
@@ -58,9 +70,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         # encoder / cross-attention: dense (Skv is small for our shapes)
         return _dense_attention(q, k, v)
 
-    chunk = min(chunk, S, Skv)
-    while S % chunk or Skv % chunk:
-        chunk //= 2
+    chunk = chunk_size(S, Skv, chunk)
     nq, nkv = S // chunk, Skv // chunk
     assert nq == nkv, "causal chunked attention expects S == Skv"
     G = H // KV

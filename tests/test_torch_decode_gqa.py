@@ -118,3 +118,38 @@ def test_decode_gqa_wrapper_rejects_bad_inputs():
         DG.decode_gqa(q.double(), kc.double(), vc.double(), slot, pos)
     with pytest.raises(TypeError):
         DG.decode_gqa(q, kc, vc, slot.float(), pos)
+
+
+@pytest.mark.parametrize("B,KV,C", [(1, 1, 2176), (16, 1, 64), (1, 16, 4160),
+                                    (1, 2, 4096), (2, 1, 37), (2, 1, 4097),
+                                    (20, 8, 1000), (1, 1, 65), (131, 1, 999)])
+def test_split_plan_covers_the_cache_in_whole_tiles(B, KV, C):
+    """Kernel H's split: chunks of whole 64-slot tiles (the last ragged)
+    that cover the cache once, at most four blocks per SM of the card's
+    132 in all, and one chunk where ``B * KV`` fills the SMs or the cache
+    is a single tile (the engine batch of 16 rows x 64 slots)."""
+    ns, chunk = DG.split_plan(B, KV, C, 132)
+    assert (ns - 1) * chunk < C <= ns * chunk
+    if ns > 1:
+        assert chunk % DG.TILE == 0
+        assert B * KV * ns <= DG.BLOCKS_PER_SM * 132
+    assert (ns == 1) == (B * KV >= 132 or C <= DG.TILE)
+
+
+def test_split_denominator_rounds_as_the_plain_one():
+    """The premise of the split: the f64 sum of p over a (row, head),
+    taken chunk by chunk and the chunk sums added in split order, rounds to
+    the same f32 as the plain version's sum, so the weights agree bit for
+    bit.  At the hybrid's decode shape (16 heads, 2,176 slots, 34 chunks)
+    on 64 draws of scores."""
+    rng = np.random.default_rng(12)
+    ns, chunk = DG.split_plan(1, 1, 2176, 132)
+    s = torch.from_numpy(rng.normal(0, 3, (64, 16, 2176)).astype(np.float32))
+    p = torch.exp((s - s.amax(-1, keepdim=True)).double()).float()
+    plain = p.double().sum(-1).float()
+    parts = [p[..., i * chunk:(i + 1) * chunk].double().sum(-1)
+             for i in range(ns)]
+    split = torch.zeros_like(parts[0])
+    for part in parts:
+        split = split + part
+    assert torch.equal(split.float(), plain)

@@ -151,3 +151,30 @@ def test_decode_attention_matches_jax(window):
         jnp.asarray(slot_pos), jnp.asarray(my_pos), window))
     got = PA.decode_attention(*_t(q, kc, vc, slot_pos, my_pos), window)
     np.testing.assert_allclose(got.numpy(), want, **ATTN_TOL)
+
+
+@pytest.mark.parametrize("dtype,hd,path", [
+    (torch.bfloat16, 16, "tensor-core"), (torch.bfloat16, 64, "tensor-core"),
+    (torch.bfloat16, 136, "tensor-core"), (torch.bfloat16, 256, "tensor-core"),
+    (torch.float32, 20, "simt"), (torch.float32, 256, "simt"),
+    (torch.bfloat16, 20, None), (torch.bfloat16, 264, None),
+    (torch.float32, 264, None)])
+def test_flash_kernel_path_follows_the_dtype(dtype, hd, path):
+    """On the card bf16 takes the tensor-core kernel and f32 the SIMT one;
+    what neither takes (``hd > 256``, bf16 with ``hd % 8``) raises rather
+    than falling back."""
+    if path is None:
+        with pytest.raises(ValueError):
+            FA.kernel_path(dtype, hd)
+    else:
+        assert FA.kernel_path(dtype, hd) == path
+
+
+@pytest.mark.parametrize("S,chunk,want", [(128, 64, 64), (96, 64, 32),
+                                          (37, 1024, 37), (4096, 1024, 1024),
+                                          (40, 64, 40), (48, 32, 16)])
+def test_chunk_size_divides_the_lengths(S, chunk, want):
+    """``chunk_size`` is the chunk :func:`chunked_attention`'s CPU path
+    uses: cut to the length and halved until it divides it."""
+    got = PA.chunk_size(S, S, chunk)
+    assert got == want and S % got == 0

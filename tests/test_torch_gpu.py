@@ -26,6 +26,7 @@ from repro_torch.kernels import pairwise_l1 as PW
 from repro_torch.kernels import rglru_scan as RS
 from repro_torch.configs import get_config
 from repro_torch.models import anytime as AT
+from repro_torch.models import attention as PA
 from repro_torch.models import cnn
 from repro_torch.models import transformer as TF
 from repro_torch.serve import FleetServeEngine, Request, ServeConfig
@@ -130,6 +131,65 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype):
                                         window=window, q_offset=qo)
         torch.testing.assert_close(out, want, rtol=tol[0], atol=tol[1],
                                    msg=lambda m: f"{(S, H, KV, hd)}: {m}")
+
+
+# kernel G's bf16 tensor-core path: (B, S, Skv, H, KV, hd, causal, window,
+# q_offset): every padded head dim (16, 32, 64, 128, 256, and 80 and 136
+# that pad inside a block), groups of 1, 2 and 16, ragged lengths (37,
+# 4,097), a query offset, windows that are no multiple of the 64-key tile,
+# no mask, and rows that see no key (a negative offset)
+FLASH_TC_CASES = [
+    (2, 37, 37, 2, 1, 16, True, 0, 0),
+    (1, 130, 130, 4, 2, 32, True, 0, 0),
+    (1, 4097, 4097, 2, 2, 64, True, 0, 0),
+    (1, 300, 4097, 16, 1, 128, True, 100, 3797),
+    (1, 512, 512, 16, 1, 256, True, 300, 0),
+    (2, 37, 101, 4, 4, 80, False, 0, 0),
+    (1, 96, 96, 2, 1, 136, True, 0, -50),
+    (1, 200, 200, 32, 2, 128, True, 70, 0),
+    (2, 64, 64, 16, 16, 64, True, 0, -64),
+]
+
+
+def test_flash_attention_bf16_tensor_core_path(cuda):
+    """Kernel G's bf16 instance (TMA tiles, wgmma for Q K^T and P V) against
+    its plain version at ``FLASH_TOL`` (rtol = atol = 1e-5), one launch per
+    call; f32 at the same shapes takes the SIMT kernel, held at 1e-4 /
+    1e-5."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for B, S, Skv, H, KV, hd, causal, window, qo in FLASH_TC_CASES:
+        for dtype, tol in ((torch.bfloat16, (1e-5, 1e-5)),
+                           (torch.float32, (1e-4, 1e-5))):
+            assert FA.kernel_path(dtype, hd) == (
+                "tensor-core" if dtype == torch.bfloat16 else "simt")
+            q = torch.randn((B, S, H, hd), generator=g, device=cuda).to(dtype)
+            k = torch.randn((B, Skv, KV, hd), generator=g,
+                            device=cuda).to(dtype)
+            v = torch.randn((B, Skv, KV, hd), generator=g,
+                            device=cuda).to(dtype)
+            kw = dict(causal=causal, window=window, q_offset=qo)
+            n0 = FA.launches
+            out = FA.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            assert FA.launches == n0 + 1
+            assert bool(out.isfinite().all())
+            case = (S, Skv, H, KV, hd, window, qo, dtype)
+            torch.testing.assert_close(
+                out, FA.flash_attention_plain(q, k, v, **kw), rtol=tol[0],
+                atol=tol[1], msg=lambda m: f"{case}: {m}")
+
+
+def test_flash_attention_bf16_rejects_what_the_tensor_cores_do_not_take(
+        cuda):
+    """A bf16 call whose head dim is no multiple of 8 raises (no fallback
+    to the SIMT kernel); the same call in f32 runs."""
+    q = torch.randn((1, 8, 2, 20), device=cuda)
+    n0 = FA.launches
+    with pytest.raises(ValueError):
+        FA.flash_attention(*(t.bfloat16() for t in (q, q, q)))
+    assert FA.launches == n0
+    FA.flash_attention(q, q, q)
+    assert FA.launches == n0 + 1
 
 
 PW_CASES = [(1, 1, 1, 512), (1, 37, 6, 512), (16, 16, 6, 512),
@@ -438,6 +498,72 @@ def test_decode_gqa_kernel_matches_plain(cuda, dtype, round_p):
                                    msg=lambda m: f"{(B, H, KV, hd, C)}: {m}")
 
 
+# kernel H with the cache split across blocks: (B, H, KV, hd, C, window);
+# C spans several 64-slot chunks with a ragged last one, B * KV below 132
+# (split) and at or above it (one chunk per pair)
+DECODE_SPLIT_CASES = [(1, 16, 1, 256, 4097, 0), (2, 8, 2, 64, 1000, 300),
+                      (3, 4, 1, 128, 129, 0), (1, 32, 8, 128, 2111, 64),
+                      (20, 8, 8, 32, 300, 0), (70, 4, 2, 16, 200, 50)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("round_p", [False, True])
+def test_decode_gqa_split_cache_matches_plain(cuda, dtype, round_p):
+    """Kernel H where the split plan cuts the cache into chunks (and where
+    ``B * KV`` fills the card and it does not), at rtol = atol = 1e-5
+    against its plain version, one launch count per call.  The weights
+    agree bit for bit whatever the split; only the PV order differs.  The
+    last row of each batch sees no valid slot."""
+    dt = getattr(torch, dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for B, H, KV, hd, C, window in DECODE_SPLIT_CASES:
+        nsplit, chunk = DG.split_plan(B, KV, C, sms)
+        assert (nsplit > 1) == (B * KV < sms), (B, KV, C)
+        assert (nsplit - 1) * chunk < C <= nsplit * chunk
+        q = torch.randn((B, H, hd), generator=g, device=cuda).to(dt)
+        k = torch.randn((B, C, KV, hd), generator=g, device=cuda).to(dt)
+        v = torch.randn((B, C, KV, hd), generator=g, device=cuda).to(dt)
+        pos = torch.randint(C // 2, C + 1, (B,), generator=g, device=cuda)
+        slots = torch.arange(C, device=cuda)
+        slot_pos = torch.where(slots[None] < pos[:, None], slots[None], -1)
+        if B > 1:
+            slot_pos[-1] = -1                 # a row with no valid slot
+        n0 = DG.launches
+        out = DG.decode_gqa(q, k, v, slot_pos, pos - 1, window=window,
+                            round_p=round_p)
+        torch.cuda.synchronize()
+        assert DG.launches == n0 + 1
+        assert bool(out.isfinite().all())
+        want = DG.decode_gqa_plain(q, k, v, slot_pos, pos - 1,
+                                   window=window, round_p=round_p)
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5,
+                                   msg=lambda m: f"{(B, H, KV, hd, C)}: {m}")
+
+
+def test_decode_gqa_counts_one_launch_per_call(cuda):
+    """One ``decode_gqa`` call adds exactly one to ``launches``, whether the
+    kernel runs as one launch (no split) or four (a split cache)."""
+    for B, C in ((16, 64), (1, 2176)):
+        q = torch.randn((B, 16, 256), device=cuda).bfloat16()
+        kv = torch.randn((B, C, 1, 256), device=cuda).bfloat16()
+        slot_pos = torch.arange(C, device=cuda).expand(B, C).contiguous()
+        pos = torch.full((B,), C - 1, device=cuda)
+        n0 = DG.launches
+        DG.decode_gqa(q, kv, kv, slot_pos, pos, round_p=True)
+        torch.cuda.synchronize()
+        assert DG.launches == n0 + 1
+
+
+def _assert_window_fits_chunk(cfg, S):
+    """The card-vs-CPU checks hold only on windows that are multiples of
+    the CPU path's chunk (``attention.chunk_size``): on any other window
+    the reference's chunked path, which the CPU port mirrors, drops keys
+    from the first rows of each query chunk that kernel G keeps."""
+    chunk = PA.chunk_size(S, S, cfg.attn_chunk)
+    assert cfg.window % chunk == 0, (cfg.window, chunk)
+
+
 def _hybrid(cuda):
     cfg = get_config("recurrentgemma-9b").reduced()
     params = TF.init_params(cfg, torch.Generator().manual_seed(0),
@@ -449,11 +575,13 @@ def test_hybrid_forward_launches_rglru_and_flash_per_layer(cuda):
     """The reduced recurrentgemma-9b's ``forward`` and ``anytime_forward``
     on the card launch kernel I once per recurrent layer and kernel G once
     per attention layer, and agree with the CPU's path (associative scan,
-    chunked attention) within rtol = atol = 1e-4."""
+    chunked attention) within rtol = atol = 1e-4, on a window that is a
+    multiple of the CPU path's chunk (asserted)."""
     cfg, params, on_card = _hybrid(cuda)
     kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (2, 128)).astype(np.int32))
+    _assert_window_fits_chunk(cfg, 128)
     ops.reset_launch_counts()
     logits = TF.forward(cfg, on_card, {"tokens": toks.to(cuda)})[0]
     torch.cuda.synchronize()
@@ -472,6 +600,7 @@ def test_hybrid_decode_step_launches_decode_gqa_per_attention_layer(cuda):
     each step launches kernel H once per attention layer and no scan; the
     logits and the recurrent state agree with the CPU within 1e-4."""
     cfg, params, on_card = _hybrid(cuda)
+    _assert_window_fits_chunk(cfg, 64)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, (2, 64)).astype(np.int32))
     la, sa = TF.prefill(cfg, on_card, {"tokens": toks.to(cuda)})
