@@ -7,11 +7,13 @@ Phases, each printing one line (any failure exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``), then the build of every
    CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one
-   process per source, all started together);
+   process per source, all started together); every instance of kernel B
+   must build with no stack frame and no spills;
 2. the k-means kernels ``l1_topk2`` and ``centroid_update`` at the serve
    path's shapes, each held bit for bit against its plain PyTorch version
-   on the same inputs, with times (CUDA events), the plain version's time
-   and a one-call PyTorch yardstick;
+   on the same inputs, with times (CUDA events; for ``l1_topk2`` also the
+   profiler's device time per launch), the plain version's time and a
+   one-call PyTorch yardstick;
 3. live fleet serving of the paper's §9.2 visual-sensing workload at
    Table-3 widths (CIFAR-100 and VWW agile CNNs, random seeded weights, a
    k-means bank fitted on 384 training samples each, a solar harvester at
@@ -29,8 +31,11 @@ Phases, each printing one line (any failure exits non-zero):
    modes, ``run_segments`` in four fused segments and ``sweep`` must agree
    on every result leaf; the card's run equals the CPU's plain run over
    the first steps on a slice of devices; both kernels are held bit for
-   bit against their plain versions and timed.  The launch counts are
-   zeroed before this phase and read after it (kernels A, B);
+   bit against their plain versions and timed (B also by its device time
+   per segment and per step of the fleet, at 1,600 and 16,000 devices:
+   CUDA events around launches enqueued while the card spins, so that no
+   host work falls inside).  The launch counts are zeroed before this phase and read
+   after it (kernels A, B);
 5. kernel F ``pairwise_l1`` held bit for bit against its plain version at
    the forecaster's first-batch shape (256 x 256 x 6), at a ``d`` that
    spans two blocks (33 x 17 x 1,100) and at 4,096 x 4,096 x 512, with
@@ -314,6 +319,69 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _device_ms(fn, device, calls: int = 20):
+    """``torch.profiler`` over ``calls`` calls of ``fn`` after one warm-up:
+    ``({kernel name: (device ms in all, launches the profiler saw)},
+    host-clock ms per call)``.  An empty dict without a card (or when the
+    profiler sees no device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return {}, float("nan")
+    fn()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize(device)
+        host = (time.perf_counter() - t0) / calls
+    kernels = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = e.cuda_time_total
+        if t and e.key and "Memcpy" not in e.key and "Memset" not in e.key \
+                and e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = (t / 1e3, e.count)
+    return kernels, 1e3 * host
+
+
+def _kernel_ms(fn, device, match: str, calls: int = 20) -> float:
+    """Device ms per launch of the kernels whose name holds ``match``
+    (:func:`_device_ms`), over the launches the profiler saw; NaN if none
+    ran on a card."""
+    kernels, _ = _device_ms(fn, device, calls)
+    hits = [v for k, v in kernels.items() if match in k]
+    n = sum(c for _, c in hits)
+    return sum(t for t, _ in hits) / n if n else float("nan")
+
+
+def _busy_ms(fn, device, reps: int = 5, spin_cycles: int = 40_000_000):
+    """Device ms per call of ``fn`` for launches far longer than their
+    wrapper's host work: CUDA events around ``reps`` calls enqueued while
+    the card spins (``torch.cuda._sleep``, ~20 ms), so the span holds the
+    calls' device work back to back and none of the host's.  NaN without a
+    card."""
+    import torch
+
+    if device.type != "cuda":
+        return float("nan")
+    fn()
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / reps
+
+
 def _max_err(a, b) -> float:
     import torch
 
@@ -370,6 +438,25 @@ def _flash_registers(log: str) -> dict:
     return found
 
 
+def _stack_frames(log: str) -> dict:
+    """``{entry function: (stack frame bytes, spill store bytes)}`` from a
+    ``-Xptxas -v`` log."""
+    import re
+
+    found, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m and name:
+            found[name] = (int(m.group(1)), int(m.group(2)))
+            name = None
+    return found
+
+
 def _build_phase() -> None:
     from repro_torch.kernels import _build
 
@@ -389,6 +476,15 @@ def _build_phase() -> None:
     for (path, hdp), regs in sorted(FLASH_REGISTERS.items()):
         print(f"  flash_attention {path} instance, head dim padded to {hdp}: "
               f"{regs}")
+    # kernel B keeps its carry in registers: no instance may need a stack
+    # (the log of this build, or the one kept beside a cached library)
+    frames = _stack_frames(_build.build_log("fleet_fused"))
+    frames = {k: v for k, v in frames.items() if "fleet_fused_kernel" in k}
+    print(f"  fleet_fused_steps instances (stack frame, spill stores in "
+          f"bytes): {json.dumps(frames)}")
+    if not frames or any(f != (0, 0) for f in frames.values()):
+        raise AssertionError("fleet_fused_steps: a kernel instance uses a "
+                             "stack frame or spills")
 
 
 def _l1_phase(device, scale: Scale, rng) -> dict:
@@ -431,14 +527,18 @@ def _l1_phase(device, scale: Scale, rng) -> dict:
         lib_ms = _ms(yardstick, device)
         bound_ms, by = _bound(_nbytes(xx, cc) + xx.shape[0] * 12,
                               3.0 * xx.shape[0] * k * d)
-        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=by, library_ms=lib_ms)
+        # the kernel's own time on the card, without the wrapper's host work
+        dev_ms = _kernel_ms(lambda: L1.l1_topk2(xx, cc), device,
+                            "l1_topk2_kernel")
+        return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
 
     rows, shared = times(x_rows, c_rows), times(x, c)
     for label, r in ((f"per-row centroids, B={D}", rows),
                      (f"shared centroids, B={B}", shared)):
         print(f"l1_topk2 ({label}, d={d}, k={k}): bit-equal to plain; "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f} ms per "
+              f"launch), plain {r['plain_ms']:.4f} ms, "
               f"cdist+topk {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
     return dict(rows, max_abs_err=err, shape=f"x ({D}, {d}), c ({D}, {k}, "
@@ -880,10 +980,14 @@ def _replay_phase(device, scale: Scale, models, sets) -> dict:
     ms_big = _ms(lambda: FS.fleet_fused_steps(
         cfg_big, c_big, 0, statics=st_big, n_steps=b_row["segment_steps"]),
         device, reps=3, warmup=1)
+    dev_big = _busy_ms(lambda: FS.fleet_fused_steps(
+        cfg_big, c_big, 0, statics=st_big, n_steps=b_row["segment_steps"]),
+        device)
     print(f"fleet_fused_steps at D={len(meta_big)}: {ms_big:.3f} ms per "
-          f"{b_row['segment_steps']}-step segment")
+          f"{b_row['segment_steps']}-step segment (device {dev_big:.3f} ms)")
     del cfg_big, c_big
-    b_row.update(ms_big_fleet=ms_big, big_fleet=len(meta_big))
+    b_row.update(ms_big_fleet=ms_big, device_ms_big_fleet=dev_big,
+                 big_fleet=len(meta_big))
     return dict(launches=launches, a_row=a_row, b_row=b_row)
 
 
@@ -947,6 +1051,10 @@ def _fused_check(device, cfg, statics, FS, init_fleet) -> dict:
     ms = _ms(lambda: FS.fleet_fused_steps(cfg, c0, 0, statics=statics,
                                           n_steps=n), device, reps=5,
              warmup=1)
+    # device time per launch: the profiler misses these long launches once
+    # the replay modes have been profiled in this process
+    dev_ms = _busy_ms(lambda: FS.fleet_fused_steps(
+        cfg, c0, 0, statics=statics, n_steps=n), device)
     D, Q = cfg.policy.shape[0], statics.queue_size
     units = int(out.m_units.sum())
     scalars = sum(_nbytes(getattr(cfg, f)) for f in FS._CFG_FIELDS)
@@ -956,9 +1064,12 @@ def _fused_check(device, cfg, statics, FS, init_fleet) -> dict:
     nops = float(D * n * 40 * Q)
     bound_ms, by = _bound(nbytes, nops)
     print(f"fleet_fused_steps (D={D}, {n} steps, {units} units): bit-equal "
-          f"to plain on every carry leaf; kernel {ms:.3f} ms/launch, plain "
+          f"to plain on every carry leaf; kernel {ms:.3f} ms/launch (device "
+          f"{dev_ms:.3f} ms, {1e3 * dev_ms / n:.3f} us per step of the "
+          f"fleet), plain "
           f"{plain_s * 1e3:.1f} ms, bound {bound_ms:.6f} ms ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3,
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                us_per_step=1e3 * dev_ms / n, plain_ms=plain_s * 1e3,
                 bound_ms=bound_ms, bound_by=by, library_ms=None,
                 segment_steps=n, shape=f"D={D}, {n} steps")
 
@@ -1027,16 +1138,12 @@ def _tune_task(n_jobs=30, n_units=4, exit_at=1, correct_from=2):
                     profiles=[prof] * n_jobs)
 
 
-def _tune_phase(device, scale: Scale) -> dict:
-    """Offline tuning of (eta, E_opt fraction) with the ES driver; one
-    objective call is one fused fleet run (kernel B)."""
-    import torch
-
+def _tune_problem(device, scale: Scale):
+    """``examples/adapt_tune.py``'s problem at ``scale`` and its search
+    space over (eta, E_opt fraction)."""
     from repro_torch import adapt
     from repro_torch.core import energy
-    from repro_torch.kernels import ops
 
-    t0 = time.perf_counter()
     problem = adapt.TuneProblem(
         task=_tune_task(),
         harvesters=(energy.Harvester("solar", 0.95, 0.95, 0.08),
@@ -1044,9 +1151,22 @@ def _tune_phase(device, scale: Scale) -> dict:
                     energy.Harvester("piezo", 0.90, 0.90, 0.06)),
         seeds=tuple(range(scale.tune_seeds)), horizon=scale.tune_horizon,
         device=device)
-    base, statics = problem._base
     space = adapt.SearchSpace.of(eta=(0.05, 1.0),
                                  e_opt_fraction=(0.05, 0.95))
+    return problem, space
+
+
+def _tune_phase(device, scale: Scale) -> dict:
+    """Offline tuning of (eta, E_opt fraction) with the ES driver; one
+    objective call is one fused fleet run (kernel B)."""
+    import torch
+
+    from repro_torch import adapt
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    problem, space = _tune_problem(device, scale)
+    base, statics = problem._base
     d0 = base.n_devices
     print(f"tune setup: {d0} cells (3 harvesters x {scale.tune_seeds} "
           f"seeds), {statics.n_steps} steps of {statics.dt} s, built in "

@@ -57,17 +57,27 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
+def build_log(name: str) -> str:
+    """The compiler output of library ``name``'s build, kept beside it
+    (built first if it is not yet)."""
+    log = lib_path(name).with_suffix(".log")
+    if not log.exists():
+        build((name,))
+    return log.read_text()
+
+
 def build(names=SOURCES) -> dict[str, str]:
     """Compile every library of ``names`` that is not built yet, all in
-    parallel.  Returns ``{name: compiler output}`` (``-Xptxas -v`` prints
-    registers, shared memory and spills per kernel); raises with the
+    parallel.  Returns ``{name: compiler output}`` of this call's builds
+    (``-Xptxas -v`` prints registers, shared memory and spills per kernel),
+    each also kept beside its library (:func:`build_log`); raises with the
     compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     for name in names:
         out = lib_path(name)
-        if out.exists():
+        if out.exists() and out.with_suffix(".log").exists():
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
@@ -82,6 +92,7 @@ def build(names=SOURCES) -> dict[str, str]:
             failed.append(name)
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"

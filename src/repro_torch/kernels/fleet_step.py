@@ -13,17 +13,23 @@ ONE launch.
   utility-pass latch and the outcome log, exactly as
   :func:`repro_torch.serve.fleet_engine.serve_step` does.
 
-Both CUDA kernels (``csrc/fleet_fused.cu``, ``csrc/serve_fused.cu``) run one
-thread per device with the queue and task registers in local arrays, and
-take their stages from one header, ``csrc/device_step.cuh``, so they cannot
-drift apart; what bounds them and why is noted in the sources.  Booleans
+Both CUDA kernels run one thread per device.  Kernel B
+(``csrc/fleet_fused.cu``) takes its stages from ``csrc/replay_step.cuh``:
+the carry in registers, the device's tables in shared memory and the
+per-slot values hoisted to the events that change them.  Kernel C
+(``csrc/serve_fused.cu``) still takes the older stages of
+``csrc/device_step.cuh`` (the queue and task registers in local arrays);
+both copies are held bit for bit against the same plain
+:func:`repro_torch.core.step.device_step`.  What bounds each kernel and
+why is noted in the sources.  Booleans
 stay ``torch.bool`` (one byte); the int32 packing of the reference exists
 for the TPU compiler only.  Kernel C takes ``adapt=False`` only, like the
 reference: bank adaptation propagates centroids through whole-model
 convolutions, so the bank passes through unchanged.
 
-Each wrapper clones the carry (and C the outcome log), and the kernel
-updates the clone in place: the caller's carry is never written.
+Kernel B reads the caller's carry and writes every element of a new one;
+C's wrapper clones the carry and the outcome log and the kernel updates
+the clones in place.  The caller's carry is never written.
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ from . import _build
 QMAX = 8
 KMAX = 8
 _MAX_S = 32 ** 4      # the shared OrderedSum tracks at most 3 window levels
-_THREADS = 128
+_THREADS = 128        # kernel C's block
 
 #: launches of the CUDA kernels B and C (the plain versions never count)
 fleet_launches = 0
@@ -95,6 +101,7 @@ class _FleetArgs(ctypes.Structure):
     _fields_ = (
         [(f, ctypes.c_void_p) for f in _FLEET_CFG_FIELDS]
         + [(f, ctypes.c_void_p) for f in DeviceCarry._fields]
+        + [("in_" + f, ctypes.c_void_p) for f in DeviceCarry._fields]
         + [(f, ctypes.c_int) for f in _FLEET_SIZE_FIELDS]
         + [(f, ctypes.c_float) for f in _SCALAR_FIELDS]
     )
@@ -183,12 +190,16 @@ def _fleet_launch(cfg: StepParams, carry: DeviceCarry, i0: int, *, statics,
     Q = statics.queue_size
     D, K, U, J, NE = _check_step_state("fleet_fused_steps", cfg, carry,
                                        _FLEET_CFG_FIELDS, Q)
-    dev = DeviceCarry(*[l.clone() for l in carry])
+    if D == 0 or n_steps <= 0:
+        return DeviceCarry(*[l.clone() for l in carry])
+    # the kernel writes every element of every leaf of the new carry
+    dev = DeviceCarry(*[torch.empty_like(l) for l in carry])
     args = _FleetArgs()
     for f in _FLEET_CFG_FIELDS:
         setattr(args, f, getattr(cfg, f).data_ptr())
     for f in DeviceCarry._fields:
         setattr(args, f, getattr(dev, f).data_ptr())
+        setattr(args, "in_" + f, getattr(carry, f).data_ptr())
     sizes = dict(D=D, K=K, U=U, J=J, Q=Q, NE=NE, i0=int(i0),
                  n_steps=int(n_steps))
     for f in _FLEET_SIZE_FIELDS:
@@ -196,15 +207,24 @@ def _fleet_launch(cfg: StepParams, carry: DeviceCarry, i0: int, *, statics,
     args.dt = statics.dt
     args.dt_eps = statics.dt_eps
     args.slot_s = statics.slot_s
-    lib = _load("fleet_fused", "fleet_args_size", _FleetArgs)
-    fn = lib.fleet_fused_launch
-    fn.argtypes = [ctypes.POINTER(_FleetArgs), ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    if D > 0 and n_steps > 0:
-        err = fn(ctypes.byref(args), _THREADS, _build.stream_handle(dev0))
-        _build.check(err, "fleet_fused_steps")
-        fleet_launches += 1
+    err = _fleet_kernel()(ctypes.byref(args), _build.stream_handle(dev0))
+    _build.check(err, "fleet_fused_steps")
+    fleet_launches += 1
     return dev
+
+
+_FLEET_FN = {}
+
+
+def _fleet_kernel():
+    """Kernel B's launch function, bound once."""
+    if "launch" not in _FLEET_FN:
+        lib = _load("fleet_fused", "fleet_args_size", _FleetArgs)
+        fn = lib.fleet_fused_launch
+        fn.argtypes = [ctypes.POINTER(_FleetArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FLEET_FN["launch"] = fn
+    return _FLEET_FN["launch"]
 
 
 def fleet_fused_steps(cfg: StepParams, carry: DeviceCarry, i0: int, *,

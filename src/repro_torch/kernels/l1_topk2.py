@@ -3,8 +3,10 @@
 Replaces the Pallas TPU kernel ``repro/kernels/l1_topk2.py:l1_topk2``.
 For each row: the L1 distance to every centroid, the smallest (``d1``), its
 first index (``idx``) and the second smallest (``d2``, the reference's
-``1e30`` mask at ``idx``).  The CUDA kernel (``csrc/l1_topk2.cu``) runs one
-thread per row; what bounds it and why it is laid out so is noted there.
+``1e30`` mask at ``idx``).  The CUDA kernel (``csrc/l1_topk2.cu``) sums
+every window of the reference's order as its own chain, one block per row
+(:func:`window_plan`); what bounds it and why it is laid out so is noted
+there.
 
 The centroids are one ``(k, d)`` set shared by every row (``kmeans.classify``)
 or one set per row, ``(B, k, d)`` (the serve scan classifies each device's
@@ -18,6 +20,7 @@ with the JAX package on the CPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -25,7 +28,7 @@ from . import _build
 
 POS = 1e30
 _WIN = 32
-_MAX_D = _WIN ** 4     # the kernel's OrderedSum tracks at most 3 window levels
+_MAX_D = _WIN ** 4     # the kernels track at most 3 window levels
 
 #: launches of the CUDA kernel (the plain version never counts)
 launches = 0
@@ -83,6 +86,47 @@ def _check(x, centroids):
         raise ValueError("l1_topk2: x and centroids on different devices")
 
 
+def window_plan(d: int) -> tuple:
+    """The levels of :func:`ordered_sum`'s order over ``d`` terms, as the
+    kernel takes them: ``(nwin, lo0, lo1, lo2, n1, n2)``.  ``nwin`` windowed
+    levels (0: ``d <= 32``, summed as one window), ``lo<l>`` the front
+    padding of level ``l``, ``n<l>`` its number of elements (``n1``: the
+    windows of level 0; ``n2``: of level 1)."""
+    lo, n, m = [0, 0, 0], [d, 1, 1], d
+    nwin = 0
+    while m > _WIN and nwin < 3:
+        pad = (-m) % _WIN
+        lo[nwin] = pad // 2
+        m = (m + pad) // _WIN
+        nwin += 1
+        if nwin < 3:
+            n[nwin] = m
+    return (nwin, lo[0], lo[1], lo[2], n[1], n[2])
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_arg(d: int):
+    """:func:`window_plan` as the kernel's ``int[6]`` argument."""
+    return (ctypes.c_int * 6)(*window_plan(d))
+
+
+_FN = {}
+
+
+def _kernel():
+    """The launch function of the built library, bound once."""
+    fn = _FN.get("launch")
+    if fn is None:
+        fn = _build.load("l1_topk2").l1_topk2_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN["launch"] = fn
+    return fn
+
+
 def l1_topk2(x: torch.Tensor, centroids: torch.Tensor):
     """``x`` ``(B, d)``, ``centroids`` ``(k, d)`` or ``(B, k, d)``, float32
     -> ``(d1 (B,) f32, d2 (B,) f32, idx (B,) int32)``.
@@ -98,7 +142,6 @@ def l1_topk2(x: torch.Tensor, centroids: torch.Tensor):
     if not (x.is_contiguous() and centroids.is_contiguous()):
         raise ValueError("l1_topk2: the kernel takes contiguous tensors")
     B, d = x.shape
-    k = centroids.shape[-2]
     if d > _MAX_D:
         raise ValueError(f"l1_topk2: d={d} exceeds the kernel's {_MAX_D}")
     d1 = torch.empty(B, dtype=torch.float32, device=x.device)
@@ -106,15 +149,10 @@ def l1_topk2(x: torch.Tensor, centroids: torch.Tensor):
     idx = torch.empty(B, dtype=torch.int32, device=x.device)
     if B == 0:
         return d1, d2, idx
-    lib = _build.load("l1_topk2")
-    fn = lib.l1_topk2_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), centroids.data_ptr(), B, d, k,
-             int(centroids.dim() == 3), d1.data_ptr(), d2.data_ptr(),
-             idx.data_ptr(), _build.stream_handle(x.device))
+    err = _kernel()(x.data_ptr(), centroids.data_ptr(), B, d,
+                    centroids.shape[-2], int(centroids.dim() == 3),
+                    _plan_arg(d), d1.data_ptr(), d2.data_ptr(),
+                    idx.data_ptr(), _build.stream_handle(x.device))
     _build.check(err, "l1_topk2")
     launches += 1
     return d1, d2, idx

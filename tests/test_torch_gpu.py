@@ -60,6 +60,40 @@ def test_l1_topk2_kernel_matches_plain(cuda, per_row):
             assert torch.equal(a, b), (B, d, k)
 
 
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("B", [1031, 4099])
+def test_l1_topk2_kernel_many_blocks_matches_plain(cuda, B, per_row):
+    """Row counts that span many tiles and end mid-tile, at the serve
+    path's d = 150, k = 5."""
+    rng = np.random.default_rng(B)
+    x = torch.from_numpy(rng.normal(size=(B, 150)).astype(np.float32))
+    c = torch.from_numpy(rng.normal(size=(B, 5, 150) if per_row
+                                    else (5, 150)).astype(np.float32))
+    xg, cg = x.to(cuda), c.to(cuda)
+    out = L1.l1_topk2(xg, cg)
+    torch.cuda.synchronize()
+    for a, b in zip(out, L1.l1_topk2_plain(xg, cg)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", [5, 8, 13])
+def test_l1_topk2_kernel_window_levels_match_plain(cuda, k):
+    """The plain version's outputs at the serve shapes and across the window
+    levels (d up to 40,000), with one pass over the feature axis per group
+    of 8 centroids (k = 13 takes two)."""
+    rng = np.random.default_rng(7)
+    for B, d, per_row in ((64, 150, True), (250, 150, False),
+                          (9, 1025, True), (3, 40000, False)):
+        x = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32))
+        c = torch.from_numpy(rng.normal(size=(B, k, d) if per_row
+                                        else (k, d)).astype(np.float32))
+        xg, cg = x.to(cuda), c.to(cuda)
+        out = L1.l1_topk2(xg, cg)
+        torch.cuda.synchronize()
+        for a, b in zip(out, L1.l1_topk2_plain(xg, cg)):
+            assert torch.equal(a, b), (B, d, k)
+
+
 def test_centroid_update_kernel_matches_plain(cuda):
     rng = np.random.default_rng(1)
     for B, d, k in [(64, 8192, 5), (7, 33, 3), (300, 100, 4)]:
@@ -388,6 +422,87 @@ def test_fleet_fused_kernel_matches_plain(cuda, n_steps):
                                                  n_steps=n_steps)
         for f, a, b in zip(out._fields, out, ref):
             assert torch.equal(a, b), (i0, f)
+
+
+def _replay_cfg_tasks(device, n_tasks, queue_size, n_seeds, horizon=6.0):
+    """``n_tasks`` random periodic tasks of 2-5 units (numpy seed 11) over
+    all four policies (zygarde and EDF-M imprecise, EDF-M exiting at the
+    first pass), two harvesters and ``n_seeds`` seeds."""
+    rng = np.random.default_rng(11)
+    tasks = []
+    for tid in range(n_tasks):
+        n_units, period = 2 + tid % 4, 0.6 + 0.15 * (tid % 3)
+        profiles = [JobProfile(np.sort(rng.uniform(0.05, 0.6, n_units)),
+                               rng.random(n_units) < 0.4,
+                               rng.random(n_units) < 0.7)
+                    for _ in range(int(horizon / period) + 2)]
+        tasks.append(TaskSpec(tid, period, 1.8 * period,
+                              np.full(n_units, 0.04 + 0.01 * (tid % 2)),
+                              np.full(n_units, 6e-3), profiles))
+    grid = fleet.SweepGrid(
+        task=tasks, policies=("zygarde", "edf", "edf-m", "rr"),
+        etas=(0.7, 1.0), harvesters=(
+            energy.Harvester("rf", 0.93, 0.93, 0.07),
+            energy.Harvester("rf-strong", 0.93, 0.93, 0.7)),
+        seeds=tuple(range(n_seeds)), horizon=horizon, dt=0.01,
+        queue_size=queue_size)
+    cfg, statics, _ = fleet.build(grid, device)
+    return cfg, statics
+
+
+def _assert_fused_matches_plain(cfg, statics, n_steps=151):
+    """Kernel B == its plain version on every carry leaf from the initial
+    carry and from mid-horizon, at an odd device count."""
+    cfg = S.StepParams(*[x[:-1].contiguous() for x in cfg])
+    carry = fleet.init_fleet(cfg, statics)
+    for i0 in (0, 250):
+        if i0:
+            carry = fleet_step.fleet_fused_steps_plain(
+                cfg, carry, 0, statics=statics, n_steps=i0)
+        out = fleet_step.fleet_fused_steps(cfg, carry, i0, statics=statics,
+                                           n_steps=n_steps)
+        ref = fleet_step.fleet_fused_steps_plain(cfg, carry, i0,
+                                                 statics=statics,
+                                                 n_steps=n_steps)
+        for f, a, b in zip(out._fields, out, ref):
+            assert torch.equal(a, b), (i0, f)
+        assert int(ref.m_units.sum()) > 0
+
+
+@pytest.mark.parametrize("queue_size", [1, 3, 8])
+def test_fleet_fused_kernel_queue_sizes(cuda, queue_size):
+    """Two tasks at queue sizes 1, 3 and 8 (kernel instances QC = 3 and
+    8), D = 79 devices over five blocks of 16, the last one part full."""
+    cfg, statics = _replay_cfg_tasks(cuda, 2, queue_size, 5)
+    _assert_fused_matches_plain(cfg, statics)
+
+
+@pytest.mark.parametrize("queue_size", [3, 8])
+def test_fleet_fused_kernel_eight_tasks(cuda, queue_size):
+    """A synthetic set of K = 8 tasks (instance KC = 8), D = 47."""
+    cfg, statics = _replay_cfg_tasks(cuda, 8, queue_size, 3)
+    _assert_fused_matches_plain(cfg, statics)
+
+
+def test_fleet_fused_kernel_keeps_a_nan_charge(cuda):
+    """A unit of zero time drains ue * (dt / 0) = inf; a step that does not
+    run charges 0 * inf = NaN, and the NaN stays in the energy as it does
+    in the plain version (torch.minimum), every NaN in the same place."""
+    cfg, statics = _replay_cfg_tasks(cuda, 2, 3, 2)
+    ut = cfg.unit_time.clone()
+    ut[:, 1, -1] = 0.0
+    cfg = cfg._replace(unit_time=ut.contiguous())
+    carry = fleet.init_fleet(cfg, statics)
+    out = fleet_step.fleet_fused_steps(cfg, carry, 0, statics=statics,
+                                       n_steps=statics.n_steps)
+    ref = fleet_step.fleet_fused_steps_plain(cfg, carry, 0, statics=statics,
+                                             n_steps=statics.n_steps)
+    assert bool(ref.energy.isnan().any())
+    for f, a, b in zip(out._fields, out, ref):
+        if a.dtype.is_floating_point:
+            assert torch.equal(a.isnan(), b.isnan()), f
+            a, b = a.nan_to_num(), b.nan_to_num()
+        assert torch.equal(a, b), f
 
 
 def test_replay_modes_agree_and_launch_per_segment(cuda):

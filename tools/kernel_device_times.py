@@ -1,21 +1,34 @@
-"""Device time per launch of kernels G and H, from the profiler.
+"""Device time per launch of kernels B, D, G and H, from the profiler.
 
-    PYTHONPATH=src python tools/kernel_device_times.py
+    PYTHONPATH=src python tools/kernel_device_times.py [--only B,D,G,H,T]
 
 CUDA-event times of a wrapper call (``chip_smoke.py``) include the host
-work between launches: at decode sizes the card waits on the wrapper.
-This script runs ``flash_attention`` and ``decode_gqa`` at the shapes
-``chip_smoke.py`` checks (bf16 G at its seven shapes, H at its six), 20
-calls each under ``torch.profiler``, and prints per shape the device time
-of every CUDA kernel the calls launched (per call), their sum, and the
-host-clock time per call.  Needs a CUDA card.
+work between launches: at small sizes the card waits on the wrapper.
+This script runs each kernel at the shapes ``chip_smoke.py`` checks, under
+``torch.profiler``, and prints per shape the device time of every CUDA
+kernel the calls launched (per call, with the launches the profiler saw),
+their sum, and the host-clock time per call:
+
+* B ``fleet_fused_steps``: the replay sweep's 1,600 devices (the two §9.2
+  models' job profiles, as ``chip_smoke.py`` builds them) over one
+  1,159-step segment, with the time per step of the fleet;
+* D ``l1_topk2``: x (64, 150) against per-row centroids (64, 5, 150) and
+  x (250, 150) against one shared set (5, 150);
+* G ``flash_attention`` in bf16 at its seven shapes, H ``decode_gqa`` at
+  its six;
+* T: one tuning objective call (``chip_smoke.py``'s tuning problem, one
+  population block of 16 candidates), with B's share of its host-clock
+  time.
+
+Needs a CUDA card.
 """
 from __future__ import annotations
 
+import argparse
 import sys
-import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -24,41 +37,78 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 import chip_smoke  # noqa: E402
 from repro_torch.kernels import decode_gqa as DG  # noqa: E402
 from repro_torch.kernels import flash_attn as FA  # noqa: E402
+from repro_torch.kernels import fleet_step as FS  # noqa: E402
+from repro_torch.kernels import l1_topk2 as L1  # noqa: E402
 
 CALLS = 20
 
 
-def profile(label: str, fn) -> None:
-    from torch.profiler import ProfilerActivity, profile as prof
-
-    fn()
-    torch.cuda.synchronize()
-    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        t0 = time.perf_counter()
-        for _ in range(CALLS):
-            fn()
-        torch.cuda.synchronize()
-        host = (time.perf_counter() - t0) / CALLS
-    kernels = {}
-    for e in p.key_averages():
-        t = getattr(e, "device_time_total", None)
-        if t is None:
-            t = e.cuda_time_total
-        if t and e.key and "Memcpy" not in e.key and "Memset" not in e.key \
-                and e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.key] = t / CALLS / 1e3
-    total = sum(kernels.values())
-    parts = "; ".join(f"{k[:60]} {v:.4f}" for k, v in sorted(
-        kernels.items(), key=lambda kv: -kv[1]))
-    print(f"{label}: device {total:.4f} ms per call, host clock "
-          f"{1e3 * host:.4f} ms per call [{parts}]")
+def profile(label: str, fn, calls: int = CALLS) -> float:
+    """Print the device time per call of every kernel ``fn`` launches;
+    return their sum (ms)."""
+    kernels, host = chip_smoke._device_ms(fn, torch.device("cuda"), calls)
+    total = sum(t for t, _ in kernels.values()) / calls
+    parts = "; ".join(f"{k[:60]} {t / calls:.4f} (x{n})" for k, (t, n) in
+                      sorted(kernels.items(), key=lambda kv: -kv[1][0]))
+    print(f"{label}: device {total:.4f} ms per call over {calls} calls, host "
+          f"clock {host:.4f} ms per call [{parts}]")
+    return total
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("needs a CUDA card", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda")
+def kernel_b(dev) -> None:
+    scale = chip_smoke.FULL
+    models, sets = chip_smoke._models(dev, scale)
+    tasks = chip_smoke._replay_tasks(models, sets, scale)
+    from repro_torch.fleet import build, init_fleet
+
+    cfg, statics, meta = build(chip_smoke._replay_grid(tasks, scale,
+                                                       scale.seeds), dev)
+    c0 = init_fleet(cfg, statics)
+    n = statics.n_steps // 4
+    K, U = cfg.period.shape[-1], cfg.unit_time.shape[-1]
+    ms = profile(f"B (D={len(meta)}, {n} steps, Q={statics.queue_size}, "
+                 f"K={K}, U={U})",
+                 lambda: FS.fleet_fused_steps(cfg, c0, 0, statics=statics,
+                                              n_steps=n), calls=5)
+    print(f"  B: {1e3 * ms / n:.4f} us per step of the fleet")
+
+
+def kernel_d(dev) -> None:
+    rng = np.random.default_rng(0)
+    shapes = ((64, 150, 5, True), (250, 150, 5, False))
+    for B, d, k, per_row in shapes:
+        x = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32)).to(
+            dev)
+        c = torch.from_numpy(rng.normal(size=(B, k, d) if per_row
+                                        else (k, d)).astype(np.float32)).to(
+            dev)
+        profile(f"D x ({B}, {d}), c {tuple(c.shape)}",
+                lambda: L1.l1_topk2(x, c))
+
+
+def tune_call(dev) -> None:
+    """One objective call of the tuning phase: every kernel's device time,
+    their sum and B's against the call's host-clock time."""
+    scale = chip_smoke.FULL
+    problem, space = chip_smoke._tune_problem(dev, scale)
+    params = space.to_dict(space.sample(np.random.default_rng(0),
+                                        scale.tune_pop))
+    objective = problem.objective()
+    calls = 5
+    kernels, host = chip_smoke._device_ms(lambda: objective(params), dev,
+                                          calls)
+    total = sum(t for t, _ in kernels.values()) / calls
+    b = sum(t for k, (t, _) in kernels.items()
+            if "fleet_fused_kernel" in k) / calls
+    parts = "; ".join(f"{k[:60]} {t / calls:.4f} (x{n})" for k, (t, n) in
+                      sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8])
+    print(f"T (objective call, {scale.tune_pop} candidates x "
+          f"{problem._base[0].n_devices} cells): host clock {host:.4f} ms "
+          f"per call; device {total:.4f} ms ({100 * total / host:.1f} %), "
+          f"B {b:.4f} ms ({100 * b / host:.1f} %) [{parts}]")
+
+
+def kernel_g(dev) -> None:
     g = torch.Generator(device=dev).manual_seed(3)
     for B, S, Skv, H, KV, hd, causal, window, qo in \
             chip_smoke.FULL.flash_shapes:
@@ -69,6 +119,9 @@ def main() -> int:
         profile(f"G (B={B} S={S} Skv={Skv} H={H} KV={KV} hd={hd} window="
                 f"{window} q_offset={qo}) bf16",
                 lambda: FA.flash_attention(q, k, v, **kw))
+
+
+def kernel_h(dev) -> None:
     g = torch.Generator(device=dev).manual_seed(4)
     for shape in chip_smoke.FULL.decode_shapes:
         q, k, v, slot_pos, pos = chip_smoke._decode_inputs(shape, g, dev)
@@ -77,6 +130,26 @@ def main() -> int:
         profile(f"H (B={B} H={H} KV={KV} hd={hd} C={C} {dtype} round_p="
                 f"{round_p}) splits={DG.split_plan(B, KV, C, 132)[0]}",
                 lambda: DG.decode_gqa(q, k, v, slot_pos, pos, **kw))
+
+
+KERNELS = {"B": kernel_b, "D": kernel_d, "G": kernel_g, "H": kernel_h,
+           "T": tune_call}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default=",".join(KERNELS),
+                    help="what to time, comma-separated (B,D,G,H,T)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"card: {chip_smoke._card_line()}")
+    for name in args.only.split(","):
+        KERNELS[name.strip()](dev)
     return 0
 
 
