@@ -141,6 +141,18 @@ __device__ __forceinline__ int floor_mod(int a, int n) {
   return r < 0 ? r + n : r;
 }
 
+// torch.minimum / torch.maximum (and jnp's): NaN if either operand is NaN,
+// where fminf / fmaxf would return the other operand.  The capacitor clamp
+// and the energy gate's floor use them, so a NaN charge (0 x inf, from a
+// unit of zero time) stays NaN as in the plain version and the reference.
+__device__ __forceinline__ float nan_fminf(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : fminf(a, b);
+}
+
+__device__ __forceinline__ float nan_fmaxf(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
+}
+
 __device__ inline DevConfig load_config(const ConfigPtrs& c, int d, int K,
                                         int U, int Q, int NE, float dt,
                                         float dt_eps, float slot_s) {
@@ -301,7 +313,7 @@ __device__ inline PickResult select_and_charge(
   p.sel = forced >= 0 ? forced : arg;
   p.picked = forced >= 0 || best > threshold;
   p.run = p.picked && energy >= gate_e[p.sel];
-  p.e_new = fminf(__fmaf_rn(power, dt, energy), capacity) -
+  p.e_new = nan_fminf(__fmaf_rn(power, dt, energy), capacity) -
             (p.run ? 1.f : 0.f) * drain[p.sel];
   return p;
 }
@@ -412,7 +424,7 @@ __device__ inline PickResult pick(const DevState& s, const DevConfig& g,
     const int u = clampi(s.q_unit[q], 0, g.U - 1);
     const float ut = g.unit_time[tk * g.U + u];
     const float ue = g.unit_energy[tk * g.U + u];
-    gate_e[q] = fmaxf(ue / g.fragments[tk], g.e_man);
+    gate_e[q] = nan_fmaxf(ue / g.fragments[tk], g.e_man);
     drain[q] = ue * (g.dt / ut);
     float margin;
     if (LIVE) {

@@ -9,8 +9,8 @@
 // the older copy of the stages (one thread per device, the carry in local
 // arrays), and both copies are held bit for bit against the same plain
 // repro_torch/core/step.py:device_step.  The pure helpers (policy_score,
-// clampi, floor_mod, policy_threshold, Outcome, the pointer structs) come
-// from device_step.cuh.
+// clampi, floor_mod, policy_threshold, nan_fminf / nan_fmaxf, Outcome, the
+// pointer structs) come from device_step.cuh.
 //
 // What keeps the step's dependent chain short:
 //   * No array is indexed at run time.  Every loop over slots or tasks is
@@ -42,9 +42,10 @@
 //     so did loading a unit's table entries when it starts instead of when
 //     it completes (the entries sit in L1; PERF.md §6 has both times).
 //   * The capacitor's clamp and the energy gate's floor propagate NaN as
-//     torch.minimum / torch.maximum do (nan_fminf, nan_fmaxf): a NaN charge
-//     (0 x inf above) stays NaN, as in the plain version and the
-//     reference, where fminf would have reset it to the capacity.
+//     torch.minimum / torch.maximum do (nan_fminf, nan_fmaxf of
+//     device_step.cuh): a NaN charge (0 x inf above) stays NaN, as in the
+//     plain version and the reference, where fminf would have reset it to
+//     the capacity.
 //
 // Numerics as device_step.cuh: built with -fmad=false; the four
 // multiply-adds the reference forms with one rounding are the __fmaf_rn of
@@ -153,16 +154,6 @@ __device__ __forceinline__ bool bit(unsigned m, int q) {
 
 __device__ __forceinline__ unsigned with_bit(unsigned m, int q, bool v) {
   return v ? (m | (1u << q)) : (m & ~(1u << q));
-}
-
-// torch.minimum / torch.maximum (and jnp's): NaN if either operand is NaN,
-// where fminf / fmaxf would return the other operand.
-__device__ __forceinline__ float nan_fminf(float a, float b) {
-  return (isnan(a) || isnan(b)) ? a + b : fminf(a, b);
-}
-
-__device__ __forceinline__ float nan_fmaxf(float a, float b) {
-  return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
 }
 
 __device__ __forceinline__ int replay_event_slot(const ReplayConfig& g,

@@ -76,11 +76,16 @@ def _to_port(tree, cls):
     return convert.named_tuple(cls, jax.tree.map(np.asarray, tree), "cpu")
 
 
-def test_fleet_priority_plain_matches_jax_kernel():
+@pytest.mark.parametrize("nan_energy", [False, True],
+                         ids=["finite", "nan-energy"])
+def test_fleet_priority_plain_matches_jax_kernel(nan_energy):
     """Kernel A's plain version == JAX ``ops.fleet_priority`` (interpret
     mode, called as ``simulate_fleet(mode="pallas")`` calls it) on all four
     outputs, every 40 steps over the horizon of the K = 4 task-set grid;
-    the per-slot inputs (the plain ``pick_inputs``) agree too."""
+    the per-slot inputs (the plain ``pick_inputs``) agree too.  With
+    ``nan_energy`` every third device starts from a NaN charge, which the
+    capacitor clamp keeps (``jnp.minimum`` / ``torch.minimum``): the NaNs
+    sit in the same places (``assert_array_equal`` holds NaN to NaN)."""
     cfg, statics = _task_set_grid(4)
     pcfg, pst = port_cfg(cfg), port_statics(statics)
 
@@ -95,7 +100,9 @@ def test_fleet_priority_plain_matches_jax_kernel():
         return states, ins, _pick_pallas(cfg, states, t, statics)
 
     states = JF.init_fleet(cfg, statics)
-    n_picked = 0
+    if nan_energy:
+        states = states._replace(energy=states.energy.at[::3].set(jnp.nan))
+    n_picked, n_nan = 0, 0
     for i in range(0, statics.n_steps, 40):
         jst, jins, ref = j_pick(cfg, states, jnp.int32(i))
         st = _to_port(jst, PSt.DeviceCarry)
@@ -117,8 +124,10 @@ def test_fleet_priority_plain_matches_jax_kernel():
             np.testing.assert_array_equal(a.numpy(), b,
                                           err_msg=f"step {i}: {n}")
         n_picked += int(out[1].sum())
+        n_nan += int(out[3].isnan().sum())
         states = _scan_steps(cfg, states, jnp.int32(i), statics, 40, True)
     assert n_picked > 0
+    assert (n_nan > 0) == nan_energy
 
 
 def test_fleet_fused_plain_matches_jax_kernel():

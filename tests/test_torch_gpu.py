@@ -266,18 +266,19 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
         PW.pairwise_l1(x.double(), x.double())
 
 
-def _engine(device, adapt, bank_mode):
-    """Two narrow agile CNNs on 32x32x3 inputs with fitted banks."""
+def _engine(device, adapt, bank_mode, n_tasks=2, queue_size=3):
+    """Narrow agile CNNs on 32x32x3 inputs with fitted banks, one per task
+    (the two specs in turn, each task its own seed)."""
     rng = np.random.default_rng(2)
     protos = np.kron(rng.normal(size=(3, 8, 8, 3)), np.ones((1, 4, 4, 1)))
     y = rng.integers(0, 3, 72).astype(np.int32)
     x = (1.5 * protos[y] + rng.normal(size=(72, 32, 32, 3))).astype(
         np.float32)
+    specs = (("a", (32, 32, 3), ((4, 5, True), (8, 5, True)), (16,), 3),
+             ("b", (32, 32, 3), ((6, 5, True),), (12, 8), 3))
     models = []
-    for seed, spec in enumerate((
-            ("a", (32, 32, 3), ((4, 5, True), (8, 5, True)), (16,), 3),
-            ("b", (32, 32, 3), ((6, 5, True),), (12, 8), 3))):
-        cfg = cnn.CNNConfig(*spec)
+    for seed in range(n_tasks):
+        cfg = cnn.CNNConfig(*specs[seed % 2])
         params = cnn.init_cnn_params(cfg, torch.Generator().manual_seed(seed),
                                      device=device)
         feats = cnn.cnn_forward_all(cfg, params,
@@ -289,7 +290,7 @@ def _engine(device, adapt, bank_mode):
              for j in range(4)] for _ in models]
     conf = ServeConfig(policy="zygarde", period=2.0, deadline=1.8,
                        horizon=10.0, adapt=adapt, unit_time=np.full(3, 0.3),
-                       start_charged=True)
+                       start_charged=True, queue_size=queue_size)
     eng = FleetServeEngine(models, energy.calibrate_harvester(0.71, 0.35),
                            eta=0.71, config=conf, bank_mode=bank_mode,
                            device=device)
@@ -343,6 +344,127 @@ def test_adaptive_serving_runs_through_the_kernels(cuda, bank_mode):
         assert counts["centroid_update"] > 0
     assert (res.exit_unit >= 0).any()
     assert np.isfinite(res.margin).all()
+
+
+def _leaves_equal(out, ref, what):
+    """Every leaf equal, float leaves with their NaNs in the same places."""
+    for f, a, b in zip(out._fields, out, ref):
+        if a.dtype.is_floating_point:
+            assert torch.equal(a.isnan(), b.isnan()), f"{what}.{f}"
+            a, b = a.nan_to_num(), b.nan_to_num()
+        assert torch.equal(a, b), f"{what}.{f}"
+
+
+def _assert_serve_kernel_matches_plain(cfg, statics, tables, carry,
+                                       segments=((0, 40), (40, None))):
+    """Kernel C == its plain version (``n_steps`` calls of ``serve_step``)
+    on every ``dev`` and ``log`` leaf, segment by segment from the plain
+    carry (``None``: to the horizon).  Returns the plain carry."""
+    K = cfg.period.shape[-1]
+    job0 = torch.zeros(K, dtype=torch.int32, device=cfg.policy.device)
+    for i0, n in segments:
+        n = statics.n_steps - i0 if n is None else n
+        n0 = fleet_step.serve_launches
+        out = fleet_step.serve_fused_steps(cfg, carry, tables, i0, job0,
+                                           statics=statics, n_steps=n)
+        torch.cuda.synchronize()
+        assert fleet_step.serve_launches == n0 + 1
+        ref = fleet_step.serve_fused_steps_plain(cfg, carry, tables, i0, job0,
+                                                 statics=statics, n_steps=n)
+        for part in ("dev", "log"):
+            _leaves_equal(getattr(out, part), getattr(ref, part),
+                          f"i0={i0} {part}")
+        assert out.bank is carry.bank
+        carry = ref
+    return carry
+
+
+@pytest.mark.parametrize("queue_size,n_tasks", [(1, 2), (3, 2), (8, 2),
+                                                (3, 8), (8, 8)])
+def test_serve_fused_kernel_queue_sizes_and_tasks(cuda, queue_size, n_tasks):
+    """Kernel C == plain on every carry and log leaf at queue sizes 1, 3
+    and 8 with K = 2 and at K = 8 (every instance of the kernel), from the
+    initial carry and from a mid-horizon one."""
+    eng, reqs = _engine(cuda, False, "per-device", n_tasks, queue_size)
+    cfg, statics, tables, carry0, _ = eng.build(reqs, 5, seeds=range(5))
+    ref = _assert_serve_kernel_matches_plain(cfg, statics, tables, carry0)
+    assert int(ref.dev.m_units.sum()) > 0 and bool(ref.log.units.any())
+
+
+@pytest.mark.parametrize("bank_mode", ["per-device", "shared"])
+def test_serve_fused_kernel_odd_fleet_per_device_streams(cuda, bank_mode):
+    """An odd fleet (D = 37, a prime: several blocks, the last one part
+    full) with per-device request streams (5-D ``sel_feats``, per-device
+    labels), on a per-device and on a shared bank."""
+    eng, reqs = _engine(cuda, False, bank_mode)
+    rng = np.random.default_rng(37)
+    streams = [[[reqs[k][j] for j in rng.permutation(len(reqs[k]))]
+                for k in range(len(reqs))] for _ in range(37)]
+    streams = [[[Request(r.x, r.label, release=2.0 * j)
+                 for j, r in enumerate(task)] for task in dev]
+               for dev in streams]
+    cfg, statics, tables, carry0, per_dev = eng.build(streams)
+    assert per_dev and tables.sel_feats.dim() == 5
+    assert (carry0.bank.centroids.dim() == 4) == (bank_mode == "shared")
+    _assert_serve_kernel_matches_plain(cfg, statics, tables, carry0)
+
+
+def _synthetic_bank(tables, bank, S, C, seed):
+    """The serve tables and a per-device bank re-made at ``S`` selected
+    features and ``C`` centroids per (task, unit), numpy seed ``seed``;
+    utility thresholds near the margins' median (which shrinks as
+    1 / sqrt(S) on random rows), so units both pass and fail."""
+    rng = np.random.default_rng(seed)
+    dev = bank.centroids.device
+    K, W, U = tables.sel_feats.shape[-4:-1]
+    D = bank.centroids.shape[0]
+    F = S + 7
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    sel = rng.normal(size=(K, W, U, S)).astype(np.float32)
+    fidx = rng.integers(0, F, (K, U, S)).astype(np.int32)
+    cent = rng.normal(size=(D, K, U, C, F)).astype(np.float32)
+    clab = rng.integers(0, 3, (K, U, C)).astype(np.int32)
+    thr = np.full((K, U), 0.5 if C == 1 else 0.3 / np.sqrt(S), np.float32)
+    tables = tables._replace(sel_feats=t(sel), fidx=t(fidx), clabels=t(clab),
+                             thr=t(thr),
+                             full_feats=t(np.zeros((K, W, U, F), np.float32)))
+    bank = bank._replace(centroids=t(cent),
+                         counts=t(np.ones((D, K, U, C), np.float32)))
+    return tables, bank
+
+
+@pytest.mark.parametrize("C", [1, 5, 8])
+@pytest.mark.parametrize("S", [1, 32, 33, 150, 1100])
+def test_serve_fused_kernel_classify_widths(cuda, S, C):
+    """Kernel C's warp classify == plain at S = 1, 32 (window level 0),
+    33, 150 (level 1) and 1,100 (level 2) selected features, against 1, 5
+    and 8 centroids, on random tables and banks."""
+    eng, reqs = _engine(cuda, False, "per-device")
+    cfg, statics, tables, carry0, _ = eng.build(reqs, 7, seeds=range(7))
+    tables, bank = _synthetic_bank(tables, carry0.bank, S, C, 100 * S + C)
+    carry0 = carry0._replace(bank=bank)
+    ref = _assert_serve_kernel_matches_plain(cfg, statics, tables, carry0)
+    assert bool(ref.log.units.any())
+
+
+def test_serve_fused_kernel_keeps_a_nan_charge(cuda):
+    """Task 0's last unit at zero time drains ue * (dt / 0) = inf: a step
+    that runs it leaves -inf, and one that selects it and does not run
+    charges 0 * inf = NaN; the NaN stays in the energy as it does in the
+    plain version (torch.minimum), every NaN in the same place, through
+    later steps that select a unit of finite drain (where fminf would
+    reset the charge to the capacity)."""
+    eng, reqs = _engine(cuda, False, "per-device")
+    cfg, statics, tables, carry0, _ = eng.build(reqs, 6, seeds=range(6))
+    ut = cfg.unit_time.clone()
+    ut[:, 0, -1] = 0.0
+    cfg = cfg._replace(unit_time=ut.contiguous())
+    ref = _assert_serve_kernel_matches_plain(cfg, statics, tables, carry0,
+                                             segments=((0, None),))
+    assert bool(ref.dev.energy.isnan().any())
 
 
 # --------------------------------------------------------------------------- #
@@ -402,6 +524,50 @@ def test_fleet_priority_kernel_matches_plain(cuda, n_seeds):
                              t_end=S.step_clock(i + 1, statics.dt, cuda))
     torch.cuda.synchronize()
     assert FP.launches - n0 == len(range(0, statics.n_steps, 3))
+
+
+def test_fleet_priority_kernel_keeps_a_nan_charge(cuda):
+    """Kernel A == plain with a NaN charge in ``energy`` on every third
+    device (finite drains there: the clamp must keep the NaN), an infinite
+    drain on every slot of other devices that do not run (0 * inf = NaN)
+    and on the slots a running device did not select.  The NaN masks
+    first, then the values."""
+    cfg, statics = _replay_cfg(cuda, 3)
+    D = cfg.policy.shape[0]
+    carry = fleet_step.fleet_fused_steps_plain(
+        cfg, fleet.init_fleet(cfg, statics), 0, statics=statics, n_steps=200)
+    t = S.step_clock(200, statics.dt, cuda)
+    carry = S.drop_expired(cfg, S.admit(cfg, carry, t, statics), t)
+    lax, util, mand, gate_e, drain, power, forced, _ = S.pick_inputs(
+        cfg, carry, t, statics)
+    energy = carry.energy.clone()
+    energy[::3] = float("nan")
+    kw = dict(n_tasks=2, dt=statics.dt)
+
+    def args(drain):
+        return (cfg.policy, carry.q_active, lax, carry.q_release, util, mand,
+                cfg.alpha, cfg.beta, cfg.eta, cfg.persistent, energy,
+                cfg.e_opt, power, cfg.capacity, gate_e, drain, forced,
+                carry.q_task, carry.rr_cursor)
+
+    sel, _, run, _ = FP.fleet_priority_plain(*args(drain), **kw)
+    d = torch.arange(D, device=cuda)[:, None]
+    q = torch.arange(drain.shape[-1], device=cuda)[None, :]
+    inf = torch.full_like(drain, float("inf"))
+    drain = torch.where(((d % 3 == 1) & ~run[:, None])
+                        | ((d % 3 == 2) & run[:, None] & (q != sel[:, None])),
+                        inf, drain)
+    n0 = FP.launches
+    out = FP.fleet_priority(*args(drain), **kw)
+    torch.cuda.synchronize()
+    assert FP.launches == n0 + 1
+    ref = FP.fleet_priority_plain(*args(drain), **kw)
+    assert bool(ref[3][::3].isnan().all()) and bool(drain.isinf().any())
+    for name, a, b in zip(("sel", "picked", "run", "e_new"), out, ref):
+        if a.dtype.is_floating_point:
+            assert torch.equal(a.isnan(), b.isnan()), name
+            a, b = a.nan_to_num(), b.nan_to_num()
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("n_steps", [1, 97])
