@@ -7,8 +7,8 @@ Phases, each printing one line (any failure exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``), then the build of every
    CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one
-   process per source, all started together); every instance of kernel B
-   must build with no stack frame and no spills;
+   process per source, all started together); every instance of kernels B
+   and C must build with no stack frame and no spills;
 2. the k-means kernels ``l1_topk2`` and ``centroid_update`` at the serve
    path's shapes, each held bit for bit against its plain PyTorch version
    on the same inputs, with times (CUDA events; for ``l1_topk2`` also the
@@ -476,15 +476,20 @@ def _build_phase() -> None:
     for (path, hdp), regs in sorted(FLASH_REGISTERS.items()):
         print(f"  flash_attention {path} instance, head dim padded to {hdp}: "
               f"{regs}")
-    # kernel B keeps its carry in registers: no instance may need a stack
-    # (the log of this build, or the one kept beside a cached library)
-    frames = _stack_frames(_build.build_log("fleet_fused"))
-    frames = {k: v for k, v in frames.items() if "fleet_fused_kernel" in k}
-    print(f"  fleet_fused_steps instances (stack frame, spill stores in "
-          f"bytes): {json.dumps(frames)}")
-    if not frames or any(f != (0, 0) for f in frames.values()):
-        raise AssertionError("fleet_fused_steps: a kernel instance uses a "
-                             "stack frame or spills")
+    # kernels B and C keep their carry in registers: no instance may need
+    # a stack (the log of this build, or the one kept beside a cached
+    # library)
+    for kernel, lib, entry in (
+            ("fleet_fused_steps", "fleet_fused", "fleet_fused_kernel"),
+            ("serve_fused_steps", "serve_fused", "serve_fused_kernel")):
+        frames = _stack_frames(_build.build_log(lib))
+        print(f"  {kernel} functions (stack frame, spill stores in bytes): "
+              f"{json.dumps(frames)}")
+        if sum(entry in k for k in frames) != 4 or any(
+                f != (0, 0) for f in frames.values()):
+            raise AssertionError(f"{kernel}: a function of {lib}.cu uses a "
+                                 f"stack frame or spills, or an instance is "
+                                 f"missing")
 
 
 def _l1_phase(device, scale: Scale, rng) -> dict:
@@ -612,28 +617,56 @@ def _models(device, scale: Scale):
     return models, sets
 
 
+def _serve_requests(scale: Scale, sets):
+    """The §9.2 request stream: ``scale.n_requests`` test samples per task,
+    one released every second."""
+    from repro_torch.serve import Request
+
+    n = scale.n_requests
+    return [[Request(ds.x_test[i], int(ds.y_test[i]), release=float(i))
+             for i in range(n)] for ds in sets]
+
+
+_SOLAR = []
+
+
+def _solar():
+    """The §9.2 solar harvester, calibrated once per run."""
+    from repro_torch.core import energy
+
+    if not _SOLAR:
+        _SOLAR.append(energy.calibrate_harvester(0.71, 0.35, name="solar"))
+    return _SOLAR[0]
+
+
+def _serve_engine(device, scale: Scale, models, adapt: bool,
+                  bank_mode: str):
+    """The §9.2 serving engine: zygarde, period 1 s, deadline 2 s, 0.22 s
+    and 7 mJ per unit, the solar harvester at eta = 0.71."""
+    from repro_torch.serve import FleetServeEngine, ServeConfig
+
+    u_max = max(m.n_units for m in models)
+    cfg = ServeConfig(policy="zygarde", period=1.0, deadline=2.0,
+                      horizon=scale.n_requests + 5.0, adapt=adapt,
+                      unit_time=np.full(u_max, 0.22),
+                      unit_energy=np.full(u_max, 7e-3), seed=3)
+    return FleetServeEngine(models, _solar(), eta=0.71, config=cfg,
+                            bank_mode=bank_mode, device=device)
+
+
 def _serve_phase(device, scale: Scale, models, sets) -> dict:
     import torch
 
-    from repro_torch.core import energy
     from repro_torch.kernels import fleet_step, ops
-    from repro_torch.serve import FleetServeEngine, Request, ServeConfig
 
     t0 = time.perf_counter()
-    harvester = energy.calibrate_harvester(0.71, 0.35, name="solar")
     n = scale.n_requests
-    requests = [[Request(ds.x_test[i], int(ds.y_test[i]), release=float(i))
-                 for i in range(n)] for ds in sets]
-    u_max = max(m.n_units for m in models)
+    requests = _serve_requests(scale, sets)
 
     def engine(adapt, bank_mode):
-        cfg = ServeConfig(policy="zygarde", period=1.0, deadline=2.0,
-                          horizon=n + 5.0, adapt=adapt,
-                          unit_time=np.full(u_max, 0.22),
-                          unit_energy=np.full(u_max, 7e-3), seed=3)
-        return FleetServeEngine(models, harvester, eta=0.71, config=cfg,
-                                bank_mode=bank_mode, device=device)
+        return _serve_engine(device, scale, models, adapt, bank_mode)
 
+    _solar()
     seeds = list(range(scale.n_devices))
     print(f"serve setup: {len(models)} tasks "
           f"({', '.join(m.cfg.name for m in models)}), bank fit and "
@@ -728,46 +761,67 @@ def _serve_phase(device, scale: Scale, models, sets) -> dict:
 
     # ---- kernel C: time per launch at two fleet sizes --------------------
     c_rows = {}
-    job0 = torch.zeros(n_tasks, dtype=torch.int32, device=device)
     for n_dev in (scale.n_devices, scale.big_devices):
-        e2 = engine(False, "per-device")
-        cfg2, st2, tab2, car2, _ = e2.build(requests, n_dev,
-                                            seeds=list(range(n_dev)))
-
-        def launch():
-            return fleet_step.serve_fused_steps(
-                cfg2, car2, tab2, 0, job0, statics=st2,
-                n_steps=st2.n_steps)
-
-        out = launch()
-        ms = _ms(launch, device, reps=5, warmup=1)
-        plain_ms = None
-        if n_dev == scale.n_devices:
-            plain_ms = _ms(lambda: fleet_step.serve_fused_steps_plain(
-                cfg2, car2, tab2, 0, job0, statics=st2,
-                n_steps=st2.n_steps), device, reps=1, warmup=0)
-        units = int(out.dev.m_units.sum())
-        S_, C_ = tab2.fidx.shape[-1], car2.bank.centroids.shape[-2]
-        Q = st2.queue_size
-        carry_b = _nbytes(*car2.dev) + _nbytes(*car2.log)
-        cfg_b = sum(_nbytes(getattr(cfg2, f)) for f in fleet_step._CFG_FIELDS)
-        per_unit_b = 4 * (2 * S_ + C_ * S_) + 4 * (C_ + 2)
-        nbytes = 2 * carry_b + cfg_b + units * per_unit_b
-        # per device-step: ~40 operations per queue slot (scores, energy
-        # gates, admission); per completed unit: the C x S L1 distances
-        nops = float(n_dev * st2.n_steps * 40 * Q + units * 3 * C_ * S_)
-        bound_ms, by = _bound(nbytes, nops)
-        c_rows[n_dev] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=by)
-        print(f"serve_fused_steps (D={n_dev}, {st2.n_steps} steps, {units} "
-              f"units): kernel {ms:.3f} ms/launch"
-              + (f", plain {plain_ms:.1f} ms" if plain_ms else "")
-              + f", bound {bound_ms:.6f} ms ({by})")
-        del cfg2, car2, tab2, out
+        r = _serve_kernel_times(device, scale, models, requests, n_dev,
+                                plain=n_dev == scale.n_devices)
+        c_rows[n_dev] = r
+        print(f"serve_fused_steps (D={n_dev}, {r['steps']} steps, "
+              f"{r['units']} units): kernel {r['ms']:.4f} ms/launch (device "
+              f"{r['device_ms']:.4f} ms, {r['us_per_step']:.4f} us per "
+              f"step)" + (f", plain {r['plain_ms']:.1f} ms"
+                          if r["plain_ms"] else "")
+              + f", bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+    big = c_rows[scale.big_devices]
     row = dict(c_rows[scale.n_devices], max_abs_err=c_err, library_ms=None,
-               ms_big_fleet=c_rows[scale.big_devices]["ms"],
-               big_fleet=scale.big_devices)
+               ms_big_fleet=big["ms"], device_ms_big_fleet=big["device_ms"],
+               us_per_step_big_fleet=big["us_per_step"],
+               units_big_fleet=big["units"], big_fleet=scale.big_devices,
+               fused_jobs_per_s=res["fused"].jobs_per_sec)
     return dict(launches=launches, c_row=row)
+
+
+def _serve_kernel_times(device, scale: Scale, models, requests, n_dev: int,
+                        plain: bool = False) -> dict:
+    """Kernel C over the whole §9.2 horizon from the t = 0 carry on
+    ``n_dev`` devices (per-device banks, no adaptation): CUDA-event ms per
+    launch with the wrapper, device ms per launch (``_busy_ms``) and per
+    step, the units completed, the bound, and with ``plain`` the plain
+    version's ms."""
+    import torch
+
+    from repro_torch.kernels import fleet_step
+
+    eng = _serve_engine(device, scale, models, False, "per-device")
+    cfg, st, tab, car, _ = eng.build(requests, n_dev,
+                                     seeds=list(range(n_dev)))
+    job0 = torch.zeros(len(models), dtype=torch.int32, device=device)
+
+    def launch():
+        return fleet_step.serve_fused_steps(cfg, car, tab, 0, job0,
+                                            statics=st, n_steps=st.n_steps)
+
+    out = launch()
+    ms = _ms(launch, device, reps=5, warmup=1)
+    dev_ms = _busy_ms(launch, device)
+    plain_ms = None
+    if plain:
+        plain_ms = _ms(lambda: fleet_step.serve_fused_steps_plain(
+            cfg, car, tab, 0, job0, statics=st, n_steps=st.n_steps), device,
+            reps=1, warmup=0)
+    units = int(out.dev.m_units.sum())
+    S_, C_ = tab.fidx.shape[-1], car.bank.centroids.shape[-2]
+    carry_b = _nbytes(*car.dev) + _nbytes(*car.log)
+    cfg_b = sum(_nbytes(getattr(cfg, f)) for f in fleet_step._CFG_FIELDS)
+    per_unit_b = 4 * (2 * S_ + C_ * S_) + 4 * (C_ + 2)
+    nbytes = 2 * carry_b + cfg_b + units * per_unit_b
+    # per device-step: ~40 operations per queue slot (scores, energy
+    # gates, admission); per completed unit: the C x S L1 distances
+    nops = float(n_dev * st.n_steps * 40 * st.queue_size
+                 + units * 3 * C_ * S_)
+    bound_ms, by = _bound(nbytes, nops)
+    return dict(ms=ms, device_ms=dev_ms, us_per_step=1e3 * dev_ms / st.n_steps,
+                units=units, steps=st.n_steps, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by)
 
 
 def _profile_phase(device, eng, cfg, statics, tables, carry0):
@@ -972,7 +1026,7 @@ def _replay_phase(device, scale: Scale, models, sets) -> dict:
             cfg, _steps(statics, n), 1, mode=mode),
             watch="fleet_priority_kernel")
 
-    a_row = _priority_check(device, cfg, statics, FP, FS, S)
+    a_row = _priority_check(device, cfg, statics, FP)
     b_row = _fused_check(device, cfg, statics, FS, init_fleet)
     big = _replay_grid(tasks, scale, scale.big_seeds)
     cfg_big, st_big, meta_big = build(big, device)
@@ -991,10 +1045,12 @@ def _replay_phase(device, scale: Scale, models, sets) -> dict:
     return dict(launches=launches, a_row=a_row, b_row=b_row)
 
 
-def _priority_check(device, cfg, statics, FP, FS, S) -> dict:
-    """Kernel A at the replay path's shape, from the state the fused run
-    reaches mid-horizon, and at an odd (prime) device count."""
-    import torch
+def _priority_inputs(device, cfg, statics):
+    """Kernel A's operands at the replay path's shape, from the state the
+    fused run reaches mid-horizon: ``(args, kwargs)`` of
+    ``fleet_priority``."""
+    from repro_torch.core import step as S
+    from repro_torch.kernels import fleet_step as FS
 
     mid = statics.n_steps // 2
     carry = FS.fleet_fused_steps(cfg, S.init_carry(cfg, statics), 0,
@@ -1007,8 +1063,17 @@ def _priority_check(device, cfg, statics, FP, FS, S) -> dict:
             cfg.alpha, cfg.beta, cfg.eta, cfg.persistent, carry.energy,
             cfg.e_opt, power, cfg.capacity, gate_e, drain, forced,
             carry.q_task, carry.rr_cursor)
-    args = tuple(a.contiguous() for a in args)
-    kw = dict(n_tasks=cfg.period.shape[-1], dt=statics.dt)
+    return (tuple(a.contiguous() for a in args),
+            dict(n_tasks=cfg.period.shape[-1], dt=statics.dt))
+
+
+def _priority_check(device, cfg, statics, FP) -> dict:
+    """Kernel A at the replay path's shape, from the state the fused run
+    reaches mid-horizon, and at an odd (prime) device count."""
+    import torch
+
+    args, kw = _priority_inputs(device, cfg, statics)
+    carry_active = args[1]
     D = cfg.policy.shape[0]
     odd = max(d for d in range(1, D + 1)
               if all(d % p for p in range(2, int(d ** 0.5) + 1)))
@@ -1023,18 +1088,26 @@ def _priority_check(device, cfg, statics, FP, FS, S) -> dict:
                                      f"{name}")
             err = max(err, _max_err(a, b))
     ms = _ms(lambda: FP.fleet_priority(*args, **kw), device, reps=50)
+    # device time per launch: launches enqueued while the card spins
+    # (each with the card's gap between launches), and the profiler's
+    dev_ms = _busy_ms(lambda: FP.fleet_priority(*args, **kw), device,
+                      reps=50)
+    prof_ms = _kernel_ms(lambda: FP.fleet_priority(*args, **kw), device,
+                         "fleet_priority_kernel")
     plain_ms = _ms(lambda: FP.fleet_priority_plain(*args, **kw), device)
     out_bytes = D * (4 + 1 + 1 + 4)
-    Q = carry.q_active.shape[-1]
+    Q = carry_active.shape[-1]
     # per slot: the score's ~20 operations and the argmax compare; per
     # device: the rank, threshold, gate and capacitor update (~10)
     bound_ms, by = _bound(_nbytes(*args) + out_bytes,
                           float(D * (21 * Q + 10)))
     print(f"fleet_priority (D={D}, Q={Q}; also D={odd}): bit-equal to "
-          f"plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms:.6f} ms ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=by, library_ms=None,
+          f"plain; kernel {ms:.4f} ms (device {dev_ms:.5f} ms back to back, "
+          f"profiler {prof_ms:.5f} ms per launch), plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.6f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
+                device_ms_profiler=prof_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=None,
                 shape=f"D={D}, Q={Q}; odd D={odd}")
 
 

@@ -20,29 +20,24 @@
 //      one shared set) into shared memory with coalesced loads, each window
 //      at a stride of 33 floats, so the chains below read distinct banks;
 //   2. sums each (centroid, window) chain sequentially from 0.f in index
-//      order, skipping the padding zeros (adding +0 is exact);
-//   3. sums each centroid's window sums of the chunk in order: that is the
-//      distance (one chunk) or the next level's element, which the same
-//      thread folds into its running level-2 window and top sum.
+//      order, skipping the padding zeros (l1_chain; adding +0 is exact);
+//   3. folds each centroid's window sums of the chunk in order into its
+//      level-1 and level-2 windows and the top sum (L1Fold), one thread per
+//      centroid.
 // Then thread 0 takes the top-2 over the group's distances in centroid
-// order, exactly as l1_top2 does.  At the serve shape the longest chain is
-// 32 + 5 adds instead of 750, over 64 x 5 x 5 = 1,600 chains.  One row per
-// block and 256 threads were the fastest tile at the serve shapes (PERF.md
-// §6): a launch waits on its staging loads, so more threads per row pay and
-// more rows per block do not.  No float atomics; built with -fmad=false.
+// order (L1Top2).  The chain, fold and top-2 are l1_topk2.cuh's, which the
+// fused serve kernel's warp classify (serve_fused.cu) runs too.  At the
+// serve shape the longest chain is 32 + 5 adds instead of 750, over 64 x 5
+// x 5 = 1,600 chains.  One row per block and 256 threads were the fastest
+// tile at the serve shapes (PERF.md §6): a launch waits on its staging
+// loads, so more threads per row pay and more rows per block do not.  No
+// float atomics; built with -fmad=false.
 #include <cuda_runtime.h>
 
 #include "l1_topk2.cuh"
 
-#define L1_SLOT 33      // shared floats per staged window: 32 + 1 against bank conflicts
 #define L1_KG 8         // centroids summed per pass over the feature axis
 #define L1_THREADS 256  // threads per block (one row)
-
-struct L1Plan {
-  int nwin;            // windowed levels (0: the axis is one window)
-  int lo0, lo1, lo2;   // front padding of levels 0, 1, 2
-  int n1, n2;          // elements of levels 1 and 2
-};
 
 __global__ void l1_topk2_kernel(const float* __restrict__ x,
                                 const float* __restrict__ c, int d, int k,
@@ -62,12 +57,10 @@ __global__ void l1_topk2_kernel(const float* __restrict__ x,
   const float* xr = x + (long)row * d;
   const float* cr = c + (per_row ? (long)row * k * d : 0L);
 
-  float d1 = 0.f, d2 = L1_POS;                   // thread 0
-  int best = 0;
+  L1Top2 best;                                   // thread 0
   for (int g0 = 0; g0 < k; g0 += kg_max) {
     const int kg = min(kg_max, k - g0);
-    float top = 0.f, acc2 = 0.f;                 // thread tid < kg: centroid g0 + tid
-    int cur2 = 0;
+    L1Fold fold;                                 // thread tid < kg: centroid g0 + tid
     for (int ch = 0; ch < n_chunks; ++ch) {
       int wa = 0, wb = p.n1;                     // level-0 windows [wa, wb)
       if (p.nwin >= 2) {
@@ -80,69 +73,33 @@ __global__ void l1_topk2_kernel(const float* __restrict__ x,
       const int span = e1 - e0;
       const int shift = p.lo0 - wa * L1_WIN;     // element e -> position e + shift
       __syncthreads();                           // last chunk's reads are done
-      for (int e = e0 + tid; e < e1; e += T) {
-        const int q = e + shift;
-        xs[(q >> 5) * L1_SLOT + (q & 31)] = xr[e];
-      }
+      for (int e = e0 + tid; e < e1; e += T) xs[l1_slot(e, shift)] = xr[e];
       for (int i = tid; i < kg * span; i += T) {
         const int cl = i / span, e = e0 + i - cl * span;
-        const int q = e + shift;
-        cs[cl * XS + (q >> 5) * L1_SLOT + (q & 31)] =
-            cr[(long)(g0 + cl) * d + e];
+        cs[cl * XS + l1_slot(e, shift)] = cr[(long)(g0 + cl) * d + e];
       }
       __syncthreads();
       // one chain per (centroid, window), window fastest
       for (int i = tid; i < kg * nw; i += T) {
         const int cl = i / nw, w = i - cl * nw;
-        const int base = (wa + w) * L1_WIN - p.lo0;   // element at position 0
-        const int jlo = max(0, -base), jhi = min(L1_WIN, d - base);
-        const float* xp = xs + w * L1_SLOT;
-        const float* cp = cs + cl * XS + w * L1_SLOT;
-        float s = 0.f;
-        for (int j = jlo; j < jhi; ++j) s = s + fabsf(xp[j] - cp[j]);
-        ws[cl * L1_SLOT + w] = s;
+        ws[cl * L1_SLOT + w] = l1_chain(xs + w * L1_SLOT,
+                                        cs + cl * XS + w * L1_SLOT, p,
+                                        wa + w, d);
       }
       __syncthreads();
-      if (tid < kg) {
-        float v = 0.f;
-        for (int w = 0; w < nw; ++w) v = v + ws[tid * L1_SLOT + w];
-        if (p.nwin <= 1) {
-          top = v;                    // the chunk is the whole axis
-        } else if (p.nwin == 2) {
-          top = top + v;              // level-2 elements, summed in order
-        } else {
-          const int w2 = (ch + p.lo2) >> 5;
-          if (w2 != cur2) {           // ch opens the next level-2 window
-            top = top + acc2;
-            acc2 = 0.f;
-            cur2 = w2;
-          }
-          acc2 = acc2 + v;
-        }
-      }
+      if (tid < kg)
+        for (int w = 0; w < nw; ++w)
+          fold.add(p, wa + w, ws[tid * L1_SLOT + w]);
     }
-    if (tid < kg) ds[tid] = p.nwin == 3 ? top + acc2 : top;
+    if (tid < kg) ds[tid] = fold.finish(p);
     __syncthreads();
-    if (tid == 0) {
-      for (int cl = 0; cl < kg; ++cl) {
-        const float dist = ds[cl];
-        const int gc = g0 + cl;
-        if (gc == 0) {
-          d1 = dist;
-        } else if (dist < d1) {
-          d2 = fminf(d2, d1);
-          d1 = dist;
-          best = gc;
-        } else {
-          d2 = fminf(d2, dist);
-        }
-      }
-    }
+    if (tid == 0)
+      for (int cl = 0; cl < kg; ++cl) best.add(g0 + cl, ds[cl]);
   }
   if (tid == 0) {
-    d1_out[row] = d1;
-    d2_out[row] = d2;
-    idx_out[row] = best;
+    d1_out[row] = best.d1;
+    d2_out[row] = best.d2;
+    idx_out[row] = best.idx;
   }
 }
 

@@ -1,5 +1,6 @@
-// L1 top-2 against a set of centroids, shared by the l1_topk2 kernel and the
-// fused serve kernel (serve_fused.cu).
+// The L1 summation order of the reference, shared by the l1_topk2 kernel
+// (D, l1_topk2.cu), the fused serve kernel's classify (C, serve_fused.cu)
+// and pairwise_l1.cu.
 //
 // Summation order.  Every L1 distance is summed in ONE fixed order, the order
 // the reference (XLA on the CPU) uses for a float sum over an axis longer
@@ -7,14 +8,26 @@
 // front, the rest behind), each window of 32 is summed sequentially, and the
 // window sums are summed the same way again until at most 32 remain, which
 // are summed sequentially.  Adding a padding zero is exact, so the pad never
-// has to be materialised: OrderedSum streams the elements in index order and
-// only tracks which window each one falls into.  The plain PyTorch version
-// (repro_torch.kernels.l1_topk2.ordered_sum) takes the same order, so kernel
-// and plain version agree bit for bit.  Build with -fmad=false.
+// has to be materialised.  The plain PyTorch version
+// (repro_torch.kernels.l1_topk2.ordered_sum) takes the same order, so kernels
+// and plain versions agree bit for bit.  Build with -fmad=false.
+//
+// Two forms of the order:
+//   * window-parallel (D and C): each level-0 window is its own chain
+//     (l1_chain), summed from a tile staged in shared memory with each
+//     window at a stride of L1_SLOT floats; a centroid's window sums then
+//     fold into its distance in window order (L1Fold), and the top-2 runs
+//     over the distances in centroid order (L1Top2).  The levels come from
+//     kernels/l1_topk2.py:window_plan (L1Plan).
+//   * streamed (pairwise_l1.cu): OrderedSum takes the elements one by one
+//     in index order and tracks which window each falls into.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #define L1_POS 1e30f   // second-minimum mask value of the reference
 #define L1_WIN 32      // window of the reference's tree reduction
+#define L1_SLOT 33     // staged floats per window: 32 + 1 against bank conflicts
 #define L1_MAX_LEVELS 3
 
 struct OrderedSum {
@@ -66,35 +79,86 @@ struct OrderedSum {
   }
 };
 
-// Row access for a dense (k, d) centroid block.
-struct DenseCentroids {
-  const float* c;
-  int d;
-  __device__ float operator()(int cl, int j) const { return c[(long)cl * d + j]; }
+// The levels of the order over d terms, as kernels/l1_topk2.py:window_plan
+// gives them: nwin windowed levels (0: d <= 32, one window), lo<l> the
+// front padding of level l, n1 the level-0 windows, n2 the level-1 windows.
+struct L1Plan {
+  int nwin;
+  int lo0, lo1, lo2;
+  int n1, n2;
 };
 
-// Row access through a column index list: centroid cl, column idx[j] of a
-// (k, F) block (the serve path reads only the selected columns).
-struct GatheredCentroids {
-  const float* c;
-  const int* idx;
-  int F;
-  __device__ float operator()(int cl, int j) const {
-    return c[(long)cl * F + idx[j]];
+// Shared-memory position of element e of a staged chunk; shift = lo0 -
+// (first window of the chunk) * 32 maps e to its place in the chunk's
+// windows, each window at a stride of L1_SLOT floats.
+__device__ __forceinline__ int l1_slot(int e, int shift) {
+  const int q = e + shift;
+  return (q >> 5) * L1_SLOT + (q & 31);
+}
+
+// One chain: the sum of window w (of d terms) of |x - c| from 0.f in index
+// order over the window's real elements (the padding is skipped: adding
+// +0 is exact).  xp and cp point at the window's staged slot.
+__device__ __forceinline__ float l1_chain(const float* xp, const float* cp,
+                                          const L1Plan& p, int w, int d) {
+  const int base = w * L1_WIN - p.lo0;   // element at position 0
+  const int jhi = min(L1_WIN, d - base);
+  float s = 0.f;
+  for (int j = max(0, -base); j < jhi; ++j) s = s + fabsf(xp[j] - cp[j]);
+  return s;
+}
+
+// A centroid's distance from its level-0 window sums, taken in window
+// order: level-1 windows, level-2 windows and the top sum, each summed
+// from 0.f in order.
+struct L1Fold {
+  float acc1 = 0.f, acc2 = 0.f, top = 0.f;
+  int cur1 = 0, cur2 = 0;   // the level-1 / level-2 window being summed
+
+  __device__ void add(const L1Plan& p, int w, float v) {
+    if (p.nwin <= 1) {        // at most 32 windows: summed in order
+      top = top + v;
+      return;
+    }
+    const int w1 = (w + p.lo1) >> 5;
+    if (w1 != cur1) {         // w opens the next level-1 window
+      up(p, cur1, acc1);
+      acc1 = 0.f;
+      cur1 = w1;
+    }
+    acc1 = acc1 + v;
+  }
+
+  __device__ float finish(const L1Plan& p) {
+    if (p.nwin >= 2) up(p, cur1, acc1);
+    return p.nwin == 3 ? top + acc2 : top;
+  }
+
+ private:
+  // a level-1 window's sum: element i of level 2
+  __device__ void up(const L1Plan& p, int i, float v) {
+    if (p.nwin == 2) {
+      top = top + v;
+      return;
+    }
+    const int w2 = (i + p.lo2) >> 5;
+    if (w2 != cur2) {
+      top = top + acc2;
+      acc2 = 0.f;
+      cur2 = w2;
+    }
+    acc2 = acc2 + v;
   }
 };
 
-// d1 = smallest distance, idx = its first index, d2 = smallest distance of
-// the others (L1_POS when k == 1): the reference's min / argmin / masked min.
-template <class Cent>
-__device__ void l1_top2(const float* x, int d, int k, const Cent& cent,
-                        float* d1_out, float* d2_out, int* idx_out) {
+// The top-2 over distances added in centroid order: d1 the smallest, idx
+// its first index, d2 the smallest of the others (L1_POS with one
+// centroid): the reference's min / argmin / masked min.
+struct L1Top2 {
   float d1 = 0.f, d2 = L1_POS;
   int idx = 0;
-  for (int cl = 0; cl < k; ++cl) {
-    OrderedSum s(d);
-    for (int j = 0; j < d; ++j) s.add(0, j, fabsf(x[j] - cent(cl, j)));
-    float dist = s.finish();
+
+  __device__ void add(int cl, float dist) {
     if (cl == 0) {
       d1 = dist;
     } else if (dist < d1) {
@@ -105,10 +169,7 @@ __device__ void l1_top2(const float* x, int d, int k, const Cent& cent,
       d2 = fminf(d2, dist);
     }
   }
-  *d1_out = d1;
-  *d2_out = d2;
-  *idx_out = idx;
-}
+};
 
 // The scale-free utility margin of the reference (kmeans.classify).
 __device__ __forceinline__ float l1_margin(float d1, float d2) {

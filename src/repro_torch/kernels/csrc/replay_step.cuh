@@ -1,16 +1,19 @@
 // The per-device step core with its carry in registers: the stages of
 // repro_torch/core/step.py (admit -> drop-expired -> pick -> apply) for one
-// device per CUDA thread, instanced on compile-time caps QC >= Q queue slots
-// and KC >= K tasks.
-//
-// Used by fleet_fused.cu (kernel B, LIVE = false).  The stages are templated
-// on LIVE as device_step.cuh's are, so that the fused serve kernel (C,
-// serve_fused.cu) can move onto them; until it does, device_step.cuh keeps
-// the older copy of the stages (one thread per device, the carry in local
-// arrays), and both copies are held bit for bit against the same plain
+// device, instanced on compile-time caps QC >= Q queue slots and KC >= K
+// tasks.  The one copy of the step's stages on the card:
+//   fleet_fused.cu (kernel B) runs them in replay mode (LIVE = false),
+//     against the replayed margins / passes / correct tables, one device
+//     per thread;
+//   serve_fused.cu (kernel C) runs them in live mode (LIVE = true), the
+//     outcome of a completing unit from its classify against the device's
+//     bank, one device per warp (lane 0 runs the stages).
+// Both are held bit for bit against the same plain
 // repro_torch/core/step.py:device_step.  The pure helpers (policy_score,
 // clampi, floor_mod, policy_threshold, nan_fminf / nan_fmaxf, Outcome, the
-// pointer structs) come from device_step.cuh.
+// pointer structs) come from device_step.cuh.  Every stage reads and writes
+// one device's tables and counters (ReplayTables), so one thread per device
+// calls it.
 //
 // What keeps the step's dependent chain short:
 //   * No array is indexed at run time.  Every loop over slots or tasks is
@@ -22,8 +25,8 @@
 //     the per-unit energy gate and drain (K x U), period, rel_deadline,
 //     fragments, n_units, n_releases and the per-task counters (K), one
 //     column per thread (entry e of thread t at e * T + t: no bank
-//     conflicts).  The harvester event of the next step is loaded one step
-//     ahead.
+//     conflicts; a warp per device in C: entry e of warp w at e * W + w).
+//     The harvester event of the next step is loaded one step ahead.
 //   * Per-slot values are hoisted out of the step: the energy gate
 //     fmaxf(ue / fragments, e_man), the drain ue * (dt / ut), the utility
 //     (the replay margin at last_pred, 0 before the first unit) and the
@@ -36,8 +39,8 @@
 //     must give the same NaN for a stale slot whose drain is infinite.
 //   * A next release time per task, (float)next_rel * period or +inf once
 //     the releases run out, so admit tests one compare per task per step.
-//   * Few branches.  A warp holds many devices, so it runs the union of
-//     their paths each step; pick forms all four policies' scores and
+//   * Few branches.  In B a warp holds many devices, so it runs the union
+//     of their paths each step; pick forms all four policies' scores and
 //     selects (policy_score), as a branch per policy measured slower, and
 //     so did loading a unit's table entries when it starts instead of when
 //     it completes (the entries sit in L1; PERF.md §6 has both times).
@@ -54,9 +57,10 @@
 
 #include "device_step.cuh"
 
-// A thread's private tables in shared memory: entry e at p[e * T].
+// A device's private tables in shared memory: entry e at p[e * T].
 struct ReplayTables {
-  float* p;   // the block's shared memory, offset by threadIdx.x
+  float* p;   // the block's shared memory, offset by the device's index in
+              // the block (its thread in B, its warp in C)
   int T, K, U;
 
   __device__ __forceinline__ float& f(int e) const { return p[e * T]; }

@@ -9,27 +9,26 @@ ONE launch.
   dt``, ``t_end = (i0 + s + 1) * dt``.
 * :func:`serve_fused_steps` (kernel C) replaces ``serve_fused_steps``: the
   same step in live mode, plus the classify of the completing unit against
-  the centroid bank (the shared L1 top-2 of ``csrc/l1_topk2.cuh``), the
-  utility-pass latch and the outcome log, exactly as
-  :func:`repro_torch.serve.fleet_engine.serve_step` does.
+  the centroid bank (the reference's window-32 L1 order, as kernel D sums
+  it), the utility-pass latch and the outcome log, exactly as
+  :func:`repro_torch.serve.fleet_engine.serve_step` does, on the live
+  clock ``t = (i0 + s) * dt``, ``t_end = t + dt``.
 
-Both CUDA kernels run one thread per device.  Kernel B
-(``csrc/fleet_fused.cu``) takes its stages from ``csrc/replay_step.cuh``:
-the carry in registers, the device's tables in shared memory and the
-per-slot values hoisted to the events that change them.  Kernel C
-(``csrc/serve_fused.cu``) still takes the older stages of
-``csrc/device_step.cuh`` (the queue and task registers in local arrays);
-both copies are held bit for bit against the same plain
-:func:`repro_torch.core.step.device_step`.  What bounds each kernel and
-why is noted in the sources.  Booleans
-stay ``torch.bool`` (one byte); the int32 packing of the reference exists
-for the TPU compiler only.  Kernel C takes ``adapt=False`` only, like the
+Both CUDA kernels run the one copy of the step's stages on the card,
+``csrc/replay_step.cuh``: the carry in registers, the device's tables in
+shared memory and the per-slot values hoisted to the events that change
+them.  Kernel B (``csrc/fleet_fused.cu``) runs one device per thread;
+kernel C (``csrc/serve_fused.cu``) one device per warp, lane 0 running
+the stages and the whole warp the classify of a completing unit.  What
+bounds each kernel and why is noted in the sources.  Booleans stay
+``torch.bool`` (one byte); the int32 packing of the reference exists for
+the TPU compiler only.  Kernel C takes ``adapt=False`` only, like the
 reference: bank adaptation propagates centroids through whole-model
 convolutions, so the bank passes through unchanged.
 
-Kernel B reads the caller's carry and writes every element of a new one;
-C's wrapper clones the carry and the outcome log and the kernel updates
-the clones in place.  The caller's carry is never written.
+Both kernels read the caller's carry and write every element of a new one;
+C's wrapper also clones the outcome log, which the kernel updates in place.
+The caller's carry is never written.
 """
 from __future__ import annotations
 
@@ -41,12 +40,12 @@ from ..core import step as S
 from ..core.step import DeviceCarry, StepParams
 from ..fleet.state import ServeCarry, ServeLog
 from . import _build
+from .l1_topk2 import window_plan
 
-#: compile-time caps of the kernel's local arrays (csrc/serve_fused.cu)
+#: the kernels' largest instances: QC = 8 queue slots, KC = 8 tasks
 QMAX = 8
 KMAX = 8
-_MAX_S = 32 ** 4      # the shared OrderedSum tracks at most 3 window levels
-_THREADS = 128        # kernel C's block
+_MAX_S = 32 ** 4      # the classify folds at most 3 window levels
 
 #: launches of the CUDA kernels B and C (the plain versions never count)
 fleet_launches = 0
@@ -89,6 +88,8 @@ _TABLE_FIELDS = ("centroids", "sel_feats", "labels", "clabels", "fidx",
                  "thr", "job0")
 _SIZE_FIELDS = ("D", "K", "U", "Q", "W", "C", "F", "S", "NE",
                 "shared_bank", "per_dev_tables", "i0", "n_steps")
+#: kernel C's classify plan, l1_topk2.window_plan(S)
+_PLAN_FIELDS = ("nwin", "lo0", "lo1", "lo2", "n1", "n2")
 _SCALAR_FIELDS = ("dt", "dt_eps", "slot_s")
 
 
@@ -113,9 +114,10 @@ class _ServeArgs(ctypes.Structure):
     _fields_ = (
         [(f, ctypes.c_void_p) for f in _CFG_FIELDS]
         + [(f, ctypes.c_void_p) for f in DeviceCarry._fields]
+        + [("in_" + f, ctypes.c_void_p) for f in DeviceCarry._fields]
         + [(f, ctypes.c_void_p) for f in _TABLE_FIELDS]
         + [("log_" + f, ctypes.c_void_p) for f in ServeLog._fields]
-        + [(f, ctypes.c_int) for f in _SIZE_FIELDS]
+        + [(f, ctypes.c_int) for f in _SIZE_FIELDS + _PLAN_FIELDS]
         + [(f, ctypes.c_float) for f in _SCALAR_FIELDS]
     )
 
@@ -277,14 +279,20 @@ def _serve_launch(cfg: StepParams, carry: ServeCarry, tables, i0: int, job0,
         _expect(f"serve_fused_steps: log.{f}", getattr(carry.log, f),
                 (D, K, W), log_dt[f], dev0)
 
-    # the kernel updates these clones in place
-    dev = DeviceCarry(*[l.clone() for l in carry.dev])
+    if D == 0 or n_steps <= 0:
+        return ServeCarry(dev=DeviceCarry(*[l.clone() for l in carry.dev]),
+                          bank=carry.bank,
+                          log=ServeLog(*[l.clone() for l in carry.log]))
+    # the kernel writes every element of every leaf of the new carry and
+    # updates the log's clone in place
+    dev = DeviceCarry(*[torch.empty_like(l) for l in carry.dev])
     log = ServeLog(*[l.clone() for l in carry.log])
     args = _ServeArgs()
     for f in _CFG_FIELDS:
         setattr(args, f, getattr(cfg, f).data_ptr())
     for f in DeviceCarry._fields:
         setattr(args, f, getattr(dev, f).data_ptr())
+        setattr(args, "in_" + f, getattr(carry.dev, f).data_ptr())
     args.centroids = carry.bank.centroids.data_ptr()
     args.sel_feats = tables.sel_feats.data_ptr()
     args.labels = tables.labels.data_ptr()
@@ -298,22 +306,30 @@ def _serve_launch(cfg: StepParams, carry: ServeCarry, tables, i0: int, job0,
                  shared_bank=int(shared_bank),
                  per_dev_tables=int(per_dev_tables), i0=int(i0),
                  n_steps=int(n_steps))
-    for f in _SIZE_FIELDS:
+    sizes.update(zip(_PLAN_FIELDS, window_plan(S_)))
+    for f in _SIZE_FIELDS + _PLAN_FIELDS:
         setattr(args, f, sizes[f])
     args.dt = statics.dt
     args.dt_eps = statics.dt_eps
     args.slot_s = statics.slot_s
-
-    lib = _load("serve_fused", "serve_args_size", _ServeArgs)
-    fn = lib.serve_fused_launch
-    fn.argtypes = [ctypes.POINTER(_ServeArgs), ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    if D > 0 and n_steps > 0:
-        err = fn(ctypes.byref(args), _THREADS, _build.stream_handle(dev0))
-        _build.check(err, "serve_fused_steps")
-        serve_launches += 1
+    err = _serve_kernel()(ctypes.byref(args), _build.stream_handle(dev0))
+    _build.check(err, "serve_fused_steps")
+    serve_launches += 1
     return ServeCarry(dev=dev, bank=carry.bank, log=log)
+
+
+_SERVE_FN = {}
+
+
+def _serve_kernel():
+    """Kernel C's launch function, bound once."""
+    if "launch" not in _SERVE_FN:
+        lib = _load("serve_fused", "serve_args_size", _ServeArgs)
+        fn = lib.serve_fused_launch
+        fn.argtypes = [ctypes.POINTER(_ServeArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _SERVE_FN["launch"] = fn
+    return _SERVE_FN["launch"]
 
 
 def serve_fused_steps(cfg: StepParams, carry: ServeCarry, tables, i0: int,
