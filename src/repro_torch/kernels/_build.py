@@ -113,10 +113,16 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def stream_handle(device) -> ctypes.c_void_p:
-    """The raw handle of PyTorch's current CUDA stream on ``device``."""
+    """The raw handle of PyTorch's current CUDA stream on ``device``, read
+    without building a ``torch.cuda.Stream`` (a fraction of a microsecond
+    of host time where ``torch.cuda.current_stream`` takes several:
+    ``tools/kernel_device_times.py --only A``)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
 
 
 def check(err: int, kernel: str) -> None:

@@ -14,10 +14,26 @@ leaves its table gathers outside the kernel too.
 The CUDA kernel (``csrc/fleet_priority.cu``) runs one thread per device
 with the slots in registers; what bounds it and why is noted there.
 Booleans stay ``torch.bool`` (one byte).
+
+The launch path.  The kernel's device time is about the floor of any
+launch (a few microseconds at the replay sweep's 1,600 devices), and the
+main path calls it once per replay step, so what a call costs is this
+wrapper's host work; the kernel's body is not the lever.  The wrapper
+binds the library function and checks the argument layout once; checks
+the 19 operands against the signature it expects with one compare of their
+dtypes and one of their shapes (one device for all, all contiguous) and
+runs the checks field by field, with their messages, only on a mismatch;
+allocates the four outputs as views of one buffer; packs the pointers with
+one ``struct.pack``; and reads the raw current stream
+(``_build.stream_handle``).  ``PERF.md`` §6 has each step's time on
+the card beside what it replaced.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import struct
+from operator import attrgetter
 
 import torch
 
@@ -41,6 +57,7 @@ _DTYPES = dict(policy=torch.int32, persistent=torch.bool,
                forced=torch.int32, rr_cursor=torch.int32,
                active=torch.bool, mandatory=torch.bool, task=torch.int32,
                sel=torch.int32, picked=torch.bool, run=torch.bool)
+_ACTIVE = len(_IN_VEC)     # the operand whose shape is (D, Q)
 
 
 def fleet_priority_plain(policy, active, laxity, release, utility, mandatory,
@@ -67,46 +84,97 @@ class _PriorityArgs(ctypes.Structure):
                    ("n_tasks", ctypes.c_int), ("dt", ctypes.c_float)])
 
 
-def _launch(ins: dict, *, n_tasks: int, dt: float):
-    global launches
-    dev = ins["policy"].device
-    D, Q = ins["active"].shape
+#: the same layout as one ``struct.pack`` format: 23 pointers, 3 ints, 1 f32
+_PACK = struct.Struct(f"{len(_IN_VEC + _IN_ROW + _OUT)}P3if")
+#: the dtype of every operand, in the kernel's order
+_DTYPE_SIG = tuple(_DTYPES.get(f, torch.float32) for f in _IN_VEC + _IN_ROW)
+_dtype = attrgetter("dtype")
+_shape = attrgetter("shape")
+_get_device = torch.Tensor.get_device
+_is_contiguous = torch.Tensor.is_contiguous
+_data_ptr = torch.Tensor.data_ptr
+_FN = {}
+
+
+def _kernel():
+    """The launch function of the built library, bound once, after the
+    argument layout is checked against this wrapper's."""
+    fn = _FN.get("launch")
+    if fn is None:
+        lib = _build.load("fleet_priority")
+        lib.priority_args_size.restype = ctypes.c_int
+        if not (lib.priority_args_size() == ctypes.sizeof(_PriorityArgs)
+                == _PACK.size):
+            raise RuntimeError("fleet_priority: PriorityArgs layout differs "
+                               "between csrc/fleet_priority.cu and this "
+                               "wrapper")
+        fn = lib.fleet_priority_launch
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN["launch"] = fn
+    return fn
+
+
+@functools.lru_cache(maxsize=16)
+def _shape_sig(D: int, Q: int) -> tuple:
+    """The shape of every operand of a ``(D, Q)`` call, in the kernel's
+    order."""
+    return tuple(torch.Size((D,) if f in _IN_VEC else (D, Q))
+                 for f in _IN_VEC + _IN_ROW)
+
+
+def _checked(ins: tuple) -> tuple:
+    """``ins`` as the kernel takes them.  One compare each of the dtypes
+    and the shapes against the expected signature, one device for all,
+    all contiguous; on a mismatch, each operand's check with its own
+    message, and a contiguous copy of any strided one."""
+    shapes = tuple(map(_shape, ins))
+    active = shapes[_ACTIVE]
+    if (len(active) == 2 and active[1] <= QMAX
+            and tuple(map(_dtype, ins)) == _DTYPE_SIG
+            and shapes == _shape_sig(*active)
+            and len(set(map(_get_device, ins))) == 1
+            and all(map(_is_contiguous, ins))):
+        return ins
+    dev = ins[0].device
+    D, Q = ins[_ACTIVE].shape
     if Q > QMAX:
         raise ValueError(f"fleet_priority: Q={Q} exceeds the kernel's cap "
                          f"Q<={QMAX}")
-    args = _PriorityArgs()
-    keep = []
-    for f in _IN_VEC + _IN_ROW:
-        t = ins[f]
+    out = []
+    for f, t in zip(_IN_VEC + _IN_ROW, ins):
         want = _DTYPES.get(f, torch.float32)
         shape = (D,) if f in _IN_VEC else (D, Q)
         if t.dtype != want or tuple(t.shape) != shape or t.device != dev:
             raise ValueError(f"fleet_priority: {f} is {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}, expected "
                              f"{want} {shape} on {dev}")
-        t = t.contiguous()
-        keep.append(t)
-        setattr(args, f, t.data_ptr())
-    outs = {f: torch.empty(D, dtype=_DTYPES.get(f, torch.float32),
-                           device=dev) for f in _OUT}
-    for f in _OUT:
-        setattr(args, f, outs[f].data_ptr())
-    args.D, args.Q, args.n_tasks, args.dt = D, Q, n_tasks, dt
+        out.append(t.contiguous())
+    return tuple(out)
 
-    lib = _build.load("fleet_priority")
-    lib.priority_args_size.restype = ctypes.c_int
-    if lib.priority_args_size() != ctypes.sizeof(_PriorityArgs):
-        raise RuntimeError("fleet_priority: PriorityArgs layout differs "
-                           "between csrc/fleet_priority.cu and this wrapper")
-    fn = lib.fleet_priority_launch
-    fn.argtypes = [ctypes.POINTER(_PriorityArgs), ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+
+def _outputs(D: int, device) -> tuple:
+    """``(sel int32, picked bool, run bool, e_new f32)``, each ``(D,)``:
+    views of one allocation, the 4-byte outputs first for alignment."""
+    sel, e_new, picked, run = torch.empty(
+        10 * D, dtype=torch.uint8, device=device).split((4 * D, 4 * D, D, D))
+    return (sel.view(torch.int32), picked.view(torch.bool),
+            run.view(torch.bool), e_new.view(torch.float32))
+
+
+def _launch(ins: tuple, *, n_tasks: int, dt: float):
+    global launches
+    ins = _checked(ins)
+    dev = ins[0].device
+    D, Q = ins[_ACTIVE].shape
+    outs = _outputs(D, dev)
     if D > 0:
-        err = fn(ctypes.byref(args), _THREADS, _build.stream_handle(dev))
+        args = _PACK.pack(*map(_data_ptr, ins), *map(_data_ptr, outs), D, Q,
+                          n_tasks, dt)
+        err = _kernel()(args, _THREADS, _build.stream_handle(dev))
         _build.check(err, "fleet_priority")
         launches += 1
-    return tuple(outs[f] for f in _OUT)
+    return outs
 
 
 def fleet_priority(policy, active, laxity, release, utility, mandatory,
@@ -119,12 +187,14 @@ def fleet_priority(policy, active, laxity, release, utility, mandatory,
     dt`` joins the capacitor update as one rounding.  CPU tensors take the
     plain version; CUDA tensors launch the kernel."""
     dev = policy.device
-    ins = dict(zip(_IN_VEC, (policy, alpha, beta, eta, persistent, energy,
-                             e_opt, power, capacity, forced, rr_cursor)))
-    ins.update(zip(_IN_ROW, (active, laxity, release, utility, mandatory,
-                             gate_e, drain, task)))
     if dev.type == "cpu":
-        return fleet_priority_plain(**ins, n_tasks=n_tasks, dt=dt)
+        return fleet_priority_plain(
+            policy, active, laxity, release, utility, mandatory, alpha, beta,
+            eta, persistent, energy, e_opt, power, capacity, gate_e, drain,
+            forced, task, rr_cursor, n_tasks=n_tasks, dt=dt)
     if dev.type != "cuda":
         raise ValueError(f"fleet_priority: unsupported device {dev}")
-    return _launch(ins, n_tasks=n_tasks, dt=dt)
+    return _launch((policy, alpha, beta, eta, persistent, energy, e_opt,
+                    power, capacity, forced, rr_cursor, active, laxity,
+                    release, utility, mandatory, gate_e, drain, task),
+                   n_tasks=n_tasks, dt=dt)

@@ -264,6 +264,44 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda):
         PW.pairwise_l1(x.t(), torch.zeros(3, 8, device=cuda))   # strided
     with pytest.raises(TypeError):
         PW.pairwise_l1(x.double(), x.double())
+    # kernel A: one compare against the expected operands, then each
+    # operand's own check on a mismatch; a strided operand is copied
+    ins = _priority_operands(cuda, 37, 3)
+    kw = dict(n_tasks=2, dt=0.01)
+    ref = FP.fleet_priority_plain(**ins, **kw)
+    for other in (ins, dict(ins, laxity=ins["laxity"].t().contiguous().t())):
+        for a, b in zip(FP.fleet_priority(**other, **kw), ref):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="laxity is torch.float64"):
+        FP.fleet_priority(**dict(ins, laxity=ins["laxity"].double()), **kw)
+    with pytest.raises(ValueError, match="energy .* on cpu"):
+        FP.fleet_priority(**dict(ins, energy=ins["energy"].cpu()), **kw)
+    with pytest.raises(ValueError, match="task is"):
+        FP.fleet_priority(**dict(ins, task=ins["task"][:-1]), **kw)
+    with pytest.raises(ValueError, match="exceeds"):
+        FP.fleet_priority(**_priority_operands(cuda, 5, 9), **kw)
+
+
+def _priority_operands(device, D, Q):
+    """Kernel A's operands at ``(D, Q)``, random from numpy seed 9, by
+    name."""
+    rng = np.random.default_rng(9)
+    ins = {}
+    for f in FP._IN_VEC + FP._IN_ROW:
+        shape = (D,) if f in FP._IN_VEC else (D, Q)
+        dt = FP._DTYPES.get(f, torch.float32)
+        if dt == torch.bool:
+            a = rng.random(shape) < 0.6
+        elif f == "policy":
+            a = rng.integers(0, 4, shape)
+        elif f in ("task", "rr_cursor"):
+            a = rng.integers(0, 2, shape)
+        elif f == "forced":
+            a = rng.integers(-1, Q, shape) * (rng.random(shape) < 0.3)
+        else:
+            a = rng.uniform(0.0, 1.0, shape)
+        ins[f] = torch.from_numpy(np.asarray(a)).to(device, dt)
+    return ins
 
 
 def _engine(device, adapt, bank_mode, n_tasks=2, queue_size=3):

@@ -1,6 +1,7 @@
-"""Device time per launch of kernels B, D, G and H, from the profiler.
+"""Device time per launch of kernels A, B, C, D, G and H, from the
+profiler.
 
-    PYTHONPATH=src python tools/kernel_device_times.py [--only B,D,G,H,T]
+    PYTHONPATH=src python tools/kernel_device_times.py [--only A,B,C,D,G,H,T]
 
 CUDA-event times of a wrapper call (``chip_smoke.py``) include the host
 work between launches: at small sizes the card waits on the wrapper.
@@ -9,9 +10,18 @@ This script runs each kernel at the shapes ``chip_smoke.py`` checks, under
 kernel the calls launched (per call, with the launches the profiler saw),
 their sum, and the host-clock time per call:
 
+* A ``fleet_priority``: the replay sweep's 1,600 devices at the state the
+  fused run reaches mid-horizon (``chip_smoke.py``'s operands), with the
+  CUDA-event time of a wrapper call and, on the host clock, each step of
+  the wrapper (the operand check, the outputs, the argument pack, the
+  stream, the ctypes launch) beside the alternatives it was measured
+  against;
 * B ``fleet_fused_steps``: the replay sweep's 1,600 devices (the two §9.2
   models' job profiles, as ``chip_smoke.py`` builds them) over one
   1,159-step segment, with the time per step of the fleet;
+* C ``serve_fused_steps``: the §9.2 serve run's whole horizon (545 steps)
+  on 64 and 1,024 devices, with the time per step and the units
+  completed;
 * D ``l1_topk2``: x (64, 150) against per-row centroids (64, 5, 150) and
   x (250, 150) against one shared set (5, 150);
 * G ``flash_attention`` in bf16 at its seven shapes, H ``decode_gqa`` at
@@ -25,7 +35,9 @@ Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -55,6 +67,99 @@ def profile(label: str, fn, calls: int = CALLS) -> float:
     return total
 
 
+def host_us(fn, calls: int = 2000) -> float:
+    """Host-clock microseconds per call of ``fn`` (work it enqueues on the
+    card is not waited for), after a warm-up."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def kernel_a(dev) -> None:
+    from repro_torch.fleet import build
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fleet_priority as FP
+
+    scale = chip_smoke.FULL
+    models, sets = chip_smoke._models(dev, scale)
+    tasks = chip_smoke._replay_tasks(models, sets, scale)
+    cfg, statics, meta = build(chip_smoke._replay_grid(tasks, scale,
+                                                       scale.seeds), dev)
+    args, kw = chip_smoke._priority_inputs(dev, cfg, statics)
+    D, Q = args[1].shape
+    ms = chip_smoke._ms(lambda: FP.fleet_priority(*args, **kw), dev,
+                        reps=200)
+    print(f"A (D={D}, Q={Q}): {ms:.5f} ms per call (CUDA events, 200 calls "
+          f"back to back)")
+    profile(f"A (D={D}, Q={Q})", lambda: FP.fleet_priority(*args, **kw),
+            calls=200)
+    # the wrapper's steps on the host clock, each beside what it replaced
+    (policy, active, laxity, release, utility, mandatory, alpha, beta, eta,
+     persistent, energy, e_opt, power, capacity, gate_e, drain, forced, task,
+     rr_cursor) = args
+    ins = (policy, alpha, beta, eta, persistent, energy, e_opt, power,
+           capacity, forced, rr_cursor, active, laxity, release, utility,
+           mandatory, gate_e, drain, task)
+    outs = FP._outputs(D, dev)
+    ptrs = [t.data_ptr() for t in ins + outs]
+    packed = FP._PACK.pack(*ptrs, D, Q, kw["n_tasks"], kw["dt"])
+    fn = FP._kernel()
+    names = [f for f, _ in FP._PriorityArgs._fields_]
+
+    def per_field_checks():     # the previous wrapper's checks
+        dev0 = ins[0].device
+        for f, t in zip(FP._IN_VEC + FP._IN_ROW, ins):
+            want = FP._DTYPES.get(f, torch.float32)
+            shape = (D,) if f in FP._IN_VEC else (D, Q)
+            if t.dtype != want or tuple(t.shape) != shape or t.device != dev0:
+                raise ValueError(f)
+            t.contiguous()
+
+    def four_empty():
+        return (torch.empty(D, dtype=torch.int32, device=dev),
+                torch.empty(D, dtype=torch.bool, device=dev),
+                torch.empty(D, dtype=torch.bool, device=dev),
+                torch.empty(D, dtype=torch.float32, device=dev))
+
+    def set_fields():
+        a = FP._PriorityArgs()
+        for f, v in zip(names, ptrs + [D, Q, kw["n_tasks"], kw["dt"]]):
+            setattr(a, f, v)
+        return a
+
+    stream = _build.stream_handle(dev)
+    steps = (
+        ("whole call", lambda: FP.fleet_priority(*args, **kw)),
+        ("operand check: dtype and shape compares (kept)",
+         lambda: FP._checked(ins)),
+        ("operand check: field by field", per_field_checks),
+        ("outputs: views of one buffer (kept)", lambda: FP._outputs(D, dev)),
+        ("outputs: four torch.empty", four_empty),
+        ("pointers: data_ptr x 23", lambda: [t.data_ptr()
+                                             for t in ins + outs]),
+        ("arguments: struct.pack (kept)", lambda: FP._PACK.pack(
+            *ptrs, D, Q, kw["n_tasks"], kw["dt"])),
+        ("arguments: ctypes fields set one by one", set_fields),
+        ("arguments: ctypes constructor", lambda: FP._PriorityArgs(
+            *ptrs, D, Q, kw["n_tasks"], kw["dt"])),
+        ("stream: _build.stream_handle, the raw query (kept)",
+         lambda: _build.stream_handle(dev)),
+        ("stream: torch.cuda.current_stream",
+         lambda: ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)),
+        ("ctypes call of a no-op C function",
+         lambda: _build.load("fleet_priority").priority_args_size()),
+        ("ctypes launch", lambda: fn(packed, FP._THREADS, stream)),
+    )
+    for label, f in steps:
+        print(f"  A host step, {label}: {host_us(f):.3f} us per call")
+
+
 def kernel_b(dev) -> None:
     scale = chip_smoke.FULL
     models, sets = chip_smoke._models(dev, scale)
@@ -71,6 +176,18 @@ def kernel_b(dev) -> None:
                  lambda: FS.fleet_fused_steps(cfg, c0, 0, statics=statics,
                                               n_steps=n), calls=5)
     print(f"  B: {1e3 * ms / n:.4f} us per step of the fleet")
+
+
+def kernel_c(dev) -> None:
+    scale = chip_smoke.FULL
+    models, sets = chip_smoke._models(dev, scale)
+    requests = chip_smoke._serve_requests(scale, sets)
+    for n_dev in (scale.n_devices, scale.big_devices):
+        r = chip_smoke._serve_kernel_times(dev, scale, models, requests,
+                                           n_dev)
+        print(f"C (D={n_dev}, {r['steps']} steps, {r['units']} units): "
+              f"{r['ms']:.4f} ms per launch (CUDA events), device "
+              f"{r['device_ms']:.4f} ms ({r['us_per_step']:.4f} us per step)")
 
 
 def kernel_d(dev) -> None:
@@ -132,14 +249,14 @@ def kernel_h(dev) -> None:
                 lambda: DG.decode_gqa(q, k, v, slot_pos, pos, **kw))
 
 
-KERNELS = {"B": kernel_b, "D": kernel_d, "G": kernel_g, "H": kernel_h,
-           "T": tune_call}
+KERNELS = {"A": kernel_a, "B": kernel_b, "C": kernel_c, "D": kernel_d,
+           "G": kernel_g, "H": kernel_h, "T": tune_call}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=",".join(KERNELS),
-                    help="what to time, comma-separated (B,D,G,H,T)")
+                    help="what to time, comma-separated (A,B,C,D,G,H,T)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
