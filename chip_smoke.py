@@ -22,7 +22,10 @@ Phases, each printing one line (any failure exits non-zero):
    ``serve_fused_steps`` kernel, one launch per segment) without adaptation,
    which must agree on every carry leaf; the scan's serve loop must also
    equal the CPU's plain run from the same built state.  The launch counts
-   are zeroed before this phase and read after it (kernels C, D, E);
+   are zeroed before this phase and read after it (kernels C, D, E).
+   Kernel C is then timed over the whole horizon (545 steps) at 64 and
+   1,024 devices: CUDA events around the wrapper's calls, and its device
+   time per launch and per step (``_busy_ms``), with the units completed;
 4. the replay fleet of the same two models as a sweep: job profiles from
    250 test samples per task, policies x eta x capacitor x seed = 1,600
    devices, 255 s at dt = 55 ms.  ``simulate_fleet`` in the ``vmap``,
@@ -31,11 +34,12 @@ Phases, each printing one line (any failure exits non-zero):
    modes, ``run_segments`` in four fused segments and ``sweep`` must agree
    on every result leaf; the card's run equals the CPU's plain run over
    the first steps on a slice of devices; both kernels are held bit for
-   bit against their plain versions and timed (B also by its device time
+   bit against their plain versions and timed (A also by its device time
+   per launch, back to back and from the profiler; B by its device time
    per segment and per step of the fleet, at 1,600 and 16,000 devices:
    CUDA events around launches enqueued while the card spins, so that no
-   host work falls inside).  The launch counts are zeroed before this phase and read
-   after it (kernels A, B);
+   host work falls inside).  The launch counts are zeroed before this
+   phase and read after it (kernels A, B);
 5. kernel F ``pairwise_l1`` held bit for bit against its plain version at
    the forecaster's first-batch shape (256 x 256 x 6), at a ``d`` that
    spans two blocks (33 x 17 x 1,100) and at 4,096 x 4,096 x 512, with
@@ -107,6 +111,7 @@ the script exits non-zero and prints no result.  It imports only
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -627,16 +632,12 @@ def _serve_requests(scale: Scale, sets):
              for i in range(n)] for ds in sets]
 
 
-_SOLAR = []
-
-
+@functools.lru_cache(maxsize=None)
 def _solar():
     """The §9.2 solar harvester, calibrated once per run."""
     from repro_torch.core import energy
 
-    if not _SOLAR:
-        _SOLAR.append(energy.calibrate_harvester(0.71, 0.35, name="solar"))
-    return _SOLAR[0]
+    return energy.calibrate_harvester(0.71, 0.35, name="solar")
 
 
 def _serve_engine(device, scale: Scale, models, adapt: bool,
@@ -1073,8 +1074,7 @@ def _priority_check(device, cfg, statics, FP) -> dict:
     import torch
 
     args, kw = _priority_inputs(device, cfg, statics)
-    carry_active = args[1]
-    D = cfg.policy.shape[0]
+    D, Q = args[1].shape
     odd = max(d for d in range(1, D + 1)
               if all(d % p for p in range(2, int(d ** 0.5) + 1)))
     err = 0.0
@@ -1096,7 +1096,6 @@ def _priority_check(device, cfg, statics, FP) -> dict:
                          "fleet_priority_kernel")
     plain_ms = _ms(lambda: FP.fleet_priority_plain(*args, **kw), device)
     out_bytes = D * (4 + 1 + 1 + 4)
-    Q = carry_active.shape[-1]
     # per slot: the score's ~20 operations and the argmax compare; per
     # device: the rank, threshold, gate and capacitor update (~10)
     bound_ms, by = _bound(_nbytes(*args) + out_bytes,

@@ -13,10 +13,13 @@
 // fleet sizes the bytes take well under a microsecond and a launch costs
 // more than the work.
 // Design: one thread per device with its Q <= 8 slots in registers; the
-// score and selection are the device_step.cuh functions the fused kernels
-// run, so all three kernels make one pick with the same bits.  Booleans
-// stay one byte.  An odd D needs no padding: threads with d >= D return.
-// Build with -fmad=false.
+// score is device_step.cuh's policy_score, which the fused kernels' pick
+// runs too, and select_and_charge clamps the charge with the same
+// NaN-keeping nan_fminf, so kernels A, B and C make one pick with the same
+// bits.  Booleans stay one byte.  An odd D needs no padding: threads with
+// d >= D return.  The body is not the lever: its device time is about a
+// launch's floor, and a call's cost is the wrapper's host work
+// (kernels/fleet_priority.py).  Build with -fmad=false.
 #include "device_step.cuh"
 
 // Keep the field order in sync with repro_torch/kernels/fleet_priority.py
