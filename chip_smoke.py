@@ -35,7 +35,7 @@ Phases, each printing one line (any failure exits non-zero):
    on every result leaf; the card's run equals the CPU's plain run over
    the first steps on a slice of devices; both kernels are held bit for
    bit against their plain versions and timed (A also by its device time
-   per launch, back to back and from the profiler; B by its device time
+   per launch, back to back; B by its device time
    per segment and per step of the fleet, at 1,600 and 16,000 devices:
    CUDA events around launches enqueued while the card spins, so that no
    host work falls inside).  The launch counts are zeroed before this
@@ -1088,12 +1088,12 @@ def _priority_check(device, cfg, statics, FP) -> dict:
                                      f"{name}")
             err = max(err, _max_err(a, b))
     ms = _ms(lambda: FP.fleet_priority(*args, **kw), device, reps=50)
-    # device time per launch: launches enqueued while the card spins
-    # (each with the card's gap between launches), and the profiler's
+    # device time per launch: launches enqueued while the card spins, each
+    # with the card's gap between launches (the profiler loses A's launches
+    # after the replay profiles of this process; tools/kernel_device_times.py
+    # --only A reads the kernel's own time)
     dev_ms = _busy_ms(lambda: FP.fleet_priority(*args, **kw), device,
                       reps=50)
-    prof_ms = _kernel_ms(lambda: FP.fleet_priority(*args, **kw), device,
-                         "fleet_priority_kernel")
     plain_ms = _ms(lambda: FP.fleet_priority_plain(*args, **kw), device)
     out_bytes = D * (4 + 1 + 1 + 4)
     # per slot: the score's ~20 operations and the argmax compare; per
@@ -1101,11 +1101,9 @@ def _priority_check(device, cfg, statics, FP) -> dict:
     bound_ms, by = _bound(_nbytes(*args) + out_bytes,
                           float(D * (21 * Q + 10)))
     print(f"fleet_priority (D={D}, Q={Q}; also D={odd}): bit-equal to "
-          f"plain; kernel {ms:.4f} ms (device {dev_ms:.5f} ms back to back, "
-          f"profiler {prof_ms:.5f} ms per launch), plain {plain_ms:.4f} ms, "
-          f"bound {bound_ms:.6f} ms ({by})")
-    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms,
-                device_ms_profiler=prof_ms, plain_ms=plain_ms,
+          f"plain; kernel {ms:.4f} ms (device {dev_ms:.5f} ms back to "
+          f"back), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, library_ms=None,
                 shape=f"D={D}, Q={Q}; odd D={odd}")
 
