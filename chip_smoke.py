@@ -7,13 +7,14 @@ Phases, each printing one line (any failure exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``), then the build of every
    CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one
-   process per source, all started together); every instance of kernels B
-   and C must build with no stack frame and no spills;
+   process per source, all started together); every instance of kernels
+   B, C, E and I must build with no stack frame and no spills;
 2. the k-means kernels ``l1_topk2`` and ``centroid_update`` at the serve
-   path's shapes, each held bit for bit against its plain PyTorch version
-   on the same inputs, with times (CUDA events; for ``l1_topk2`` also the
-   profiler's device time per launch), the plain version's time and a
-   one-call PyTorch yardstick;
+   path's shapes (``centroid_update`` also at k = 8, d = 8,192 with 1,024
+   rows all assigned), each held bit for bit against its plain PyTorch
+   version on the same inputs, with times (CUDA events and the profiler's
+   device time per launch), the plain version's time and a one-call
+   PyTorch yardstick;
 3. live fleet serving of the paper's §9.2 visual-sensing workload at
    Table-3 widths (CIFAR-100 and VWW agile CNNs, random seeded weights, a
    k-means bank fitted on 384 training samples each, a solar harvester at
@@ -94,7 +95,9 @@ Phases, each printing one line (any failure exits non-zero):
    ``scaled_dot_product_attention``, each row with its split of the cache
    and the GB/s it reached of the bound's bytes;
    kernel I against its plain version bit for bit at the prefill's and
-   ``anytime_forward``'s shapes and an odd one; and the reduced hybrid on
+   ``anytime_forward``'s shapes (its TMA path) and an odd one (its
+   ``cp.async`` path), with its device time per launch (``_busy_ms``);
+   and the reduced hybrid on
    the card against the CPU (a ``forward``, a prefill + decode, an EDF
    engine run);
 10. one JSON line naming every kernel with its launches, error, times and
@@ -174,7 +177,8 @@ class Scale:
     l1_rows: int         # kernel D check: requests x units of both tasks
     l1_dim: int          # selected features S of the serve tables
     l1_k: int            # centroid rows C of the serve bank
-    cu_shape: tuple      # kernel E check: (k, d, B)
+    cu_shape: tuple      # kernel E check: (k, d, B), the main path's
+    cu_wide: tuple       # kernel E's second shape, every row assigned
     replay_jobs: int     # test samples profiled per replay task
     policies: tuple      # the replay sweep's axes
     etas: tuple
@@ -225,7 +229,8 @@ class AnyRun:
 FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
              n_requests=25, n_devices=64, big_devices=1024, n_segments=4,
              l1_rows=2 * 25 * 5, l1_dim=150, l1_k=5,
-             cu_shape=(5, 8192, 64), replay_jobs=250,
+             cu_shape=(5, 8192, 64), cu_wide=(8, 8192, 1024),
+             replay_jobs=250,
              policies=("zygarde", "edf", "edf-m", "rr"),
              etas=(0.2, 0.5, 0.71, 0.9, 1.0),
              capacitors_f=(0.01, 0.025, 0.05, 0.1, 0.2), seeds=16,
@@ -267,6 +272,7 @@ def _narrow():
                                 (8,), 2))),
         n_train=48, n_requests=4, n_devices=3, big_devices=5, n_segments=2,
         l1_rows=2 * 4 * 5, l1_dim=150, l1_k=5, cu_shape=(5, 256, 3),
+        cu_wide=(8, 64, 40),
         replay_jobs=6, policies=("zygarde", "rr"), etas=(0.5, 1.0),
         capacitors_f=(0.05,), seeds=2, big_seeds=3, cpu_check_steps=20,
         cpu_check_devices=3,
@@ -481,16 +487,19 @@ def _build_phase() -> None:
     for (path, hdp), regs in sorted(FLASH_REGISTERS.items()):
         print(f"  flash_attention {path} instance, head dim padded to {hdp}: "
               f"{regs}")
-    # kernels B and C keep their carry in registers: no instance may need
-    # a stack (the log of this build, or the one kept beside a cached
-    # library)
-    for kernel, lib, entry in (
-            ("fleet_fused_steps", "fleet_fused", "fleet_fused_kernel"),
-            ("serve_fused_steps", "serve_fused", "serve_fused_kernel")):
+    # kernels B and C keep their carry in registers, I its carry and E its
+    # running sums: no instance may need a stack (the log of this build,
+    # or the one kept beside a cached library)
+    for kernel, lib, entry, n in (
+            ("fleet_fused_steps", "fleet_fused", "fleet_fused_kernel", 4),
+            ("serve_fused_steps", "serve_fused", "serve_fused_kernel", 4),
+            ("rglru_scan", "rglru_scan", "rglru_scan_kernel", 2),
+            ("centroid_update", "centroid_update", "centroid_update_kernel",
+             1)):
         frames = _stack_frames(_build.build_log(lib))
         print(f"  {kernel} functions (stack frame, spill stores in bytes): "
               f"{json.dumps(frames)}")
-        if sum(entry in k for k in frames) != 4 or any(
+        if sum(entry in k for k in frames) != n or any(
                 f != (0, 0) for f in frames.values()):
             raise AssertionError(f"{kernel}: a function of {lib}.cu uses a "
                                  f"stack frame or spills, or an instance is "
@@ -559,40 +568,58 @@ def _l1_phase(device, scale: Scale, rng) -> dict:
 def _cu_phase(device, scale: Scale, rng) -> dict:
     """Kernel E at the shared-bank adaptation's shape: one (task, unit)
     table of k = 5 centroids at the widest feature width, one row per
-    device, most devices not adapting this step (assign = -1)."""
+    device, most devices not adapting this step (assign = -1); then
+    ``scale.cu_wide`` with every row assigned, where x is read once.  Each
+    row: the event time of a call, the profiler's device time per launch,
+    the plain version's and ``index_add_``'s time, and the bound (the
+    assigned rows of x, c read and written, assign)."""
     import torch
 
     from repro_torch.kernels import centroid_update as CU
 
-    k, d, B = scale.cu_shape
-    c = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32)).to(
-        device)
-    x = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32)).to(
-        device)
-    assign_np = np.where(rng.random(B) < 0.25, rng.integers(0, k, B),
-                         -1).astype(np.int32)
-    a = torch.from_numpy(assign_np).to(device)
-    out = CU.centroid_update(c, x, a, 32.0)
-    ref = CU.centroid_update_plain(c, x, a, 32.0)
-    if not torch.equal(out, ref):
-        raise AssertionError("centroid_update kernel != plain version")
-    err = _max_err(out, ref)
-    ms = _ms(lambda: CU.centroid_update(c, x, a, 32.0), device)
-    plain_ms = _ms(lambda: CU.centroid_update_plain(c, x, a, 32.0), device,
-                   reps=3)
-    valid = a >= 0
-    xv, av = x[valid], a[valid].to(torch.int64)
-    lib_ms = _ms(lambda: torch.zeros_like(c).index_add_(0, av, xv), device)
-    n_valid = int(valid.sum())
-    # only the assigned rows of x are read; c is read and written once
-    bound_ms, by = _bound(n_valid * d * 4 + 2 * _nbytes(c) + _nbytes(a),
-                          float(n_valid * d + 4 * k * d))
-    print(f"centroid_update (k={k}, d={d}, B={B}, {n_valid} rows assigned): "
-          f"bit-equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"index_add_ {lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
-                shape=f"c ({k}, {d}), x ({B}, {d}), {n_valid} assigned")
+    rows = []
+    for (k, d, B), share in ((scale.cu_shape, 0.25), (scale.cu_wide, 1.0)):
+        c = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32)).to(
+            device)
+        x = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32)).to(
+            device)
+        assign_np = np.where(rng.random(B) < share, rng.integers(0, k, B),
+                             -1).astype(np.int32)
+        a = torch.from_numpy(assign_np).to(device)
+        out = CU.centroid_update(c, x, a, 32.0)
+        ref = CU.centroid_update_plain(c, x, a, 32.0)
+        if not torch.equal(out, ref):
+            raise AssertionError(f"centroid_update kernel != plain version "
+                                 f"at {(k, d, B)}")
+        ms = _ms(lambda: CU.centroid_update(c, x, a, 32.0), device)
+        dev_ms = _kernel_ms(lambda: CU.centroid_update(c, x, a, 32.0),
+                            device, "centroid_update_kernel")
+        if device.type == "cuda" and dev_ms != dev_ms:  # the profiler lost
+            # the launches: back to back on a spinning card instead
+            dev_ms = _busy_ms(lambda: CU.centroid_update(c, x, a, 32.0),
+                              device, reps=20)
+        plain_ms = _ms(lambda: CU.centroid_update_plain(c, x, a, 32.0),
+                       device, reps=1, warmup=0)
+        valid = a >= 0
+        xv, av = x[valid], a[valid].to(torch.int64)
+        lib_ms = _ms(lambda: torch.zeros_like(c).index_add_(0, av, xv),
+                     device)
+        n_valid = int(valid.sum())
+        bound_ms, by = _bound(n_valid * d * 4 + 2 * _nbytes(c) + _nbytes(a),
+                              float(n_valid * d + 4 * k * d))
+        print(f"centroid_update (k={k}, d={d}, B={B}, {n_valid} rows "
+              f"assigned): bit-equal to plain; kernel {ms:.4f} ms (device "
+              f"{dev_ms:.5f} ms per launch), plain {plain_ms:.4f} ms, "
+              f"index_add_ {lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({by})")
+        rows.append(dict(max_abs_err=_max_err(out, ref), ms=ms,
+                         device_ms=dev_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
+                         shape=f"c ({k}, {d}), x ({B}, {d}), {n_valid} "
+                               f"assigned"))
+    row = dict(rows[0])
+    row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    row["shapes"] = rows[1:]
+    return row
 
 
 def _models(device, scale: Scale):
@@ -1899,9 +1926,11 @@ def _decode_phase(device, scale: Scale) -> dict:
 
 def _rglru_phase(device, scale: Scale) -> dict:
     """Kernel I against its plain version, bit for bit, at
-    ``scale.rglru_shapes``, with the times of I and the plain version and
-    the bound: a, b read once, h written once, h0 read and h_last written
-    (bytes over HBM bandwidth; one FMA per element).  PyTorch has no
+    ``scale.rglru_shapes`` (the TMA path at W = 4,096, the ``cp.async``
+    path at W = 53), with the event and device times of I, the plain
+    version's time and the bound: a, b read once, h written once, h0 read
+    and h_last written (bytes over HBM bandwidth; one FMA per element).
+    PyTorch has no
     linear-recurrence scan, so there is no one-call yardstick
     (``library_ms`` is null)."""
     import torch
@@ -1921,16 +1950,21 @@ def _rglru_phase(device, scale: Scale) -> dict:
             raise AssertionError(f"rglru_scan kernel != plain version at "
                                  f"{(B, S, W)}")
         ms = _ms(lambda: RS.rglru_scan(a, b, h0), device)
+        # back to back on the card: the profiler loses launches after the
+        # serve and replay profiles in one process
+        dev_ms = _busy_ms(lambda: RS.rglru_scan(a, b, h0), device, reps=20)
         plain_ms = _ms(lambda: RS.rglru_scan_plain(a, b, h0), device, reps=1,
                        warmup=0)
         bound_ms, by = _bound(_nbytes(a, b, h0, h, hl), 2.0 * B * S * W)
+        path = RS.copy_path(W, a.data_ptr(), b.data_ptr(), h.data_ptr())
         label = f"B={B} S={S} W={W}{' h0' if with_h0 else ''}"
-        print(f"rglru_scan ({label}): equal to plain; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}); no "
+        print(f"rglru_scan ({label}, {path} path): equal to plain; kernel "
+              f"{ms:.4f} ms (device {dev_ms:.5f} ms per launch), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}); no "
               "one-call PyTorch equivalent (no linear-recurrence scan)")
-        rows.append(dict(shape=label, max_abs_err=0.0, ms=ms,
-                         plain_ms=plain_ms, library_ms=None,
-                         bound_ms=bound_ms, bound_by=by))
+        rows.append(dict(shape=label, copy_path=path, max_abs_err=0.0, ms=ms,
+                         device_ms=dev_ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bound_ms, bound_by=by))
     row = dict(rows[0])
     row["shapes"] = rows[1:]
     return row

@@ -20,15 +20,20 @@ the kernel body as one XLA program):
   order from zero, and the block sums are added in order.  Found by
   probing the reference's summation tree at every multiple of 8 up to
   2,048 rows with ``k = 2`` and ``4`` clusters and ``F <= 128`` features;
-  there it is bit-exact.  Once ``B * k`` passes about 8,900 (on 8 CPUs;
+  there it is bit-exact.  With one cluster (``k = 1``) the one-hot
+  matmul is one sequential sum over all rows in row order (probed at
+  392-4,096 rows, ``F`` 6 and 300).  Once ``B * k`` passes about 8,900 (on 8 CPUs;
   about 16,000 on 2), the reference reduces in a threaded tree that
   depends on the CPUs the process may use; on one CPU it keeps this order
   (``tools/centroid_order_gap.py``; ROADMAP Queue 3).
 
-The CUDA kernel (``csrc/centroid_update.cu``) runs one thread per
-(cluster, column) and forms the same blocks in the same order — a
-deterministic reduction, no float atomics; the plain version below is the
-same arithmetic, so the two agree bit for bit.
+The CUDA kernel (``csrc/centroid_update.cu``) makes one pass over the
+assigned rows: one thread per column sorts each chunk of
+:data:`CHUNK_ROWS` rows by cluster (row order kept within a cluster),
+walks that list once with one running sum per cluster, and folds each
+row block's sum at :func:`block_end` as the reference adds its block
+sums — a deterministic reduction, no float atomics; the plain version
+below is the same arithmetic, so the two agree bit for bit.
 """
 from __future__ import annotations
 
@@ -45,14 +50,21 @@ launches = 0
 #: rows per part of the reference's split, and the longest unsplit block
 PART_ROWS = 608
 BLOCK_ROWS = 384
+#: rows the kernel sorts per pass (``E_CHUNK``) and the most clusters its
+#: shared memory holds (``E_MAX_K``), as ``csrc/centroid_update.cu`` has them
+CHUNK_ROWS = 2048
+MAX_K = 128
 
 
-def row_blocks(n_rows: int) -> list[tuple[int, int]]:
+def row_blocks(n_rows: int, k: int) -> list[tuple[int, int]]:
     """``(start, end)`` of the blocks the reference sums a cluster's rows
-    in, for ``n_rows`` rows padded to a multiple of 8."""
+    in, for ``n_rows`` rows padded to a multiple of 8 and ``k`` clusters
+    (one block of all rows when ``k == 1``)."""
     n8 = -(-n_rows // 8) * 8
     if n8 == 0:
         return []
+    if k == 1:
+        return [(0, n8)]
     n_parts = -(-n8 // PART_ROWS)
     part = 8 * -(-n8 // (8 * n_parts))
     sizes = [part] * (n_parts - 1) + [n8 - (n_parts - 1) * part]
@@ -64,13 +76,30 @@ def row_blocks(n_rows: int) -> list[tuple[int, int]]:
     return out
 
 
+def block_end(row: int, n_rows: int, k: int) -> int:
+    """The end of the :func:`row_blocks` block that holds ``row`` (of
+    ``n_rows`` rows, ``k`` clusters), as the kernel computes it."""
+    n8 = -(-n_rows // 8) * 8
+    if k == 1:
+        return n8
+    n_parts = -(-n8 // PART_ROWS)
+    part = 8 * -(-n8 // (8 * n_parts))
+    p = min(row // part, n_parts - 1)
+    start = p * part
+    size = part if p + 1 < n_parts else n8 - start
+    if size > BLOCK_ROWS:
+        half = size // 2
+        return start + half if row < start + half else start + size
+    return start + size
+
+
 def centroid_update_plain(centroids, x, assign, weight):
     """The plain PyTorch version (same arithmetic, same order)."""
     k, B = centroids.shape[0], x.shape[0]
     hot = assign[:, None].to(torch.int64) == torch.arange(
         k, device=assign.device)                              # (B, k)
     sums = torch.zeros_like(centroids)
-    for start, end in row_blocks(B):
+    for start, end in row_blocks(B, k):
         acc = torch.zeros_like(centroids)
         for b in range(start, min(end, B)):   # rows >= B are the padding
             acc = torch.where(hot[b][:, None], acc + x[b], acc)
@@ -96,13 +125,29 @@ def _check(centroids, x, assign):
         raise ValueError("centroid_update: inputs on different devices")
 
 
+_FN = {}
+
+
+def _kernel():
+    """``centroid_update_launch``, bound once."""
+    fn = _FN.get("launch")
+    if fn is None:
+        fn = _build.load("centroid_update").centroid_update_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN["launch"] = fn
+    return fn
+
+
 def centroid_update(centroids: torch.Tensor, x: torch.Tensor,
                     assign: torch.Tensor, weight: float) -> torch.Tensor:
     """``centroids`` ``(k, d)`` f32, ``x`` ``(B, d)`` f32, ``assign``
     ``(B,)`` int32, python ``weight`` (rounded to f32) -> new ``(k, d)``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (contiguous inputs only)."""
+    (contiguous inputs, ``k <= MAX_K``)."""
     global launches
     _check(centroids, x, assign)
     if centroids.device.type == "cpu":
@@ -115,18 +160,15 @@ def centroid_update(centroids: torch.Tensor, x: torch.Tensor,
         raise ValueError("centroid_update: the kernel takes contiguous "
                          "tensors")
     k, d = centroids.shape
+    if k > MAX_K:
+        raise ValueError(f"centroid_update: k={k} exceeds the kernel's "
+                         f"{MAX_K} clusters")
     out = torch.empty_like(centroids)
     if k * d == 0:
         return out
-    lib = _build.load("centroid_update")
-    fn = lib.centroid_update_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(centroids.data_ptr(), x.data_ptr(), assign.data_ptr(),
-             x.shape[0], k, d, float(weight), out.data_ptr(),
-             _build.stream_handle(centroids.device))
+    err = _kernel()(centroids.data_ptr(), x.data_ptr(), assign.data_ptr(),
+                    x.shape[0], k, d, float(weight), out.data_ptr(),
+                    _build.stream_handle(centroids.device))
     _build.check(err, "centroid_update")
     launches += 1
     return out

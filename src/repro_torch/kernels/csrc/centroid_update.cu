@@ -2,71 +2,211 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/centroid_update.py:
 // centroid_update (a one-hot matmul on the MXU).
-// Bound on the H100: memory.  It reads c (k*d) and x (B*d) once and writes
-// k*d floats, at under one flop per byte.
-// Design: one thread per (cluster j, column f) sums the rows assigned to j
-// in the reference's order (kernels/centroid_update.py:row_blocks): the
-// rows, padded to a multiple of 8, split into P = ceil(N / 608) parts of
-// 8 * ceil(N / 8P) rows (the last takes the rest), a part longer than 384
-// rows into two halves; each block sums in row order from zero and the
-// block sums are added in order.  A deterministic reduction with no float
-// atomics, bit-equal to the plain PyTorch version.  Rows whose assignment
-// is < 0 (or >= k) are ignored, so the fleet caller needs no one-hot.
-// Neighbouring threads read neighbouring columns of each row, so the x
-// loads coalesce.  Built with -fmad=false; the reference's one fused
-// multiply-add (w * c_j + sum) is written out as __fmaf_rn, and the
-// division stays an IEEE division.
+// Bound on the H100: memory.  It reads c (k*d), the assigned rows of x and
+// assign once and writes k*d floats, at under one flop per byte.
+//
+// Summation order: the reference's (kernels/centroid_update.py:row_blocks):
+// the rows, padded to a multiple of 8, split into P = ceil(N / 608) parts
+// of 8 * ceil(N / 8P) rows (the last takes the rest), a part longer than
+// 384 rows into two halves (with one cluster, one block of all rows); each
+// block sums a cluster's rows in row order from zero and the block sums
+// are added in order.  Rows whose assignment is < 0 or >= k are ignored,
+// so the fleet caller needs no one-hot.  Built with -fmad=false; the
+// reference's one fused multiply-add (w * c_j + sum) is written out as
+// __fmaf_rn, and the division stays an IEEE division.
+// No float atomics: the result is bit-equal to the plain PyTorch version.
+//
+// Design: one pass over the assigned rows.  One block per tile of E_COLS
+// columns, one thread per column.  The block sorts the assigned rows of a
+// chunk of E_CHUNK rows by cluster, in row order within each cluster (a
+// count per cluster, an exclusive prefix, and a stable scatter by one warp
+// with __match_any_sync), into a list in shared memory.  Each thread then
+// walks the list once: a cluster's rows come in row order, so its sum is
+// one register; at a row-block boundary the block's sum folds into the
+// running sum, as the reference adds its block sums.  A cluster's running
+// sums are kept per thread in shared memory between chunks.  x reaches the
+// walk through a ring of E_STAGES stages of E_STAGE_ROWS rows that each
+// thread fills for its own column with 4-byte cp.async (E_STAGES - 1
+// stages, 112 rows, ahead of the walk); a thread reads only what it
+// copied, so it waits on its own commit groups and no barrier is needed.
+// The member counts are integers, exact in f32 below 2^24.
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
-__device__ float block_sum(const float* __restrict__ x,
-                           const int* __restrict__ assign, int B, int j,
-                           int d, int f, int start, int end) {
-  float s = 0.f;
-  int stop = end < B ? end : B;  // rows >= B are the zero padding
-  for (int b = start; b < stop; ++b)
-    if (assign[b] == j) s = __fadd_rn(s, x[(long)b * d + f]);
-  return s;
+#include "async_copy.cuh"
+
+namespace {
+
+constexpr int E_COLS = 64;         // columns (threads) per block
+constexpr int E_STAGES = 8;        // ring stages
+constexpr int E_STAGE_ROWS = 16;   // rows of x per stage
+constexpr int E_CHUNK = 2048;      // rows sorted per pass
+constexpr int E_MAX_K = 128;       // clusters the shared memory holds
+constexpr int PART_ROWS = 608;     // the reference's split (row_blocks)
+constexpr int BLOCK_ROWS = 384;
+constexpr int RING = E_STAGES * E_STAGE_ROWS * E_COLS;  // floats
+
+// shared memory: the ring, the list, four ints per cluster (count, start,
+// cursor, total), and per cluster and thread the running sum, the open
+// block's sum and the open block's end
+constexpr int smem_bytes(int k) {
+  return (RING + E_CHUNK + 4 * k + 3 * k * E_COLS) * 4;
 }
 
-__global__ void centroid_update_kernel(const float* __restrict__ c,
-                                       const float* __restrict__ x,
-                                       const int* __restrict__ assign, int B,
-                                       int k, int d, float w,
-                                       float* __restrict__ out) {
-  long t = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long)k * d) return;
-  int j = (int)(t / d);
-  int f = (int)(t % d);
-  int n8 = (B + 7) / 8 * 8;
-  int n_parts = (n8 + 607) / 608;
-  int part = 8 * ((n8 + 8 * n_parts - 1) / (8 * n_parts));
-  float s = 0.f;
-  int start = 0;
-  for (int p = 0; p < n_parts; ++p) {
-    int size = p + 1 < n_parts ? part : n8 - (n_parts - 1) * part;
-    if (size > 384) {
-      s = __fadd_rn(s, block_sum(x, assign, B, j, d, f, start,
-                                 start + size / 2));
-      s = __fadd_rn(s, block_sum(x, assign, B, j, d, f, start + size / 2,
-                                 start + size));
-    } else {
-      s = __fadd_rn(s, block_sum(x, assign, B, j, d, f, start,
-                                 start + size));
-    }
-    start += size;
+// the end of the reference's row block that holds ``row``
+__device__ __forceinline__ int block_end(int row, int n8, int n_parts,
+                                         int part) {
+  const int p = min(row / part, n_parts - 1);
+  const int start = p * part;
+  const int size = p + 1 < n_parts ? part : n8 - start;
+  if (size > BLOCK_ROWS) {
+    const int half = size / 2;
+    return row < start + half ? start + half : start + size;
   }
-  float n = 0.f;
-  for (int b = 0; b < B; ++b) n += assign[b] == j ? 1.f : 0.f;
-  out[t] = __fdiv_rn(__fmaf_rn(w, c[t], s), __fadd_rn(w, n));
+  return start + size;
 }
 
+__global__ void __launch_bounds__(E_COLS)
+    centroid_update_kernel(const float* __restrict__ c,
+                           const float* __restrict__ x,
+                           const int* __restrict__ assign, int B, int k,
+                           int d, float w, float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  int* list = reinterpret_cast<int*>(ring + RING);
+  int* cnt = list + E_CHUNK;
+  int* start = cnt + k;
+  int* cur = start + k;
+  int* total = cur + k;
+  float* run_s = reinterpret_cast<float*>(total + k);  // [k][E_COLS]
+  float* run_b = run_s + k * E_COLS;
+  int* run_e = reinterpret_cast<int*>(run_b + k * E_COLS);
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int f = blockIdx.x * E_COLS + tid;
+  const bool live = f < d;
+  const int n8 = (B + 7) / 8 * 8;
+  const int n_parts = (n8 + PART_ROWS - 1) / PART_ROWS;
+  const int part = 8 * ((n8 + 8 * n_parts - 1) / (8 * n_parts));
+
+  for (int j = tid; j < k; j += E_COLS) total[j] = 0;
+  for (int j = 0; j < k; ++j) {
+    run_s[j * E_COLS + tid] = 0.f;
+    run_b[j * E_COLS + tid] = 0.f;
+    run_e[j * E_COLS + tid] = 0;
+  }
+
+  for (int c0 = 0; c0 < B; c0 += E_CHUNK) {
+    const int nc = min(E_CHUNK, B - c0);
+    for (int j = tid; j < k; j += E_COLS) cnt[j] = 0;
+    __syncthreads();
+    for (int r = tid; r < nc; r += E_COLS) {
+      const int j = assign[c0 + r];
+      if (j >= 0 && j < k) atomicAdd(&cnt[j], 1);  // integers: exact
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int acc = 0;
+      for (int j = 0; j < k; ++j) {
+        start[j] = cur[j] = acc;
+        total[j] += cnt[j];
+        acc += cnt[j];
+      }
+    }
+    __syncthreads();
+    if (tid < 32) {  // stable scatter: rounds of 32 rows in row order
+      for (int r0 = 0; r0 < nc; r0 += 32) {
+        const int r = r0 + lane;
+        const int j = r < nc ? assign[c0 + r] : -1;
+        const bool ok = j >= 0 && j < k;
+        const unsigned peers = __match_any_sync(0xffffffffu, ok ? j : -1);
+        const int rank = __popc(peers & ((1u << lane) - 1u));
+        if (ok) list[cur[j] + rank] = c0 + r;
+        __syncwarp();
+        if (ok && rank == 0) cur[j] += __popc(peers);
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    const int n_list = start[k - 1] + cnt[k - 1];
+
+    if (live) {
+      // stage q of the walk: x at the list's rows q * E_STAGE_ROWS + u
+      auto issue = [&](int q) {
+        float* dst = ring + q % E_STAGES * E_STAGE_ROWS * E_COLS + tid;
+        for (int u = 0; u < E_STAGE_ROWS; ++u) {
+          const int e = q * E_STAGE_ROWS + u;
+          if (e < n_list)
+            acopy::cp_async4(dst + u * E_COLS, x + (long)list[e] * d + f, 4);
+        }
+        acopy::cp_async_commit();  // empty past the end: counts stay uniform
+      };
+      for (int q = 0; q < E_STAGES; ++q) issue(q);
+      const int n_q = (n_list + E_STAGE_ROWS - 1) / E_STAGE_ROWS;
+      int j = -1, seg_end = 0, be = 0;
+      float s = 0.f, blk = 0.f;
+      for (int q = 0; q < n_q; ++q) {
+        acopy::cp_async_wait<E_STAGES - 1>();
+        const float* v = ring + q % E_STAGES * E_STAGE_ROWS * E_COLS + tid;
+        const int e0 = q * E_STAGE_ROWS;
+        const int e1 = min(n_list, e0 + E_STAGE_ROWS);
+        for (int e = e0; e < e1; ++e) {
+          while (e == seg_end) {  // the next cluster with rows here
+            if (j >= 0) {
+              run_s[j * E_COLS + tid] = s;
+              run_b[j * E_COLS + tid] = blk;
+              run_e[j * E_COLS + tid] = be;
+            }
+            ++j;
+            seg_end = start[j] + cnt[j];
+            s = run_s[j * E_COLS + tid];
+            blk = run_b[j * E_COLS + tid];
+            be = run_e[j * E_COLS + tid];
+          }
+          const int row = list[e];
+          if (row >= be) {  // a new row block: fold the finished one
+            s = __fadd_rn(s, blk);
+            blk = 0.f;
+            be = k == 1 ? n8 : block_end(row, n8, n_parts, part);
+          }
+          blk = __fadd_rn(blk, v[(e - e0) * E_COLS]);
+        }
+        issue(q + E_STAGES);
+      }
+      if (j >= 0) {
+        run_s[j * E_COLS + tid] = s;
+        run_b[j * E_COLS + tid] = blk;
+        run_e[j * E_COLS + tid] = be;
+      }
+      acopy::cp_async_wait<0>();
+    }
+    __syncthreads();  // the list and counts are rewritten by the next chunk
+  }
+
+  if (!live) return;
+  for (int j = 0; j < k; ++j) {
+    const float s =
+        __fadd_rn(run_s[j * E_COLS + tid], run_b[j * E_COLS + tid]);
+    const long o = (long)j * d + f;
+    out[o] = __fdiv_rn(__fmaf_rn(w, c[o], s), __fadd_rn(w, (float)total[j]));
+  }
+}
+
+}  // namespace
+
+// k <= E_MAX_K (the wrapper checks); B rows of x and assign, d columns
 extern "C" int centroid_update_launch(const float* c, const float* x,
                                       const int* assign, int B, int k, int d,
                                       float w, float* out, void* stream) {
-  const int threads = 256;
-  long n = (long)k * d;
-  int blocks = (int)((n + threads - 1) / threads);
-  centroid_update_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      c, x, assign, B, k, d, w, out);
+  if (k < 1 || k > E_MAX_K) return (int)cudaErrorInvalidValue;
+  static const int e = (int)cudaFuncSetAttribute(
+      centroid_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes(E_MAX_K));
+  if (e) return e;
+  const int blocks = (int)(((long)d + E_COLS - 1) / E_COLS);
+  centroid_update_kernel<<<blocks, E_COLS, smem_bytes(k),
+                           (cudaStream_t)stream>>>(c, x, assign, B, k, d, w,
+                                                   out);
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,11 @@ for bit, and the plain version agrees bit for bit with the JAX kernel.
 The reference pads the sequence with identity steps (``a = 1``, ``b =
 0``); the kernel bounds-checks instead, which changes no bit.
 
+The kernel runs one warp per lane tile of :data:`LANES` lanes of one batch
+row and feeds it ``a`` and ``b`` through a ring of tiles of
+:data:`STEP_TILE` steps in shared memory, filled by TMA or by ``cp.async``
+(:func:`copy_path`); :func:`tile_plan` lists the tiles.
+
 The model's own path (:func:`repro_torch.models.rglru.rglru_seq`) launches
 this kernel for a CUDA tensor; a CPU tensor there runs the port of the
 reference's associative scan.
@@ -27,6 +32,11 @@ from . import _build
 #: launches of the CUDA kernel (the plain version never counts)
 launches = 0
 
+#: lanes per block (one warp) and steps per stage tile, as
+#: ``csrc/rglru_scan.cu`` has them (``LANES``, ``RGLRU_TS``)
+LANES = 32
+STEP_TILE = 64
+
 
 def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor,
                      h0: torch.Tensor):
@@ -41,6 +51,26 @@ def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor,
     return out, h
 
 
+def copy_path(W: int, *ptrs: int) -> str:
+    """How the kernel's ring is filled: ``"tma"`` (3-D TMA tiles) where
+    every row of a ``(B, S, W)`` f32 tensor starts on 16 bytes, i.e.
+    ``W % 4 == 0`` and every pointer is 16-byte aligned; else
+    ``"cp.async"`` (one 4-byte copy per lane and step)."""
+    if W % 4 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "tma"
+    return "cp.async"
+
+
+def tile_plan(S: int, W: int):
+    """``(step tiles, lane tiles)``: the ``(start, end)`` ranges of ``S``
+    and ``W`` the kernel scans, one block per (row, lane tile), each
+    walking its step tiles in order; ragged last tiles are cut at ``S``
+    and ``W``."""
+    steps = [(t, min(t + STEP_TILE, S)) for t in range(0, S, STEP_TILE)]
+    lanes = [(w, min(w + LANES, W)) for w in range(0, W, LANES)]
+    return steps, lanes
+
+
 def _check(a, b, h0):
     if a.dim() != 3 or a.shape != b.shape or h0.shape != (a.shape[0],
                                                            a.shape[2]):
@@ -49,6 +79,21 @@ def _check(a, b, h0):
                          f"{tuple(h0.shape)}")
     if not (a.device == b.device == h0.device):
         raise ValueError("rglru_scan: inputs on different devices")
+
+
+_FN = {}
+
+
+def _kernel():
+    """``rglru_scan_launch``, bound once."""
+    fn = _FN.get("launch")
+    if fn is None:
+        fn = _build.load("rglru_scan").rglru_scan_launch
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 3)
+        fn.restype = ctypes.c_int
+        _FN["launch"] = fn
+    return fn
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
@@ -68,16 +113,11 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     h = torch.empty((B, S, W), dtype=torch.float32, device=a.device)
     if h.numel() == 0:
         return h, h0.clone()
-    if B > 65535:
-        raise ValueError(f"rglru_scan: B={B} exceeds the kernel's grid")
     h_last = torch.empty((B, W), dtype=torch.float32, device=a.device)
-    lib = _build.load("rglru_scan")
-    fn = lib.rglru_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
-    err = fn(a.data_ptr(), b.data_ptr(), h0.data_ptr(), B, S, W,
-             h.data_ptr(), h_last.data_ptr(), _build.stream_handle(a.device))
+    tma = copy_path(W, a.data_ptr(), b.data_ptr(), h.data_ptr()) == "tma"
+    err = _kernel()(a.data_ptr(), b.data_ptr(), h0.data_ptr(), B, S, W,
+                    int(tma), h.data_ptr(), h_last.data_ptr(),
+                    _build.stream_handle(a.device))
     _build.check(err, "rglru_scan")
     launches += 1
     return h, h_last

@@ -122,6 +122,64 @@ def test_centroid_update_kernel_row_order(cuda, B):
     assert torch.equal(out, CU.centroid_update_plain(c, x, a, 10.0))
 
 
+def _cu_case(cuda, B, d, k, assign, seed, weight=32.0):
+    rng = np.random.default_rng(seed)
+    c = torch.from_numpy(rng.uniform(0, 100, (k, d)).astype(np.float32))
+    x = torch.from_numpy(rng.uniform(0, 100, (B, d)).astype(np.float32))
+    c, x, a = c.to(cuda), x.to(cuda), torch.from_numpy(assign).to(cuda)
+    n0 = CU.launches
+    out = CU.centroid_update(c, x, a, weight)
+    torch.cuda.synchronize()
+    assert CU.launches == n0 + 1
+    assert torch.equal(out, CU.centroid_update_plain(c, x, a, weight))
+
+
+@pytest.mark.parametrize("k", [1, 2, 8, 9, 16, 17, 128])
+def test_centroid_update_kernel_cluster_counts(cuda, k):
+    """One cluster, and k at and past 8 and 16 clusters, up to the
+    kernel's limit, with ignored rows below 0 and at or past k."""
+    rng = np.random.default_rng(k)
+    for B, d in ((300, 100), (1024, 8192), (2500, 67)):
+        _cu_case(cuda, B, d, k, rng.integers(-1, k + 2, B).astype(np.int32),
+                 seed=B + k)
+
+
+@pytest.mark.parametrize("case", ["none assigned", "all past k",
+                                  "one row", "ragged d"])
+def test_centroid_update_kernel_edge_rows(cuda, case):
+    """No row assigned (every centroid becomes w * c / w), every row at or
+    past k, one assigned row, and d that is no multiple of 4 or of the
+    column tile."""
+    B, d, k = 64, 8192, 5
+    a = np.full(B, -1, np.int32)
+    if case == "all past k":
+        a[:] = np.arange(B) % 3 + k
+    elif case == "one row":
+        a[37] = 2
+    elif case == "ragged d":
+        d = 8191
+        a = np.random.default_rng(3).integers(-1, k, B).astype(np.int32)
+    _cu_case(cuda, B, d, k, a, seed=len(case))
+
+
+@pytest.mark.parametrize("k", [5, 9])
+@pytest.mark.parametrize("B", [392, 400, 448, 500, 512, 600, 768, 1000,
+                               1024, 2048, 4096])
+def test_centroid_update_kernel_row_order_wider_k(cuda, B, k):
+    """The row counts of ``test_centroid_update_kernel_row_order`` with 5
+    and 9 clusters (F = 6, rows from [0, 100), weight 10)."""
+    a = np.random.default_rng(B).integers(-1, k, B).astype(np.int32)
+    _cu_case(cuda, B, 6, k, a, seed=B, weight=10.0)
+
+
+def test_centroid_update_kernel_rejects_too_many_clusters(cuda):
+    with pytest.raises(ValueError, match="exceeds"):
+        CU.centroid_update(torch.zeros(CU.MAX_K + 1, 4, device=cuda),
+                           torch.zeros(3, 4, device=cuda),
+                           torch.zeros(3, dtype=torch.int32, device=cuda),
+                           1.0)
+
+
 # kernel G shapes: (B, S, Skv, H, KV, hd, causal, window, q_offset); the
 # main path's (anytime_forward at 2 x 512 on qwen1.5-0.5b), causal 4,096,
 # the long-context window, glm4-9b's GQA geometry, an odd length, a query
@@ -776,6 +834,45 @@ def test_rglru_scan_kernel_matches_plain(cuda):
         assert RS.launches == n0 + 1
         rh, rhl = RS.rglru_scan_plain(a, b, h0)
         assert torch.equal(h, rh) and torch.equal(hl, rhl), (B, S, W)
+
+
+# kernel I on both copy paths: (B, S, W, offset, path): W = 4,096 and
+# 4,100 on TMA, W = 53 and 33 and an input that starts one float into its
+# storage on cp.async; S = 1, shorter than one step tile, one tile and one
+# past it; B * W / 32 lane tiles below and above the card's 132 SMs
+RGLRU_PATH_CASES = [
+    (1, 100, 4096, 0, "tma"), (3, 70, 4096, 0, "tma"),
+    (2, 65, 4100, 0, "tma"), (1, 1, 4096, 0, "tma"),
+    (2, 17, 4096, 0, "tma"), (1, 64, 4096, 0, "tma"),
+    (3, 129, 53, 0, "cp.async"), (2, 65, 33, 0, "cp.async"),
+    (1, 100, 4096, 1, "cp.async"), (5, 1, 33, 0, "cp.async"),
+    (1, 17, 4096, 1, "cp.async"), (9, 64, 4096, 1, "cp.async"),
+]
+
+
+@pytest.mark.parametrize("B,S,W,offset,path", RGLRU_PATH_CASES)
+def test_rglru_scan_kernel_copy_paths(cuda, B, S, W, offset, path):
+    """Kernel I == its plain version bit for bit on the copy path the host
+    picks for the inputs, one launch per call."""
+    rng = np.random.default_rng(S * W + offset)
+    n = B * S * W
+
+    def on_card(arr):
+        flat = torch.zeros(n + offset, device=cuda)
+        flat[offset:] = torch.from_numpy(arr.reshape(-1)).to(cuda)
+        return flat[offset:].view(B, S, W)
+
+    a = on_card(rng.uniform(0.7, 0.999, (B, S, W)).astype(np.float32))
+    b = on_card((rng.normal(size=(B, S, W)) * 0.1).astype(np.float32))
+    h0 = torch.from_numpy(rng.normal(size=(B, W)).astype(np.float32)).to(
+        cuda)
+    assert RS.copy_path(W, a.data_ptr(), b.data_ptr()) == path
+    n0 = RS.launches
+    h, hl = RS.rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert RS.launches == n0 + 1
+    rh, rhl = RS.rglru_scan_plain(a, b, h0)
+    assert torch.equal(h, rh) and torch.equal(hl, rhl)
 
 
 # kernel H shapes: (B, H, KV, hd, C, window); each runs in f32 and bf16,

@@ -1,7 +1,7 @@
-"""Device time per launch of kernels A, B, C, D, G and H, from the
+"""Device time per launch of kernels A, B, C, D, E, G, H and I, from the
 profiler.
 
-    PYTHONPATH=src python tools/kernel_device_times.py [--only A,B,C,D,G,H,T]
+    PYTHONPATH=src python tools/kernel_device_times.py [--only E,I]
 
 CUDA-event times of a wrapper call (``chip_smoke.py``) include the host
 work between launches: at small sizes the card waits on the wrapper.
@@ -24,13 +24,20 @@ their sum, and the host-clock time per call:
   completed;
 * D ``l1_topk2``: x (64, 150) against per-row centroids (64, 5, 150) and
   x (250, 150) against one shared set (5, 150);
+* E ``centroid_update``: the shared-bank adaptation's shape (k = 5, d =
+  8,192, B = 64, about a quarter of the rows assigned) and k = 8, d =
+  8,192, B = 1,024 with every row assigned (x 32 MB), each with its bound;
 * G ``flash_attention`` in bf16 at its seven shapes, H ``decode_gqa`` at
   its six;
+* I ``rglru_scan`` at the hybrid's prefill (1, 4,096, 4,096) and
+  ``anytime_forward``'s (2, 512, 4,096), each with its bound;
 * T: one tuning objective call (``chip_smoke.py``'s tuning problem, one
   population block of 16 candidates), with B's share of its host-clock
   time.
 
-Needs a CUDA card.
+E and I touch only the wrappers' public calls and ``chip_smoke._ms`` /
+``_device_ms``, so the script also times an older checkout's E and I when
+copied into it.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -47,10 +54,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 import chip_smoke  # noqa: E402
+from repro_torch.kernels import centroid_update as CU  # noqa: E402
 from repro_torch.kernels import decode_gqa as DG  # noqa: E402
 from repro_torch.kernels import flash_attn as FA  # noqa: E402
 from repro_torch.kernels import fleet_step as FS  # noqa: E402
 from repro_torch.kernels import l1_topk2 as L1  # noqa: E402
+from repro_torch.kernels import rglru_scan as RS  # noqa: E402
 
 CALLS = 20
 
@@ -215,6 +224,44 @@ def kernel_d(dev) -> None:
                 lambda: L1.l1_topk2(x, c))
 
 
+def _bound_ms(nbytes: float) -> float:
+    return nbytes / chip_smoke.PEAK_BYTES_S * 1e3
+
+
+def kernel_e(dev) -> None:
+    rng = np.random.default_rng(0)
+    for k, d, B, share in ((5, 8192, 64, 0.25), (8, 8192, 1024, 1.0)):
+        c = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32)).to(
+            dev)
+        x = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32)).to(
+            dev)
+        a = np.where(rng.random(B) < share, rng.integers(0, k, B), -1)
+        a = torch.from_numpy(a.astype(np.int32)).to(dev)
+        n = int((a >= 0).sum())
+        ms = chip_smoke._ms(lambda: CU.centroid_update(c, x, a, 32.0), dev,
+                            reps=200)
+        label = f"E (k={k}, d={d}, B={B}, {n} rows assigned)"
+        dev_ms = profile(label, lambda: CU.centroid_update(c, x, a, 32.0),
+                         calls=100)
+        bound = _bound_ms(n * d * 4 + 2 * k * d * 4 + B * 4)
+        print(f"  {label}: {ms:.5f} ms per call (CUDA events, 200 calls), "
+              f"device {dev_ms:.5f}, bound {bound:.6f} ms (bytes)")
+
+
+def kernel_i(dev) -> None:
+    g = torch.Generator(device=dev).manual_seed(5)
+    for B, S, W in ((1, 4096, 4096), (2, 512, 4096)):
+        a = 0.7 + 0.299 * torch.rand((B, S, W), generator=g, device=dev)
+        b = 0.1 * torch.randn((B, S, W), generator=g, device=dev)
+        h0 = torch.zeros((B, W), device=dev)
+        ms = chip_smoke._ms(lambda: RS.rglru_scan(a, b, h0), dev, reps=50)
+        label = f"I (B={B} S={S} W={W})"
+        dev_ms = profile(label, lambda: RS.rglru_scan(a, b, h0), calls=50)
+        bound = _bound_ms(4 * (3 * B * S * W + 2 * B * W))
+        print(f"  {label}: {ms:.5f} ms per call (CUDA events, 50 calls), "
+              f"device {dev_ms:.5f}, bound {bound:.6f} ms (bytes)")
+
+
 def tune_call(dev) -> None:
     """One objective call of the tuning phase: every kernel's device time,
     their sum and B's against the call's host-clock time."""
@@ -262,13 +309,14 @@ def kernel_h(dev) -> None:
 
 
 KERNELS = {"A": kernel_a, "B": kernel_b, "C": kernel_c, "D": kernel_d,
-           "G": kernel_g, "H": kernel_h, "T": tune_call}
+           "E": kernel_e, "G": kernel_g, "H": kernel_h, "I": kernel_i,
+           "T": tune_call}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=",".join(KERNELS),
-                    help="what to time, comma-separated (A,B,C,D,G,H,T)")
+                    help="what to time, comma-separated (A,B,C,D,E,G,H,I,T)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
