@@ -1928,9 +1928,8 @@ def _rglru_phase(device, scale: Scale) -> dict:
     """Kernel I against its plain version, bit for bit, at
     ``scale.rglru_shapes`` (the TMA path at W = 4,096, the ``cp.async``
     path at W = 53), with the event and device times of I, the plain
-    version's time and the bound: a, b read once, h written once, h0 read
-    and h_last written (bytes over HBM bandwidth; one FMA per element).
-    PyTorch has no
+    version's time and the bound: a, b and h0 read once, h written once
+    (bytes over HBM bandwidth; one FMA per element).  PyTorch has no
     linear-recurrence scan, so there is no one-call yardstick
     (``library_ms`` is null)."""
     import torch
@@ -1955,7 +1954,8 @@ def _rglru_phase(device, scale: Scale) -> dict:
         dev_ms = _busy_ms(lambda: RS.rglru_scan(a, b, h0), device, reps=20)
         plain_ms = _ms(lambda: RS.rglru_scan_plain(a, b, h0), device, reps=1,
                        warmup=0)
-        bound_ms, by = _bound(_nbytes(a, b, h0, h, hl), 2.0 * B * S * W)
+        # h_last is the view h[:, -1]: no bytes of its own
+        bound_ms, by = _bound(_nbytes(a, b, h0, h), 2.0 * B * S * W)
         path = RS.copy_path(W, a.data_ptr(), b.data_ptr(), h.data_ptr())
         label = f"B={B} S={S} W={W}{' h0' if with_h0 else ''}"
         print(f"rglru_scan ({label}, {path} path): equal to plain; kernel "

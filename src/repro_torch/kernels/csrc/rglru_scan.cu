@@ -1,8 +1,8 @@
 // rglru_scan: the RG-LRU's diagonal linear recurrence (kernel I).
 //
 // Replaces the Pallas TPU kernel repro/kernels/rglru_scan.py:rglru_scan.
-// a, b (B, S, W) f32 and h0 (B, W) f32 -> h (B, S, W) f32 and h_last (B, W)
-// f32 with h_t = a_t * h_{t-1} + b_t, formed as one fused multiply-add
+// a, b (B, S, W) f32 and h0 (B, W) f32 -> h (B, S, W) f32 with
+// h_t = a_t * h_{t-1} + b_t, formed as one fused multiply-add
 // (__fmaf_rn), as the reference kernel and its oracle form it on the CPU;
 // the library builds with -fmad=false, so no other product is contracted.
 // The result is bit-equal to the plain PyTorch version
@@ -29,9 +29,13 @@
 //   waits on its own groups and no barrier is needed.
 // The host picks the path (kernels/rglru_scan.py:copy_path).  The scan
 // reads UNROLL steps of a and b from shared memory into registers before
-// their FMAs, so only the FMA is on the chain, and writes h with one
-// coalesced 128-byte store per warp and step.  h_last is the carry after
-// step S - 1.
+// their FMAs, so only the FMA is on the chain.  On the TMA path h is
+// staged in one of two tiles in shared memory and written back by a TMA
+// store (clipped at S and W) while the next tile is scanned; on the
+// cp.async path each step is one coalesced 128-byte store per warp.  The
+// carry after step S - 1 is h[:, S - 1], which the wrapper returns as
+// h_last, so it is not written twice.  32 steps per tile, 8 stages and
+// the TMA store were the fastest at the prefill (PERF.md, PR 19).
 #include <climits>
 #include <cstdint>
 
@@ -41,24 +45,14 @@
 
 #include "async_copy.cuh"
 
-#ifndef RGLRU_TS
-#define RGLRU_TS 64
-#endif
-#ifndef RGLRU_STAGES
-#define RGLRU_STAGES 4
-#endif
-#ifndef RGLRU_TMA_STORE
-#define RGLRU_TMA_STORE 0
-#endif
-
 namespace {
 
 constexpr int LANES = 32;              // lanes per block: one warp
-constexpr int TS = RGLRU_TS;           // steps per stage tile
-constexpr int STAGES = RGLRU_STAGES;   // tiles in the ring
+constexpr int TS = 32;                 // steps per stage tile
+constexpr int STAGES = 8;              // tiles in the ring
 constexpr int UNROLL = 8;              // steps read ahead of their FMAs
 constexpr int TILE = TS * LANES;       // floats of one array's stage tile
-constexpr int OUT_BUFS = RGLRU_TMA_STORE ? 2 : 0;
+constexpr int OUT_BUFS = 2;            // h tiles of the TMA store
 constexpr int SMEM_BYTES =
     (2 * STAGES + OUT_BUFS) * TILE * 4 + STAGES * 8 + 128;  // + alignment
 static_assert(TS % UNROLL == 0 && TS <= 256, "TMA boxes hold <= 256 steps");
@@ -92,7 +86,6 @@ __device__ __forceinline__ float scan_tile(const float* A, const float* Bt,
   return h;
 }
 
-#if RGLRU_TMA_STORE
 __device__ __forceinline__ void tma_store_3d(const void* map, const void* src,
                                              int c0, int c1, int c2) {
   asm volatile(
@@ -101,7 +94,6 @@ __device__ __forceinline__ void tma_store_3d(const void* map, const void* src,
       "r"(acopy::smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
-#endif
 
 template <bool TMA>
 __global__ void __launch_bounds__(LANES)
@@ -111,16 +103,13 @@ __global__ void __launch_bounds__(LANES)
                       const float* __restrict__ a,
                       const float* __restrict__ b,
                       const float* __restrict__ h0, int S, int W, int n_tiles,
-                      float* __restrict__ h_out,
-                      float* __restrict__ h_last) {
+                      float* __restrict__ h_out) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base =
       smem_raw + ((128 - (acopy::smem_u32(smem_raw) & 127)) & 127);
   float* ring = reinterpret_cast<float*>(base);  // stage s: a, then b
   float* outs = ring + 2 * STAGES * TILE;        // TMA store buffers
   uint64_t* bars = reinterpret_cast<uint64_t*>(outs + OUT_BUFS * TILE);
-  (void)th;
-  (void)outs;
 
   const int lane = threadIdx.x;
   const int row = blockIdx.x / n_tiles;
@@ -174,7 +163,6 @@ __global__ void __launch_bounds__(LANES)
       acopy::cp_async_wait<STAGES - 1>();
     const float* A = ring + 2 * s * TILE + lane;
     const int steps = min(TS, S - i * TS);
-#if RGLRU_TMA_STORE
     if (TMA) {
       // h staged in one of two tiles, written back by a TMA store (clipped
       // at S and W) while the next tile is scanned
@@ -191,9 +179,9 @@ __global__ void __launch_bounds__(LANES)
         tma_store_3d(&th, so, w0, i * TS, row);
         asm volatile("cp.async.bulk.commit_group;" ::: "memory");
       }
-    } else
-#endif
+    } else {
       h = scan_tile(A, A + TILE, steps, h, o, W, live);
+    }
     o += (long)TS * W;
     __syncwarp();  // every lane has read stage s before it is refilled
     if (!TMA)
@@ -201,11 +189,8 @@ __global__ void __launch_bounds__(LANES)
     else if (lane == 0 && i + STAGES < n)
       issue(i + STAGES);
   }
-#if RGLRU_TMA_STORE
   if (TMA && lane == 0)
     asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-#endif
-  if (live) h_last[(long)row * W + w] = h;
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -248,25 +233,23 @@ int encode(EncodeTiled fn, CUtensorMap* map, const float* p, int B, int S,
 template <bool TMA>
 int launch(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& th,
            const float* a, const float* b, const float* h0, int S, int W,
-           int n_tiles, long blocks, float* h_out, float* h_last,
-           cudaStream_t stream) {
+           int n_tiles, long blocks, float* h_out, cudaStream_t stream) {
   auto kern = rglru_scan_kernel<TMA>;
   static const int e = (int)cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e) return e;
   kern<<<(unsigned)blocks, LANES, SMEM_BYTES, stream>>>(
-      ta, tb, th, a, b, h0, S, W, n_tiles, h_out, h_last);
+      ta, tb, th, a, b, h0, S, W, n_tiles, h_out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // tma != 0 takes the TMA path; the wrapper sets it only where W % 4 == 0
-// and a, b (and h_out) are 16-byte aligned
+// and a, b and h_out are 16-byte aligned
 extern "C" int rglru_scan_launch(const float* a, const float* b,
                                  const float* h0, int B, int S, int W,
-                                 int tma, float* h_out, float* h_last,
-                                 void* stream) {
+                                 int tma, float* h_out, void* stream) {
   const int n_tiles = (W + LANES - 1) / LANES;
   const long blocks = (long)B * n_tiles;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
@@ -274,13 +257,13 @@ extern "C" int rglru_scan_launch(const float* a, const float* b,
   cudaStream_t st = (cudaStream_t)stream;
   if (!tma)
     return launch<false>(ta, tb, th, a, b, h0, S, W, n_tiles, blocks, h_out,
-                         h_last, st);
+                         st);
   EncodeTiled fn = encoder();
   if (fn == nullptr) return ERR_NO_ENCODER;
   int err = encode(fn, &ta, a, B, S, W);
   if (!err) err = encode(fn, &tb, b, B, S, W);
-  if (!err && RGLRU_TMA_STORE) err = encode(fn, &th, h_out, B, S, W);
+  if (!err) err = encode(fn, &th, h_out, B, S, W);
   if (err) return err;
   return launch<true>(ta, tb, th, a, b, h0, S, W, n_tiles, blocks, h_out,
-                      h_last, st);
+                      st);
 }

@@ -33,9 +33,9 @@ from . import _build
 launches = 0
 
 #: lanes per block (one warp) and steps per stage tile, as
-#: ``csrc/rglru_scan.cu`` has them (``LANES``, ``RGLRU_TS``)
+#: ``csrc/rglru_scan.cu`` has them (``LANES``, ``TS``)
 LANES = 32
-STEP_TILE = 64
+STEP_TILE = 32
 
 
 def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor,
@@ -90,7 +90,7 @@ def _kernel():
     if fn is None:
         fn = _build.load("rglru_scan").rglru_scan_launch
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         _FN["launch"] = fn
     return fn
@@ -99,7 +99,7 @@ def _kernel():
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     """``(h (B, S, W), h_last (B, W))`` f32.  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel (inputs cast to f32 and made
-    contiguous)."""
+    contiguous), and ``h_last`` is then the view ``h[:, -1]``."""
     global launches
     _check(a, b, h0)
     if a.device.type == "cpu":
@@ -107,17 +107,16 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: unsupported device {a.device}")
     B, S, W = a.shape
-    a = a.to(torch.float32).contiguous()
-    b = b.to(torch.float32).contiguous()
-    h0 = h0.to(torch.float32).contiguous()
+    if not (a.dtype == b.dtype == h0.dtype == torch.float32
+            and a.is_contiguous() and b.is_contiguous()
+            and h0.is_contiguous()):
+        a, b, h0 = (t.to(torch.float32).contiguous() for t in (a, b, h0))
     h = torch.empty((B, S, W), dtype=torch.float32, device=a.device)
     if h.numel() == 0:
         return h, h0.clone()
-    h_last = torch.empty((B, W), dtype=torch.float32, device=a.device)
     tma = copy_path(W, a.data_ptr(), b.data_ptr(), h.data_ptr()) == "tma"
     err = _kernel()(a.data_ptr(), b.data_ptr(), h0.data_ptr(), B, S, W,
-                    int(tma), h.data_ptr(), h_last.data_ptr(),
-                    _build.stream_handle(a.device))
+                    int(tma), h.data_ptr(), _build.stream_handle(a.device))
     _build.check(err, "rglru_scan")
     launches += 1
-    return h, h_last
+    return h, h[:, -1]

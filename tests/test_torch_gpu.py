@@ -842,11 +842,12 @@ def test_rglru_scan_kernel_matches_plain(cuda):
 # past it; B * W / 32 lane tiles below and above the card's 132 SMs
 RGLRU_PATH_CASES = [
     (1, 100, 4096, 0, "tma"), (3, 70, 4096, 0, "tma"),
-    (2, 65, 4100, 0, "tma"), (1, 1, 4096, 0, "tma"),
-    (2, 17, 4096, 0, "tma"), (1, 64, 4096, 0, "tma"),
-    (3, 129, 53, 0, "cp.async"), (2, 65, 33, 0, "cp.async"),
-    (1, 100, 4096, 1, "cp.async"), (5, 1, 33, 0, "cp.async"),
-    (1, 17, 4096, 1, "cp.async"), (9, 64, 4096, 1, "cp.async"),
+    (2, 33, 4100, 0, "tma"), (1, 1, 4096, 0, "tma"),
+    (2, 17, 4096, 0, "tma"), (1, 32, 4096, 0, "tma"),
+    (1, 300, 4100, 0, "tma"), (3, 129, 53, 0, "cp.async"),
+    (2, 33, 33, 0, "cp.async"), (1, 100, 4096, 1, "cp.async"),
+    (5, 1, 33, 0, "cp.async"), (1, 17, 4096, 1, "cp.async"),
+    (9, 64, 4096, 1, "cp.async"),
 ]
 
 

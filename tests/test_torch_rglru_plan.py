@@ -23,7 +23,7 @@ SRC = (Path(RS.__file__).parent / "csrc" / "rglru_scan.cu").read_text()
 
 
 def test_constants_match_the_kernel():
-    assert int(re.search(r"#define RGLRU_TS (\d+)", SRC).group(1)) \
+    assert int(re.search(r"constexpr int TS = (\d+);", SRC).group(1)) \
         == RS.STEP_TILE
     assert int(re.search(r"constexpr int LANES = (\d+);", SRC).group(1)) \
         == RS.LANES == 32
@@ -56,8 +56,8 @@ def test_copy_path_of_tensor_views(offset):
     assert RS.copy_path(W, a.data_ptr()) == want
 
 
-@pytest.mark.parametrize("S,W", [(1, 1), (7, 53), (63, 33), (64, 32),
-                                 (65, 4100), (4096, 4096), (512, 4096),
+@pytest.mark.parametrize("S,W", [(1, 1), (7, 53), (31, 33), (32, 32),
+                                 (33, 4100), (4096, 4096), (512, 4096),
                                  (1030, 4100)])
 def test_tile_plan_covers_once(S, W):
     steps, lanes = RS.tile_plan(S, W)

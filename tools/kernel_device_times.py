@@ -224,6 +224,12 @@ def kernel_d(dev) -> None:
                 lambda: L1.l1_topk2(x, c))
 
 
+def _stream(dev):
+    from repro_torch.kernels import _build
+
+    return _build.stream_handle(dev)
+
+
 def _bound_ms(nbytes: float) -> float:
     return nbytes / chip_smoke.PEAK_BYTES_S * 1e3
 
@@ -246,6 +252,15 @@ def kernel_e(dev) -> None:
         bound = _bound_ms(n * d * 4 + 2 * k * d * 4 + B * 4)
         print(f"  {label}: {ms:.5f} ms per call (CUDA events, 200 calls), "
               f"device {dev_ms:.5f}, bound {bound:.6f} ms (bytes)")
+        if hasattr(CU, "_kernel"):   # the wrapper's host work
+            out = torch.empty_like(c)
+            stream = _stream(dev)
+            launch = lambda: CU._kernel()(  # noqa: E731
+                c.data_ptr(), x.data_ptr(), a.data_ptr(), B, k, d, 32.0,
+                out.data_ptr(), stream)
+            print(f"  {label} host us per call: whole call "
+                  f"{host_us(lambda: CU.centroid_update(c, x, a, 32.0)):.2f}"
+                  f", the ctypes launch alone {host_us(launch):.2f}")
 
 
 def kernel_i(dev) -> None:
@@ -257,9 +272,21 @@ def kernel_i(dev) -> None:
         ms = chip_smoke._ms(lambda: RS.rglru_scan(a, b, h0), dev, reps=50)
         label = f"I (B={B} S={S} W={W})"
         dev_ms = profile(label, lambda: RS.rglru_scan(a, b, h0), calls=50)
-        bound = _bound_ms(4 * (3 * B * S * W + 2 * B * W))
+        bound = _bound_ms(4 * (3 * B * S * W + B * W))
         print(f"  {label}: {ms:.5f} ms per call (CUDA events, 50 calls), "
               f"device {dev_ms:.5f}, bound {bound:.6f} ms (bytes)")
+        if hasattr(RS, "_kernel") and S <= 512:
+            # the wrapper's host work, where the card keeps up with it
+            h = torch.empty_like(a)
+            stream = _stream(dev)
+            launch = lambda: RS._kernel()(  # noqa: E731
+                a.data_ptr(), b.data_ptr(), h0.data_ptr(), B, S, W, 1,
+                h.data_ptr(), stream)
+            steps = (("whole call", lambda: RS.rglru_scan(a, b, h0)),
+                     ("torch.empty of h", lambda: torch.empty_like(a)),
+                     ("the ctypes launch (3 TMA maps encoded)", launch))
+            print(f"  {label} host us per call: " + "; ".join(
+                f"{name} {host_us(fn, calls=500):.2f}" for name, fn in steps))
 
 
 def tune_call(dev) -> None:
