@@ -594,10 +594,6 @@ def _cu_phase(device, scale: Scale, rng) -> dict:
         ms = _ms(lambda: CU.centroid_update(c, x, a, 32.0), device)
         dev_ms = _kernel_ms(lambda: CU.centroid_update(c, x, a, 32.0),
                             device, "centroid_update_kernel")
-        if device.type == "cuda" and dev_ms != dev_ms:  # the profiler lost
-            # the launches: back to back on a spinning card instead
-            dev_ms = _busy_ms(lambda: CU.centroid_update(c, x, a, 32.0),
-                              device, reps=20)
         plain_ms = _ms(lambda: CU.centroid_update_plain(c, x, a, 32.0),
                        device, reps=1, warmup=0)
         valid = a >= 0

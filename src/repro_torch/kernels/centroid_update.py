@@ -22,18 +22,19 @@ the kernel body as one XLA program):
   2,048 rows with ``k = 2`` and ``4`` clusters and ``F <= 128`` features;
   there it is bit-exact.  With one cluster (``k = 1``) the one-hot
   matmul is one sequential sum over all rows in row order (probed at
-  392-4,096 rows, ``F`` 6 and 300).  Once ``B * k`` passes about 8,900 (on 8 CPUs;
-  about 16,000 on 2), the reference reduces in a threaded tree that
+  392-4,096 rows, ``F`` 6 and 300).  Once ``B * k`` passes about 8,900
+  (on 8 CPUs; about 16,000 on 2), the reference reduces in a threaded tree that
   depends on the CPUs the process may use; on one CPU it keeps this order
   (``tools/centroid_order_gap.py``; ROADMAP Queue 3).
 
 The CUDA kernel (``csrc/centroid_update.cu``) makes one pass over the
-assigned rows: one thread per column sorts each chunk of
-:data:`CHUNK_ROWS` rows by cluster (row order kept within a cluster),
-walks that list once with one running sum per cluster, and folds each
-row block's sum at :func:`block_end` as the reference adds its block
-sums — a deterministic reduction, no float atomics; the plain version
-below is the same arithmetic, so the two agree bit for bit.
+assigned rows: one block per 32 columns sorts each chunk of
+:data:`CHUNK_ROWS` rows by cluster (row order kept within a cluster), and
+one warp per cluster walks its rows once, one lane per column, with one
+running sum that takes each row block's sum at :func:`block_end` as the
+reference adds its block sums — a deterministic reduction, no float
+atomics; the plain version below is the same arithmetic, so the two
+agree bit for bit.
 """
 from __future__ import annotations
 
@@ -150,11 +151,11 @@ def centroid_update(centroids: torch.Tensor, x: torch.Tensor,
     (contiguous inputs, ``k <= MAX_K``)."""
     global launches
     _check(centroids, x, assign)
-    if centroids.device.type == "cpu":
+    dev = centroids.device
+    if dev.type == "cpu":
         return centroid_update_plain(centroids, x, assign, weight)
-    if centroids.device.type != "cuda":
-        raise ValueError(f"centroid_update: unsupported device "
-                         f"{centroids.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"centroid_update: unsupported device {dev}")
     if not (centroids.is_contiguous() and x.is_contiguous()
             and assign.is_contiguous()):
         raise ValueError("centroid_update: the kernel takes contiguous "
@@ -168,7 +169,7 @@ def centroid_update(centroids: torch.Tensor, x: torch.Tensor,
         return out
     err = _kernel()(centroids.data_ptr(), x.data_ptr(), assign.data_ptr(),
                     x.shape[0], k, d, float(weight), out.data_ptr(),
-                    _build.stream_handle(centroids.device))
+                    _build.stream_handle(dev))
     _build.check(err, "centroid_update")
     launches += 1
     return out

@@ -1,10 +1,13 @@
-// Asynchronous copies into shared memory for kernels I (rglru_scan.cu) and
-// E (centroid_update.cu): 4-byte cp.async with commit groups, mbarriers,
-// and 3-D TMA tiles (cp.async.bulk.tensor) with completion on an mbarrier.
+// Asynchronous copies into shared memory for kernels E (centroid_update.cu),
+// G (flash_attn.cu) and I (rglru_scan.cu): 4-byte cp.async with commit
+// groups, mbarriers, 3-D TMA tiles (cp.async.bulk.tensor) with completion
+// on an mbarrier, and the host's TMA encoder.
 #pragma once
 #include <cstdint>
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 
 namespace acopy {
 
@@ -81,5 +84,26 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
       "r"(c1), "r"(c2)
       : "memory");
 }
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which the process has loaded
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    if (h != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+constexpr int ERR_NO_ENCODER = 1000;  // libcuda has no TMA encoder
+constexpr int ERR_ENCODE = 2000;      // + the encoder's CUresult
 
 }  // namespace acopy

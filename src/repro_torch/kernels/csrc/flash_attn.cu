@@ -54,11 +54,11 @@
 // softmax takes p = 1 on every key, so acc is the sum of v, and l becomes
 // the reference's padded key count.  Ragged edges are masked in the
 // kernel, never padded in memory.  No library attention or matmul.
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <stdint.h>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -300,43 +300,10 @@ int launch_simt(const void* q, const void* k, const void* v, int B, int S,
 // bf16: tensor-core kernel (TMA, mbarriers, wgmma)
 // --------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival that also announces the bytes the TMA copies will deliver
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait for the phase of parity ``parity`` to complete.  A wait that never
-// completes (a load that was never issued) traps after ~2^26 polls instead
-// of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
+using acopy::mbar_expect_tx;
+using acopy::mbar_init;
+using acopy::mbar_wait;
+using acopy::smem_u32;
 
 // a 4-D TMA box (coordinates innermost first) into shared memory
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
@@ -704,26 +671,10 @@ __global__ void __launch_bounds__(TcShape<HDP>::THREADS, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, which the process has loaded
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
-    if (h != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-constexpr int ERR_NO_ENCODER = 1000;  // libcuda has no TMA encoder
-constexpr int ERR_ENCODE = 2000;      // + the encoder's CUresult
+using acopy::encoder;
+using acopy::EncodeTiled;
+using acopy::ERR_ENCODE;
+using acopy::ERR_NO_ENCODER;
 
 // A bf16 tensor (d3, d2, d1, hd) row-major as a 4-D TMA map whose box is
 // 64 columns x b1 x b2 x 1, 128-byte swizzle, zeros out of bounds.

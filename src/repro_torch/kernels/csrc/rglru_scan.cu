@@ -39,9 +39,7 @@
 #include <climits>
 #include <cstdint>
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 
 #include "async_copy.cuh"
 
@@ -193,26 +191,7 @@ __global__ void __launch_bounds__(LANES)
     asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, which the process has loaded
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
-    if (h != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-constexpr int ERR_NO_ENCODER = 1000;  // libcuda has no TMA encoder
-constexpr int ERR_ENCODE = 2000;      // + the encoder's CUresult
+using acopy::EncodeTiled;
 
 // an f32 tensor (B, S, W) row-major as a 3-D TMA map whose box is 32 lanes
 // x TS steps x 1 row, no swizzle, zeros out of bounds
@@ -227,7 +206,7 @@ int encode(EncodeTiled fn, CUtensorMap* map, const float* p, int B, int S,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
+  return r == CUDA_SUCCESS ? 0 : acopy::ERR_ENCODE + (int)r;
 }
 
 template <bool TMA>
@@ -258,8 +237,8 @@ extern "C" int rglru_scan_launch(const float* a, const float* b,
   if (!tma)
     return launch<false>(ta, tb, th, a, b, h0, S, W, n_tiles, blocks, h_out,
                          st);
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return ERR_NO_ENCODER;
+  EncodeTiled fn = acopy::encoder();
+  if (fn == nullptr) return acopy::ERR_NO_ENCODER;
   int err = encode(fn, &ta, a, B, S, W);
   if (!err) err = encode(fn, &tb, b, B, S, W);
   if (!err) err = encode(fn, &th, h_out, B, S, W);

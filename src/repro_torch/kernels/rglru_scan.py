@@ -102,21 +102,19 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     contiguous), and ``h_last`` is then the view ``h[:, -1]``."""
     global launches
     _check(a, b, h0)
-    if a.device.type == "cpu":
+    dev = a.device
+    if dev.type == "cpu":
         return rglru_scan_plain(a, b, h0)
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru_scan: unsupported device {a.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"rglru_scan: unsupported device {dev}")
     B, S, W = a.shape
-    if not (a.dtype == b.dtype == h0.dtype == torch.float32
-            and a.is_contiguous() and b.is_contiguous()
-            and h0.is_contiguous()):
-        a, b, h0 = (t.to(torch.float32).contiguous() for t in (a, b, h0))
-    h = torch.empty((B, S, W), dtype=torch.float32, device=a.device)
+    a, b, h0 = (t.to(torch.float32).contiguous() for t in (a, b, h0))
+    h = torch.empty_like(a)
     if h.numel() == 0:
         return h, h0.clone()
     tma = copy_path(W, a.data_ptr(), b.data_ptr(), h.data_ptr()) == "tma"
     err = _kernel()(a.data_ptr(), b.data_ptr(), h0.data_ptr(), B, S, W,
-                    int(tma), h.data_ptr(), _build.stream_handle(a.device))
+                    int(tma), h.data_ptr(), _build.stream_handle(dev))
     _build.check(err, "rglru_scan")
     launches += 1
     return h, h[:, -1]
