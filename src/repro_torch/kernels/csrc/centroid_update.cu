@@ -36,7 +36,7 @@
 // row indices and values are read into registers before the stage's adds,
 // so only the add chain is serial.  x is read once, and only its assigned
 // rows.  8 warps and 8 stages of 8 rows were the fastest of the layouts
-// measured (PERF.md, PR 19).
+// measured (PERF.md §6).
 #include <cstdint>
 
 #include <cuda_runtime.h>

@@ -35,7 +35,7 @@
 // cp.async path each step is one coalesced 128-byte store per warp.  The
 // carry after step S - 1 is h[:, S - 1], which the wrapper returns as
 // h_last, so it is not written twice.  32 steps per tile, 8 stages and
-// the TMA store were the fastest at the prefill (PERF.md, PR 19).
+// the TMA store were the fastest at the prefill (PERF.md §6).
 #include <climits>
 #include <cstdint>
 
