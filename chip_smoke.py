@@ -8,7 +8,8 @@ Phases, each printing one line (any failure exits non-zero):
 1. the card's name and power limit (``nvidia-smi``), then the build of every
    CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one
    process per source, all started together); every instance of kernels
-   B, C, E and I must build with no stack frame and no spills;
+   B, C, E, F and I must build with no stack frame and no spills (F's
+   instances also print their registers);
 2. the k-means kernels ``l1_topk2`` and ``centroid_update`` at the serve
    path's shapes (``centroid_update`` also at k = 8, d = 8,192 with 1,024
    rows all assigned), each held bit for bit against its plain PyTorch
@@ -43,8 +44,10 @@ Phases, each printing one line (any failure exits non-zero):
    phase and read after it (kernels A, B);
 5. kernel F ``pairwise_l1`` held bit for bit against its plain version at
    the forecaster's first-batch shape (256 x 256 x 6), at a ``d`` that
-   spans two blocks (33 x 17 x 1,100) and at 4,096 x 4,096 x 512, with
-   times, ``torch.cdist(p=1)`` as the one-call yardstick, and the bound;
+   spans two blocks (33 x 17 x 1,100), at 1,000 x 1,000 x 64 (the 64
+   tile) and at 4,096 x 4,096 x 512, with times (CUDA events, and the
+   device time per launch by ``_busy_ms``), ``torch.cdist(p=1)`` as the
+   one-call yardstick, and the bound;
 6. offline tuning, the ``examples/adapt_tune.py`` problem at a size its
    users tune with: three harvesters x seeds 0-15 (48 cells), 30 s at
    dt = 25 ms, driver ``es`` with budget 128 and population 16, so 768
@@ -235,7 +238,8 @@ FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
              etas=(0.2, 0.5, 0.71, 0.9, 1.0),
              capacitors_f=(0.01, 0.025, 0.05, 0.1, 0.2), seeds=16,
              big_seeds=160, cpu_check_steps=300, cpu_check_devices=64,
-             pw_shapes=((256, 256, 6), (33, 17, 1100), (4096, 4096, 512)),
+             pw_shapes=((256, 256, 6), (33, 17, 1100), (1000, 1000, 64),
+                        (4096, 4096, 512)),
              tune_seeds=16, tune_horizon=30.0, tune_budget=128, tune_pop=16,
              demo_horizon=318.0, demo_grid=10, fleet_devices=256,
              cpu_check_s=106.0, check_gains=True,
@@ -449,6 +453,26 @@ def _flash_registers(log: str) -> dict:
     return found
 
 
+def _pw_registers(log: str) -> dict:
+    """Kernel F's instances in a ``-Xptxas -v`` log: ``{(BM, BN,
+    three-level fold): registers}`` of each ``pairwise_l1_kernel<BM, BN,
+    MULTI>``."""
+    import re
+
+    found, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '\S*pairwise_l1_kernelILi(\d+)ELi"
+                      r"(\d+)ELb([01])E", line)
+        if m:
+            entry = (int(m.group(1)), int(m.group(2)), m.group(3) == "1")
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            found[entry] = int(m.group(1))
+            entry = None
+    return found
+
+
 def _stack_frames(log: str) -> dict:
     """``{entry function: (stack frame bytes, spill store bytes)}`` from a
     ``-Xptxas -v`` log."""
@@ -487,15 +511,21 @@ def _build_phase() -> None:
     for (path, hdp), regs in sorted(FLASH_REGISTERS.items()):
         print(f"  flash_attention {path} instance, head dim padded to {hdp}: "
               f"{regs}")
-    # kernels B and C keep their carry in registers, I its carry and E its
-    # running sums: no instance may need a stack (the log of this build,
-    # or the one kept beside a cached library)
+    pw_log = _build.build_log("pairwise_l1")
+    for (bm, bn, multi), regs in sorted(_pw_registers(pw_log).items()):
+        print(f"  pairwise_l1 instance, {bm} x {bn} tile"
+              f"{', three-level fold' if multi else ''}: {regs} registers")
+    # kernels B and C keep their carry in registers, I its carry, E its
+    # running sums and F its chains and fold sums: no instance may need a
+    # stack (the log of this build, or the one kept beside a cached
+    # library)
     for kernel, lib, entry, n in (
             ("fleet_fused_steps", "fleet_fused", "fleet_fused_kernel", 4),
             ("serve_fused_steps", "serve_fused", "serve_fused_kernel", 4),
             ("rglru_scan", "rglru_scan", "rglru_scan_kernel", 2),
             ("centroid_update", "centroid_update", "centroid_update_kernel",
-             1)):
+             1),
+            ("pairwise_l1", "pairwise_l1", "pairwise_l1_kernel", 4)):
         frames = _stack_frames(_build.build_log(lib))
         print(f"  {kernel} functions (stack frame, spill stores in bytes): "
               f"{json.dumps(frames)}")
@@ -1175,7 +1205,9 @@ def _fused_check(device, cfg, statics, FS, init_fleet) -> dict:
 def _pw_phase(device, scale: Scale, rng) -> dict:
     """Kernel F at the shapes of ``scale.pw_shapes``, each held bit for bit
     against its plain version; times at the main path's shape (the fleet
-    forecast arm's first window batch) and at the largest shape."""
+    forecast arm's first window batch) and at the largest shape: CUDA
+    events around wrapper calls, and the device time per launch
+    (``_busy_ms``: launches enqueued while the card spins)."""
     import torch
 
     from repro_torch.kernels import pairwise_l1 as PW
@@ -1197,15 +1229,20 @@ def _pw_phase(device, scale: Scale, rng) -> dict:
         x, y = pair(B1, B2, d)
         big = B1 * B2 * d > 1 << 26
         ms = _ms(lambda: PW.pairwise_l1(x, y), device)
+        dev_ms = _busy_ms(lambda: PW.pairwise_l1(x, y), device,
+                          reps=5 if big else 20)
         plain_ms = _ms(lambda: PW.pairwise_l1_plain(x, y), device,
                        reps=3 if big else 20, warmup=1)
         lib_ms = _ms(lambda: torch.cdist(x, y, p=1), device)
         bound_ms, by = _bound(_nbytes(x, y) + B1 * B2 * 4, 3.0 * B1 * B2 * d)
-        print(f"pairwise_l1 ({B1} x {B2} x {d}): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, cdist(p=1) {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.6f} ms ({by})")
-        return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                    bound_ms=bound_ms, bound_by=by, shape=f"{B1} x {B2} x {d}")
+        tile = PW.tile_plan(B1, B2, min(512, d))
+        print(f"pairwise_l1 ({B1} x {B2} x {d}, {tile} tile): kernel "
+              f"{ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} "
+              f"ms, cdist(p=1) {lib_ms:.4f} ms, bound {bound_ms:.6f} ms "
+              f"({by})")
+        return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
+                    shape=f"{B1} x {B2} x {d}")
 
     print(f"pairwise_l1: bit-equal to plain at {list(scale.pw_shapes)}")
     row = times(*scale.pw_shapes[0])

@@ -1,7 +1,8 @@
 // Asynchronous copies into shared memory for kernels E (centroid_update.cu),
-// G (flash_attn.cu) and I (rglru_scan.cu): 4-byte cp.async with commit
-// groups, mbarriers, 3-D TMA tiles (cp.async.bulk.tensor) with completion
-// on an mbarrier, and the host's TMA encoder.
+// F (pairwise_l1.cu), G (flash_attn.cu) and I (rglru_scan.cu): 4- and
+// 16-byte cp.async with commit groups, mbarriers, 3-D TMA tiles
+// (cp.async.bulk.tensor) with completion on an mbarrier, and the host's TMA
+// encoder.
 #pragma once
 #include <cstdint>
 
@@ -19,6 +20,16 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// one 16-byte copy (dst and src 16-byte aligned); src_bytes 0 reads
+// nothing and writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");

@@ -1,6 +1,6 @@
 // The L1 summation order of the reference, shared by the l1_topk2 kernel
 // (D, l1_topk2.cu), the fused serve kernel's classify (C, serve_fused.cu)
-// and pairwise_l1.cu.
+// and pairwise_l1.cu (F).
 //
 // Summation order.  Every L1 distance is summed in ONE fixed order, the order
 // the reference (XLA on the CPU) uses for a float sum over an axis longer
@@ -12,15 +12,13 @@
 // (repro_torch.kernels.l1_topk2.ordered_sum) takes the same order, so kernels
 // and plain versions agree bit for bit.  Build with -fmad=false.
 //
-// Two forms of the order:
-//   * window-parallel (D and C): each level-0 window is its own chain
-//     (l1_chain), summed from a tile staged in shared memory with each
-//     window at a stride of L1_SLOT floats; a centroid's window sums then
-//     fold into its distance in window order (L1Fold), and the top-2 runs
-//     over the distances in centroid order (L1Top2).  The levels come from
-//     kernels/l1_topk2.py:window_plan (L1Plan).
-//   * streamed (pairwise_l1.cu): OrderedSum takes the elements one by one
-//     in index order and tracks which window each falls into.
+// Each level-0 window is its own chain (D and C: l1_chain, summed from a
+// tile staged in shared memory with each window at a stride of L1_SLOT
+// floats; F: register tiles over staged windows); a centroid's (or an
+// output's) window sums then fold into its distance in window order
+// (L1Fold), and the top-2 runs over the distances in centroid order
+// (L1Top2).  The levels come from kernels/l1_topk2.py:window_plan
+// (L1Plan).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,56 +26,6 @@
 #define L1_POS 1e30f   // second-minimum mask value of the reference
 #define L1_WIN 32      // window of the reference's tree reduction
 #define L1_SLOT 33     // staged floats per window: 32 + 1 against bank conflicts
-#define L1_MAX_LEVELS 3
-
-struct OrderedSum {
-  int nwin;                 // windowed levels (0: plain sequential sum)
-  int lo[L1_MAX_LEVELS];    // front padding of each windowed level
-  int cur[L1_MAX_LEVELS];   // window currently being summed at each level
-  float acc[L1_MAX_LEVELS];
-  float top;
-
-  __device__ explicit OrderedSum(int n) : nwin(0), top(0.f) {
-    int m = n;
-    while (m > L1_WIN && nwin < L1_MAX_LEVELS) {
-      int pad = (L1_WIN - m % L1_WIN) % L1_WIN;
-      lo[nwin] = pad / 2;
-      cur[nwin] = 0;
-      acc[nwin] = 0.f;
-      m = (m + pad) / L1_WIN;
-      ++nwin;
-    }
-  }
-
-  // Add element i of level l (level 0 = the input axis).
-  __device__ void add(int l, int i, float v) {
-    while (true) {
-      if (l == nwin) {
-        top = top + v;
-        return;
-      }
-      int w = (i + lo[l]) / L1_WIN;
-      if (w == cur[l]) {
-        acc[l] = acc[l] + v;
-        return;
-      }
-      // element i opens the next window: the finished window's sum is the
-      // next element of level l + 1
-      float up = acc[l];
-      int up_i = cur[l];
-      acc[l] = 0.f + v;
-      cur[l] = w;
-      l += 1;
-      i = up_i;
-      v = up;
-    }
-  }
-
-  __device__ float finish() {
-    for (int l = 0; l < nwin; ++l) add(l + 1, cur[l], acc[l]);
-    return top;
-  }
-};
 
 // The levels of the order over d terms, as kernels/l1_topk2.py:window_plan
 // gives them: nwin windowed levels (0: d <= 32, one window), lo<l> the

@@ -287,13 +287,27 @@ def test_flash_attention_bf16_rejects_what_the_tensor_cores_do_not_take(
 PW_CASES = [(1, 1, 1, 512), (1, 37, 6, 512), (16, 16, 6, 512),
             (256, 256, 6, 512), (37, 23, 101, 64), (33, 17, 1100, 512),
             (48, 72, 200, 512), (19, 1, 513, 512), (130, 97, 33, 512),
-            (7, 5, 2000, 300)]
+            (7, 5, 2000, 300), (1000, 1000, 64, 512), (1000, 999, 6, 512),
+            (1500, 1500, 20, 512), (1601, 1499, 45, 40), (9, 5, 1100, 2048),
+            (3, 2, 33000, 40000), (5, 6, 2200, 2048)]
+
+
+def _pw_equal(a, b):
+    """Bit for bit, NaN where the other has NaN (the card's NaN is one
+    canonical pattern in both versions)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a.masked_fill(nan, 0).view(torch.int32),
+        b.masked_fill(nan, 0).view(torch.int32))
 
 
 def test_pairwise_l1_kernel_matches_plain(cuda):
     """Kernel F == its plain version bit for bit at odd sizes, B1 = 1, a
-    two-block ``d`` and the forecaster's shape, one launch per call."""
+    two-block ``d``, the forecaster's shape, every tile instance (128 x
+    128, 64 x 64, 32 x 32 and the three-level fold at ``bd`` > 1,024) on
+    both copy paths, and window levels 0 to 3, one launch per call."""
     rng = np.random.default_rng(3)
+    paths, levels = set(), set()
     for B1, B2, d, bd in PW_CASES:
         x = torch.from_numpy(rng.normal(size=(B1, d)).astype(np.float32))
         y = torch.from_numpy(rng.normal(size=(B2, d)).astype(np.float32))
@@ -304,8 +318,54 @@ def test_pairwise_l1_kernel_matches_plain(cuda):
         assert PW.launches == n0 + 1
         assert torch.equal(out, PW.pairwise_l1_plain(x, y, block_d=bd)), (
             B1, B2, d, bd)
+        nwin = L1.window_plan(min(bd, d))[0]
+        tile = (PW.tile_plan(B1, B2, min(bd, d)), nwin >= 2)
+        paths.add(tile + (PW.copy_path(d, min(bd, d), x.data_ptr(),
+                                       y.data_ptr()),))
+        levels.add((tile[0], min(nwin, 2)))
+    assert paths == {(t, m, p) for t, m in ((128, False), (64, False),
+                                            (32, False), (64, True))
+                     for p in ("16-byte", "4-byte")}
+    assert levels == {(128, 0), (128, 1), (64, 0), (64, 1), (32, 0), (32, 1),
+                      (64, 2)}
     same = PW.pairwise_l1(x, x)
     assert torch.equal(same, same.t()) and not bool(same.diagonal().any())
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_pairwise_l1_kernel_offset_views_match_plain(cuda, offset):
+    """Contiguous views that start off 16 bytes take the 4-byte copies
+    (``offset`` 4 floats is aligned again and takes the 16-byte ones)."""
+    rng = np.random.default_rng(offset)
+    B1, B2, d = 300, 200, 64
+    buf = torch.from_numpy(rng.normal(size=(B1 + B2) * d + offset).astype(
+        np.float32)).to(cuda)
+    x = buf[offset:offset + B1 * d].view(B1, d)
+    y = buf[offset + B1 * d:].view(B2, d)
+    want = "4-byte" if offset % 4 else "16-byte"
+    assert PW.copy_path(d, d, x.data_ptr(), y.data_ptr()) == want
+    assert torch.equal(PW.pairwise_l1(x, y), PW.pairwise_l1_plain(x, y))
+
+
+@pytest.mark.parametrize("B1,B2,d,bd", [(256, 256, 6, 512),
+                                        (1000, 1000, 64, 512),
+                                        (1601, 1499, 45, 40),
+                                        (9, 5, 1100, 2048)])
+def test_pairwise_l1_kernel_nan_and_inf_match_plain(cuda, B1, B2, d, bd):
+    """NaN, +inf and -inf in x and y (inf - inf is NaN; inf - finite is
+    inf) give the plain version's outputs on every tile instance."""
+    rng = np.random.default_rng(B1 + d)
+    x = rng.normal(size=(B1, d)).astype(np.float32)
+    y = rng.normal(size=(B2, d)).astype(np.float32)
+    for a in (x, y):      # about one row in four holds each value
+        flat = a.reshape(-1)
+        for v in (np.nan, np.inf, -np.inf):
+            flat[rng.random(flat.size) < 0.25 / d] = v
+    x, y = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+    out = PW.pairwise_l1(x, y, block_d=bd)
+    ref = PW.pairwise_l1_plain(x, y, block_d=bd)
+    assert bool(torch.isnan(ref).any()) and bool(torch.isinf(ref).any())
+    assert _pw_equal(out, ref)
 
 
 def test_kernel_wrappers_reject_what_they_do_not_take(cuda):

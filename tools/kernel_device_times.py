@@ -1,7 +1,6 @@
-"""Device time per launch of kernels A, B, C, D, E, G, H and I, from the
-profiler.
+"""Device time per launch of kernels A-I, from the profiler.
 
-    PYTHONPATH=src python tools/kernel_device_times.py [--only E,I]
+    PYTHONPATH=src python tools/kernel_device_times.py [--only E,F,I]
 
 CUDA-event times of a wrapper call (``chip_smoke.py``) include the host
 work between launches: at small sizes the card waits on the wrapper.
@@ -27,6 +26,14 @@ their sum, and the host-clock time per call:
 * E ``centroid_update``: the shared-bank adaptation's shape (k = 5, d =
   8,192, B = 64, about a quarter of the rows assigned) and k = 8, d =
   8,192, B = 1,024 with every row assigned (x 32 MB), each with its bound;
+* F ``pairwise_l1`` at ``chip_smoke.py``'s first and last ``pw_shapes``
+  (the forecaster's 256 x 256 x 6 and 4,096 x 4,096 x 512), and the
+  large shape again from views that start off 16 bytes (the kernel's
+  4-byte copies), each with its CUDA-event time, its bound
+  (``chip_smoke._bound``: 3 f32 operations per term at 67 TFLOP/s, or
+  the bytes) and its FADD issue floor: 2 FADDs per term over 132 SMs x
+  128 FP32 lanes at the SM clock ``nvidia-smi`` reads while the large
+  shape runs;
 * G ``flash_attention`` in bf16 at its seven shapes, H ``decode_gqa`` at
   its six;
 * I ``rglru_scan`` at the hybrid's prefill (1, 4,096, 4,096) and
@@ -35,14 +42,15 @@ their sum, and the host-clock time per call:
   population block of 16 candidates), with B's share of its host-clock
   time.
 
-E and I touch only the wrappers' public calls and ``chip_smoke._ms`` /
-``_device_ms``, so the script also times an older checkout's E and I when
+E, F and I touch only the wrappers' public calls and ``chip_smoke``'s
+helpers, so the script also times an older checkout's E, F and I when
 copied into it.  Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -59,6 +67,7 @@ from repro_torch.kernels import decode_gqa as DG  # noqa: E402
 from repro_torch.kernels import flash_attn as FA  # noqa: E402
 from repro_torch.kernels import fleet_step as FS  # noqa: E402
 from repro_torch.kernels import l1_topk2 as L1  # noqa: E402
+from repro_torch.kernels import pairwise_l1 as PW  # noqa: E402
 from repro_torch.kernels import rglru_scan as RS  # noqa: E402
 
 CALLS = 20
@@ -263,6 +272,62 @@ def kernel_e(dev) -> None:
                   f", the ctypes launch alone {host_us(launch):.2f}")
 
 
+def _sm_clock_mhz(fn, calls: int) -> float:
+    """The SM clock (MHz) ``nvidia-smi`` reads while ``calls`` calls of
+    ``fn`` run on the card (enqueued first, read before they end)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(calls):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    torch.cuda.synchronize()
+    return float(out.stdout.split()[0])
+
+
+def _offset_copy(a: torch.Tensor) -> torch.Tensor:
+    """``a`` as a contiguous view that starts 4 bytes past 16."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    view = buf[1:].view(a.shape)
+    view.copy_(a)
+    return view
+
+
+def kernel_f(dev) -> None:
+    rng = np.random.default_rng(0)
+    shapes = (chip_smoke.FULL.pw_shapes[0], chip_smoke.FULL.pw_shapes[-1])
+    inputs = [tuple(torch.from_numpy(rng.normal(size=(n, d)).astype(
+        np.float32)).to(dev) for n in (B1, B2)) for B1, B2, d in shapes]
+    xl, yl = inputs[-1]
+    mhz = _sm_clock_mhz(lambda: PW.pairwise_l1(xl, yl), 40)
+    print(f"F: SM clock {mhz:.0f} MHz under load ({shapes[-1]})")
+    runs = list(zip(shapes, inputs))
+    if hasattr(PW, "copy_path"):   # the large shape on the 4-byte copies
+        runs.append((shapes[-1], (_offset_copy(xl), _offset_copy(yl))))
+    for (B1, B2, d), (x, y) in runs:
+        reps = 20 if B1 * B2 * d > 1 << 26 else 200
+        ms = chip_smoke._ms(lambda: PW.pairwise_l1(x, y), dev, reps=reps)
+        kernels, host = chip_smoke._device_ms(
+            lambda: PW.pairwise_l1(x, y), dev, reps)
+        hits = [v for k, v in kernels.items() if "pairwise_l1_kernel" in k]
+        n = sum(c for _, c in hits)
+        dev_ms = sum(t for t, _ in hits) / n if n else float("nan")
+        bound, by = chip_smoke._bound(4 * (B1 * d + B2 * d + B1 * B2),
+                                      3.0 * B1 * B2 * d)
+        floor = 2.0 * B1 * B2 * d / (132 * 128 * mhz * 1e6) * 1e3
+        how = ""
+        if hasattr(PW, "copy_path"):
+            bd = min(512, d)
+            how = (f", {PW.tile_plan(B1, B2, bd)} tile, "
+                   f"{PW.copy_path(d, bd, x.data_ptr(), y.data_ptr())} "
+                   f"copies")
+        print(f"  F ({B1} x {B2} x {d}{how}): {ms:.5f} ms per call (CUDA "
+              f"events, {reps} calls), device {dev_ms:.5f} ms per launch "
+              f"({n} launches seen), host clock {host:.5f} ms per call; "
+              f"bound {bound:.6f} ms ({by}); FADD floor {floor:.6f} ms")
+
+
 def kernel_i(dev) -> None:
     g = torch.Generator(device=dev).manual_seed(5)
     for B, S, W in ((1, 4096, 4096), (2, 512, 4096)):
@@ -336,14 +401,14 @@ def kernel_h(dev) -> None:
 
 
 KERNELS = {"A": kernel_a, "B": kernel_b, "C": kernel_c, "D": kernel_d,
-           "E": kernel_e, "G": kernel_g, "H": kernel_h, "I": kernel_i,
-           "T": tune_call}
+           "E": kernel_e, "F": kernel_f, "G": kernel_g, "H": kernel_h,
+           "I": kernel_i, "T": tune_call}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=",".join(KERNELS),
-                    help="what to time, comma-separated (A,B,C,D,E,G,H,I,T)")
+                    help="what to time, comma-separated (A,B,C,D,E,F,G,H,I,T)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
