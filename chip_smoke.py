@@ -28,6 +28,31 @@ Phases, each printing one line (any failure exits non-zero):
    Kernel C is then timed over the whole horizon (545 steps) at 64 and
    1,024 devices: CUDA events around the wrapper's calls, and its device
    time per launch and per step (``_busy_ms``), with the units completed;
+3a. the §9.2 scalar run (act one of ``examples/intermittent_serving.py``):
+   the event-driven ``ServeEngine`` under edf, rr and zygarde (adaptation
+   on for zygarde), 25 requests per task, each policy's counters and
+   jobs/s; phase 3's fleet live rate must exceed the scalar rate.  The
+   counts are zeroed before and read after: kernel D once per unit the
+   models ran, kernel E once per adaptation;
+3b. the scalar engine == the one-device fleet (``feature_batch=1``) bit
+   for bit on the card, on the clock-commensurate recipe (persistent
+   supply, charged start, dt 50 ms, 0.2 s units, period 2 s, deadline
+   1.5 s, threshold 0.02): units, schedule, predictions and margins for
+   zygarde and edf with adaptation on and off, each §9.2 model as one
+   task; and the same miss sets on the overload recipe (deadline 0.7 s);
+3c. the intermittent substrate: each unit of the CIFAR-100 model cut into
+   4 fragments, one request through them under a weak harvester and a
+   0.02 F capacitor equal, tensor for tensor, to the run under a
+   persistent supply, with reboots;
+3d. the million-job stream: 4,096 devices, each task cycling its 25
+   requests to 123 jobs (1,007,616 jobs), ``run_stream(mode="fused")`` in
+   8 chunks, then the adaptive scan stream in both bank modes on 64
+   devices in 3 chunks (counts zeroed before, read after: kernel C once
+   per chunk); the fused stream equals ``run(mode="fused")`` over the
+   repeated request list on every log field and carry leaf, with both
+   runs' jobs/s, peak memory and table bytes; the scan streams equal
+   phase 3's runs; kernel C equals its plain version on the staged
+   windows of the first chunk (negative ``job0``) and a middle one;
 4. the replay fleet of the same two models as a sweep: job profiles from
    250 test samples per task, policies x eta x capacitor x seed = 1,600
    devices, 255 s at dt = 55 ms.  ``simulate_fleet`` in the ``vmap``,
@@ -123,6 +148,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -138,6 +164,8 @@ PEAK_BF16_S = 989e12
 SRC = "src/repro_torch/kernels/csrc/"
 # the kernels each main path runs
 SERVE_KERNELS = ("serve_fused_steps", "l1_topk2", "centroid_update")
+SCALAR_KERNELS = ("l1_topk2", "centroid_update")
+STREAM_KERNELS = ("serve_fused_steps", "l1_topk2", "centroid_update")
 REPLAY_KERNELS = ("fleet_priority", "fleet_fused_steps")
 TUNE_KERNELS = ("fleet_fused_steps",)
 ONLINE_KERNELS = ("fleet_fused_steps", "l1_topk2", "centroid_update",
@@ -177,6 +205,11 @@ class Scale:
     n_devices: int
     big_devices: int     # second fleet size for the fused kernel's time
     n_segments: int
+    parity_jobs: int     # requests of each scalar == fleet run
+    stream_devices: int  # the stream: devices, jobs per task (the base
+    stream_jobs: int     # requests cycled), chunks, and the fewest jobs
+    stream_chunks: int   # it must release
+    min_stream_jobs: int
     l1_rows: int         # kernel D check: requests x units of both tasks
     l1_dim: int          # selected features S of the serve tables
     l1_k: int            # centroid rows C of the serve bank
@@ -231,6 +264,8 @@ class AnyRun:
 
 FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
              n_requests=25, n_devices=64, big_devices=1024, n_segments=4,
+             parity_jobs=6, stream_devices=4096, stream_jobs=123,
+             stream_chunks=8, min_stream_jobs=1_000_000,
              l1_rows=2 * 25 * 5, l1_dim=150, l1_k=5,
              cu_shape=(5, 8192, 64), cu_wide=(8, 8192, 1024),
              replay_jobs=250,
@@ -275,6 +310,8 @@ def _narrow():
                                 ((4, 5, True), (4, 5, True), (8, 5, True)),
                                 (8,), 2))),
         n_train=48, n_requests=4, n_devices=3, big_devices=5, n_segments=2,
+        parity_jobs=3, stream_devices=3, stream_jobs=20, stream_chunks=4,
+        min_stream_jobs=0,
         l1_rows=2 * 4 * 5, l1_dim=150, l1_k=5, cu_shape=(5, 256, 3),
         cu_wide=(8, 64, 40),
         replay_jobs=6, policies=("zygarde", "rr"), etas=(0.5, 1.0),
@@ -395,6 +432,13 @@ def _busy_ms(fn, device, reps: int = 5, spin_cycles: int = 40_000_000):
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / reps
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _max_err(a, b) -> float:
@@ -536,6 +580,35 @@ def _build_phase() -> None:
                                  f"missing")
 
 
+def _l1_times(device, xx, cc) -> dict:
+    """Kernel D on ``xx`` against ``cc`` (``(k, d)`` shared or ``(B, k, d)``
+    per row): the event time of a call, the profiler's device time per
+    launch, the plain version's and ``cdist`` + ``topk``'s time, and the
+    bound (x and c read, d1, d2 and the index written)."""
+    import torch
+
+    from repro_torch.kernels import l1_topk2 as L1
+
+    k, d = cc.shape[-2:]
+    ms = _ms(lambda: L1.l1_topk2(xx, cc), device)
+    plain_ms = _ms(lambda: L1.l1_topk2_plain(xx, cc), device)
+    cb = cc if cc.dim() == 3 else cc[None]
+    xb = xx[:, None] if cc.dim() == 3 else xx[None]
+
+    def yardstick():
+        dist = torch.cdist(xb, cb, p=1).reshape(xx.shape[0], k)
+        return torch.topk(dist, 2, dim=-1, largest=False)
+
+    lib_ms = _ms(yardstick, device)
+    bound_ms, by = _bound(_nbytes(xx, cc) + xx.shape[0] * 12,
+                          3.0 * xx.shape[0] * k * d)
+    # the kernel's own time on the card, without the wrapper's host work
+    dev_ms = _kernel_ms(lambda: L1.l1_topk2(xx, cc), device,
+                        "l1_topk2_kernel")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
+
+
 def _l1_phase(device, scale: Scale, rng) -> dict:
     """Kernel D at the serve path's classify shapes.  The main path launches
     it only from the scan's ``_classify_rows``: one row per device, each
@@ -563,26 +636,7 @@ def _l1_phase(device, scale: Scale, rng) -> dict:
                 raise AssertionError("l1_topk2 kernel != plain version")
             err = max(err, _max_err(a, b))
 
-    def times(xx, cc):
-        ms = _ms(lambda: L1.l1_topk2(xx, cc), device)
-        plain_ms = _ms(lambda: L1.l1_topk2_plain(xx, cc), device)
-        cb = cc if cc.dim() == 3 else cc[None]
-        xb = xx[:, None] if cc.dim() == 3 else xx[None]
-
-        def yardstick():
-            dist = torch.cdist(xb, cb, p=1).reshape(xx.shape[0], k)
-            return torch.topk(dist, 2, dim=-1, largest=False)
-
-        lib_ms = _ms(yardstick, device)
-        bound_ms, by = _bound(_nbytes(xx, cc) + xx.shape[0] * 12,
-                              3.0 * xx.shape[0] * k * d)
-        # the kernel's own time on the card, without the wrapper's host work
-        dev_ms = _kernel_ms(lambda: L1.l1_topk2(xx, cc), device,
-                            "l1_topk2_kernel")
-        return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                    bound_ms=bound_ms, bound_by=by, library_ms=lib_ms)
-
-    rows, shared = times(x_rows, c_rows), times(x, c)
+    rows, shared = _l1_times(device, x_rows, c_rows), _l1_times(device, x, c)
     for label, r in ((f"per-row centroids, B={D}", rows),
                      (f"shared centroids, B={B}", shared)):
         print(f"l1_topk2 ({label}, d={d}, k={k}): bit-equal to plain; "
@@ -595,14 +649,43 @@ def _l1_phase(device, scale: Scale, rng) -> dict:
                     shared, shape=f"x ({B}, {d}), c ({k}, {d})"))
 
 
+def _cu_times(device, c, x, a) -> dict:
+    """Kernel E on centroids ``c``, rows ``x`` and their clusters ``a``
+    (-1: not assigned), weight 32: the event time of a call, the profiler's
+    device time per launch, the plain version's and ``index_add_``'s time,
+    and the bound (the assigned rows of x, c read and written, assign);
+    printed as one line."""
+    import torch
+
+    from repro_torch.kernels import centroid_update as CU
+
+    (k, d), B = c.shape, x.shape[0]
+    ms = _ms(lambda: CU.centroid_update(c, x, a, 32.0), device)
+    dev_ms = _kernel_ms(lambda: CU.centroid_update(c, x, a, 32.0),
+                        device, "centroid_update_kernel")
+    plain_ms = _ms(lambda: CU.centroid_update_plain(c, x, a, 32.0),
+                   device, reps=1, warmup=0)
+    valid = a >= 0
+    xv, av = x[valid], a[valid].to(torch.int64)
+    lib_ms = _ms(lambda: torch.zeros_like(c).index_add_(0, av, xv), device)
+    n_valid = int(valid.sum())
+    bound_ms, by = _bound(n_valid * d * 4 + 2 * _nbytes(c) + _nbytes(a),
+                          float(n_valid * d + 4 * k * d))
+    print(f"centroid_update (k={k}, d={d}, B={B}, {n_valid} rows "
+          f"assigned): bit-equal to plain; kernel {ms:.4f} ms (device "
+          f"{dev_ms:.5f} ms per launch), plain {plain_ms:.4f} ms, "
+          f"index_add_ {lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({by})")
+    return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
+                shape=f"c ({k}, {d}), x ({B}, {d}), {n_valid} assigned")
+
+
 def _cu_phase(device, scale: Scale, rng) -> dict:
     """Kernel E at the shared-bank adaptation's shape: one (task, unit)
     table of k = 5 centroids at the widest feature width, one row per
     device, most devices not adapting this step (assign = -1); then
     ``scale.cu_wide`` with every row assigned, where x is read once.  Each
-    row: the event time of a call, the profiler's device time per launch,
-    the plain version's and ``index_add_``'s time, and the bound (the
-    assigned rows of x, c read and written, assign)."""
+    row as :func:`_cu_times` gives it."""
     import torch
 
     from repro_torch.kernels import centroid_update as CU
@@ -621,27 +704,8 @@ def _cu_phase(device, scale: Scale, rng) -> dict:
         if not torch.equal(out, ref):
             raise AssertionError(f"centroid_update kernel != plain version "
                                  f"at {(k, d, B)}")
-        ms = _ms(lambda: CU.centroid_update(c, x, a, 32.0), device)
-        dev_ms = _kernel_ms(lambda: CU.centroid_update(c, x, a, 32.0),
-                            device, "centroid_update_kernel")
-        plain_ms = _ms(lambda: CU.centroid_update_plain(c, x, a, 32.0),
-                       device, reps=1, warmup=0)
-        valid = a >= 0
-        xv, av = x[valid], a[valid].to(torch.int64)
-        lib_ms = _ms(lambda: torch.zeros_like(c).index_add_(0, av, xv),
-                     device)
-        n_valid = int(valid.sum())
-        bound_ms, by = _bound(n_valid * d * 4 + 2 * _nbytes(c) + _nbytes(a),
-                              float(n_valid * d + 4 * k * d))
-        print(f"centroid_update (k={k}, d={d}, B={B}, {n_valid} rows "
-              f"assigned): bit-equal to plain; kernel {ms:.4f} ms (device "
-              f"{dev_ms:.5f} ms per launch), plain {plain_ms:.4f} ms, "
-              f"index_add_ {lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({by})")
-        rows.append(dict(max_abs_err=_max_err(out, ref), ms=ms,
-                         device_ms=dev_ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
-                         shape=f"c ({k}, {d}), x ({B}, {d}), {n_valid} "
-                               f"assigned"))
+        rows.append(dict(_cu_times(device, c, x, a),
+                         max_abs_err=_max_err(out, ref)))
     row = dict(rows[0])
     row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     row["shapes"] = rows[1:]
@@ -693,19 +757,31 @@ def _solar():
     return energy.calibrate_harvester(0.71, 0.35, name="solar")
 
 
-def _serve_engine(device, scale: Scale, models, adapt: bool,
-                  bank_mode: str):
-    """The §9.2 serving engine: zygarde, period 1 s, deadline 2 s, 0.22 s
-    and 7 mJ per unit, the solar harvester at eta = 0.71."""
-    from repro_torch.serve import FleetServeEngine, ServeConfig
+def _serve_config(models, policy: str, adapt: bool, n_jobs: int):
+    """The §9.2 serving config: period 1 s, deadline 2 s, 0.22 s and 7 mJ
+    per unit, seed 3, a horizon of ``n_jobs`` releases plus 5 s."""
+    from repro_torch.serve import ServeConfig
 
     u_max = max(m.n_units for m in models)
-    cfg = ServeConfig(policy="zygarde", period=1.0, deadline=2.0,
-                      horizon=scale.n_requests + 5.0, adapt=adapt,
-                      unit_time=np.full(u_max, 0.22),
-                      unit_energy=np.full(u_max, 7e-3), seed=3)
+    return ServeConfig(policy=policy, period=1.0, deadline=2.0,
+                       horizon=n_jobs + 5.0, adapt=adapt,
+                       unit_time=np.full(u_max, 0.22),
+                       unit_energy=np.full(u_max, 7e-3), seed=3)
+
+
+def _serve_engine(device, scale: Scale, models, adapt: bool,
+                  bank_mode: str, n_jobs: Optional[int] = None,
+                  feature_batch: Optional[int] = None):
+    """The §9.2 fleet serving engine under zygarde, the solar harvester at
+    eta = 0.71 (``n_jobs`` releases per task, default the request
+    stream's)."""
+    from repro_torch.serve import FleetServeEngine
+
+    cfg = _serve_config(models, "zygarde", adapt,
+                        n_jobs or scale.n_requests)
     return FleetServeEngine(models, _solar(), eta=0.71, config=cfg,
-                            bank_mode=bank_mode, device=device)
+                            bank_mode=bank_mode, device=device,
+                            feature_batch=feature_batch)
 
 
 def _serve_phase(device, scale: Scale, models, sets) -> dict:
@@ -831,7 +907,7 @@ def _serve_phase(device, scale: Scale, models, sets) -> dict:
                us_per_step_big_fleet=big["us_per_step"],
                units_big_fleet=big["units"], big_fleet=scale.big_devices,
                fused_jobs_per_s=res["fused"].jobs_per_sec)
-    return dict(launches=launches, c_row=row)
+    return dict(launches=launches, c_row=row, runs=res)
 
 
 def _serve_kernel_times(device, scale: Scale, models, requests, n_dev: int,
@@ -928,6 +1004,476 @@ def _profile(device, label: str, n_dev: int, n: int, run_steps,
             per = e.self_device_time_total / e.count
             print(f"{label} profile: {watch} {per:.2f} us device time per "
                   f"launch (x{e.count})")
+
+
+# --------------------------------------------------------------------------- #
+# The scalar engine, scalar == fleet, the intermittent substrate, the stream.
+# --------------------------------------------------------------------------- #
+
+
+def _fresh(models, threshold: Optional[float] = None):
+    """Private copies of the agile models (adaptation replaces their bank
+    entries, never the shared models'), with an optional uniform utility
+    threshold."""
+    import torch
+
+    from repro_torch.core.agile import AgileCNN
+
+    out = []
+    for m in models:
+        bank = [uc if threshold is None else uc._replace(
+            threshold=torch.full((), threshold, dtype=torch.float32,
+                                 device=uc.threshold.device))
+                for uc in m.bank]
+        out.append(AgileCNN(m.cfg, m.params, bank))
+    return out
+
+
+def _scalar_phase(device, scale: Scale, models, sets,
+                  fleet_rate: float) -> dict:
+    """Act one of examples/intermittent_serving.py: the scalar
+    ``ServeEngine`` under edf, rr and zygarde (adaptation on for zygarde)
+    on the §9.2 workload.  Counts zeroed before, read after: kernel D once
+    per executed unit, kernel E once per adaptation."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine
+
+    t0 = time.perf_counter()
+    requests = _serve_requests(scale, sets)
+    _solar()
+    ops.reset_launch_counts()
+    res, rates, exec_units, adapted = {}, {}, 0, 0
+    for policy in ("edf", "rr", "zygarde"):
+        cfg = _serve_config(models, policy, policy == "zygarde",
+                            scale.n_requests)
+        eng = ServeEngine(_fresh(models), _solar(), eta=0.71, config=cfg)
+        r, secs = _timed(lambda: eng.run(requests), device)
+        res[policy], rates[policy] = r, r.released / secs
+        profs = [p for t in eng.profiles_ for p in t]
+        # the profiles are lazy: a unit runs the model when the scheduler
+        # first reads its outcome (never, for a job EDF or RR drop late)
+        ran = sum(p._exec_units for p in profs)
+        if not 0 < ran <= r.units_executed:
+            raise AssertionError(f"scalar {policy}: the models ran {ran} "
+                                 f"units, the scheduler {r.units_executed}")
+        exec_units += ran
+        adapted += sum(p._exited for p in profs) if cfg.adapt else 0
+        np.testing.assert_array_equal(r.task_scheduled + r.task_misses,
+                                      r.task_released)
+        if not 0 < r.correct <= r.scheduled <= r.released:
+            raise AssertionError(f"scalar {policy}: malformed counters")
+        print(f"scalar {policy}: {r.scheduled}/{r.released} scheduled, "
+              f"{r.correct} correct, {r.optional_units} optional units, "
+              f"{r.reboots} reboots, {r.idle_no_energy:.2f} s idle, "
+              f"{r.units_executed} units ({ran} run by the model) in "
+              f"{secs:.3f} s = {rates[policy]:.1f} jobs/s")
+    launches = ops.launch_counts()
+    launches = {k: launches[k] for k in SCALAR_KERNELS}
+    print(f"scalar path launches {json.dumps(launches)} ({exec_units} "
+          f"model units run, {adapted} adaptations)")
+    if device.type == "cuda" and (launches["l1_topk2"] != exec_units
+                                  or launches["centroid_update"] != adapted
+                                  or not adapted):
+        raise AssertionError("scalar path: kernel D must launch once per "
+                             "model unit run and kernel E once per "
+                             "adaptation")
+    d_one, e_one = _one_row_checks(device, models, sets)
+    zyg, edf, rr = res["zygarde"], res["edf"], res["rr"]
+    print(f"scalar: zygarde schedules {zyg.scheduled - edf.scheduled:+d} "
+          f"jobs vs EDF and {zyg.scheduled - rr.scheduled:+d} vs RR; fleet "
+          f"live {fleet_rate:.1f} jobs/s ({scale.n_devices} devices) vs "
+          f"scalar {rates['zygarde']:.1f} jobs/s; "
+          f"{time.perf_counter() - t0:.2f} s")
+    if scale.check_gains and fleet_rate <= rates["zygarde"]:
+        raise AssertionError("the fleet live path should outrun the scalar "
+                             "event loop")
+    return dict(launches=launches, rates=rates, d_one_row=d_one,
+                e_one_row=e_one)
+
+
+def _one_row_checks(device, models, sets):
+    """Kernels D and E == their plain versions, bit for bit, at the scalar
+    engine's shapes: each unit of each model classifies one test request's
+    selected features (1, S) against that unit's (k, S) centroids, and
+    adapts its (k, d_u) centroids with that one row, assigned to each
+    cluster in turn.  Timed at the first model's first unit (D) and its
+    widest unit (E).  Returns the two kernel-line entries."""
+    import torch
+
+    from repro_torch.kernels import centroid_update as CU
+    from repro_torch.kernels import l1_topk2 as L1
+
+    err_d, err_e, n_d, n_e, first, widest = 0.0, 0.0, 0, 0, None, None
+    for m, ds in zip(models, sets):
+        state = m._initial_state(ds.x_test[0])
+        for u, uc in enumerate(m.bank):
+            state, feats = m._run_unit(state, u)
+            fidx = uc.feature_idx.to(torch.int64)
+            x = feats[:, fidx].to(torch.float32).contiguous()
+            c = uc.centroids[:, fidx].contiguous()
+            out = L1.l1_topk2(x, c)
+            for a, b in zip(out, L1.l1_topk2_plain(x, c)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"l1_topk2 kernel != plain at one "
+                                         f"row ({m.cfg.name}, unit {u})")
+                err_d = max(err_d, _max_err(a, b))
+            n_d += 1
+            full = feats.to(torch.float32).contiguous()
+            cents = uc.centroids.contiguous()
+            for j in range(cents.shape[0]):
+                a = torch.tensor([j], dtype=torch.int32, device=device)
+                got = CU.centroid_update(cents, full, a, 32.0)
+                ref = CU.centroid_update_plain(cents, full, a, 32.0)
+                if not torch.equal(got, ref):
+                    raise AssertionError(
+                        f"centroid_update kernel != plain at one row "
+                        f"({m.cfg.name}, unit {u}, cluster {j})")
+                err_e = max(err_e, _max_err(got, ref))
+                n_e += 1
+            if first is None:
+                first = (x, c)
+            if widest is None or full.shape[1] > widest[1].shape[1]:
+                widest = (cents, full, out[2].to(torch.int32))
+    d_one = dict(_l1_times(device, *first), max_abs_err=err_d,
+                 shape=f"x {tuple(first[0].shape)}, c "
+                       f"{tuple(first[1].shape)}, scalar engine")
+    print(f"l1_topk2 (one row, the scalar engine's shape, {n_d} units "
+          f"checked): bit-equal to plain; kernel {d_one['ms']:.4f} ms "
+          f"(device {d_one['device_ms']:.4f} ms per launch), plain "
+          f"{d_one['plain_ms']:.4f} ms, cdist+topk "
+          f"{d_one['library_ms']:.4f} ms, bound {d_one['bound_ms']:.6f} ms "
+          f"({d_one['bound_by']})")
+    print(f"centroid_update at one row: bit-equal to plain on {n_e} (unit, "
+          f"cluster) pairs; timed at the widest unit:")
+    e_one = dict(_cu_times(device, *widest), max_abs_err=err_e)
+    e_one["shape"] += ", scalar engine"
+    return d_one, e_one
+
+
+def _parity_run(device, model, cfg, reqs, threshold):
+    """One request stream through the scalar engine and the one-device
+    fleet (``feature_batch=1``) under a persistent supply: the scalar
+    result, its per-job (units, sched, pred, margin) and the fleet result."""
+    from repro_torch.core import energy
+    from repro_torch.serve import FleetServeEngine, ServeEngine
+
+    supply = energy.Harvester("battery", 1.0, 0.0, 1.0)
+    eng = ServeEngine(_fresh([model], threshold), supply, eta=1.0,
+                      config=cfg)
+    res = eng.run([reqs])
+    units = np.array([j.unit for j in eng.jobs_])
+    sched = np.array([0 <= j.mandatory_done_time <= j.deadline
+                      for j in eng.jobs_])
+    profs = eng.profiles_[0]
+    pred = np.array([p._preds[u - 1] if u > 0 else -1
+                     for p, u in zip(profs, units)])
+    margin = np.array([p._margins[u - 1] if u > 0 else 0.0
+                       for p, u in zip(profs, units)], np.float32)
+    fres = FleetServeEngine(_fresh([model], threshold), supply, eta=1.0,
+                            config=cfg, feature_batch=1,
+                            device=device).run([reqs], n_devices=1)
+    return res, (units, sched, pred, margin), fres
+
+
+def _parity_phase(device, scale: Scale, models, sets) -> None:
+    """The scalar engine == the one-device fleet, bit for bit, on the
+    clock-commensurate recipe (persistent supply, charged start, dt 50 ms,
+    0.2 s units, period 2 s, deadline 1.5 s, uniform threshold 0.02):
+    units, schedule, predictions and margins, zygarde and edf with
+    adaptation on and off, each §9.2 model as one task; then the overload
+    recipe (period 1 s, deadline 0.7 s): the same miss sets."""
+    from repro_torch.serve import Request, ServeConfig
+
+    t0 = time.perf_counter()
+    n = scale.parity_jobs
+
+    def config(policy, adapt, period=2.0, deadline=1.5):
+        return ServeConfig(policy=policy, period=period, deadline=deadline,
+                           horizon=n * period + 2.0, adapt=adapt,
+                           start_charged=True, sim_dt=0.05)
+
+    def requests(ds, period):
+        return [Request(ds.x_test[j], int(ds.y_test[j]), release=j * period)
+                for j in range(n)]
+
+    cases = [(0, "zygarde", False), (0, "zygarde", True), (0, "edf", False),
+             (0, "edf", True), (1, "zygarde", True), (1, "edf", False)]
+    for k, policy, adapt in cases:
+        m, cfg = models[k], config(policy, adapt)
+        res, (units, sched, pred, margin), f = _parity_run(
+            device, m, cfg, requests(sets[k], cfg.period), 0.02)
+        gap = np.abs(margin - f.margin[0, 0, :n])
+        for name, a, b in (("units", units, f.units[0, 0, :n]),
+                           ("sched", sched, f.sched[0, 0, :n]),
+                           ("pred", pred, f.pred[0, 0, :n]),
+                           ("margin bits", margin.view(np.uint32),
+                            f.margin[0, 0, :n].view(np.uint32))):
+            if not np.array_equal(a, b):
+                raise AssertionError(
+                    f"scalar != fleet on {device} ({m.cfg.name}, {policy}, "
+                    f"adapt={adapt}): {name} {a.tolist()} vs {b.tolist()} "
+                    f"(largest margin gap {gap.max():.3g})")
+        for name, a in (("scheduled", res.scheduled),
+                        ("correct", res.correct),
+                        ("deadline_misses", res.deadline_misses),
+                        ("units_executed", res.units_executed)):
+            if a != int(getattr(f.fleet, name)[0]):
+                raise AssertionError(f"scalar != fleet: {name}")
+        if adapt and not (f.exit_unit[0, 0, :n] >= 0).all():
+            raise AssertionError("parity: a job never adapted")
+        print(f"parity {m.cfg.name} {policy} adapt={adapt}: scalar == fleet "
+              f"bit for bit ({int(units.sum())} units, {int(sched.sum())}/"
+              f"{n} on time)")
+    for threshold in (None, 10.0):
+        cfg = config("zygarde", False, period=1.0, deadline=0.7)
+        res, (_, sched, _, _), f = _parity_run(
+            device, models[0], cfg, requests(sets[0], 1.0), threshold)
+        if not np.array_equal(sched, f.sched[0, 0, :n]) or (
+                res.deadline_misses != int(f.fleet.deadline_misses[0])):
+            raise AssertionError(f"overload miss sets differ "
+                                 f"(threshold {threshold})")
+        if threshold == 10.0 and (sched.any() or res.deadline_misses != n):
+            raise AssertionError("overload: a job met its deadline with "
+                                 "early exit disabled")
+        print(f"parity overload (threshold {threshold}): the same "
+              f"{res.deadline_misses} misses of {n}")
+    print(f"parity: {time.perf_counter() - t0:.2f} s")
+
+
+def _intermittent_phase(device, scale: Scale, models, sets) -> None:
+    """The fragment substrate: each unit of the CIFAR-100 model cut into 4
+    fragments, one request through them under a weak harvester and a
+    0.02 F capacitor and under a persistent supply; the outputs equal
+    tensor for tensor, and power really failed."""
+    import torch
+
+    from repro_torch.core import energy
+    from repro_torch.core.intermittent import fragment_unit, run_intermittent
+
+    t0 = time.perf_counter()
+    model = models[0]
+    frags = []
+    for u in range(model.n_units):
+        def unit(s, u=u):
+            h, f = model._run_unit(s["h"], u)
+            return {"h": h, "feats": s["feats"] + [f]}
+        frags += fragment_unit(unit, 4, 0.22, 4e-2, name=f"unit{u}")
+    state0 = {"h": model._initial_state(sets[0].x_test[0]), "feats": []}
+    ref, rs = run_intermittent(frags, state0,
+                               energy.Harvester("battery", 1.0, 0.0, 10.0))
+    out, st = run_intermittent(frags, state0,
+                               energy.Harvester("weak", 0.7, 0.7, 0.05),
+                               energy.Capacitor(capacitance_f=0.02), seed=1,
+                               max_wall=1e4)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    if st.reboots <= 0 or st.fragments_run != rs.fragments_run:
+        raise AssertionError(f"intermittent run: {st}")
+    for a, b in zip([out["h"]] + out["feats"], [ref["h"]] + ref["feats"]):
+        if a.device.type != device.type:
+            raise AssertionError(f"the fragments ran on {a.device}")
+        if not torch.equal(a, b):
+            raise AssertionError("the run with power failures != the run "
+                                 "without")
+    print(f"intermittent ({model.cfg.name}, {len(frags)} fragments): output "
+          f"equal to the persistent run; {st.reboots} reboots, "
+          f"{st.fragments_reexecuted} fragments re-executed, "
+          f"{st.off_time:.2f} s off of {st.wall_time:.2f} s; "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def _table_bytes(eng, J: int) -> int:
+    """Bytes of the serve tables over a ``J``-job axis (the stacked
+    features, labels and the classifier metadata)."""
+    K = len(eng.models)
+    U, S_ = eng._bank_tables["fidx"].shape[1:]
+    F = eng.bank0.centroids.shape[-1]
+    meta = sum(_nbytes(t) for t in eng._bank_tables.values())
+    return K * J * (U * (S_ + F) + 1) * 4 + meta
+
+
+def _stream_phase(device, scale: Scale, models, sets, serve_runs) -> dict:
+    """The million-job stream: ``scale.stream_devices`` devices, each task
+    cycling its base requests to ``scale.stream_jobs`` jobs, fused, in
+    ``scale.stream_chunks`` chunks; then the adaptive scan stream in both
+    bank modes at the serve phase's 64 devices in 3 chunks.  Counts zeroed
+    before, read after (kernel C once per chunk).  Then the checks: the
+    fused stream == ``run(mode="fused")`` over the repeated request list
+    on every log field and carry leaf, the scan streams == the serve
+    phase's monolithic runs, and kernel C == its plain version on the
+    first chunk (negative ``job0``) and a middle one (positive)."""
+    import torch
+
+    from repro_torch.fleet.state import ServeCarry, ServeLog
+    from repro_torch.kernels import fleet_step, ops
+    from repro_torch.serve import Request
+    from repro_torch.serve.fleet_engine import _shift_log
+
+    t0 = time.perf_counter()
+    D, total, nc = scale.stream_devices, scale.stream_jobs, scale.stream_chunks
+    base = _serve_requests(scale, sets)
+    n_base = scale.n_requests
+    seeds = list(range(D))
+
+    # one request per convolution: the stream computes its base requests'
+    # features in a batch of 25, the monolithic run in one of 123, and
+    # cuDNN's algorithms differ in the last bits between batch shapes
+    # (tools/feature_batch_gap.py)
+    eng = _serve_engine(device, scale, models, False, "per-device",
+                        n_jobs=total, feature_batch=1)
+
+    def allocated():
+        return (torch.cuda.memory_allocated(device)
+                if device.type == "cuda" else 0)
+
+    # ---- the main path: counts zeroed just before, read just after ------
+    ops.reset_launch_counts()
+    st_start = allocated()
+    st = eng.run_stream(base, D, seeds=seeds, total_jobs=total, n_chunks=nc,
+                        mode="fused")
+    fused_launches = ops.launch_counts()["serve_fused_steps"]
+    scans = {}
+    for bank_mode in ("per-device", "shared"):
+        scans[bank_mode] = _serve_engine(
+            device, scale, models, True, bank_mode).run_stream(
+                base, scale.n_devices, seeds=range(scale.n_devices),
+                n_chunks=3)
+    launches = ops.launch_counts()
+    launches = {k: launches[k] for k in STREAM_KERNELS}
+    print(f"stream path launches {json.dumps(launches)}")
+    if device.type == "cuda" and (fused_launches != st.n_chunks or any(
+            v == 0 for v in launches.values())):
+        raise AssertionError(f"stream path: kernel C launched "
+                             f"{fused_launches} times for {st.n_chunks} "
+                             f"chunks, or a kernel never ran")
+
+    # ---- outputs are right ------------------------------------------------
+    n_tasks = len(models)
+    if st.jobs != D * n_tasks * total or st.jobs < scale.min_stream_jobs:
+        raise AssertionError(f"the stream released {st.jobs} jobs")
+    repeated = [[Request(b[j % n_base].x, b[j % n_base].label,
+                         release=float(j)) for j in range(total)]
+                for b in base]
+    # peaks above the memory live at each call's start (the stream's
+    # result, which the comparison needs, is live during the monolithic run)
+    mono_start = allocated()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    mono = eng.run(repeated, D, seeds=seeds, mode="fused")
+    mono_peak = (torch.cuda.max_memory_allocated(device) - mono_start
+                 if device.type == "cuda" else 0)
+    st_peak = st.peak_bytes - st_start if st.peak_bytes else 0
+    for f in ("units", "pred", "correct", "margin", "exit_unit", "sched"):
+        a, b = getattr(st, f), getattr(mono, f)
+        if a.shape != b.shape or not np.array_equal(
+                a.view(np.uint8), b.view(np.uint8)):
+            raise AssertionError(f"stream != monolithic fused run: log.{f}")
+    for part in ("dev", "bank"):
+        _equal_leaves(getattr(st.carry, part), getattr(mono.carry, part),
+                      f"stream vs monolithic {part}")
+    if not np.isfinite(st.margin).all() or int(st.fleet.units_executed.sum(
+            )) == 0:
+        raise AssertionError("stream: malformed outcome log")
+    Wl = st.carry.log.units.shape[-1]
+    mono_bytes = _table_bytes(eng, total)
+    if st.chunk_table_bytes != _table_bytes(eng, Wl) or not (
+            st.chunk_table_bytes < mono_bytes):
+        raise AssertionError(f"stream window bytes {st.chunk_table_bytes} "
+                             f"vs monolithic {mono_bytes}")
+    print(f"stream fused: {st.jobs} jobs on {D} devices ({total} per task, "
+          f"{st.n_chunks} chunks, window {Wl} of {total} jobs) in "
+          f"{st.wall_s:.3f} s = {st.jobs_per_sec:.1f} jobs/s, peak "
+          f"{st_peak / 2**20:.1f} MiB above the call's start, window tables "
+          f"{st.chunk_table_bytes / 2**20:.2f} MiB; monolithic fused run "
+          f"{mono.wall_s:.3f} s = {mono.jobs_per_sec:.1f} jobs/s, peak "
+          f"{mono_peak / 2**20:.1f} MiB above the call's start, tables "
+          f"{mono_bytes / 2**20:.2f} MiB; equal on every log field and "
+          "carry leaf")
+    for bank_mode, r in scans.items():
+        ref = serve_runs[f"scan adapt {bank_mode}"]
+        for f in ("units", "pred", "correct", "margin", "exit_unit",
+                  "sched"):
+            if not np.array_equal(getattr(r, f).view(np.uint8),
+                                  getattr(ref, f).view(np.uint8)):
+                raise AssertionError(f"scan stream ({bank_mode}) != the "
+                                     f"serve phase's run: log.{f}")
+        for part in ("dev", "bank"):
+            _equal_leaves(getattr(r.carry, part), getattr(ref.carry, part),
+                          f"scan stream ({bank_mode}) {part}")
+        print(f"stream scan adapt {bank_mode}: {r.jobs} jobs in 3 chunks, "
+              f"{r.wall_s:.3f} s = {r.jobs_per_sec:.1f} jobs/s, equal to "
+              f"the monolithic run on every leaf")
+
+    row = dict(jobs=st.jobs, devices=D, chunks=st.n_chunks, window=Wl,
+               jobs_per_s=st.jobs_per_sec, wall_s=st.wall_s,
+               peak_bytes=st.peak_bytes, peak_above_start_bytes=st_peak,
+               chunk_table_bytes=st.chunk_table_bytes,
+               monolithic_jobs_per_s=mono.jobs_per_sec,
+               monolithic_wall_s=mono.wall_s,
+               monolithic_peak_above_start_bytes=mono_peak,
+               monolithic_table_bytes=mono_bytes)
+    del st, mono, scans      # each holds a per-device bank of the fleet
+
+    # ---- the stream's chunks again, each part timed; kernel C == plain on
+    # the staged windows of chunk 0 (negative job0) and a middle chunk -----
+    cfg, stc, tabs_np, dev0, bank0, _, _, base_len = eng.build_stream(
+        base, D, seeds=seeds, total_jobs=total)
+    Wl, n_run, chunks = eng._stream_chunks(cfg, stc, tabs_np, base_len, nc)
+    mid = n_run // 2
+    carry = ServeCarry(dev=dev0, bank=bank0, log=eng.log0(D, Wl))
+    parts = dict(stage_s=0.0, copy_s=0.0, shift_s=0.0, launch_sync_s=0.0,
+                 log_back_s=0.0, kernel_device_ms=0.0)
+    checked = []
+    for c in range(n_run):
+        t_a = time.perf_counter()
+        ch = next(chunks)
+        parts["stage_s"] += time.perf_counter() - t_a - ch.copy_s
+        parts["copy_s"] += ch.copy_s
+        if (c == 0 and not (ch.w0 < 0).all()) or (
+                c == mid and not (ch.w0 > 0).all()):
+            raise AssertionError(f"job0 of chunk {c}: {ch.w0}")
+        t_a = time.perf_counter()
+        carry = carry._replace(log=_shift_log(carry.log, ch.shift))
+        _sync(device)
+        parts["shift_s"] += time.perf_counter() - t_a
+
+        def launch():
+            return fleet_step.serve_fused_steps(
+                cfg, carry, ch.tables, ch.s0, ch.job0, statics=stc,
+                n_steps=ch.s1 - ch.s0)
+
+        t_a = time.perf_counter()
+        out = launch()
+        _sync(device)
+        parts["launch_sync_s"] += time.perf_counter() - t_a
+        parts["kernel_device_ms"] += _busy_ms(launch, device, reps=3)
+        t_a = time.perf_counter()
+        for f in ServeLog._fields:
+            getattr(out.log, f).cpu().numpy()
+        parts["log_back_s"] += time.perf_counter() - t_a
+        if c in (0, mid):
+            ref = fleet_step.serve_fused_steps_plain(
+                cfg, carry, ch.tables, ch.s0, ch.job0, statics=stc,
+                n_steps=ch.s1 - ch.s0)
+            for part in ("dev", "log"):
+                _equal_leaves(getattr(out, part), getattr(ref, part),
+                              f"kernel C vs plain, chunk {c} {part}")
+            checked.append(f"chunk {c} (steps {ch.s0}-{ch.s1}, job0 "
+                           f"{ch.w0.tolist()})")
+        carry = out
+    print(f"serve_fused_steps == plain bit for bit on the staged windows "
+          f"(W = {Wl} of {total} jobs, D = {D}) of " + " and ".join(checked))
+    # wall_s counts copy, shift and launch + sync; staging and the log's
+    # copy back, like the reference's, fall outside it
+    print("stream parts over its " + str(n_run) + " chunks (s): "
+          + ", ".join(f"{k} {v:.6f}" for k, v in parts.items()
+                      if k != "kernel_device_ms")
+          + f"; kernel C's device time {parts['kernel_device_ms']:.4f} ms "
+          f"in all; stream phase {time.perf_counter() - t0:.2f} s")
+    row["parts"] = parts
+    return dict(launches=launches, row=row)
 
 
 def _replay_tasks(models, sets, scale: Scale):
@@ -2077,6 +2623,11 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
     e_row = _cu_phase(device, scale, rng)
     models, sets = _models(device, scale)
     serve = _serve_phase(device, scale, models, sets)
+    scalar = _scalar_phase(device, scale, models, sets,
+                           serve["runs"]["scan adapt per-device"].jobs_per_sec)
+    _parity_phase(device, scale, models, sets)
+    _intermittent_phase(device, scale, models, sets)
+    stream = _stream_phase(device, scale, models, sets, serve["runs"])
     replay = _replay_phase(device, scale, models, sets)
     f_row = _pw_phase(device, scale, rng)
     tune = _tune_phase(device, scale)
@@ -2090,14 +2641,24 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
     _any_cpu_check(device, scale.hybrid, 128)
     # each path's launches were counted from zero; a kernel on several
     # paths reports their sum and the count of each
-    paths = dict(serve=serve["launches"], replay=replay["launches"],
+    paths = dict(serve=serve["launches"], scalar=scalar["launches"],
+                 stream=stream["launches"], replay=replay["launches"],
                  tune=tune["launches"], online=online["launches"],
                  anytime=anytime["launches"], hybrid=hybrid["launches"])
     rows = []
     for name, row in (("fleet_priority", replay["a_row"]),
                       ("fleet_fused_steps", replay["b_row"]),
-                      ("serve_fused_steps", serve["c_row"]),
-                      ("l1_topk2", d_row), ("centroid_update", e_row),
+                      ("serve_fused_steps",
+                       dict(serve["c_row"], stream=stream["row"])),
+                      ("l1_topk2", dict(
+                          d_row, shapes=[scalar["d_one_row"]],
+                          max_abs_err=max(d_row["max_abs_err"],
+                                          scalar["d_one_row"]["max_abs_err"]))),
+                      ("centroid_update", dict(
+                          e_row, shapes=e_row["shapes"]
+                          + [scalar["e_one_row"]],
+                          max_abs_err=max(e_row["max_abs_err"],
+                                          scalar["e_one_row"]["max_abs_err"]))),
                       ("pairwise_l1", f_row), ("flash_attention", g_row),
                       ("decode_gqa", h_row), ("rglru_scan", i_row)):
         by_path = {p: c[name] for p, c in paths.items() if name in c}

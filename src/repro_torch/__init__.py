@@ -9,13 +9,16 @@ Every entry point takes an explicit ``device`` (default ``"cuda"``); a
 wrapper launches its CUDA kernel for a CUDA tensor and runs its plain
 PyTorch version for a CPU tensor — there is no environment switch.
 
-Ported so far: the device-step core and the scalar
-:func:`repro_torch.core.scheduler.simulate_stepped`; the replay fleet
-simulator (:mod:`repro_torch.fleet`: ``sweep``, ``simulate_fleet`` and
+Ported so far: the device-step core, the event-driven scheduler loop
+:func:`repro_torch.core.scheduler.simulate` and its fixed-step sibling
+``simulate_stepped``; the intermittent fragment substrate
+(:mod:`repro_torch.core.intermittent`); the replay fleet simulator
+(:mod:`repro_torch.fleet`: ``sweep``, ``simulate_fleet`` and
 ``run_segments`` in the ``vmap``, ``pallas`` and ``fused`` modes); live
-fleet serving of the paper's agile CNNs with the k-means classifier bank
-(:class:`repro_torch.serve.fleet_engine.FleetServeEngine`, scan and fused
-modes); online adaptation (:mod:`repro_torch.adapt`: offline tuning with
+serving of the paper's agile CNNs with the k-means classifier bank, on one
+device (:class:`repro_torch.serve.engine.ServeEngine`) and across a fleet
+(:class:`repro_torch.serve.fleet_engine.FleetServeEngine`: ``run`` and the
+O(chunk) ``run_stream``, scan and fused modes); online adaptation (:mod:`repro_torch.adapt`: offline tuning with
 ``TuneProblem`` and ``tune``, the runtime eta/E_opt loop of
 ``OnlineAdapter`` and the harvest forecaster); the model configs
 (:mod:`repro_torch.configs`) and anytime serving of the dense attention

@@ -1,6 +1,7 @@
-"""Zygarde core, ported: energy, policy, scheduler types, the step core,
-the k-means classifier bank, the utility test and its calibration, and the
-agile-DNN execution engine."""
+"""Zygarde core, ported: energy, policy, the scheduler and its
+event-driven simulator, the step core, the k-means classifier bank, the
+utility test and its calibration, the agile-DNN execution engine and the
+intermittent fragment substrate."""
 from . import (  # noqa: F401
-    agile, energy, kmeans, policy, scheduler, step, utility,
+    agile, energy, intermittent, kmeans, policy, scheduler, step, utility,
 )

@@ -17,8 +17,11 @@ bank as evolving state.  Each timestep then, for every device at once:
    (weighted-average update + centroid propagation, paper §4.3).
 
 ``run(mode="fused")`` runs each segment as ONE launch of the
-``serve_fused_steps`` kernel (steps 1-4 per device in one thread; requires
-``adapt=False``).  Bank modes: ``per-device`` (every device owns a bank,
+``serve_fused_steps`` kernel (steps 1-4 per device in one warp; requires
+``adapt=False``).  ``run_stream`` serves a job stream of any length with
+O(chunk) device memory: each chunk of the horizon stages only the window
+of per-job feature rows its steps can touch and rebases job ids with a
+signed ``job0``.  Bank modes: ``per-device`` (every device owns a bank,
 leading ``D`` axis) or ``shared`` (one bank; every device's first-pass
 exits fold into one ``online_update`` per (task, unit), through the
 ``centroid_update`` kernel).
@@ -26,8 +29,11 @@ exits fold into one ``online_update`` per (task, unit), through the
 Differences from the reference: the reference's ``lax.cond`` that skips
 adaptation on steps where no utility test passed is a host-side ``if`` here
 — one device synchronisation per step on the card.  Adaptation updates the
-run's own copy of the bank in place.  Telemetry, meshes and ``run_stream``
-are not part of this slice.
+run's own copy of the bank in place.  ``run_stream`` holds one carry at a
+time (each chunk takes the previous one's output, which nothing else
+keeps): the counterpart of the reference's donated carry; the reference's
+ahead-of-time compiled chunk programs have none, so ``compile_s`` is 0.
+Telemetry and meshes are not part of the port yet.
 """
 from __future__ import annotations
 
@@ -296,6 +302,48 @@ def serve_step(cfg: FleetConfig, tables: ServeTables, dev, bank: ServeBank,
     return dev, log, (first_pass, tk, u, job, ci)
 
 
+def _shift_log(log: ServeLog, shift: torch.Tensor) -> ServeLog:
+    """Advance the per-task log window by ``shift`` (``(K,)`` int) jobs.
+
+    Row ``j`` of the new window is row ``j + shift[k]`` of the old; rows
+    shifted in from beyond the old window reset to the t=0 defaults (the
+    values of :meth:`FleetServeEngine.build`'s ``log0``, so a job that is
+    never served reads the same in streamed and monolithic runs)."""
+    Wl = log.units.shape[-1]
+    jj = torch.arange(Wl, device=shift.device, dtype=torch.int64)
+    src = jj[None, :] + shift.to(torch.int64)[:, None]          # (K, Wl)
+    valid = src < Wl
+    srcc = src.clamp(0, Wl - 1)
+
+    def gather(leaf, default):
+        moved = torch.gather(leaf, -1, srcc.expand(leaf.shape))
+        return torch.where(valid, moved,
+                           torch.full((), default, dtype=leaf.dtype,
+                                      device=leaf.device))
+
+    return ServeLog(
+        units=gather(log.units, 0),
+        pred=gather(log.pred, -1),
+        correct=gather(log.correct, False),
+        margin=gather(log.margin, 0.0),
+        exit_unit=gather(log.exit_unit, -1),
+        sched=gather(log.sched, False),
+    )
+
+
+class StreamChunk(NamedTuple):
+    """One chunk of :meth:`FleetServeEngine.run_stream`, its window of the
+    feature/label tables already on the engine's device."""
+
+    s0: int                 # first step of the chunk
+    s1: int                 # one past its last step
+    w0: np.ndarray          # (K,) int64: first window row per task
+    tables: ServeTables     # the window's tables, job axis Wl wide
+    job0: torch.Tensor      # (K,) int32 ``w0``, negative on the first chunks
+    shift: torch.Tensor     # (K,) int32: rows the log window advances by
+    copy_s: float           # host seconds of the window's copy to the device
+
+
 @dataclass
 class FleetServeResult:
     """Outcome of one vectorized live-serving run.
@@ -304,7 +352,9 @@ class FleetServeResult:
     finalize); the per-job arrays are the numpy view of the
     :class:`ServeLog` (``(D, K, J)`` each); ``carry`` is the end-of-horizon
     :class:`ServeCarry`.  ``wall_s`` times the time loop and finalize only
-    (feature precompute excluded), ending in a device synchronisation.
+    (feature precompute excluded), ending in a device synchronisation;
+    a stream's ``wall_s`` also counts each chunk's copy of its window to
+    the device.
     """
 
     fleet: FleetResult
@@ -317,6 +367,16 @@ class FleetServeResult:
     carry: ServeCarry
     jobs: int
     wall_s: float
+    #: always 0 in the port (nothing is compiled ahead of a run); kept for
+    #: the reference's result shape
+    compile_s: float = 0.0
+    #: ``torch.cuda.max_memory_allocated`` over a stream: every live
+    #: allocation on the engine's card, not only the stream's (0 on the CPU)
+    peak_bytes: int = 0
+    #: device bytes of ONE staged window of tables: the O(chunk) resident
+    #: footprint that replaces the O(total jobs) tables of ``run``
+    chunk_table_bytes: int = 0
+    n_chunks: int = 1
 
     @property
     def jobs_per_sec(self) -> float:
@@ -387,21 +447,11 @@ class FleetServeEngine:
             ))
         return tasks
 
-    def build(
-        self,
-        requests,
-        n_devices: Optional[int] = None,
-        *,
-        seeds: Optional[Sequence[int]] = None,
-    ) -> tuple[FleetConfig, FleetStatics, ServeTables, ServeCarry, bool]:
-        """Materialise configs, statics, feature tables and the t=0 carry.
-
-        ``requests`` is one stream shared by every device
-        (``requests[task][job]``) or per-device streams
-        (``requests[device][task][job]``).  Returns ``(cfg, statics,
-        tables, carry0, per_dev_tables)``.
-        """
-        cfg = self.config
+    def _streams(self, requests, n_devices):
+        """``(D, streams, per_dev)``: ``requests`` is one stream shared by
+        every device (``requests[task][job]``) or per-device streams
+        (``requests[device][task][job]``); ``streams`` has one entry per
+        device either way."""
         per_dev = not isinstance(requests[0][0], Request)
         if per_dev:
             D = len(requests)
@@ -416,10 +466,12 @@ class FleetServeEngine:
             raise ValueError(
                 f"{len(streams[0])} request streams per device for "
                 f"{len(self.models)} models")
+        return D, streams, per_dev
 
-        n_jobs = [max(len(s[k]) for s in streams)
-                  for k in range(len(self.models))]
-        tasks = self._task_specs(n_jobs)
+    def _fleet_config(self, tasks, D: int, seeds):
+        """The stacked per-device configs (one harvest trace per seed,
+        default ``config.seed`` on every device) and the statics."""
+        cfg = self.config
         dt = grid._check_dt(
             grid._default_dt(tasks) if cfg.sim_dt is None
             else float(cfg.sim_dt), tasks)
@@ -437,39 +489,69 @@ class FleetServeEngine:
             e_opt_fraction=cfg.e_opt_fraction,
             start_charged=cfg.start_charged,
         ) for s in seeds]
-        fleet_cfg = grid.stack_configs(devs, device=self.device)
+        return grid.stack_configs(devs, device=self.device), statics
 
-        feat_streams = streams if per_dev else streams[:1]
+    def _feature_tables(self, streams, per_dev: bool, n_jobs: int) -> dict:
+        """The numpy feature/label tables over ``n_jobs`` jobs: one set
+        shared by every device, or a leading ``D`` axis for per-device
+        streams."""
         feats = [build_feature_tables(
             self.models, s, self.meta, self._bank_tables,
-            feature_batch=self.feature_batch, n_jobs=max(n_jobs))
-            for s in feat_streams]
+            feature_batch=self.feature_batch, n_jobs=n_jobs)
+            for s in (streams if per_dev else streams[:1])]
         if per_dev:
-            stacked = {k: np.stack([f[k] for f in feats]) for k in feats[0]}
-        else:
-            stacked = feats[0]
+            return {k: np.stack([f[k] for f in feats]) for k in feats[0]}
+        return feats[0]
+
+    def build(
+        self,
+        requests,
+        n_devices: Optional[int] = None,
+        *,
+        seeds: Optional[Sequence[int]] = None,
+    ) -> tuple[FleetConfig, FleetStatics, ServeTables, ServeCarry, bool]:
+        """Materialise configs, statics, feature tables and the t=0 carry.
+
+        ``requests`` is one stream shared by every device
+        (``requests[task][job]``) or per-device streams
+        (``requests[device][task][job]``).  Returns ``(cfg, statics,
+        tables, carry0, per_dev_tables)``.
+        """
+        D, streams, per_dev = self._streams(requests, n_devices)
+        n_jobs = [max(len(s[k]) for s in streams)
+                  for k in range(len(self.models))]
+        fleet_cfg, statics = self._fleet_config(self._task_specs(n_jobs), D,
+                                                seeds)
+        stacked = self._feature_tables(streams, per_dev, max(n_jobs))
         tables = ServeTables(
             **{k: torch.from_numpy(v).to(self.device)
                for k, v in stacked.items()},
             **self._bank_tables)
 
         dev0 = init_state(fleet_cfg, statics)
-        bank0 = self.bank0
-        if self.bank_mode == "per-device":
-            bank0 = ServeBank(*[
-                l.expand((D,) + tuple(l.shape)).contiguous() for l in bank0])
-        K, J = len(self.models), max(n_jobs)
+        log0 = self.log0(D, max(n_jobs))
+        return (fleet_cfg, statics, tables,
+                ServeCarry(dev=dev0, bank=self._bank0(D), log=log0), per_dev)
+
+    def _bank0(self, D: int) -> ServeBank:
+        """The t=0 bank: one copy per device in ``per-device`` mode."""
+        if self.bank_mode == "shared":
+            return self.bank0
+        return ServeBank(*[l.expand((D,) + tuple(l.shape)).contiguous()
+                           for l in self.bank0])
+
+    def log0(self, D: int, J: int) -> ServeLog:
+        """The t=0 outcome log of ``D`` devices over a ``J``-job window."""
+        K = len(self.models)
 
         def full(value, dtype):
             return torch.full((D, K, J), value, dtype=dtype,
                               device=self.device)
 
-        log0 = ServeLog(units=full(0, _I32), pred=full(-1, _I32),
+        return ServeLog(units=full(0, _I32), pred=full(-1, _I32),
                         correct=full(False, torch.bool),
                         margin=full(0.0, _F32), exit_unit=full(-1, _I32),
                         sched=full(False, torch.bool))
-        return (fleet_cfg, statics, tables,
-                ServeCarry(dev=dev0, bank=bank0, log=log0), per_dev)
 
     # ------------------------------------------------------------------ #
     # Bank adaptation (updates the run's own bank copy in place).
@@ -611,7 +693,8 @@ class FleetServeEngine:
         boundaries (bit-identical to ``n_segments=1``); ``carry`` resumes
         from a previous run's carry.  ``mode="fused"`` runs each segment as
         ONE launch of the ``serve_fused_steps`` kernel (``adapt=False``
-        only).  ``mesh=`` and ``telemetry=`` are not ported yet.
+        only).  ``mesh=`` and ``telemetry=`` wait for the port's mesh and
+        telemetry modules and raise.
         """
         if mode not in ("scan", "fused"):
             raise ValueError(f"unknown serve mode {mode!r}")
@@ -665,4 +748,262 @@ class FleetServeEngine:
             carry=out,
             jobs=int(fleet.released.sum()),
             wall_s=wall,
+        )
+
+    # ------------------------------------------------------------------ #
+    # Streaming: any number of jobs in O(chunk) device memory.
+    # ------------------------------------------------------------------ #
+
+    @staticmethod
+    def _count_releases(period: float, horizon: float,
+                        max_jobs: int) -> int:
+        """``grid._n_releases``'s f64 release accumulation (including the
+        ``t += period`` slip), capped by the streamed job total instead of
+        ``len(profiles)``."""
+        t, j = 0.0, 0
+        while t < horizon and j < max_jobs:
+            t += period
+            j += 1
+        return j
+
+    def build_stream(
+        self,
+        requests,
+        n_devices: Optional[int] = None,
+        *,
+        seeds: Optional[Sequence[int]] = None,
+        total_jobs=None,
+    ):
+        """Like :meth:`build`, but O(1) in the total job count on the
+        device.
+
+        The grid builder gets single-job placeholder profiles (live mode
+        never reads the replay tables) with ``n_releases`` overridden to
+        the streamed totals; the feature/label tables stay host-side numpy,
+        and :meth:`run_stream` stages a bounded window of them per chunk.
+        ``total_jobs`` (int or per-task sequence, default the base stream
+        length) sets how many jobs each task serves; totals beyond the
+        base stream cycle it (job ``j`` serves request ``j % len(base)``).
+
+        Returns ``(cfg, statics, base_tables, dev0, bank0, per_dev,
+        totals, base_len)`` with ``base_tables`` a numpy dict.
+        """
+        K = len(self.models)
+        D, streams, per_dev = self._streams(requests, n_devices)
+        base_len = [max(len(s[k]) for s in streams) for k in range(K)]
+        if any(b <= 0 for b in base_len):
+            raise ValueError("every task needs at least one base request")
+        if total_jobs is None:
+            totals = list(base_len)
+        elif np.ndim(total_jobs) == 0:
+            totals = [int(total_jobs)] * K
+        else:
+            totals = [int(x) for x in total_jobs]
+
+        tasks = self._task_specs([1] * K)
+        fleet_cfg, statics = self._fleet_config(tasks, D, seeds)
+        n_rel = np.array([self._count_releases(tasks[k].period,
+                                               self.config.horizon,
+                                               totals[k])
+                          for k in range(K)], np.int32)
+        fleet_cfg = fleet_cfg._replace(n_releases=torch.from_numpy(
+            np.broadcast_to(n_rel, (D, K)).copy()).to(self.device))
+        base = self._feature_tables(streams, per_dev, max(base_len))
+
+        dev0 = init_state(fleet_cfg, statics)
+        return (fleet_cfg, statics, base, dev0, self._bank0(D), per_dev,
+                totals, base_len)
+
+    def _stream_plan(self, cfg: FleetConfig, statics: FleetStatics,
+                     n_chunks: int):
+        """The chunks of a stream: ``(bounds, lows, Wl)`` with ``bounds``
+        the ``[s0, s1)`` step range of each chunk, ``lows`` each chunk's
+        first window row per task (``(K,)`` int64, negative on the first
+        chunks) and ``Wl`` the window width.
+
+        A job live during ``[t0, t1)`` must release before ``t1`` and
+        expire after ``t0``; the slow-clock drift bound ``t_read = t * (1
+        + drift)`` stretches lifetimes by at most ``1 + 2 * drift``, and
+        two rows either side absorb the f32 release-accumulation slip."""
+        K = len(self.models)
+        periods = np.array(per_task(self.config.period, K), float)
+        deadl = np.array(per_task(self.config.deadline, K), float)
+        drift = float(cfg.clock_drift.abs().max())
+        n_steps = statics.n_steps
+        nc = int(max(1, min(n_chunks, max(n_steps, 1))))
+        segs = [s for s in np.array_split(np.arange(n_steps), nc)
+                if len(s)]
+        bounds = [(int(s[0]), int(s[-1]) + 1) for s in segs]
+        lows, highs = [], []
+        for s0, s1 in bounds:
+            t0s, t1s = s0 * statics.dt, s1 * statics.dt
+            lows.append(np.floor(
+                (t0s / (1.0 + 2.0 * drift) - deadl) / periods
+            ).astype(np.int64) - 2)
+            highs.append(np.floor(t1s / periods).astype(np.int64) + 2)
+        Wl = int(max(int(np.max(h - l)) for l, h in zip(lows, highs)))
+        return bounds, lows, max(Wl, 1)
+
+    @staticmethod
+    def _stage_window(base: dict, base_len, w0, Wl: int):
+        """One chunk's window of the host feature/label tables: rows ``w0[k]
+        .. w0[k] + Wl - 1`` of task ``k``, job ``j`` reading base request
+        ``j % base_len[k]`` (numpy's remainder, so the rows before job 0,
+        which are never served, wrap too).  Returns numpy ``(sel_feats,
+        full_feats, labels)``."""
+        idx = w0[:, None] + np.arange(Wl)[None, :]
+        ps, pf, pl = [], [], []
+        for k in range(len(base_len)):
+            src = idx[k] % base_len[k]
+            ps.append(np.take(base["sel_feats"][..., k, :, :, :], src,
+                              axis=-3))
+            pf.append(np.take(base["full_feats"][..., k, :, :, :], src,
+                              axis=-3))
+            pl.append(np.take(base["labels"][..., k, :], src, axis=-1))
+        return (np.stack(ps, axis=-4), np.stack(pf, axis=-4),
+                np.stack(pl, axis=-2))
+
+    def _stream_chunks(self, cfg: FleetConfig, statics: FleetStatics,
+                       base: dict, base_len, n_chunks: int):
+        """The chunk protocol of :meth:`run_stream`: ``(Wl, n, chunks)``
+        with ``Wl`` the log window's width, ``n`` the number of chunks and
+        ``chunks`` a generator of :class:`StreamChunk`, each chunk's window
+        staged from :meth:`build_stream`'s host tables and copied to the
+        engine's device when it is drawn.  The caller advances its log by
+        ``shift`` (:func:`_shift_log`) and then runs steps ``[s0, s1)``
+        with ``job0``."""
+        bounds, lows, Wl = self._stream_plan(cfg, statics, n_chunks)
+
+        def to_dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        def chunks():
+            prev = lows[0]
+            for (s0, s1), w0 in zip(bounds, lows):
+                sel, full, lab = self._stage_window(base, base_len, w0, Wl)
+                shift = w0 - prev
+                if (shift < 0).any():
+                    raise AssertionError("job windows must advance")
+                prev = w0
+                t0 = time.perf_counter()
+                tabs = ServeTables(sel_feats=to_dev(sel),
+                                   full_feats=to_dev(full),
+                                   labels=to_dev(lab), **self._bank_tables)
+                j0 = to_dev(w0.astype(np.int32))
+                sh = to_dev(shift.astype(np.int32))
+                yield StreamChunk(s0, s1, w0, tabs, j0, sh,
+                                  time.perf_counter() - t0)
+
+        return Wl, len(bounds), chunks()
+
+    def run_stream(
+        self,
+        requests,
+        n_devices: Optional[int] = None,
+        *,
+        seeds: Optional[Sequence[int]] = None,
+        total_jobs=None,
+        n_chunks: int = 1,
+        mode: str = "scan",
+        telemetry=None,
+    ) -> FleetServeResult:
+        """Serve a job stream of any length with O(chunk) device memory.
+
+        The horizon is split into ``n_chunks`` step ranges; each chunk
+        stages only the bounded window of per-job feature/label rows its
+        steps can touch (from periods, deadlines and clock drift), copies
+        it to the engine's device, rebases job ids with ``job0`` (signed:
+        negative on the first chunks) and advances the log window.  One
+        carry is live at a time; the full per-job log is assembled on the
+        host.  Bit-exact against :meth:`run` on the same requests for any
+        chunking.  ``total_jobs`` streams past the base request list by
+        cycling it, which is how one call serves millions of jobs.
+        ``mode="fused"`` runs each chunk as ONE launch of the
+        ``serve_fused_steps`` kernel (``adapt=False`` only).  ``compile_s``
+        is always 0: nothing is compiled ahead of the run.  ``telemetry=``
+        waits for the port's telemetry module and raises.
+        """
+        cfg_s = self.config
+        adapt = bool(cfg_s.adapt)
+        if mode not in ("scan", "fused"):
+            raise ValueError(f"unknown serve mode {mode!r}")
+        if telemetry is not None:
+            raise NotImplementedError(
+                "telemetry= is not part of the port yet")
+        if mode == "fused" and adapt:
+            raise ValueError(
+                "mode='fused' requires adapt=False: bank adaptation "
+                "propagates centroids through whole-model convs that "
+                "cannot run inside a device thread")
+        on_card = self.device.type == "cuda"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(self.device)
+
+        (fleet_cfg, statics, base, dev0, bank0, per_dev, totals,
+         base_len) = self.build_stream(requests, n_devices, seeds=seeds,
+                                       total_jobs=total_jobs)
+        D = int(fleet_cfg.policy.shape[0])
+        K = len(self.models)
+        Wl, n_run, chunks = self._stream_chunks(fleet_cfg, statics, base,
+                                                base_len, n_chunks)
+        carry = ServeCarry(dev=dev0, bank=bank0, log=self.log0(D, Wl))
+
+        Jt = max(max(totals), 1)
+        full_log = dict(
+            units=np.zeros((D, K, Jt), np.int32),
+            pred=np.full((D, K, Jt), -1, np.int32),
+            correct=np.zeros((D, K, Jt), bool),
+            margin=np.zeros((D, K, Jt), np.float32),
+            exit_unit=np.full((D, K, Jt), -1, np.int32),
+            sched=np.zeros((D, K, Jt), bool),
+        )
+
+        wall = 0.0
+        chunk_bytes = 0
+        win_cols = np.arange(Wl)
+        for ch in chunks:
+            t_r = time.perf_counter()
+            carry = carry._replace(log=_shift_log(carry.log, ch.shift))
+            if mode == "fused":
+                carry = fleet_step.serve_fused_steps(
+                    fleet_cfg, carry, ch.tables, ch.s0, ch.job0,
+                    statics=statics, n_steps=ch.s1 - ch.s0)
+            else:
+                carry = self._scan_steps(
+                    fleet_cfg, ch.tables, carry, ch.s0, ch.job0,
+                    statics=statics, n_steps=ch.s1 - ch.s0, adapt=adapt)
+            if on_card:
+                torch.cuda.synchronize(self.device)
+            wall += time.perf_counter() - t_r + ch.copy_s
+            chunk_bytes = max(chunk_bytes, sum(
+                l.numel() * l.element_size() for l in ch.tables))
+            win = {f: getattr(carry.log, f).cpu().numpy()
+                   for f in ServeLog._fields}
+            for k in range(K):
+                cols = ch.w0[k] + win_cols
+                ok = (cols >= 0) & (cols < totals[k])
+                if ok.any():
+                    for f in full_log:
+                        full_log[f][:, k, cols[ok]] = win[f][:, k, ok]
+
+        t_r = time.perf_counter()
+        fleet = finalize_fleet(fleet_cfg, carry.dev, statics, live=True)
+        if on_card:
+            torch.cuda.synchronize(self.device)
+        wall += time.perf_counter() - t_r
+        return FleetServeResult(
+            fleet=fleet,
+            units=full_log["units"],
+            pred=full_log["pred"],
+            correct=full_log["correct"],
+            margin=full_log["margin"],
+            exit_unit=full_log["exit_unit"],
+            sched=full_log["sched"],
+            carry=carry,
+            jobs=int(fleet.released.sum()),
+            wall_s=wall,
+            peak_bytes=(int(torch.cuda.max_memory_allocated(self.device))
+                        if on_card else 0),
+            chunk_table_bytes=chunk_bytes,
+            n_chunks=n_run,
         )

@@ -5,6 +5,8 @@ only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -29,7 +31,10 @@ from repro_torch.models import anytime as AT
 from repro_torch.models import attention as PA
 from repro_torch.models import cnn
 from repro_torch.models import transformer as TF
-from repro_torch.serve import FleetServeEngine, Request, ServeConfig
+from repro_torch.fleet.state import ServeCarry
+from repro_torch.serve import (FleetServeEngine, Request, ServeConfig,
+                               ServeEngine)
+from repro_torch.serve.fleet_engine import _shift_log
 
 pytestmark = pytest.mark.gpu
 
@@ -1093,3 +1098,163 @@ def test_hybrid_decode_step_launches_decode_gqa_per_attention_layer(cuda):
         torch.testing.assert_close(la.cpu(), lb, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(sa["stack"][0]["h"].cpu(), sb["stack"][0]["h"],
                                rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------- #
+# The scalar engine's one-row kernels, the stream, scalar == fleet.
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("d,k", [(150, 5), (150, 2), (33, 5), (1100, 3)])
+def test_l1_topk2_kernel_one_row_matches_plain(cuda, d, k):
+    """Kernel D at the scalar engine's shape: one request's selected
+    features against one unit's centroids."""
+    rng = np.random.default_rng(d + k)
+    x = torch.from_numpy(rng.normal(size=(1, d)).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32)).to(cuda)
+    n0 = L1.launches
+    out = L1.l1_topk2(x, c)
+    torch.cuda.synchronize()
+    assert L1.launches == n0 + 1
+    for a, b in zip(out, L1.l1_topk2_plain(x, c)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [8192, 4096, 384, 192, 33])
+def test_centroid_update_kernel_one_row_matches_plain(cuda, d):
+    """Kernel E at the scalar engine's adaptation: one row assigned to one
+    of k = 5 centroids."""
+    rng = np.random.default_rng(d)
+    c = torch.from_numpy(rng.normal(size=(5, d)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(1, d)).astype(np.float32)).to(cuda)
+    for j in range(5):
+        a = torch.tensor([j], dtype=torch.int32, device=cuda)
+        out = CU.centroid_update(c, x, a, 32.0)
+        torch.cuda.synchronize()
+        assert torch.equal(out, CU.centroid_update_plain(c, x, a, 32.0))
+
+
+def _stream_engine(device, bank_mode, total):
+    """``_engine``'s two tasks with a horizon for ``total`` jobs each."""
+    eng, reqs = _engine(device, False, bank_mode)
+    eng.config = dataclasses.replace(eng.config,
+                                     horizon=total * eng.config.period + 2.0)
+    return eng, reqs
+
+
+@pytest.mark.parametrize("per_dev_tables", [False, True])
+@pytest.mark.parametrize("bank_mode", ["per-device", "shared"])
+def test_serve_fused_kernel_on_stream_windows(cuda, bank_mode,
+                                              per_dev_tables):
+    """Kernel C == plain on a stream's staged windows (W < total jobs): the
+    first chunk, whose ``job0`` is negative, and a middle chunk, whose
+    ``job0`` is positive; the carry between them advanced by the kernel."""
+    total, D = 12, 5
+    eng, reqs = _stream_engine(cuda, bank_mode, total)
+    if per_dev_tables:
+        rng = np.random.default_rng(5)
+        reqs = [[[Request(t[j].x, t[j].label, release=2.0 * i)
+                  for i, j in enumerate(rng.permutation(len(t)))]
+                 for t in reqs] for _ in range(D)]
+        build = eng.build_stream(reqs, total_jobs=total)
+    else:
+        build = eng.build_stream(reqs, D, seeds=range(D), total_jobs=total)
+    cfg, st, base, dev0, bank0, per_dev, _, base_len = build
+    assert per_dev == per_dev_tables
+    W, n, chunks = eng._stream_chunks(cfg, st, base, base_len, 4)
+    mid = n // 2
+    assert W < total
+    carry = ServeCarry(dev=dev0, bank=bank0, log=eng.log0(D, W))
+    for c, ch in enumerate(chunks):
+        if c > mid:
+            break
+        if c == 0:
+            assert (ch.w0 < 0).all()        # a negative job0
+        if c == mid:
+            assert (ch.w0 > 0).all()        # a positive job0
+        assert (ch.tables.sel_feats.dim() == 5) == per_dev_tables
+        carry = carry._replace(log=_shift_log(carry.log, ch.shift))
+        out = fleet_step.serve_fused_steps(cfg, carry, ch.tables, ch.s0,
+                                           ch.job0, statics=st,
+                                           n_steps=ch.s1 - ch.s0)
+        torch.cuda.synchronize()
+        if c in (0, mid):
+            ref = fleet_step.serve_fused_steps_plain(
+                cfg, carry, ch.tables, ch.s0, ch.job0, statics=st,
+                n_steps=ch.s1 - ch.s0)
+            for part in ("dev", "log"):
+                _leaves_equal(getattr(out, part), getattr(ref, part),
+                              f"chunk {c} {part}")
+        carry = out
+    assert bool(carry.log.units.any())
+
+
+@pytest.mark.parametrize("bank_mode", ["per-device", "shared"])
+def test_fused_stream_matches_monolithic_on_card(cuda, bank_mode):
+    """The fused stream on the card (one launch of kernel C per chunk) ==
+    the monolithic fused run over the repeated request list."""
+    total, D = 12, 5
+    eng, reqs = _stream_engine(cuda, bank_mode, total)
+    n_base = len(reqs[0])
+    repeated = [[Request(t[j % n_base].x, t[j % n_base].label,
+                         release=2.0 * j) for j in range(total)]
+                for t in reqs]
+    n0 = fleet_step.serve_launches
+    st = eng.run_stream(reqs, D, seeds=range(D), total_jobs=total,
+                        n_chunks=4, mode="fused")
+    assert fleet_step.serve_launches == n0 + st.n_chunks == n0 + 4
+    assert st.peak_bytes > 0 and st.chunk_table_bytes > 0
+    mono = eng.run(repeated, D, seeds=range(D), mode="fused")
+    for f in ("units", "pred", "correct", "margin", "exit_unit", "sched"):
+        np.testing.assert_array_equal(getattr(st, f), getattr(mono, f),
+                                      err_msg=f)
+    for part in ("dev", "bank"):
+        _leaves_equal(getattr(st.carry, part), getattr(mono.carry, part),
+                      part)
+
+
+def _one_task_model(device, threshold):
+    """``_engine``'s first narrow CNN as one task, its bank's thresholds
+    replaced by ``threshold`` (None keeps them)."""
+    eng, reqs = _engine(device, False, "per-device", n_tasks=1)
+    m = eng.models[0]
+    bank = [uc if threshold is None else uc._replace(
+        threshold=torch.full((), threshold, device=device)) for uc in m.bank]
+    return (lambda: AgileCNN(m.cfg, m.params, list(bank))), reqs[0]
+
+
+@pytest.mark.parametrize("policy", ["zygarde", "edf"])
+@pytest.mark.parametrize("adapt", [False, True])
+def test_scalar_engine_matches_fleet_on_card(cuda, policy, adapt):
+    """The scalar engine on the card (kernels D and E one row at a time) ==
+    the one-device fleet (``feature_batch=1``) bit for bit on the
+    clock-commensurate recipe: units, schedule, predictions, margins."""
+    make, reqs = _one_task_model(cuda, 0.02)
+    n = len(reqs)
+    cfg = ServeConfig(policy=policy, period=2.0, deadline=1.5,
+                      horizon=n * 2.0 + 2.0, adapt=adapt, start_charged=True,
+                      sim_dt=0.05)
+    supply = energy.Harvester("battery", 1.0, 0.0, 1.0)
+    ops.reset_launch_counts()
+    eng = ServeEngine([make()], supply, eta=1.0, config=cfg)
+    res = eng.run([reqs])
+    counts = ops.launch_counts()
+    profs = eng.profiles_[0]
+    assert counts["l1_topk2"] == sum(p._exec_units for p in profs) > 0
+    assert (counts["centroid_update"] > 0) == adapt
+    units = np.array([j.unit for j in eng.jobs_])
+    sched = np.array([0 <= j.mandatory_done_time <= j.deadline
+                      for j in eng.jobs_])
+    pred = np.array([p._preds[u - 1] if u > 0 else -1
+                     for p, u in zip(profs, units)])
+    margin = np.array([p._margins[u - 1] if u > 0 else 0.0
+                       for p, u in zip(profs, units)], np.float32)
+    f = FleetServeEngine([make()], supply, eta=1.0, config=cfg,
+                         feature_batch=1, device=cuda).run([reqs], 1)
+    np.testing.assert_array_equal(units, f.units[0, 0, :n])
+    np.testing.assert_array_equal(sched, f.sched[0, 0, :n])
+    np.testing.assert_array_equal(pred, f.pred[0, 0, :n])
+    np.testing.assert_array_equal(margin.view(np.uint32),
+                                  f.margin[0, 0, :n].view(np.uint32))
+    assert res.units_executed == int(f.fleet.units_executed[0])
+    assert res.scheduled == int(f.fleet.scheduled[0])

@@ -83,12 +83,13 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 def test_chip_smoke_rehearsal_on_cpu():
-    """Every phase at narrow widths on the CPU — serving, the replay sweep,
-    kernel F, offline tuning, online adaptation with the fleet forecast
-    arm, anytime serving of the dense model with kernel G's checks and of
-    the RG-LRU hybrid with kernel H's and I's: the kernels report names A
-    to I with the contract's keys (no launches on the CPU), each with the
-    paths that ran it."""
+    """Every phase at narrow widths on the CPU — serving, the scalar
+    engine, scalar == fleet, the intermittent substrate, the stream, the
+    replay sweep, kernel F, offline tuning, online adaptation with the
+    fleet forecast arm, anytime serving of the dense model with kernel G's
+    checks and of the RG-LRU hybrid with kernel H's and I's: the kernels
+    report names A to I with the contract's keys (no launches on the CPU),
+    each with the paths that ran it."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
@@ -109,8 +110,9 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert paths["flash_attention"] == paths["decode_gqa"] == [
         "anytime", "hybrid"]
     assert paths["rglru_scan"] == ["hybrid"]
+    assert paths["serve_fused_steps"] == ["serve", "stream"]
     assert paths["l1_topk2"] == paths["centroid_update"] == [
-        "online", "serve"]
+        "online", "scalar", "serve", "stream"]
     for r in rows:
         assert keys <= set(r)
         assert r["launches"] == 0 and r["max_abs_err"] == 0.0
