@@ -67,6 +67,19 @@ Phases, each printing one line (any failure exits non-zero):
    CUDA events around launches enqueued while the card spins, so that no
    host work falls inside).  The launch counts are zeroed before this
    phase and read after it (kernels A, B);
+4a. telemetry at full width: the phase 4 sweep over its first tenth (464
+   steps, a depth cut), ``ring_size=256``, in the ``vmap`` and ``pallas``
+   modes, each plain, ``counters`` and ``full`` (kernel A once per step of
+   each pallas run), every result and carry leaf equal to the plain run's
+   and pallas telemetry equal to vmap's bit for bit, with the ms per step
+   of each tier; on 64 devices over 300 steps both tiers equal the on-card
+   ``record_step`` fold and the CPU's plain run (ints exact, the floats'
+   gap printed); then phase 3's scan with adaptation at ``full`` (every log
+   field and carry leaf equal to phase 3's run, kernel D launched as often
+   there) and, on a shared bank (kernel E), ``run_stream(telemetry=
+   counters)`` in 3 chunks equal to ``run``'s counters over the same 3
+   segments.  Counts zeroed before the phase and read after it (kernels
+   A, D, E);
 5. kernel F ``pairwise_l1`` held bit for bit against its plain version at
    the forecaster's first-batch shape (256 x 256 x 6), at a ``d`` that
    spans two blocks (33 x 17 x 1,100), at 1,000 x 1,000 x 64 (the 64
@@ -95,8 +108,9 @@ Phases, each printing one line (any failure exits non-zero):
    prompt (twice, each timed) and 64 ``decode_step``s (timed in two
    halves); ``anytime_forward`` on 2 x 512 tokens
    and ``calibrate_thresholds`` at 0.98 agreement; the
-   ``AnytimeServeEngine`` (16 slots, 16-token prompts, 48 new tokens, 256
-   steps) on 64 requests every 0.25 s with a 2.5 s deadline under
+   ``AnytimeServeEngine`` (16 slots, 16-token prompts, 48 new tokens, 128
+   steps: a depth cut from 256 that pays for phase 4a) on 64 requests
+   every 0.25 s with a 2.5 s deadline under
    ``calibrate_harvester(0.71, 0.35)`` and under a persistent supply, with
    the calibrated thresholds and again under EDF.  The launch counts are
    zeroed before and read after (kernel G, once per layer of each prefill
@@ -110,7 +124,8 @@ Phases, each printing one line (any failure exits non-zero):
    instance's registers as ``-Xptxas -v`` reported them and its useful
    TFLOP/s beside the bound; and the port on
    the card against the port on the CPU (a reduced ``forward`` and a
-   prefill + decode within 1e-4, one EDF engine run equal);
+   prefill + decode within 1e-4, one EDF engine run equal, also with
+   ``telemetry=full``, whose telemetry equals the CPU's);
 9. the same anytime path for the RG-LRU hybrid at recurrentgemma-9b's
    published widths (38 layers: 26 rec, 12 attn with MQA and a 2,048-token
    window; d_model 4,096, RG-LRU width 4,096 in 16 blocks, d_ff 12,288,
@@ -170,6 +185,7 @@ REPLAY_KERNELS = ("fleet_priority", "fleet_fused_steps")
 TUNE_KERNELS = ("fleet_fused_steps",)
 ONLINE_KERNELS = ("fleet_fused_steps", "l1_topk2", "centroid_update",
                   "pairwise_l1")
+TELEMETRY_KERNELS = ("fleet_priority", "l1_topk2", "centroid_update")
 REPLACES = {
     "fleet_priority": "src/repro/kernels/fleet_priority.py:83",
     "fleet_fused_steps": "src/repro/kernels/fleet_step.py:114",
@@ -279,9 +295,9 @@ FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
              demo_horizon=318.0, demo_grid=10, fleet_devices=256,
              cpu_check_s=106.0, check_gains=True,
              anytime=AnyRun("qwen1.5-0.5b", False, 4096, 64, True, (2, 512),
-                            64, 16, 16, 48, 256),
+                            64, 16, 16, 48, 128),
              hybrid=AnyRun("recurrentgemma-9b", False, 4096, 64, False,
-                           (2, 512), 64, 16, 16, 48, 256),
+                           (2, 512), 64, 16, 16, 48, 128),
              flash_shapes=((2, 512, 512, 16, 16, 64, True, 0, 0),
                            (1, 4096, 4096, 16, 16, 64, True, 0, 0),
                            (1, 8192, 8192, 16, 16, 64, True, 4096, 0),
@@ -806,17 +822,20 @@ def _serve_phase(device, scale: Scale, models, sets) -> dict:
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     ops.reset_launch_counts()
-    res = {}
+    res, run_launches = {}, {}
     for label, adapt, mode, bank_mode in (
             ("scan adapt per-device", True, "scan", "per-device"),
             ("scan adapt shared", True, "scan", "shared"),
             ("scan", False, "scan", "per-device"),
             ("fused", False, "fused", "per-device")):
         before = fleet_step.serve_launches
+        counts0 = ops.launch_counts()
         r = engine(adapt, bank_mode).run(
             requests, scale.n_devices, seeds=seeds,
             n_segments=scale.n_segments, mode=mode)
         res[label] = r
+        run_launches[label] = {k: v - counts0[k]
+                               for k, v in ops.launch_counts().items()}
         print(f"serve {label}: {r.jobs} jobs on {scale.n_devices} devices "
               f"in {r.wall_s:.3f} s = {r.jobs_per_sec:.1f} jobs/s, "
               f"{int(r.fleet.scheduled.sum())} on time, "
@@ -907,7 +926,8 @@ def _serve_phase(device, scale: Scale, models, sets) -> dict:
                us_per_step_big_fleet=big["us_per_step"],
                units_big_fleet=big["units"], big_fleet=scale.big_devices,
                fused_jobs_per_s=res["fused"].jobs_per_sec)
-    return dict(launches=launches, c_row=row, runs=res)
+    return dict(launches=launches, c_row=row, runs=res,
+                run_launches=run_launches)
 
 
 def _serve_kernel_times(device, scale: Scale, models, requests, n_dev: int,
@@ -1642,7 +1662,8 @@ def _replay_phase(device, scale: Scale, models, sets) -> dict:
     del cfg_big, c_big
     b_row.update(ms_big_fleet=ms_big, device_ms_big_fleet=dev_big,
                  big_fleet=len(meta_big))
-    return dict(launches=launches, a_row=a_row, b_row=b_row)
+    return dict(launches=launches, a_row=a_row, b_row=b_row, cfg=cfg,
+                statics=statics)
 
 
 def _priority_inputs(device, cfg, statics):
@@ -1741,6 +1762,233 @@ def _fused_check(device, cfg, statics, FS, init_fleet) -> dict:
                 us_per_step=1e3 * dev_ms / n, plain_ms=plain_s * 1e3,
                 bound_ms=bound_ms, bound_by=by, library_ms=None,
                 segment_steps=n, shape=f"D={D}, {n} steps")
+
+
+# --------------------------------------------------------------------------- #
+# Telemetry on the replay fleet and the serve scan.
+# --------------------------------------------------------------------------- #
+
+# telemetry fields held exactly (tests/test_telemetry.py:INT_FIELDS); the
+# float fields take that file's tolerances where two paths compute them
+TEL_INT = ("c_release", "c_miss", "c_sched", "c_retired", "c_power_fail",
+           "c_reboot", "c_knob", "exit_hist", "occ_sum", "occ_max",
+           "n_steps", "ring_kind", "ring_head")
+TEL_COUNTERS = ("c_release", "c_miss", "c_sched", "c_reboot",
+                "c_power_fail", "occ_sum", "occ_max", "energy_sum",
+                "energy_min", "n_steps")
+
+
+def _tel_gap(a, b, what: str, fields=None, tol: bool = True) -> float:
+    """The integer fields of two telemetries equal, the floats within the
+    reference's tolerances (1e-4 for the sums and ring values, 1e-6
+    otherwise) when ``tol``; returns the largest float gap (infinities
+    must match)."""
+    import torch
+
+    gap = 0.0
+    for f in fields or a._fields:
+        x, y = getattr(a, f), getattr(b, f).to(getattr(a, f).device)
+        if f in TEL_INT:
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: telemetry {f} differs")
+            continue
+        fin = torch.isfinite(y)
+        if not torch.equal(torch.isfinite(x), fin) or not torch.equal(
+                x[~fin], y[~fin]):
+            raise AssertionError(f"{what}: telemetry {f} infinities differ")
+        if fin.any():
+            gap = max(gap, float((x[fin] - y[fin]).abs().max()))
+        if tol:
+            rt = 1e-4 if f in ("slack_sum", "energy_sum", "ring_val") \
+                else 1e-6
+            torch.testing.assert_close(x, y, rtol=rt, atol=rt,
+                                       msg=f"{what}: telemetry {f}")
+    return gap
+
+
+def _telemetry_phase(device, scale: Scale, replay: dict, serve: dict,
+                     models, sets) -> dict:
+    """Telemetry at full width.  Replay: the 1,600-device sweep of phase 4
+    over its first tenth (a depth cut), ``ring_size=256``, in the vmap and
+    pallas modes, each plain, ``counters`` and ``full`` (counts zeroed
+    before, read after: kernel A once per step of each pallas run); every
+    carry leaf equals the plain run's, pallas telemetry equals vmap's bit
+    for bit; on 64 devices over 300 steps the collection paths equal the
+    on-card ``record_step`` fold and the CPU's plain run.  Serve: phase
+    3's scan with adaptation (per-device bank) at ``full``, every log
+    field and carry leaf equal to phase 3's run and kernels D and E
+    launched as often; with a shared bank (kernel E) at ``counters``,
+    ``run_stream`` in 3 chunks equal to ``run`` over the same 3 segments
+    and D and E launched as often as in phase 3's shared run."""
+    import torch
+
+    from repro_torch import telemetry as TEL
+    from repro_torch.fleet import init_fleet, run_segments
+    from repro_torch.fleet import simulator as FSim
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    cfg, statics = replay["cfg"], replay["statics"]
+    D = cfg.n_devices
+    n = -(-statics.n_steps // 10)
+    st = _steps(statics, n)
+    tiers = {"plain": None,
+             "counters": TEL.TelemetryConfig(ring_size=256,
+                                             level="counters"),
+             "full": TEL.TelemetryConfig(ring_size=256, level="full")}
+    requests = _serve_requests(scale, sets)
+    seeds = list(range(scale.n_devices))
+    eng = _serve_engine(device, scale, models, True, "per-device")
+    # the shared bank adapts through kernel E (a per-device bank, in place)
+    eng_shared = _serve_engine(device, scale, models, True, "shared")
+
+    # ---- the main path: counts zeroed just before, read just after ------
+    ops.reset_launch_counts()
+    out, ms = {}, {}
+    for mode in ("vmap", "pallas"):
+        for tier, tcfg in tiers.items():
+            out[mode, tier], secs = _timed(lambda: run_segments(
+                cfg, st, 1, mode=mode, telemetry=tcfg), device)
+            ms[mode, tier] = 1e3 * secs / n
+    a_launches = ops.launch_counts()["fleet_priority"]
+    counts0 = ops.launch_counts()
+    serve_full, secs_full = _timed(lambda: eng.run(
+        requests, scale.n_devices, seeds=seeds, n_segments=scale.n_segments,
+        telemetry=tiers["full"]), device)
+    counts1 = ops.launch_counts()
+    serve_cnt, secs_cnt = _timed(lambda: eng_shared.run(
+        requests, scale.n_devices, seeds=seeds, n_segments=3,
+        telemetry=tiers["counters"]), device)
+    counts2 = ops.launch_counts()
+    serve_de = {label: {k: c1[k] - c0[k]
+                        for k in ("l1_topk2", "centroid_update")}
+                for label, c0, c1 in (("per-device", counts0, counts1),
+                                      ("shared", counts1, counts2))}
+    stream_cnt = eng_shared.run_stream(requests, scale.n_devices,
+                                       seeds=seeds, n_chunks=3,
+                                       telemetry=tiers["counters"])
+    launches = ops.launch_counts()
+    launches = {k: launches[k] for k in TELEMETRY_KERNELS}
+    print(f"telemetry path launches {json.dumps(launches)}")
+    if device.type == "cuda":
+        plain_de = {m: {k: serve["run_launches"][f"scan adapt {m}"][k]
+                        for k in ("l1_topk2", "centroid_update")}
+                    for m in serve_de}
+        if a_launches != 3 * n or serve_de != plain_de or any(
+                v == 0 for v in launches.values()):
+            raise AssertionError(
+                f"telemetry path: kernel A launched {a_launches} times (not "
+                f"{3 * n}), kernels D and E {serve_de} in the serve runs "
+                f"(phase 3's plain runs: {plain_de}), or a kernel never ran")
+
+    # ---- outputs are right: replay --------------------------------------
+    for mode in ("vmap", "pallas"):
+        res0, carry0 = out[mode, "plain"]
+        for tier in ("counters", "full"):
+            res, carry, tel = out[mode, tier]
+            _equal_leaves(res0, res, f"replay {mode} {tier} result")
+            _equal_leaves(carry0, carry, f"replay {mode} {tier} carry")
+            if int(tel.n_steps.min()) != n or int(tel.c_release.sum()) != \
+                    int(carry.next_rel.sum()):
+                raise AssertionError(f"replay {mode} {tier}: telemetry "
+                                     "does not reconcile with the carry")
+    for tier in ("counters", "full"):
+        _equal_leaves(out["vmap", tier][2], out["pallas", tier][2],
+                      f"replay pallas {tier} telemetry != vmap")
+    tel = out["vmap", "full"][2]
+    print(f"replay telemetry ({D} devices, {n} steps, ring 256): every "
+          f"result and carry leaf equal to the plain run at both tiers in "
+          f"both modes; pallas == vmap on every telemetry field; "
+          f"{int(tel.c_miss.sum())} misses, {int(tel.c_power_fail.sum())} "
+          f"power failures, {int(tel.c_reboot.sum())} reboots, "
+          f"{int(tel.c_retired.sum())} retired, "
+          f"{int(tel.ring_head.sum())} ring events")
+    for mode in ("vmap", "pallas"):
+        p = ms[mode, "plain"]
+        print(f"replay {mode} ms per step: plain {p:.3f}, counters "
+              f"{ms[mode, 'counters']:.3f} "
+              f"({100 * (ms[mode, 'counters'] / p - 1):+.1f}%), full "
+              f"{ms[mode, 'full']:.3f} "
+              f"({100 * (ms[mode, 'full'] / p - 1):+.1f}%)")
+
+    # 64 devices, 300 steps: the collection paths == the on-card reference
+    # fold; the card == the CPU's plain run
+    n_chk = min(scale.cpu_check_steps, n)
+    d_chk = min(scale.cpu_check_devices, D)
+    sl = type(cfg)(*[x[:d_chk].contiguous() for x in cfg])
+    cpu = torch.device("cpu")
+    sl_cpu = type(cfg)(*[x.to(cpu) for x in sl])
+    gaps = {}
+    for tier in ("counters", "full"):
+        tcfg = tiers[tier]
+        _, c_dev, t_dev = run_segments(sl, _steps(statics, n_chk), 1,
+                                       telemetry=tcfg)
+        _, t_ref = FSim._run_steps_tel_reference(
+            sl, init_fleet(sl, statics), TEL.init_fleet_telemetry(tcfg, sl),
+            0, statics, n_chk, "vmap")
+        _tel_gap(t_dev, t_ref, f"{tier} vs the record_step fold",
+                 None if tier == "full" else TEL_COUNTERS)
+        _, c_cpu, t_cpu = run_segments(sl_cpu, _steps(statics, n_chk), 1,
+                                       telemetry=tcfg)
+        _equal_leaves(c_dev, c_cpu, f"telemetry run on {device} != CPU")
+        gaps[tier] = _tel_gap(t_dev, t_cpu, f"{tier} on {device} vs CPU",
+                              tol=False)
+    print(f"replay telemetry on {d_chk} devices over {n_chk} steps: both "
+          f"tiers == the record_step fold on {device} (ints exact, floats "
+          f"within the reference's tolerances); {device} vs CPU: carry "
+          f"equal, ints exact, largest float gap counters "
+          f"{gaps['counters']:.3g}, full {gaps['full']:.3g}")
+    for tier in ("counters", "full"):
+        _profile(device, f"replay vmap telemetry {tier}", D, 20,
+                 lambda k: run_segments(cfg, _steps(statics, k), 1,
+                                        mode="vmap", telemetry=tiers[tier]))
+
+    # ---- outputs are right: serve ---------------------------------------
+    ref = serve["runs"]["scan adapt per-device"]
+    for f in ("units", "pred", "correct", "margin", "exit_unit", "sched"):
+        if not np.array_equal(getattr(serve_full, f).view(np.uint8),
+                              getattr(ref, f).view(np.uint8)):
+            raise AssertionError(f"serve with telemetry != phase 3's run: "
+                                 f"log.{f}")
+    _equal_leaves(serve_full.fleet, ref.fleet, "serve telemetry fleet")
+    for part in ("dev", "bank", "log"):
+        _equal_leaves(getattr(serve_full.carry, part),
+                      getattr(ref.carry, part), f"serve telemetry {part}")
+    for f in ("units", "pred", "correct", "margin", "exit_unit", "sched"):
+        if not np.array_equal(getattr(stream_cnt, f).view(np.uint8),
+                              getattr(serve_cnt, f).view(np.uint8)):
+            raise AssertionError(f"stream with telemetry != run: log.{f}")
+    _equal_leaves(stream_cnt.telemetry, serve_cnt.telemetry,
+                  "stream counters != run counters")
+    tf = serve_full.telemetry
+    if int(tf.c_release.sum()) != serve_full.jobs or int(
+            tf.exit_hist.sum()) != int(tf.c_retired.sum()):
+        raise AssertionError("serve telemetry does not reconcile")
+    steps = int(tf.n_steps[0])
+    serve_ms = {
+        "per-device plain": ref.wall_s,
+        "per-device full": serve_full.wall_s,
+        "shared plain": serve["runs"]["scan adapt shared"].wall_s,
+        "shared counters": serve_cnt.wall_s}
+    serve_ms = {k: 1e3 * v / steps for k, v in serve_ms.items()}
+    print(f"serve telemetry full ({scale.n_devices} devices, {steps} steps, "
+          f"{scale.n_segments} segments): every log field and carry leaf "
+          f"equal to phase 3's run; kernels D and E launched "
+          f"{json.dumps(serve_de)} (per-device at full, shared at "
+          f"counters), as in phase 3's plain runs; {int(tf.c_retired.sum())} "
+          f"retired, {int(tf.c_miss.sum())} misses, "
+          f"{int(tf.c_power_fail.sum())} power failures; ms per step "
+          f"(plain: phase 3's runs): per-device plain "
+          f"{serve_ms['per-device plain']:.3f}, full "
+          f"{serve_ms['per-device full']:.3f}; shared plain "
+          f"{serve_ms['shared plain']:.3f}, counters "
+          f"{serve_ms['shared counters']:.3f}")
+    print(f"stream counters (shared bank, 3 chunks) == run counters (3 "
+          f"segments) on every telemetry field and log field; telemetry phase "
+          f"{time.perf_counter() - t0:.2f} s")
+    return dict(launches=launches, ms_per_step={
+        f"replay {m} {t}": v for (m, t), v in ms.items()} | {
+        f"serve scan {k}": v for k, v in serve_ms.items()})
 
 
 # --------------------------------------------------------------------------- #
@@ -2556,7 +2804,9 @@ def _any_cpu_check(device, run: AnyRun, S: int) -> None:
     1e-4), a prefill of ``S`` tokens and four decode steps (kernel H
     against the einsum path, 1e-4), and one EDF engine run (the result
     arrays equal: the depth is fixed and every emitted token agrees with
-    itself).  The config's window must be a multiple of the CPU path's
+    itself), also with ``telemetry=full`` (the same result arrays; the
+    telemetry's integer fields equal the CPU's, its floats within
+    ``tests/test_telemetry.py``'s tolerances).  The config's window must be a multiple of the CPU path's
     chunk (``attention.chunk_size``): on any other window the reference's
     chunked path, which the CPU port mirrors, drops keys that kernel G
     keeps (ROADMAP Queue 3), so the check asserts it first."""
@@ -2567,6 +2817,7 @@ def _any_cpu_check(device, run: AnyRun, S: int) -> None:
     from repro_torch.models import attention
     from repro_torch.models import transformer as T
     from repro_torch.serve import AnytimeConfig, AnytimeServeEngine
+    from repro_torch.telemetry import TelemetryConfig
 
     cfg = get_config(run.arch).reduced()
     chunk = attention.chunk_size(S, S, cfg.attn_chunk)
@@ -2598,14 +2849,30 @@ def _any_cpu_check(device, run: AnyRun, S: int) -> None:
         run, requests=6, prompt=4, new=4), rng)
     r_dev = AnytimeServeEngine(cfg, on_dev, serve_cfg=sc).run(reqs)
     r_cpu = AnytimeServeEngine(cfg, params, serve_cfg=sc).run(reqs)
+    full = TelemetryConfig(ring_size=64, level="full")
+    t_dev = AnytimeServeEngine(cfg, on_dev, serve_cfg=sc).run(
+        reqs, telemetry=full)
+    t_cpu = AnytimeServeEngine(cfg, params, serve_cfg=sc).run(
+        reqs, telemetry=full)
     for f in ("status", "finish", "agree", "tokens", "depth_sum"):
         if not np.array_equal(getattr(r_dev, f), getattr(r_cpu, f)):
             raise AssertionError(f"{run.arch} engine on the card != the "
                                  f"CPU: {f}")
+        if not (np.array_equal(getattr(t_dev, f), getattr(r_dev, f))
+                and np.array_equal(getattr(t_cpu, f), getattr(r_cpu, f))):
+            raise AssertionError(f"{run.arch} engine with telemetry != "
+                                 f"without: {f}")
+    tel_gap = _tel_gap(t_dev.telemetry, t_cpu.telemetry,
+                       f"{run.arch} engine telemetry on the card vs CPU")
+    if int(t_dev.telemetry.exit_hist.sum()) != int(t_dev.tokens.sum()):
+        raise AssertionError(f"{run.arch} engine telemetry: the depth "
+                             "histogram does not count every token")
     print(f"anytime card vs CPU ({run.arch} reduced): forward within 1e-4 "
           f"(max err {_max_err(a, b):.3g}); prefill + 4 decode steps within "
           f"1e-4 (max err {dec_err:.3g}); EDF engine run equal on every "
-          f"result array ({r_dev.on_time}/{r_dev.n_requests} on time)")
+          f"result array ({r_dev.on_time}/{r_dev.n_requests} on time), "
+          f"also with telemetry=full, whose fields equal the CPU's (ints "
+          f"exact, largest float gap {tel_gap:.3g})")
 
 
 def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
@@ -2629,6 +2896,7 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
     _intermittent_phase(device, scale, models, sets)
     stream = _stream_phase(device, scale, models, sets, serve["runs"])
     replay = _replay_phase(device, scale, models, sets)
+    telemetry = _telemetry_phase(device, scale, replay, serve, models, sets)
     f_row = _pw_phase(device, scale, rng)
     tune = _tune_phase(device, scale)
     online = _online_phase(device, scale)
@@ -2643,6 +2911,7 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
     # paths reports their sum and the count of each
     paths = dict(serve=serve["launches"], scalar=scalar["launches"],
                  stream=stream["launches"], replay=replay["launches"],
+                 telemetry=telemetry["launches"],
                  tune=tune["launches"], online=online["launches"],
                  anytime=anytime["launches"], hybrid=hybrid["launches"])
     rows = []

@@ -24,9 +24,13 @@ O(chunk) ``run_stream``, scan and fused modes); online adaptation (:mod:`repro_t
 (:mod:`repro_torch.configs`) and anytime serving of the dense attention
 family and the RG-LRU hybrid (:mod:`repro_torch.models.transformer`,
 :mod:`repro_torch.models.rglru`, :mod:`repro_torch.models.anytime`,
-:class:`repro_torch.serve.anytime.AnytimeServeEngine`).  Kernels:
+:class:`repro_torch.serve.anytime.AnytimeServeEngine`); telemetry
+(:mod:`repro_torch.telemetry`: the ``telemetry=`` of ``simulate_fleet``,
+``run_segments``, ``FleetServeEngine.run``/``run_stream``,
+``OnlineAdapter.hook`` and ``AnytimeServeEngine``).  Kernels:
 ``fleet_priority``, ``fleet_fused_steps``, ``serve_fused_steps``,
 ``l1_topk2``, ``centroid_update``, ``pairwise_l1``, ``flash_attention``,
 ``decode_gqa`` and ``rglru_scan``.
 """
 from . import adapt  # noqa: F401
+from . import telemetry  # noqa: F401

@@ -61,8 +61,9 @@ Port notes.  The host measurements stay numpy, with the reference's dtypes.
 The config and carry leaves the hook reads live on the fleet's device and
 are fetched with one ``.cpu()`` per leaf per segment (the read-only
 context once per trajectory); the config updates the controllers return
-are tensors on the config's device.  ``telemetry=`` comes with a later
-slice of the port and raises ``NotImplementedError``.
+are tensors on the config's device.  When the run threads ``telemetry=``
+the hook takes the miss rate from the summary's segment delta instead of
+fetching the carry's counters.
 """
 from __future__ import annotations
 
@@ -301,8 +302,8 @@ class Observation:
     carry: DeviceState
     miss_rate: np.ndarray       # (D,) — jobs missed during the last segment
     ctx: AdapterContext
-    #: the last segment's telemetry in the reference; always None here
-    #: (``telemetry=`` is not ported yet)
+    #: the last segment's :class:`repro_torch.telemetry.TelemetrySummary`
+    #: (a delta) when the run threads ``telemetry=``, else None
     telemetry: Optional[object] = None
 
 
@@ -485,6 +486,7 @@ class OnlineAdapter:
         self._ctx: Optional[AdapterContext] = None
         # the previous boundary's miss counters, on the host
         self._prev_counts: Optional[_MissCounters] = None
+        self._prev_summary = None
 
     @property
     def eta_hat(self) -> Optional[np.ndarray]:
@@ -498,13 +500,14 @@ class OnlineAdapter:
     def hook(self, seg: int, t_end: float, cfg: FleetConfig,
              carry: DeviceState, telemetry=None) -> FleetConfig:
         """``run_segments`` hook: measure, run every controller, rewrite the
-        tunable config fields for the next segment.  ``telemetry`` (the
-        reference's cumulative summary) is not ported yet and raises
-        ``NotImplementedError``."""
-        if telemetry is not None:
-            raise NotImplementedError(
-                "OnlineAdapter.hook(telemetry=...) is not ported yet (it "
-                "comes with the telemetry slice)")
+        tunable config fields for the next segment.
+
+        When the run threads ``telemetry=`` the hook receives the
+        cumulative :class:`repro_torch.telemetry.TelemetrySummary`; the
+        miss rate then comes from the summary's segment delta — the same
+        as the carry diff (both difference the same step counters) without
+        fetching the carry's counters — and the controllers see the
+        segment's summary as ``Observation.telemetry``."""
         if self._ctx is None:
             self._ctx = AdapterContext(
                 statics=self.statics,
@@ -516,10 +519,19 @@ class OnlineAdapter:
                 # re-widen it
                 base_persistent=host(cfg.persistent),
             )
-        counts = _MissCounters(host(carry.m_misses), host(carry.next_rel))
-        rate = miss_rate(counts, self._prev_counts)
+        seg_summary = None
+        if telemetry is not None:
+            seg_summary = telemetry.delta(self._prev_summary)
+            self._prev_summary = telemetry
+            rate = seg_summary.miss_rate
+        else:
+            counts = _MissCounters(host(carry.m_misses),
+                                   host(carry.next_rel))
+            rate = miss_rate(counts, self._prev_counts)
+            self._prev_counts = counts
         obs = Observation(seg=seg, t_end=float(t_end), cfg=cfg, carry=carry,
-                          miss_rate=rate, ctx=self._ctx)
+                          miss_rate=rate, ctx=self._ctx,
+                          telemetry=seg_summary)
         upd: dict = {}
         entry: dict = dict(seg=seg, t_end=float(t_end),
                            miss_rate=rate.copy(),
@@ -528,6 +540,5 @@ class OnlineAdapter:
             c_upd, c_log = c.update(obs)
             upd.update(c_upd)
             entry.update(c_log)
-        self._prev_counts = counts
         self.history.append(entry)
         return cfg._replace(**upd)

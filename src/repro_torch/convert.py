@@ -18,6 +18,7 @@ from .core.kmeans import UnitClassifier
 from .core.step import DeviceCarry, StepParams
 from .fleet.state import ServeBank, ServeCarry, ServeLog
 from .serve.fleet_engine import ServeTables
+from .telemetry.state import Telemetry
 
 
 def tensor(a, device="cuda") -> torch.Tensor:
@@ -67,6 +68,20 @@ def serve_carry(obj, device="cuda") -> ServeCarry:
     return ServeCarry(dev=device_carry(dev, device),
                       bank=named_tuple(ServeBank, bank, device),
                       log=named_tuple(ServeLog, log, device))
+
+
+def telemetry(obj, device="cuda") -> Telemetry:
+    """A :class:`repro_torch.telemetry.Telemetry` from numpy leaves (a JAX
+    run's ``jax.tree.map(np.asarray, tel)``, a dict, or anything laid out
+    the same way), e.g. to resume a JAX run's ``telemetry_carry``."""
+    return named_tuple(Telemetry, obj, device)
+
+
+def to_numpy(obj) -> dict:
+    """A NamedTuple of tensors (a port ``Telemetry``, carry, ...) as a dict
+    of numpy arrays by field name, the way back to the JAX package:
+    ``repro.telemetry.Telemetry(**to_numpy(tel))``."""
+    return {k: v.detach().cpu().numpy() for k, v in obj._asdict().items()}
 
 
 def cnn_params(params: dict, device="cuda") -> dict:

@@ -313,14 +313,41 @@ def finish_counts(params: StepParams, st: DeviceCarry, mask,
     return per_task(sched), per_task(corr), per_task(miss)
 
 
+class StepTrace(NamedTuple):
+    """Per-step event descriptors of a transition (telemetry's in-loop
+    emission; :mod:`repro_torch.telemetry.trace` decodes them).  Leading
+    device axes as on the carry.
+
+    Every retirement flows through one of three channels, at most one event
+    per task each (one release per task per step; same-task deadlines are
+    a period apart), so ``(..., K)`` words capture a step losslessly.
+    Words (0 = no event): ``exited + 2`` in bits 0-5, the task id in bits
+    6-10 where present, ``job + 1`` above.  The ``*_dl`` floats carry the
+    retiring slot's deadline register; garbage where the word is 0.
+    """
+
+    adm: torch.Tensor        # (..., K) i32: insert | dropped << 1 | evict << 2
+    evict: torch.Tensor      # (..., K) i32: (job+1)<<11 | task<<6 | exited+2
+    evict_dl: torch.Tensor   # (..., K) f32: victim q_deadline
+    expire: torch.Tensor     # (..., K) i32: (job+1)<<6 | exited+2
+    expire_dl: torch.Tensor  # (..., K) f32: expired-slot q_deadline
+    complete: torch.Tensor   # (...,) i32: (job+1)<<11 | task<<6 | exited+2
+    complete_dl: torch.Tensor  # (...,) f32: completed slot q_deadline
+
+
 def admit(params: StepParams, st: DeviceCarry, t, statics: StepStatics,
-          live: bool = False):
+          live: bool = False, trace: bool = False):
     """Admit at most one released job per task, in task order; on a full
-    queue evict the earliest-deadline job whose mandatory part is done."""
+    queue evict the earliest-deadline job whose mandatory part is done.
+
+    ``trace`` additionally returns the ``(adm, evict, evict_dl)`` words of
+    :class:`StepTrace`, read from values the stage already computed; the
+    plain path's ops are unchanged."""
     q = statics.queue_size
     n_tasks = params.period.shape[-1]
     k_iota = torch.arange(n_tasks, device=st.next_rel.device, dtype=_I32)
     inf = torch.full((), float("inf"), dtype=_F32, device=t.device)
+    tr_adm, tr_evict, tr_evict_dl = [], [], []
     for k in range(n_tasks):
         nr_k = st.next_rel[..., k]
         rel_time = nr_k.to(_F32) * params.period[..., k]
@@ -343,6 +370,17 @@ def admit(params: StepParams, st: DeviceCarry, t, statics: StepStatics,
         ins = insert[..., None] & _oh_eq(slot, q)
         dropped = releasing & ~insert
         k_hot = k_iota == k
+
+        if trace:
+            # the victim's pre-step registers (a job admitted this step
+            # has q_exited == -1 and is never evictable)
+            tr_adm.append(insert.to(_I32) + (dropped.to(_I32) << 1)
+                          + (evict.to(_I32) << 2))
+            tr_evict.append(torch.where(
+                evict, ((_take1(st.q_job, victim) + 1) << 11)
+                + (_take1(st.q_task, victim) << 6)
+                + (_take1(st.q_exited, victim) + 2), 0).to(_I32))
+            tr_evict_dl.append(_take1(st.q_deadline, victim))
 
         st = st._replace(
             next_rel=st.next_rel + (k_hot & releasing[..., None]).to(_I32),
@@ -367,21 +405,43 @@ def admit(params: StepParams, st: DeviceCarry, t, statics: StepStatics,
             m_misses=(st.m_misses + d_miss
                       + (dropped[..., None] & k_hot).to(_I32)),
         )
+    if trace:
+        return st, (torch.stack(tr_adm, -1), torch.stack(tr_evict, -1),
+                    torch.stack(tr_evict_dl, -1))
     return st
 
 
 def drop_expired(params: StepParams, st: DeviceCarry, t,
-                 live: bool = False):
-    """Expire queued jobs against the device's drifting clock."""
+                 live: bool = False, trace: bool = False,
+                 q_active_pre=None):
+    """Expire queued jobs against the device's drifting clock.
+
+    ``trace`` additionally returns the ``(expire, expire_dl)`` words of
+    :class:`StepTrace`; ``q_active_pre`` (the queue before this step's
+    admissions) leaves out jobs admitted this very step, which the
+    carry-delta view (:func:`step_events`) never counts as retirements."""
     t_read = t * (1.0 + params.clock_drift)
     expired = st.q_active & (t_read[..., None] >= st.q_deadline)
     d_sched, d_corr, d_miss = finish_counts(params, st, expired, live)
-    return st._replace(
+    new = st._replace(
         q_active=st.q_active & ~expired,
         m_scheduled=st.m_scheduled + d_sched,
         m_correct=st.m_correct + d_corr,
         m_misses=st.m_misses + d_miss,
     )
+    if not trace:
+        return new
+    # at most one same-task deadline crosses per dt, so one word per task
+    n_tasks = params.period.shape[-1]
+    exp = expired if q_active_pre is None else expired & q_active_pre
+    word = ((st.q_job + 1) << 6) + (st.q_exited + 2)
+    onehot = exp[..., None] & (st.q_task[..., None] == torch.arange(
+        n_tasks, device=exp.device, dtype=_I32))             # (..., Q, K)
+    tr_exp = torch.where(onehot, word[..., None], 0).sum(-2, dtype=_I32)
+    tr_exp_dl = torch.where(onehot, st.q_deadline[..., None],
+                            torch.zeros((), dtype=_F32,
+                                        device=exp.device)).sum(-2)
+    return new, (tr_exp, tr_exp_dl)
 
 
 def pick_inputs(params: StepParams, st: DeviceCarry, t,
@@ -460,14 +520,17 @@ def pick(params: StepParams, st: DeviceCarry, t, statics: StepStatics,
 
 def apply_step(params: StepParams, st: DeviceCarry, t, sel, picked, run,
                e_new, statics: StepStatics, live: bool = False,
-               outcomes=None, t_end=None):
+               outcomes=None, t_end=None, trace: bool = False,
+               q_active_pre=None):
     """Advance the selected job by dt; handle unit/job completion.
 
     ``t_end`` defaults to ``t + dt`` (two f32 roundings: ``t = i * dt``
     first, then the sum).  ``live``/``outcomes``: a ``(margin, passed,
     correct)`` triple for the selected slot's just-completing unit, with
     the leading device axes but not the queue axis; it replaces every read
-    of the ``margins``/``passes``/``correct`` replay tables.
+    of the ``margins``/``passes``/``correct`` replay tables.  ``trace``
+    additionally returns the ``(complete, complete_dl)`` words of
+    :class:`StepTrace` (``q_active_pre`` as in :func:`drop_expired`).
     """
     q = statics.queue_size
     n_tasks = params.period.shape[-1]
@@ -546,7 +609,17 @@ def apply_step(params: StepParams, st: DeviceCarry, t, sel, picked, run,
                             st.rr_cursor).to(_I32)
     sel_hot = _oh_eq(tk_sel, n_tasks)
     minus1 = torch.full_like(sel, -1)
-    return st._replace(
+    if trace:
+        # only the selected slot can complete: one word per step; exited
+        # >= 0 always holds at job_done (full_mand backfills it)
+        jd_sel = _take1(job_done, sel)
+        if q_active_pre is not None:
+            jd_sel = jd_sel & _take1(q_active_pre, sel)
+        tr_comp = torch.where(
+            jd_sel, ((_take1(st.q_job, sel) + 1) << 11) + (tk_sel << 6)
+            + (_take1(exited, sel) + 2), 0).to(_I32)
+        tr_comp_dl = _take1(st.q_deadline, sel)
+    out = st._replace(
         energy=e_new,
         was_off=was_off,
         rr_cursor=rr_cursor,
@@ -570,17 +643,89 @@ def apply_step(params: StepParams, st: DeviceCarry, t, sel, picked, run,
         m_idle=st.m_idle + idle_inc,
         m_wasted=st.m_wasted + torch.where(reboot, 0.5 * frag_t, zero),
     )
+    if trace:
+        return out, (tr_comp, tr_comp_dl)
+    return out
 
 
 def device_step(params: StepParams, st: DeviceCarry, t,
-                statics: StepStatics, t_end=None):
+                statics: StepStatics, t_end=None, trace: bool = False):
     """One full transition: admit -> expire -> pick -> apply.  Callers
-    with the integer step index pass ``t_end = (i + 1) * dt``."""
+    with the integer step index pass ``t_end = (i + 1) * dt``.
+
+    ``trace`` additionally returns the step's :class:`StepTrace` (the same
+    stages and ops, plus the descriptor words)."""
+    if trace:
+        act0 = st.q_active
+        st, (adm, ev, ev_dl) = admit(params, st, t, statics, trace=True)
+        st, (exp, exp_dl) = drop_expired(params, st, t, trace=True,
+                                         q_active_pre=act0)
+        sel, picked, run, e_new = pick(params, st, t, statics)
+        st, (comp, comp_dl) = apply_step(
+            params, st, t, sel, picked, run, e_new, statics, t_end=t_end,
+            trace=True, q_active_pre=act0)
+        return st, StepTrace(adm=adm, evict=ev, evict_dl=ev_dl, expire=exp,
+                             expire_dl=exp_dl, complete=comp,
+                             complete_dl=comp_dl)
     st = admit(params, st, t, statics)
     st = drop_expired(params, st, t)
     sel, picked, run, e_new = pick(params, st, t, statics)
     return apply_step(params, st, t, sel, picked, run, e_new, statics,
                       t_end=t_end)
+
+
+class StepEvents(NamedTuple):
+    """Observable events of a transition, derived purely from the
+    ``(before, after)`` carry pair (the telemetry's reference fold).  The
+    counters are differences of the ``m_*`` accumulators, so telemetry
+    totals reconcile with :class:`StepResult`; a slot recycled by an
+    overflow-evict in the same step reports its pre-step registers."""
+
+    releases: torch.Tensor    # (...,) i32: jobs released this step
+    misses: torch.Tensor      # (...,) i32: deadline misses this step
+    scheduled: torch.Tensor   # (...,) i32: on-time completions this step
+    retired: torch.Tensor     # (..., Q) bool: slots that left the queue
+    slack: torch.Tensor       # (..., Q) f32: deadline - t_end
+    exit_depth: torch.Tensor  # (..., Q) i32: q_exited at retirement
+    power_fail: torch.Tensor  # (...,) bool: powered down this step
+    reboots: torch.Tensor     # (...,) i32: reboot-count delta
+    queue_occ: torch.Tensor   # (...,) i32: active slots after the step
+    energy: torch.Tensor      # (...,) f32: capacitor energy after the step
+
+
+def step_events(st0: DeviceCarry, st1: DeviceCarry, t,
+                statics: StepStatics, t_end=None) -> StepEvents:
+    """:class:`StepEvents` of one transition from its before/after carries
+    (read-only).  ``t_end`` defaults to ``t + dt``; the compiled reference
+    recomputes ``t = f32(i) * dt`` beside the sum and contracts the two
+    into one rounding, so callers that know ``i`` pass ``fma(i, dt, dt)``
+    (:func:`event_clock`)."""
+    recycled = st0.q_active & st1.q_active & (
+        (st1.q_job != st0.q_job) | (st1.q_task != st0.q_task))
+    retired = (st0.q_active & ~st1.q_active) | recycled
+    if t_end is None:
+        t_end = t + statics.dt
+    return StepEvents(
+        releases=(st1.next_rel - st0.next_rel).sum(-1, dtype=_I32),
+        misses=(st1.m_misses - st0.m_misses).sum(-1, dtype=_I32),
+        scheduled=(st1.m_scheduled - st0.m_scheduled).sum(-1, dtype=_I32),
+        retired=retired,
+        slack=st0.q_deadline - t_end[..., None],
+        exit_depth=torch.where(recycled, st0.q_exited, st1.q_exited),
+        power_fail=st1.was_off & ~st0.was_off,
+        reboots=(st1.m_reboots - st0.m_reboots).to(_I32),
+        queue_occ=st1.q_active.sum(-1, dtype=_I32),
+        energy=st1.energy.to(_F32),
+    )
+
+
+def event_clock(i, dt: float, device) -> torch.Tensor:
+    """``f32(i) * dt + dt`` rounded once (f32 ``i`` may be a tensor of
+    step indices): the end-of-step clock the compiled reference forms
+    wherever it recomputes ``t = f32(i) * dt`` beside ``t + dt`` (the
+    telemetry's slack reductions and its reference fold)."""
+    i = torch.as_tensor(i, device=device).to(_F32)
+    return fma_f32(i, dt, dt)
 
 
 def finalize(params: StepParams, st: DeviceCarry,

@@ -20,19 +20,32 @@ Three execution modes (:data:`FLEET_MODES`), equal on every bit:
 The mode names are the reference's.  :func:`simulate_fleet` runs the whole
 horizon; :func:`run_segments` runs it in chunks, hands the full carry to a
 host ``hook`` at each boundary (which may rewrite the tunable config
-fields) and resumes from a carry.  ``telemetry=`` and ``mesh=`` come with
-later slices of the port and raise ``NotImplementedError``.
+fields) and resumes from a carry.
+
+``telemetry=`` (a :class:`repro_torch.telemetry.TelemetryConfig`) carries a
+``(D, ...)`` :class:`repro_torch.telemetry.Telemetry` beside the carry in
+the ``vmap`` and ``pallas`` modes: each step emits the tier's columns
+(:mod:`repro_torch.telemetry.trace`), the segment reduces them once, and
+at the ``"full"`` tier the rare ring and histogram events are folded on
+the host.  The simulation is the same bit for bit either way.
+``mode="fused"`` rejects it, as the reference does.  ``mesh=`` comes with
+a later slice of the port and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import inspect
 import warnings
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from ..core import step as S
 from ..kernels import fleet_priority as FP
 from ..kernels import fleet_step as FS
+from ..telemetry import export as T_export
+from ..telemetry import state as T
+from ..telemetry import trace as T_trace
 from .state import DeviceState, FleetConfig, FleetResult, FleetStatics
 
 #: the FleetConfig fields adaptation hooks may rewrite mid-trajectory
@@ -42,6 +55,8 @@ TUNABLE_FIELDS = ("eta", "e_opt", "exit_thr", "use_exit_thr", "persistent")
 FLEET_MODES = ("vmap", "pallas", "fused")
 
 # hook signature: (segment_index, t_end, cfg, carry) -> new cfg or None
+# (hooks that also declare a ``telemetry`` keyword receive the cumulative
+# TelemetrySummary when telemetry is on)
 SegmentHook = Callable[[int, float, FleetConfig, DeviceState],
                        Optional[FleetConfig]]
 
@@ -100,15 +115,41 @@ def _pick_kernel(cfg: FleetConfig, states: DeviceState, t,
 
 
 def _pallas_step(cfg: FleetConfig, states: DeviceState, i: int,
-                 statics: FleetStatics) -> DeviceState:
-    """One fleet timestep at step index ``i`` with the pick in kernel A."""
+                 statics: FleetStatics, trace: bool = False):
+    """One fleet timestep at step index ``i`` with the pick in kernel A;
+    ``trace`` also returns the step's :class:`~repro_torch.core.step
+    .StepTrace` (the same stages and ops, plus the descriptor words)."""
     dev = cfg.policy.device
     t = S.step_clock(i, statics.dt, dev)
-    states = S.admit(cfg, states, t, statics)
-    states = S.drop_expired(cfg, states, t)
+    t_end = S.step_clock(i + 1, statics.dt, dev)
+    if not trace:
+        states = S.admit(cfg, states, t, statics)
+        states = S.drop_expired(cfg, states, t)
+        sel, picked, run, e_new = _pick_kernel(cfg, states, t, statics)
+        return S.apply_step(cfg, states, t, sel, picked, run, e_new, statics,
+                            t_end=t_end)
+    act0 = states.q_active
+    states, (adm, ev, ev_dl) = S.admit(cfg, states, t, statics, trace=True)
+    states, (exp, exp_dl) = S.drop_expired(cfg, states, t, trace=True,
+                                           q_active_pre=act0)
     sel, picked, run, e_new = _pick_kernel(cfg, states, t, statics)
-    return S.apply_step(cfg, states, t, sel, picked, run, e_new, statics,
-                        t_end=S.step_clock(i + 1, statics.dt, dev))
+    states, (comp, comp_dl) = S.apply_step(
+        cfg, states, t, sel, picked, run, e_new, statics, t_end=t_end,
+        trace=True, q_active_pre=act0)
+    return states, S.StepTrace(adm=adm, evict=ev, evict_dl=ev_dl,
+                               expire=exp, expire_dl=exp_dl, complete=comp,
+                               complete_dl=comp_dl)
+
+
+def _fleet_step(cfg: FleetConfig, states: DeviceState, i: int,
+                statics: FleetStatics, mode: str, trace: bool = False):
+    """One fleet timestep in the ``vmap`` or ``pallas`` mode."""
+    if mode == "pallas":
+        return _pallas_step(cfg, states, i, statics, trace)
+    dev = cfg.policy.device
+    return S.device_step(cfg, states, S.step_clock(i, statics.dt, dev),
+                         statics, t_end=S.step_clock(i + 1, statics.dt, dev),
+                         trace=trace)
 
 
 def _run_steps(cfg: FleetConfig, states: DeviceState, i0: int,
@@ -118,27 +159,116 @@ def _run_steps(cfg: FleetConfig, states: DeviceState, i0: int,
     if mode == "fused":
         return FS.fleet_fused_steps(cfg, states, i0, statics=statics,
                                     n_steps=n_steps)
-    if mode == "vmap":
-        return S.run_steps(cfg, states, i0, n_steps, statics)
     for i in range(i0, i0 + n_steps):
-        states = _pallas_step(cfg, states, i, statics)
+        states = _fleet_step(cfg, states, i, statics, mode)
     return states
 
 
+def pack_spec(cfg: FleetConfig, statics: FleetStatics) -> T_trace.PackSpec:
+    """The full tier's bit layout for ``cfg`` (``U + 1`` depth bins)."""
+    return T_trace.make_pack_spec(int(cfg.period.shape[-1]),
+                                  statics.queue_size,
+                                  int(cfg.unit_time.shape[-1]) + 1)
+
+
+def _run_steps_tel(cfg: FleetConfig, states: DeviceState, tel: T.Telemetry,
+                   i0: int, statics: FleetStatics, n_steps: int, mode: str,
+                   tcfg: T.TelemetryConfig):
+    """The telemetry-carrying twin of :func:`_run_steps`: each step emits
+    the columns of the tier ``tcfg.level``, the segment reduces them into
+    ``tel`` once, and at the full tier the rare ring and histogram events
+    are folded on the host (the result back on the telemetry's device)."""
+    st0, ys = states, []
+    if tcfg.level == "counters":
+        for i in range(i0, i0 + n_steps):
+            states = _fleet_step(cfg, states, i, statics, mode)
+            ys.append(T_trace.emit_counters(states))
+        ys = [torch.stack(c) for c in zip(*ys)]
+        return states, T_trace.reduce_counters(tel, st0, states, ys, n_steps)
+    spec = pack_spec(cfg, statics)
+    for i in range(i0, i0 + n_steps):
+        new, tr = _fleet_step(cfg, states, i, statics, mode, trace=True)
+        ys.append(T_trace.emit_full(spec, tr, states, new))
+        states = new
+    ys = [torch.stack(c) for c in zip(*ys)]
+    tel, ring = T_trace.reduce_full(spec, tel, st0, states, ys, i0, n_steps,
+                                    statics.dt)
+    return states, T_trace.fold_events_host(spec, tel, ring, i0, statics.dt)
+
+
+def _run_steps_tel_reference(cfg: FleetConfig, states: DeviceState,
+                             tel: T.Telemetry, i0: int,
+                             statics: FleetStatics, n_steps: int,
+                             mode: str):
+    """The slow reference: fold :func:`repro_torch.telemetry.state
+    .record_step` from the before/after carry pair at every step.  Kept as
+    the spec the collection paths are tested against."""
+    dev = cfg.policy.device
+    for i in range(i0, i0 + n_steps):
+        t = S.step_clock(i, statics.dt, dev)
+        new = _fleet_step(cfg, states, i, statics, mode)
+        ev = S.step_events(states, new, t, statics,
+                           t_end=S.event_clock(i, statics.dt, dev))
+        tel = T.record_step(tel, ev, t)
+        states = new
+    return states, tel
+
+
+def _no_fused_telemetry(mode: str, telemetry) -> None:
+    if mode == "fused" and telemetry is not None:
+        raise ValueError(
+            "mode='fused' does not support telemetry; use mode='vmap'")
+
+
 def simulate_fleet(cfg: FleetConfig, statics: FleetStatics,
-                   use_pallas: Optional[bool] = None, telemetry=None,
-                   mode: Optional[str] = None) -> FleetResult:
+                   use_pallas: Optional[bool] = None,
+                   telemetry: Optional[T.TelemetryConfig] = None,
+                   mode: Optional[str] = None):
     """Simulate every device of ``cfg`` over the whole horizon.
 
     Returns a :class:`FleetResult` of ``(D,)`` metrics plus ``(D, K)``
     per-task breakdowns, aligned with the device axis of ``cfg`` (see
     :func:`repro_torch.fleet.grid.sweep` for the grid bookkeeping).  All
-    three modes are bit-exact against each other."""
-    _not_ported(telemetry=telemetry)
+    three modes are bit-exact against each other.  ``telemetry`` (not in
+    ``mode="fused"``) returns ``(FleetResult, Telemetry)``, the result
+    unchanged."""
     mode = _resolve_mode(mode, use_pallas)
-    states = _run_steps(cfg, init_fleet(cfg, statics), 0, statics,
-                        statics.n_steps, mode)
-    return finalize_fleet(cfg, states, statics)
+    _no_fused_telemetry(mode, telemetry)
+    states = init_fleet(cfg, statics)
+    if telemetry is None:
+        states = _run_steps(cfg, states, 0, statics, statics.n_steps, mode)
+        return finalize_fleet(cfg, states, statics)
+    tel = T.init_fleet_telemetry(telemetry, cfg)
+    states, tel = _run_steps_tel(cfg, states, tel, 0, statics,
+                                 statics.n_steps, mode, telemetry)
+    return finalize_fleet(cfg, states, statics), tel
+
+
+def _hook_takes_telemetry(hook) -> bool:
+    """Does ``hook`` accept a ``telemetry=`` keyword (by name or through
+    ``**kwargs``)?  Bare 4-argument hooks stay supported unchanged."""
+    try:
+        sig = inspect.signature(hook)
+    except (TypeError, ValueError):
+        return False
+    params = sig.parameters.values()
+    if any(p.kind is inspect.Parameter.VAR_KEYWORD for p in params):
+        return True
+    return "telemetry" in sig.parameters
+
+
+def _knob_change_mask(old_cfg: FleetConfig, new_cfg: FleetConfig):
+    """(D,) bool numpy: which devices had any :data:`TUNABLE_FIELDS` leaf
+    rewritten by a hook (a host compare, once per segment boundary)."""
+    changed = None
+    for f in TUNABLE_FIELDS:
+        a = T_export._host(getattr(old_cfg, f))
+        b = T_export._host(getattr(new_cfg, f))
+        diff = a != b
+        while diff.ndim > 1:          # per-task knobs: any task changed
+            diff = diff.any(axis=-1)
+        changed = diff if changed is None else (changed | diff)
+    return changed
 
 
 def run_segments(cfg: FleetConfig, statics: FleetStatics,
@@ -148,7 +278,9 @@ def run_segments(cfg: FleetConfig, statics: FleetStatics,
                  start_step: int = 0,
                  use_pallas: Optional[bool] = None,
                  mode: Optional[str] = None,
-                 mesh=None, telemetry=None, telemetry_carry=None):
+                 mesh=None,
+                 telemetry: Optional[T.TelemetryConfig] = None,
+                 telemetry_carry: Optional[T.Telemetry] = None):
     """Segment-at-a-time fleet simulation over the checkpointable carry.
 
     Splits steps ``[start_step, statics.n_steps)`` into ``n_segments``
@@ -162,12 +294,20 @@ def run_segments(cfg: FleetConfig, statics: FleetStatics,
     hook the chunked run is bit-identical to :func:`simulate_fleet` for any
     ``n_segments``; ``mode="fused"`` launches the kernel once per segment.
 
+    ``telemetry`` threads a ``(D, ...)`` telemetry beside the carry and
+    returns ``(FleetResult, DeviceState, Telemetry)``; a hook that
+    declares ``telemetry=`` then receives the cumulative
+    :func:`~repro_torch.telemetry.summarize` at each boundary, and config
+    rewrites by a hook are stamped as ``knob_update`` events.
+    ``telemetry_carry`` resumes a prior telemetry the way ``carry``
+    resumes the simulation.  The simulation is the same either way.
+
     Returns ``(FleetResult, DeviceState)``: the finalized metrics and the
-    end-of-horizon carry.
+    end-of-horizon carry (plus the telemetry when it is on).
     """
-    _not_ported(mesh=mesh, telemetry=telemetry,
-                telemetry_carry=telemetry_carry)
+    _not_ported(mesh=mesh)
     mode = _resolve_mode(mode, use_pallas)
+    _no_fused_telemetry(mode, telemetry)
     remaining = statics.n_steps - int(start_step)
     if not 0 <= int(start_step) <= statics.n_steps:
         raise ValueError(
@@ -176,17 +316,41 @@ def run_segments(cfg: FleetConfig, statics: FleetStatics,
         raise ValueError(
             f"n_segments must be in [1, {max(remaining, 1)}], "
             f"got {n_segments}")
+    if telemetry is None and telemetry_carry is not None:
+        raise ValueError("telemetry_carry requires telemetry=TelemetryConfig")
     if carry is None:
         carry = init_fleet(cfg, statics)
+    tel = None
+    if telemetry is not None:
+        tel = (telemetry_carry if telemetry_carry is not None
+               else T.init_fleet_telemetry(telemetry, cfg))
+    hook_wants_tel = (hook is not None and telemetry is not None
+                      and _hook_takes_telemetry(hook))
     sizes = [len(c) for c in np.array_split(np.arange(remaining),
                                             n_segments)]
     i0 = int(start_step)
     for seg, n in enumerate(sizes):
         if n:
-            carry = _run_steps(cfg, carry, i0, statics, n, mode)
+            if tel is None:
+                carry = _run_steps(cfg, carry, i0, statics, n, mode)
+            else:
+                carry, tel = _run_steps_tel(cfg, carry, tel, i0, statics, n,
+                                            mode, telemetry)
             i0 += n
         if hook is not None:
-            new_cfg = hook(seg, i0 * statics.dt, cfg, carry)
+            t_end = i0 * statics.dt
+            if hook_wants_tel:
+                new_cfg = hook(seg, t_end, cfg, carry,
+                               telemetry=T_export.summarize(tel, t_end))
+            else:
+                new_cfg = hook(seg, t_end, cfg, carry)
             if new_cfg is not None:
+                if tel is not None:
+                    changed = _knob_change_mask(cfg, new_cfg)
+                    if changed is not None and changed.any():
+                        tel = T.record_knob_updates(tel, changed, t_end)
                 cfg = new_cfg
-    return finalize_fleet(cfg, carry, statics), carry
+    res = finalize_fleet(cfg, carry, statics)
+    if tel is None:
+        return res, carry
+    return res, carry, tel

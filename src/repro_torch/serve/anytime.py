@@ -42,8 +42,13 @@ How the port runs the reference's jitted scan eagerly:
   bit (``tests/test_torch_anytime.py``).
 * ``score_fn`` evaluates one candidate per engine run (the reference vmaps
   the scan over the candidate population).
-* ``telemetry=`` and ``mesh=`` raise ``NotImplementedError``: they come
-  with the telemetry and launch items of the ROADMAP.
+* ``telemetry=`` folds each step into a :class:`repro_torch.telemetry
+  .Telemetry` on the engine's device (:func:`~repro_torch.telemetry
+  .record_anytime_step`: admissions, on-time and late completions, the
+  per-token depth histogram, slack, busy slots, energy); the result
+  arrays are the same bit for bit either way.
+* ``mesh=`` raises ``NotImplementedError``: it comes with the launch item
+  of the ROADMAP.
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ from ..core import policy as POL
 from ..core._fma import fma_f32
 from ..models import anytime as A
 from ..models import transformer as T
+from ..telemetry import state as TEL
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -159,7 +165,7 @@ class AnytimeCarry(NamedTuple):
     req_agree: torch.Tensor   # (N,) i32 tokens agreeing with full depth
     req_tokens: torch.Tensor  # (N,) i32 tokens generated
     req_depth: torch.Tensor   # (N,) i32 summed depth over generated tokens
-    tel: Any = None           # telemetry (not ported: always None)
+    tel: Any = None           # Telemetry, or None when it is off
 
 
 # --------------------------------------------------------------------------- #
@@ -365,11 +371,8 @@ class AnytimeServeEngine:
             deadline=torch.from_numpy(ddl).to(dev))
 
     def init_carry(self, tables: AnytimeTables, *,
-                   telemetry=None) -> AnytimeCarry:
-        if telemetry is not None:
-            raise NotImplementedError(
-                "anytime telemetry is not ported yet: it comes with the "
-                "telemetry item (ROADMAP Queue 1)")
+                   telemetry: Optional[TEL.TelemetryConfig] = None
+                   ) -> AnytimeCarry:
         N = tables.prompt.shape[0]
         B = self.scfg.batch_slots
         dev = self.device
@@ -387,7 +390,9 @@ class AnytimeServeEngine:
             slot_next=z((B,), _I32),
             req_status=z((N,), _I32), req_finish=z((N,), _F32),
             req_agree=z((N,), _I32), req_tokens=z((N,), _I32),
-            req_depth=z((N,), _I32), tel=None)
+            req_depth=z((N,), _I32),
+            tel=(None if telemetry is None else TEL.init_telemetry(
+                telemetry, self.n_units, device=dev)))
 
     # ------------------------------------------------------------------ #
     def _admission_scores(self, tables, now, energy, knobs):
@@ -404,7 +409,7 @@ class AnytimeServeEngine:
         return -(laxity + tables.release * _f32(POL._TIE))
 
     def _step(self, tables: AnytimeTables, carry: AnytimeCarry,
-              knobs: AnytimeKnobs) -> AnytimeCarry:
+              knobs: AnytimeKnobs, tel_on: bool = False) -> AnytimeCarry:
         cfg, sc = self.cfg, self.scfg
         B, U, m = sc.batch_slots, self.n_units, self.mandatory
         N = tables.prompt.shape[0]
@@ -519,12 +524,32 @@ class AnytimeServeEngine:
                              new_now.expand(B))
         slot_req = torch.where(done, -1, slot_req).to(_I32)
 
+        tel = carry.tel
+        if tel_on:
+            bins = torch.where(depth < U, depth - 1, U)
+            depth_hist = (gen_now[:, None] & (bins[:, None] == torch.arange(
+                U + 1, device=dev))).sum(0, dtype=_I32)
+            slack = ddl - new_now
+            zero = torch.zeros((), dtype=_F32, device=dev)
+            inf = torch.full((), float("inf"), dtype=_F32, device=dev)
+            tel = TEL.record_anytime_step(
+                tel,
+                releases=admitted.sum(dtype=_I32),
+                misses=(done & ~ontime).sum(dtype=_I32),
+                scheduled=ontime.sum(dtype=_I32),
+                retired=done.sum(dtype=_I32),
+                slack_sum=torch.where(done, slack, zero).sum(),
+                slack_min=torch.where(done, slack, inf).amin(),
+                depth_hist=depth_hist,
+                occupancy=active.sum(dtype=_I32),
+                energy=new_energy, t=new_now)
+
         return AnytimeCarry(
             now=new_now, energy=new_energy, state=new_state,
             slot_req=slot_req, slot_next=slot_next.to(_I32),
             req_status=req_status, req_finish=req_finish,
             req_agree=req_agree, req_tokens=req_tokens,
-            req_depth=req_depth, tel=None)
+            req_depth=req_depth, tel=tel)
 
     # ------------------------------------------------------------------ #
     def run(self, requests, *, knobs: Optional[AnytimeKnobs] = None,
@@ -535,7 +560,9 @@ class AnytimeServeEngine:
 
         ``n_segments`` splits the horizon into chunks (the same result for
         any split); ``hook(seg_index, carry, knobs)`` runs between segments
-        and may return replacement :class:`AnytimeKnobs`.
+        and may return replacement :class:`AnytimeKnobs`.  ``telemetry``
+        (a :class:`repro_torch.telemetry.TelemetryConfig`) fills
+        ``AnytimeResult.telemetry``.
         """
         if mesh is not None:
             raise NotImplementedError(
@@ -550,10 +577,11 @@ class AnytimeServeEngine:
             raise ValueError(f"n_segments {n_segments} outside "
                              f"[1, {T_total}]")
         base, extra = divmod(T_total, n_segments)
+        tel_on = telemetry is not None
         for seg in range(n_segments):
             n_steps = base + (1 if seg < extra else 0)
             for _ in range(n_steps):
-                carry = self._step(tables, carry, knobs)
+                carry = self._step(tables, carry, knobs, tel_on)
             if hook is not None:
                 new = hook(seg, carry, knobs)
                 if new is not None:
@@ -574,7 +602,7 @@ class AnytimeServeEngine:
             tokens=carry.req_tokens.cpu().numpy(),
             depth_sum=carry.req_depth.cpu().numpy(),
             requested=tables.n_tokens.cpu().numpy(),
-            horizon=horizon, n_units=self.n_units, telemetry=None)
+            horizon=horizon, n_units=self.n_units, telemetry=carry.tel)
 
     # ------------------------------------------------------------------ #
     def score_fn(self, tables: AnytimeTables, *,

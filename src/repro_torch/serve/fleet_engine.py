@@ -33,7 +33,10 @@ run's own copy of the bank in place.  ``run_stream`` holds one carry at a
 time (each chunk takes the previous one's output, which nothing else
 keeps): the counterpart of the reference's donated carry; the reference's
 ahead-of-time compiled chunk programs have none, so ``compile_s`` is 0.
-Telemetry and meshes are not part of the port yet.
+``telemetry=`` (both tiers in ``run``, the counters tier in ``run_stream``)
+collects the serve loop's telemetry beside the carry, the serve outcome
+unchanged; the fused mode rejects it, as the reference does.  Meshes are
+not part of the port yet.
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ from ..core import step as S
 from ..core.energy import Capacitor, Harvester
 from ..core.scheduler import JobProfile, TaskSpec
 from ..fleet import grid
-from ..fleet.simulator import finalize_fleet
+from ..fleet.simulator import finalize_fleet, pack_spec
 from ..fleet.state import (
     FleetConfig,
     FleetResult,
@@ -60,6 +63,8 @@ from ..fleet.state import (
     init_state,
 )
 from ..kernels import fleet_step, ops
+from ..telemetry import state as T
+from ..telemetry import trace as T_trace
 from .engine import Request, ServeConfig, per_task
 
 _F32 = torch.float32
@@ -223,7 +228,8 @@ def _classify_rows(bank: ServeBank, tables: ServeTables, tk, u, job):
 
 
 def serve_step(cfg: FleetConfig, tables: ServeTables, dev, bank: ServeBank,
-               log: ServeLog, t, job0, *, statics: FleetStatics):
+               log: ServeLog, t, job0, *, statics: FleetStatics,
+               trace: bool = False):
     """One live-serving timestep for every device (leading ``(D,)`` axis):
     admit → drop-expired → pick → classify against the bank → inject
     ``(margin, passed, correct)`` into :func:`apply_step` → latch the
@@ -233,7 +239,9 @@ def serve_step(cfg: FleetConfig, tables: ServeTables, dev, bank: ServeBank,
     (zeros for a whole run).  ``t`` is the f32 clock ``i * dt``; the
     step's end time is ``t + dt`` (a second rounding), as in the reference.
     Returns ``(dev, log, (first_pass, tk, u, job, ci))`` — the aux drives
-    the engine's bank adaptation.
+    the engine's bank adaptation.  ``trace`` runs the step core's
+    descriptor-emitting stages (the same ops, plus the words) and appends
+    the step's :class:`~repro_torch.core.step.StepTrace` to the return.
     """
     K = cfg.period.shape[-1]
     n_u = cfg.unit_time.shape[-1]
@@ -242,8 +250,15 @@ def serve_step(cfg: FleetConfig, tables: ServeTables, dev, bank: ServeBank,
     Ub = tables.fidx.shape[-2]
     Q = statics.queue_size
 
-    dev = S.admit(cfg, dev, t, statics, True)
-    dev = S.drop_expired(cfg, dev, t, True)
+    if trace:
+        act0 = dev.q_active
+        dev, (adm, ev, ev_dl) = S.admit(cfg, dev, t, statics, True,
+                                        trace=True)
+        dev, (exp, exp_dl) = S.drop_expired(cfg, dev, t, True, trace=True,
+                                            q_active_pre=act0)
+    else:
+        dev = S.admit(cfg, dev, t, statics, True)
+        dev = S.drop_expired(cfg, dev, t, True)
     sel, picked, run, e_new = S.pick(cfg, dev, t, statics, True)
 
     # selected-slot identity, pre-apply
@@ -266,8 +281,13 @@ def serve_step(cfg: FleetConfig, tables: ServeTables, dev, bank: ServeBank,
     pass_bank = margin > S._take1(tables.thr.reshape(K * Ub), tk * Ub + u)
     passed = torch.where(cfg.use_exit_thr, margin > thr_cfg, pass_bank)
 
-    dev = S.apply_step(cfg, dev, t, sel, picked, run, e_new, statics, True,
-                       (margin, passed, correct))
+    if trace:
+        dev, (comp, comp_dl) = S.apply_step(
+            cfg, dev, t, sel, picked, run, e_new, statics, True,
+            (margin, passed, correct), trace=True, q_active_pre=act0)
+    else:
+        dev = S.apply_step(cfg, dev, t, sel, picked, run, e_new, statics,
+                           True, (margin, passed, correct))
 
     # engine-owned utility-pass latch: adaptation fires at the FIRST
     # bank-threshold pass (even under EDF, which never exits early)
@@ -299,6 +319,10 @@ def serve_step(cfg: FleetConfig, tables: ServeTables, dev, bank: ServeBank,
         exit_unit=put(log.exit_unit, u, first_pass),
         sched=put(log.sched, sched_now, mand_now),
     )
+    if trace:
+        return dev, log, (first_pass, tk, u, job, ci), S.StepTrace(
+            adm=adm, evict=ev, evict_dl=ev_dl, expire=exp, expire_dl=exp_dl,
+            complete=comp, complete_dl=comp_dl)
     return dev, log, (first_pass, tk, u, job, ci)
 
 
@@ -367,6 +391,8 @@ class FleetServeResult:
     carry: ServeCarry
     jobs: int
     wall_s: float
+    #: the run's ``(D, ...)`` telemetry when ``telemetry=`` was given
+    telemetry: Optional[T.Telemetry] = None
     #: always 0 in the port (nothing is compiled ahead of a run); kept for
     #: the reference's result shape
     compile_s: float = 0.0
@@ -631,13 +657,20 @@ class FleetServeEngine:
     def _scan_steps(self, cfg: FleetConfig, tables: ServeTables,
                     carry: ServeCarry, i0: int, job0=None, *,
                     statics: FleetStatics, n_steps: int,
-                    adapt: bool) -> ServeCarry:
+                    adapt: bool, tel: Optional[T.Telemetry] = None,
+                    tcfg: Optional[T.TelemetryConfig] = None):
         """Run ``n_steps`` live timesteps from step index ``i0``: the
         batch-polymorphic :func:`serve_step`, plus the bank adaptation from
         its aux outputs on steps where some device's utility test passed
         for the first time (a host-side check: one device sync per step).
         A shared bank has 4-D centroids; per-device request streams give
-        5-D feature tables."""
+        5-D feature tables.
+
+        With ``tcfg`` each step also emits the tier's telemetry columns,
+        reduced into ``tel`` after the segment (the full tier's rare ring
+        and histogram events folded on the host); the return is then
+        ``(ServeCarry, Telemetry)``.  Tracing only adds outputs: the serve
+        numerics are unchanged."""
         K = cfg.period.shape[1]
         J = tables.labels.shape[-1]
         if job0 is None:
@@ -645,12 +678,21 @@ class FleetServeEngine:
         dev, bank, log = carry
         shared = bank.centroids.dim() == 4
         per_dev_tables = tables.sel_feats.dim() == 5
+        trace = tcfg is not None and tcfg.level == "full"
+        spec = pack_spec(cfg, statics) if trace else None
+        st0, ys = dev, []
         if adapt:
             bank = ServeBank(*[l.clone() for l in bank])
         for i in range(i0, i0 + n_steps):
             t = S.step_clock(i, statics.dt, cfg.policy.device)
-            dev, log, (first_pass, tk, u, job, ci) = serve_step(
-                cfg, tables, dev, bank, log, t, job0, statics=statics)
+            dev_pre = dev
+            out = serve_step(cfg, tables, dev, bank, log, t, job0,
+                             statics=statics, trace=trace)
+            dev, log, (first_pass, tk, u, job, ci) = out[:3]
+            if trace:
+                ys.append(T_trace.emit_full(spec, out[3], dev_pre, dev))
+            elif tcfg is not None:
+                ys.append(T_trace.emit_counters(dev))
             if not adapt or not bool(first_pass.any()):
                 continue
             Ub = tables.fidx.shape[-2]
@@ -669,7 +711,16 @@ class FleetServeEngine:
             else:
                 bank = self._adapt_per_device(bank, x_full, tk, u, ci,
                                               first_pass)
-        return ServeCarry(dev=dev, bank=bank, log=log)
+        out = ServeCarry(dev=dev, bank=bank, log=log)
+        if tcfg is None:
+            return out
+        ys = [torch.stack(c) for c in zip(*ys)]
+        if not trace:
+            return out, T_trace.reduce_counters(tel, st0, dev, ys, n_steps)
+        tel, ring = T_trace.reduce_full(spec, tel, st0, dev, ys, i0, n_steps,
+                                        statics.dt)
+        return out, T_trace.fold_events_host(spec, tel, ring, i0,
+                                             statics.dt)
 
     # ------------------------------------------------------------------ #
     # Public entry point.
@@ -684,33 +735,42 @@ class FleetServeEngine:
         n_segments: int = 1,
         carry: Optional[ServeCarry] = None,
         mesh=None,
-        telemetry=None,
+        telemetry: Optional[T.TelemetryConfig] = None,
         mode: str = "scan",
     ) -> FleetServeResult:
         """Serve every request stream live over the whole horizon.
 
         ``n_segments > 1`` materialises the :class:`ServeCarry` at segment
         boundaries (bit-identical to ``n_segments=1``); ``carry`` resumes
-        from a previous run's carry.  ``mode="fused"`` runs each segment as
-        ONE launch of the ``serve_fused_steps`` kernel (``adapt=False``
-        only).  ``mesh=`` and ``telemetry=`` wait for the port's mesh and
-        telemetry modules and raise.
+        from a previous run's carry.  ``telemetry`` (a
+        :class:`repro_torch.telemetry.TelemetryConfig`) collects a ``(D,
+        ...)`` telemetry through the scan into
+        ``FleetServeResult.telemetry`` (the full tier's ring and histogram
+        folded on the host per segment); the serve outcome is the same bit
+        for bit either way.  ``mode="fused"`` runs each segment as ONE
+        launch of the ``serve_fused_steps`` kernel (``adapt=False`` and no
+        ``telemetry``).  ``mesh=`` waits for the port's mesh module and
+        raises.
         """
         if mode not in ("scan", "fused"):
             raise ValueError(f"unknown serve mode {mode!r}")
-        if mesh is not None or telemetry is not None:
-            raise NotImplementedError(
-                "mesh= and telemetry= are not part of the port yet")
+        if mesh is not None:
+            raise NotImplementedError("mesh= is not part of the port yet")
         adapt = bool(self.config.adapt)
         if mode == "fused" and adapt:
             raise ValueError(
                 "mode='fused' requires adapt=False: bank adaptation "
                 "propagates centroids through whole-model convs that "
                 "cannot run inside a device thread")
+        if mode == "fused" and telemetry is not None:
+            raise ValueError(
+                "mode='fused' does not support telemetry= or mesh=")
         cfg, statics, tables, carry0, _ = self.build(
             requests, n_devices, seeds=seeds)
         if carry is not None:
             carry0 = carry
+        tel = (None if telemetry is None
+               else T.init_fleet_telemetry(telemetry, cfg))
         K = len(self.models)
         job0 = torch.zeros(K, dtype=_I32, device=self.device)
         sizes = [len(c) for c in
@@ -726,10 +786,14 @@ class FleetServeEngine:
             if mode == "fused":
                 out = fleet_step.serve_fused_steps(
                     cfg, out, tables, i0, job0, statics=statics, n_steps=n)
-            else:
+            elif tel is None:
                 out = self._scan_steps(
                     cfg, tables, out, i0, job0, statics=statics, n_steps=n,
                     adapt=adapt)
+            else:
+                out, tel = self._scan_steps(
+                    cfg, tables, out, i0, job0, statics=statics, n_steps=n,
+                    adapt=adapt, tel=tel, tcfg=telemetry)
             i0 += n
         fleet = finalize_fleet(cfg, out.dev, statics, live=True)
         if self.device.type == "cuda":
@@ -748,6 +812,7 @@ class FleetServeEngine:
             carry=out,
             jobs=int(fleet.released.sum()),
             wall_s=wall,
+            telemetry=tel,
         )
 
     # ------------------------------------------------------------------ #
@@ -905,7 +970,7 @@ class FleetServeEngine:
         total_jobs=None,
         n_chunks: int = 1,
         mode: str = "scan",
-        telemetry=None,
+        telemetry: Optional[T.TelemetryConfig] = None,
     ) -> FleetServeResult:
         """Serve a job stream of any length with O(chunk) device memory.
 
@@ -920,16 +985,20 @@ class FleetServeEngine:
         cycling it, which is how one call serves millions of jobs.
         ``mode="fused"`` runs each chunk as ONE launch of the
         ``serve_fused_steps`` kernel (``adapt=False`` only).  ``compile_s``
-        is always 0: nothing is compiled ahead of the run.  ``telemetry=``
-        waits for the port's telemetry module and raises.
+        is always 0: nothing is compiled ahead of the run.  ``telemetry``
+        supports the ``"counters"`` tier (the full tier's ring fold is
+        per-run host state: use :meth:`run`); the fused mode rejects it.
         """
         cfg_s = self.config
         adapt = bool(cfg_s.adapt)
         if mode not in ("scan", "fused"):
             raise ValueError(f"unknown serve mode {mode!r}")
-        if telemetry is not None:
-            raise NotImplementedError(
-                "telemetry= is not part of the port yet")
+        if mode == "fused" and telemetry is not None:
+            raise ValueError(
+                "mode='fused' requires adapt=False and no telemetry")
+        if telemetry is not None and telemetry.level == "full":
+            raise ValueError(
+                "run_stream supports the 'counters' telemetry tier only")
         if mode == "fused" and adapt:
             raise ValueError(
                 "mode='fused' requires adapt=False: bank adaptation "
@@ -947,6 +1016,8 @@ class FleetServeEngine:
         Wl, n_run, chunks = self._stream_chunks(fleet_cfg, statics, base,
                                                 base_len, n_chunks)
         carry = ServeCarry(dev=dev0, bank=bank0, log=self.log0(D, Wl))
+        tel = (None if telemetry is None
+               else T.init_fleet_telemetry(telemetry, fleet_cfg))
 
         Jt = max(max(totals), 1)
         full_log = dict(
@@ -968,10 +1039,15 @@ class FleetServeEngine:
                 carry = fleet_step.serve_fused_steps(
                     fleet_cfg, carry, ch.tables, ch.s0, ch.job0,
                     statics=statics, n_steps=ch.s1 - ch.s0)
-            else:
+            elif tel is None:
                 carry = self._scan_steps(
                     fleet_cfg, ch.tables, carry, ch.s0, ch.job0,
                     statics=statics, n_steps=ch.s1 - ch.s0, adapt=adapt)
+            else:
+                carry, tel = self._scan_steps(
+                    fleet_cfg, ch.tables, carry, ch.s0, ch.job0,
+                    statics=statics, n_steps=ch.s1 - ch.s0, adapt=adapt,
+                    tel=tel, tcfg=telemetry)
             if on_card:
                 torch.cuda.synchronize(self.device)
             wall += time.perf_counter() - t_r + ch.copy_s
@@ -1002,6 +1078,7 @@ class FleetServeEngine:
             carry=carry,
             jobs=int(fleet.released.sum()),
             wall_s=wall,
+            telemetry=tel,
             peak_bytes=(int(torch.cuda.max_memory_allocated(self.device))
                         if on_card else 0),
             chunk_table_bytes=chunk_bytes,

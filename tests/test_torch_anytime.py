@@ -43,6 +43,7 @@ from repro_torch.models import anytime as A
 from repro_torch.models import transformer as T
 from repro_torch.serve import AnytimeConfig, AnytimeRequest
 from repro_torch.serve import AnytimeServeEngine
+from repro_torch.telemetry import TelemetryConfig
 
 RESULT_FIELDS = ("status", "finish", "tardiness", "agree", "tokens",
                  "depth_sum")
@@ -224,10 +225,16 @@ def test_hybrid_engine_matches_jax(policy):
 
 
 def test_engine_rejects_what_it_does_not_run(tiny):
+    """``mesh=`` (not ported) raises; ``telemetry=`` runs and leaves the
+    result arrays as the plain run's."""
     _, pe = _engines(tiny)
     _, preqs = _requests()
-    with pytest.raises(NotImplementedError):
-        pe.run(preqs, telemetry=object())
+    out = pe.run(preqs, telemetry=TelemetryConfig(level="full"))
+    plain = pe.run(preqs)
+    for name in RESULT_FIELDS:
+        np.testing.assert_array_equal(getattr(out, name),
+                                      getattr(plain, name), err_msg=name)
+    assert int(out.telemetry.exit_hist.sum()) == int(out.tokens.sum())
     with pytest.raises(NotImplementedError):
         pe.run(preqs, mesh=object())
 

@@ -22,6 +22,7 @@ from repro import fleet as JF
 from repro.fleet.state import pack_carry as j_pack_carry
 
 from repro_torch import fleet as PF
+from repro_torch import telemetry as PT
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import _workloads as W  # noqa: E402
@@ -111,7 +112,9 @@ def test_hook_rewrites_eta_like_jax(fleet_case):
 def test_pack_carry_round_trip(fleet_case):
     """``pack_carry`` casts exactly the boolean leaves to int32, equals
     the reference's layout leaf for leaf, and ``unpack_carry`` inverts it;
-    unported options raise."""
+    ``mesh=`` (not ported) raises; ``telemetry=`` returns the same result
+    and carry beside a telemetry, and ``telemetry_carry`` without it is
+    the reference's ValueError."""
     cfg, statics, _, ref_carry = fleet_case
     _, carry = PF.run_segments(port_cfg(cfg), port_statics(statics), 2)
     packed = PF.pack_carry(carry)
@@ -122,17 +125,27 @@ def test_pack_carry_round_trip(fleet_case):
     back = PF.unpack_carry(packed)
     for f, a, b in zip(back._fields, back, carry):
         assert a.dtype == b.dtype and torch.equal(a, b), f
-    for bad in (dict(mesh=object()), dict(telemetry=object()),
-                dict(telemetry_carry=object())):
-        with pytest.raises(NotImplementedError):
-            PF.run_segments(port_cfg(cfg), port_statics(statics), 1, **bad)
+    with pytest.raises(NotImplementedError):
+        PF.run_segments(port_cfg(cfg), port_statics(statics), 1,
+                        mesh=object())
+    res, tcarry, tel = PF.run_segments(port_cfg(cfg), port_statics(statics),
+                                       2, telemetry=PT.TelemetryConfig())
+    for f, a, b in zip(tcarry._fields, tcarry, carry):
+        assert torch.equal(a, b), f
+    assert int(tel.c_release.sum()) == int(carry.next_rel.sum())
+    assert int(tel.n_steps[0]) == statics.n_steps
+    with pytest.raises(ValueError, match="telemetry_carry"):
+        PF.run_segments(port_cfg(cfg), port_statics(statics), 1,
+                        telemetry_carry=tel)
     with pytest.raises(ValueError, match="n_segments"):
         PF.run_segments(port_cfg(cfg), port_statics(statics), 0)
 
 
 def test_sweep_builds_the_reference_grid():
     """``build``/``sweep`` lay out the same devices and metadata as the
-    JAX builders; an unported ``mesh=`` raises instead of being ignored."""
+    JAX builders; an unported ``mesh=`` raises instead of being ignored;
+    ``simulate_fleet(telemetry=)`` returns the same result beside its
+    telemetry and is the reference's ValueError in the fused mode."""
     harv, _ = W.MODES["intermittent"]
     tasks = W.random_task_set(W.TASK_SET_SEEDS[2], 2)
     kw = dict(policies=("zygarde", "rr"), etas=(0.5, 1.0), seeds=(0, 1),
@@ -149,8 +162,16 @@ def test_sweep_builds_the_reference_grid():
     assert_result_equal(res, JF.sweep(jgrid)[0])
     with pytest.raises(NotImplementedError, match="mesh"):
         PF.sweep(pgrid, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        PF.simulate_fleet(pcfg, pst, telemetry=object())
+    plain = PF.simulate_fleet(pcfg, pst)
+    res_t, tel = PF.simulate_fleet(pcfg, pst, mode="pallas",
+                                   telemetry=PT.TelemetryConfig(level="full"))
+    assert_result_equal(res_t, JF.sweep(jgrid)[0])
+    for f, a, b in zip(plain._fields, plain, res_t):
+        assert torch.equal(a, b), f
+    assert int(tel.c_release.sum()) == int(res_t.released.sum())
+    with pytest.raises(ValueError, match="fused"):
+        PF.simulate_fleet(pcfg, pst, telemetry=PT.TelemetryConfig(),
+                          mode="fused")
     with pytest.warns(DeprecationWarning):
         PF.simulate_fleet(pcfg, pst, use_pallas=True)
     with pytest.raises(ValueError, match="mode"):

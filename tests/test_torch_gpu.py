@@ -1258,3 +1258,91 @@ def test_scalar_engine_matches_fleet_on_card(cuda, policy, adapt):
                                   f.margin[0, 0, :n].view(np.uint32))
     assert res.units_executed == int(f.fleet.units_executed[0])
     assert res.scheduled == int(f.fleet.scheduled[0])
+
+
+# --------------------------------------------------------------------- #
+# Telemetry on the card (host-side and PyTorch-level code around kernels
+# A, D and E): the card's telemetry == the CPU's, pallas == vmap.
+# --------------------------------------------------------------------- #
+
+TEL_INT = ("c_release", "c_miss", "c_sched", "c_retired", "c_power_fail",
+           "c_reboot", "c_knob", "exit_hist", "occ_sum", "occ_max",
+           "n_steps", "ring_kind", "ring_head")
+
+
+def _tel_close(card, cpu_tel):
+    """Integer fields exact, floats at tests/test_telemetry.py's
+    tolerances."""
+    for f in card._fields:
+        a, b = getattr(card, f).cpu(), getattr(cpu_tel, f)
+        assert a.dtype == b.dtype and a.device.type == "cpu", f
+        if f in TEL_INT:
+            assert torch.equal(a, b), f
+        else:
+            tol = 1e-4 if f in ("slack_sum", "energy_sum", "ring_val") \
+                else 1e-6
+            torch.testing.assert_close(a, b, rtol=tol, atol=tol, msg=f)
+
+
+@pytest.mark.parametrize("level", ["counters", "full"])
+def test_replay_telemetry_on_card_matches_cpu(cuda, level):
+    """run_segments(telemetry=) in three segments on the card: the carry
+    equals the CPU's bit for bit, the telemetry equals the CPU's, pallas
+    (kernel A once per step) equals vmap on every telemetry field bit for
+    bit, and the fields stay on the card."""
+    from repro_torch import telemetry as TEL
+
+    tcfg = TEL.TelemetryConfig(ring_size=8, level=level)
+    cfg, statics = _replay_cfg(cuda, 2)
+    cfg_cpu = type(cfg)(*[x.cpu() for x in cfg])
+    ops.reset_launch_counts()
+    _, c_vmap, t_vmap = fleet.run_segments(cfg, statics, 3, telemetry=tcfg)
+    _, c_pallas, t_pallas = fleet.run_segments(cfg, statics, 3,
+                                               telemetry=tcfg,
+                                               mode="pallas")
+    assert ops.launch_counts()["fleet_priority"] == statics.n_steps
+    _, c_cpu, t_cpu = fleet.run_segments(cfg_cpu, statics, 3, telemetry=tcfg)
+    for f in t_vmap._fields:
+        assert getattr(t_vmap, f).device.type == "cuda", f
+        assert torch.equal(getattr(t_vmap, f), getattr(t_pallas, f)), f
+    for f, a, b in zip(c_vmap._fields, c_vmap, c_cpu):
+        assert torch.equal(a.cpu(), b), f
+        assert torch.equal(a, getattr(c_pallas, f)), f
+    _tel_close(t_vmap, t_cpu)
+    assert int(t_vmap.c_power_fail.sum()) > 0
+
+
+def test_serve_telemetry_on_card_matches_cpu(cuda):
+    """The serve scan with telemetry=full from the same built state on the
+    card (kernel D) and on the CPU: the carry bit-equal, the telemetry
+    equal; a second run at counters equals run_stream's in 3 chunks."""
+    from repro_torch import telemetry as TEL
+
+    eng, reqs = _engine(cuda, False, "per-device")
+    cfg, statics, tables, carry0, _ = eng.build(reqs, 4, seeds=range(4))
+    full = TEL.TelemetryConfig(ring_size=8, level="full")
+
+    def cpu(tree):
+        return type(tree)(*[cpu(v) if isinstance(v, tuple) else v.cpu()
+                            for v in tree])
+
+    outs = []
+    for c, t, k in ((cfg, tables, carry0), (cpu(cfg), cpu(tables),
+                                           cpu(carry0))):
+        outs.append(eng._scan_steps(
+            c, t, k, 0, statics=statics, n_steps=statics.n_steps,
+            adapt=False, tel=TEL.init_fleet_telemetry(full, c), tcfg=full))
+    (card, t_card), (on_cpu, t_cpu) = outs
+    for part in ("dev", "log"):
+        a_p, b_p = getattr(card, part), getattr(on_cpu, part)
+        for f, a, b in zip(a_p._fields, a_p, b_p):
+            assert torch.equal(a.cpu(), b), f"{part}.{f}"
+    _tel_close(t_card, t_cpu)
+    assert t_card.ring_t.device.type == "cuda"
+    counters = TEL.TelemetryConfig(level="counters")
+    run = eng.run(reqs, 4, seeds=range(4), n_segments=3, telemetry=counters)
+    st = eng.run_stream(reqs, 4, seeds=range(4), n_chunks=3,
+                        telemetry=counters)
+    for f in run.telemetry._fields:
+        assert torch.equal(getattr(run.telemetry, f),
+                           getattr(st.telemetry, f)), f

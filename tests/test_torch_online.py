@@ -23,6 +23,7 @@ from repro.fleet import grid as jgrid
 
 from repro_torch import adapt as PA
 from repro_torch import fleet as PF
+from repro_torch import telemetry as PT
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_fleet import (assert_result_equal, port_cfg,  # noqa: E402
@@ -182,7 +183,9 @@ def test_online_adapter_matches_jax(mode):
 
 def test_hook_updates_are_tensors_on_the_config_device():
     """The hook hands ``run_segments`` contiguous tensors of the config's
-    dtypes on its device; ``telemetry=`` is not ported and raises."""
+    dtypes on its device; given a telemetry summary it measures the miss
+    rate from the summary's delta (the carry diff's rate) and returns the
+    same kind of tensors."""
     d = demo()
     _, _, pcfg, pst = demo_fleet((d.SEED, 4), [default_point(d.SEED)],
                                  horizon=10.0)
@@ -193,5 +196,17 @@ def test_hook_updates_are_tensors_on_the_config_device():
         a, b = getattr(new, f), getattr(pcfg, f)
         assert a.dtype == b.dtype and a.shape == b.shape, f
         assert a.device == b.device and a.is_contiguous(), f
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        adapter.hook(1, 10.0, new, carry, telemetry=object())
+    _, carry2, tel = PF.run_segments(pcfg, pst, 1,
+                                     telemetry=PT.TelemetryConfig())
+    summary = PT.summarize(tel, 10.0)
+    fresh = PA.OnlineAdapter(pst, pcfg)
+    new2 = fresh.hook(0, 10.0, pcfg, carry2, telemetry=summary)
+    ref = PA.OnlineAdapter(pst, pcfg)
+    ref.hook(0, 10.0, pcfg, carry2)
+    np.testing.assert_array_equal(fresh.history[0]["miss_rate"],
+                                  ref.history[0]["miss_rate"])
+    np.testing.assert_array_equal(fresh.history[0]["miss_rate"],
+                                  summary.miss_rate)
+    for f in ("eta", "e_opt", "persistent"):
+        a, b = getattr(new2, f), getattr(pcfg, f)
+        assert a.dtype == b.dtype and a.device == b.device, f

@@ -38,6 +38,7 @@ from repro_torch.core.step import StepStatics
 from repro_torch.kernels import ops
 from repro_torch.models import cnn as PC
 from repro_torch.serve import FleetServeEngine, Request, ServeConfig
+from repro_torch.telemetry import TelemetryConfig
 
 SPECS = (("tiny3", (16, 16, 1), ((4, 5, True), (8, 5, True)), (16,), 3),
          ("tiny2", (16, 16, 1), ((6, 5, True),), (12,), 3))
@@ -269,8 +270,11 @@ def test_fused_rejects_adapt_and_unported_options(models):
     eng = _port_engine(models, "zygarde", False, "per-device")
     with pytest.raises(ValueError):
         eng.run(reqs, 1, mode="bogus")
-    with pytest.raises(NotImplementedError):
-        eng.run(reqs, 1, telemetry=object())
+    out = eng.run(reqs, 1, telemetry=TelemetryConfig())
+    assert out.telemetry is not None and int(out.telemetry.c_release[0]) \
+        == out.jobs
+    with pytest.raises(ValueError, match="telemetry"):
+        eng.run(reqs, 1, telemetry=TelemetryConfig(), mode="fused")
     with pytest.raises(NotImplementedError):
         eng.run(reqs, 1, mesh=object())
 

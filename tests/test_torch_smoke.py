@@ -86,8 +86,9 @@ def test_chip_smoke_rehearsal_on_cpu():
     """Every phase at narrow widths on the CPU — serving, the scalar
     engine, scalar == fleet, the intermittent substrate, the stream, the
     replay sweep, kernel F, offline tuning, online adaptation with the
-    fleet forecast arm, anytime serving of the dense model with kernel G's
-    checks and of the RG-LRU hybrid with kernel H's and I's: the kernels
+    fleet forecast arm, telemetry on the replay sweep and the serve scan,
+    anytime serving of the dense model with kernel G's checks and of the
+    RG-LRU hybrid with kernel H's and I's: the kernels
     report names A to I with the contract's keys (no launches on the CPU),
     each with the paths that ran it."""
     sys.path.insert(0, str(ROOT))
@@ -112,7 +113,8 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert paths["rglru_scan"] == ["hybrid"]
     assert paths["serve_fused_steps"] == ["serve", "stream"]
     assert paths["l1_topk2"] == paths["centroid_update"] == [
-        "online", "scalar", "serve", "stream"]
+        "online", "scalar", "serve", "stream", "telemetry"]
+    assert paths["fleet_priority"] == ["replay", "telemetry"]
     for r in rows:
         assert keys <= set(r)
         assert r["launches"] == 0 and r["max_abs_err"] == 0.0

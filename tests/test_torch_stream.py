@@ -32,6 +32,7 @@ from repro_torch.fleet.state import ServeLog
 from repro_torch.kernels import ops
 from repro_torch.serve import FleetServeEngine, Request, ServeConfig
 from repro_torch.serve.fleet_engine import _shift_log
+from repro_torch.telemetry import TelemetryConfig
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_scalar_serve import (_jax_model, _port_model,  # noqa: E402
@@ -180,8 +181,11 @@ def test_stream_rejects_adapt_and_unported_options(models):
         _engine(models, _cfg("zygarde", n, adapt=True)).run_stream(
             [reqs], n_devices=1, mode="fused")
     eng = _engine(models, _cfg("zygarde", n, adapt=False))
-    with pytest.raises(NotImplementedError):
-        eng.run_stream([reqs], n_devices=1, telemetry=object())
+    out = eng.run_stream([reqs], n_devices=1, telemetry=TelemetryConfig())
+    assert int(out.telemetry.c_release[0]) == out.jobs == n
+    with pytest.raises(ValueError, match="counters"):
+        eng.run_stream([reqs], n_devices=1,
+                       telemetry=TelemetryConfig(level="full"))
     with pytest.raises(ValueError):
         eng.run_stream([reqs], n_devices=1, mode="bogus")
 
