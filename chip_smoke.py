@@ -55,11 +55,14 @@ Phases, each printing one line (any failure exits non-zero):
    windows of the first chunk (negative ``job0``) and a middle one;
 4. the replay fleet of the same two models as a sweep: job profiles from
    250 test samples per task, policies x eta x capacitor x seed = 1,600
-   devices, 255 s at dt = 55 ms.  ``simulate_fleet`` in the ``vmap``,
-   ``pallas`` (the ``fleet_priority`` kernel, one launch per step) and
-   ``fused`` (the ``fleet_fused_steps`` kernel, one launch per segment)
-   modes, ``run_segments`` in four fused segments and ``sweep`` must agree
-   on every result leaf; the card's run equals the CPU's plain run over
+   devices, 255 s at dt = 55 ms.  ``simulate_fleet`` in the ``vmap`` and
+   ``pallas`` (the ``fleet_priority`` kernel, one launch per step) modes
+   over the first 1,159 of its 4,636 steps (a depth cut: both are
+   host-bound), and in the ``fused`` mode (the ``fleet_fused_steps``
+   kernel, one launch per segment) over those steps and the whole
+   horizon; the three modes must agree on every result leaf over the cut,
+   and the whole fused run with ``run_segments`` in four fused segments
+   and ``sweep``; the card's run equals the CPU's plain run over
    the first steps on a slice of devices; both kernels are held bit for
    bit against their plain versions and timed (A also by its device time
    per launch, back to back; B by its device time
@@ -143,8 +146,30 @@ Phases, each printing one line (any failure exits non-zero):
    and the reduced hybrid on
    the card against the CPU (a ``forward``, a prefill + decode, an EDF
    engine run);
-10. one JSON line naming every kernel with its launches, error, times and
-    bound.
+10. the rest of the model zoo at published widths, one model resident at a
+    time (each freed before the next, each with its peak device memory):
+    dbrx-132b (8 of its 40 layers: 27.3 B parameters; 16 experts top-4,
+    48 heads on 8 kv heads) with everything phase 8 runs but the profiles
+    (a 4,096-token prefill twice, 32 decode steps, the engine under solar
+    with the calibrated thresholds and under EDF); qwen3-moe-235b-a22b (4
+    of its 94 layers; 128 experts top-8, 64 heads on 4) with a 4,096-token
+    prefill and 16 decode steps; xlstm-125m (whole) with phase 8's runs (a
+    4,096-token prefill once); seamless-m4t-medium (12 encoder layers over
+    1,024 stub frames, 12 decoder layers) and internvl2-2b (256 stub patch
+    rows before 3,840 text tokens) with a prefill, 64 decode steps and
+    ``anytime_forward``.  Counts zeroed before and read after each model:
+    kernel G once per attention, cross-attention and encoder layer of each
+    sequence pass, kernel H once per attention and cross-attention layer
+    of every decode and engine step.  Then kernel G against plain in bf16
+    and f32 at dbrx's G = 6, qwen3-moe's 64/4, the encoder's non-causal
+    1,024, the cross-attention (512 x 1,024) and internvl2's 16/8, and
+    kernel H at dbrx's decode, its engine batch and the cross decode, each
+    beside SDPA; and each family's reduced size on the card against the
+    CPU (a ``forward`` and a prefill + decode within 1e-4, the MoE
+    routers' choices equal call by call first, an EDF engine run equal on
+    dbrx-132b and xlstm-125m);
+11. one JSON line naming every kernel with its launches, error, times and
+    bound.  Every phase prints its seconds.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32``): f32 products are full f32, as on
@@ -232,6 +257,7 @@ class Scale:
     cu_shape: tuple      # kernel E check: (k, d, B), the main path's
     cu_wide: tuple       # kernel E's second shape, every row assigned
     replay_jobs: int     # test samples profiled per replay task
+    replay_cut_steps: int  # steps of the replay's vmap and pallas runs
     policies: tuple      # the replay sweep's axes
     etas: tuple
     capacitors_f: tuple
@@ -252,12 +278,21 @@ class Scale:
     check_gains: bool    # the examples' score assertions (need full depth)
     anytime: "AnyRun"    # phase 8: the dense anytime path
     hybrid: "AnyRun"     # phase 9: the RG-LRU hybrid's anytime path
+    zoo: tuple           # phase 10: the rest of the model zoo, AnyRuns
     flash_shapes: tuple  # kernel G checks: (B, S, Skv, H, KV, hd, causal,
     #                      window, q_offset); the first is the main path's
     decode_shapes: tuple  # kernel H checks: (B, H, KV, hd, C, dtype,
     #                       round_p, window); the first is phase 9's decode
     rglru_shapes: tuple   # kernel I checks: (B, S, W, with h0); the first
     #                       is phase 9's prefill
+    zoo_flash_shapes: tuple   # phase 10's kernel G and H checks, as
+    zoo_decode_shapes: tuple  # flash_shapes and decode_shapes
+    zoo_check_steps: int      # the card-vs-CPU EDF engine runs' steps
+
+
+# the anytime engine's runs of phases 8 and 9: (supply, policy)
+ENGINE_RUNS = (("solar", "anytime"), ("solar", "edf"),
+               ("persistent", "anytime"), ("persistent", "edf"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,15 +302,20 @@ class AnyRun:
 
     arch: str
     narrow: bool         # the config's reduced() size (CPU rehearsal)
-    prefill_len: int     # prompt of the prefill + decode run
+    prefill_len: int     # text tokens of the prefill + decode run (a
+    #                      VLM's patches and an encoder's frames come on top)
     decode_steps: int
     full_cache: bool     # prefill's cache holds prompt + decode (no ring)
-    fwd_shape: tuple     # anytime_forward's (B, S)
+    fwd_shape: tuple     # anytime_forward's (B, S) text tokens, or () none
     requests: int        # the engine's request trace
     slots: int
     prompt: int
     new: int
     max_steps: int       # the engine's horizon in steps
+    n_layers: int = 0    # a depth cut (0: the published depth)
+    prefill_reps: int = 2
+    engines: tuple = ENGINE_RUNS
+    profile: bool = True  # profile a decode step and an engine step
 
 
 FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
@@ -284,7 +324,7 @@ FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
              stream_chunks=8, min_stream_jobs=1_000_000,
              l1_rows=2 * 25 * 5, l1_dim=150, l1_k=5,
              cu_shape=(5, 8192, 64), cu_wide=(8, 8192, 1024),
-             replay_jobs=250,
+             replay_jobs=250, replay_cut_steps=1159,
              policies=("zygarde", "edf", "edf-m", "rr"),
              etas=(0.2, 0.5, 0.71, 0.9, 1.0),
              capacitors_f=(0.01, 0.025, 0.05, 0.1, 0.2), seeds=16,
@@ -312,7 +352,30 @@ FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
                             (2, 16, 1, 256, 37, "bfloat16", True, 0),
                             (2, 16, 1, 256, 37, "float32", False, 0)),
              rglru_shapes=((1, 4096, 4096, False), (2, 512, 4096, False),
-                           (3, 37, 53, True)))
+                           (3, 37, 53, True)),
+             zoo=(AnyRun("dbrx-132b", False, 4096, 32, True, (2, 512), 64,
+                         16, 16, 48, 128, n_layers=8,
+                         engines=ENGINE_RUNS[:2], profile=False),
+                  AnyRun("qwen3-moe-235b-a22b", False, 4096, 16, True, (),
+                         0, 16, 16, 48, 0, n_layers=4, prefill_reps=1,
+                         engines=(), profile=False),
+                  AnyRun("xlstm-125m", False, 4096, 64, True, (2, 512), 64,
+                         16, 16, 48, 128, prefill_reps=1, profile=False),
+                  AnyRun("seamless-m4t-medium", False, 1024, 64, True,
+                         (2, 512), 0, 16, 16, 48, 0, prefill_reps=1,
+                         engines=(), profile=False),
+                  AnyRun("internvl2-2b", False, 3840, 64, True, (2, 512), 0,
+                         16, 16, 48, 0, prefill_reps=1, engines=(),
+                         profile=False)),
+             zoo_flash_shapes=((1, 4096, 4096, 48, 8, 128, True, 0, 0),
+                               (1, 4096, 4096, 64, 4, 128, True, 0, 0),
+                               (1, 1024, 1024, 16, 16, 64, False, 0, 0),
+                               (2, 512, 1024, 16, 16, 64, False, 0, 0),
+                               (1, 4096, 4096, 16, 8, 128, True, 0, 0)),
+             zoo_check_steps=96,
+             zoo_decode_shapes=((1, 48, 8, 128, 4128, "bfloat16", True, 0),
+                                (16, 48, 8, 128, 64, "bfloat16", True, 0),
+                                (1, 16, 16, 64, 1024, "bfloat16", True, 0)))
 
 
 def _narrow():
@@ -330,7 +393,8 @@ def _narrow():
         min_stream_jobs=0,
         l1_rows=2 * 4 * 5, l1_dim=150, l1_k=5, cu_shape=(5, 256, 3),
         cu_wide=(8, 64, 40),
-        replay_jobs=6, policies=("zygarde", "rr"), etas=(0.5, 1.0),
+        replay_jobs=6, replay_cut_steps=40, policies=("zygarde", "rr"),
+        etas=(0.5, 1.0),
         capacitors_f=(0.05,), seeds=2, big_seeds=3, cpu_check_steps=20,
         cpu_check_devices=3,
         pw_shapes=((16, 16, 6), (9, 5, 600), (64, 64, 64)),
@@ -346,7 +410,19 @@ def _narrow():
                       (1, 16, 80, 4, 4, 16, True, 0, 64)),
         decode_shapes=((1, 4, 1, 64, 48, "bfloat16", True, 64),
                        (2, 4, 2, 16, 37, "float32", False, 16)),
-        rglru_shapes=((1, 48, 256, False), (3, 37, 53, True)))
+        rglru_shapes=((1, 48, 256, False), (3, 37, 53, True)),
+        zoo=tuple(AnyRun(arch, True, 48, 4, True, fwd, n_req, 2, 4, 4, steps,
+                         prefill_reps=1, engines=eng, profile=False)
+                  for arch, fwd, n_req, steps, eng in (
+                      ("dbrx-132b", (2, 32), 3, 16, ENGINE_RUNS[:1]),
+                      ("qwen3-moe-235b-a22b", (), 0, 0, ()),
+                      ("xlstm-125m", (2, 32), 3, 16, ENGINE_RUNS[1:2]),
+                      ("seamless-m4t-medium", (2, 32), 0, 0, ()),
+                      ("internvl2-2b", (2, 32), 0, 0, ()))),
+        zoo_check_steps=24,
+        zoo_flash_shapes=((1, 37, 37, 12, 2, 32, True, 0, 0),
+                          (2, 16, 40, 4, 4, 16, False, 0, 0)),
+        zoo_decode_shapes=((1, 12, 2, 32, 40, "bfloat16", True, 0),))
 
 
 # --------------------------------------------------------------------------- #
@@ -1575,18 +1651,24 @@ def _replay_phase(device, scale: Scale, models, sets) -> dict:
         run_segments(cfg, _steps(statics, 1), 1, mode=mode)
 
     # ---- the main path: counts zeroed just before, read just after ------
+    # vmap and pallas run the first ``replay_cut_steps`` steps (a depth cut:
+    # both are host-bound at ~10 ms per step), fused the whole horizon and
+    # the cut one, so every mode is held to fused over the same steps
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     ops.reset_launch_counts()
+    n_cut = min(scale.replay_cut_steps, n_steps)
+    cut = _steps(statics, n_cut)
     res, rate = {}, {}
-    for mode in ("vmap", "pallas", "fused"):
-        r, secs = _timed(lambda: simulate_fleet(cfg, statics, mode=mode),
+    for mode, st in (("vmap", cut), ("pallas", cut), ("fused", cut),
+                     ("fused full", statics)):
+        r, secs = _timed(lambda: simulate_fleet(cfg, st, mode=mode.split()[0]),
                          device)
         res[mode] = r
         rate[mode] = float(r.released.sum()) / secs
-        print(f"replay {mode}: {int(r.released.sum())} jobs on {D} devices "
-              f"in {secs:.3f} s = {rate[mode]:.1f} jobs/s, "
-              f"{int(r.scheduled.sum())} on time, "
+        print(f"replay {mode} ({st.n_steps} steps): {int(r.released.sum())} "
+              f"jobs on {D} devices in {secs:.3f} s = {rate[mode]:.1f} "
+              f"jobs/s, {int(r.scheduled.sum())} on time, "
               f"{int(r.units_executed.sum())} units")
     (seg, carry), secs = _timed(lambda: run_segments(
         cfg, statics, scale.n_segments, mode="fused"), device)
@@ -1602,18 +1684,20 @@ def _replay_phase(device, scale: Scale, models, sets) -> dict:
     print(f"replay path launches {json.dumps(launches)}, peak device memory "
           f"{peak / 2**20:.1f} MiB")
     if device.type == "cuda":
-        want = {"fleet_priority": n_steps,
-                "fleet_fused_steps": 2 + scale.n_segments}
+        want = {"fleet_priority": n_cut,
+                "fleet_fused_steps": 3 + scale.n_segments}
         if launches != want:
             raise AssertionError(f"replay path launched {launches}, not "
                                  f"{want} (A once per step of the pallas "
                                  f"run, B once per segment)")
 
     # ---- outputs are right ------------------------------------------------
-    for label, other in (("pallas", res["pallas"]), ("fused", res["fused"]),
-                         ("run_segments", seg), ("sweep", swept)):
-        _equal_leaves(res["vmap"], other, f"replay {label} != vmap")
-    r = res["vmap"]
+    for label, other in (("pallas", res["pallas"]), ("fused", res["fused"])):
+        _equal_leaves(res["vmap"], other, f"replay {label} != vmap over "
+                      f"{n_cut} steps")
+    for label, other in (("run_segments", seg), ("sweep", swept)):
+        _equal_leaves(res["fused full"], other, f"replay {label} != fused")
+    r = res["fused full"]
     K = len(tasks)
     if r.task_released.shape != (D, K) or not bool(
             (r.released == K * scale.replay_jobs).all()):
@@ -1624,7 +1708,8 @@ def _replay_phase(device, scale: Scale, models, sets) -> dict:
     if not bool((r.task_scheduled + r.task_misses
                  == r.task_released).all()):
         raise AssertionError("replay: jobs not conserved per task")
-    print("replay fused == pallas == vmap == run_segments == sweep on every "
+    print(f"replay fused == pallas == vmap over the first {n_cut} steps, "
+          f"fused == run_segments == sweep over all {n_steps}, on every "
           "result leaf; jobs conserved per task")
 
     # the card's vmap loop == the CPU's plain loop on a slice of devices
@@ -2395,6 +2480,8 @@ def _any_config(run: AnyRun):
         cfg = cfg.reduced()
         if run.arch == "qwen1.5-0.5b":
             cfg = dataclasses.replace(cfg, n_layers=4)
+    elif run.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=run.n_layers)
     return cfg
 
 
@@ -2410,21 +2497,49 @@ def _any_requests(cfg, run: AnyRun, rng):
 
 def _layer_kinds(cfg) -> dict:
     kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
-    return {k: kinds.count(k) for k in ("attn", "rec")}
+    return {k: kinds.count(k) for k in ("attn", "rec", "mlstm", "slstm")}
+
+
+def _frontend(cfg, B: int, g, device) -> dict:
+    """The stub frontend of a batch of ``B``: an encoder-decoder's frame
+    embeddings or a VLM's patch embeddings (seeded, f32, on ``device``);
+    nothing for a text-only config."""
+    import torch
+
+    n = cfg.n_enc_tokens or cfg.n_frontend_tokens
+    if not n:
+        return {}
+    return {"frontend": torch.randn((B, n, cfg.d_model), generator=g,
+                                    device=device)}
+
+
+def _any_launches(cfg, run: AnyRun, n_passes: int) -> dict:
+    """Kernel launches of one anytime path: per sequence pass (each prefill
+    and ``anytime_forward``) kernel G once per attention layer, per
+    cross-attention and per encoder layer, and kernel I once per recurrent
+    layer; per decode and engine step kernel H once per attention and
+    cross-attention layer."""
+    kinds = _layer_kinds(cfg)
+    attn = kinds["attn"] * (2 if cfg.is_encoder_decoder else 1)
+    steps = run.decode_steps + len(run.engines) * run.max_steps
+    want = {"flash_attention": n_passes * (attn + cfg.n_enc_layers),
+            "decode_gqa": attn * steps,
+            "rglru_scan": n_passes * kinds["rec"]}
+    return {k: n for k, n in want.items() if n}
 
 
 def _anytime_phase(device, scale: Scale, run: AnyRun) -> dict:
     """One anytime path at its config's published widths (seeded random
-    weights, fresh exit heads): the prefill of one prompt (twice) and
-    ``decode_steps`` decode steps; ``anytime_forward`` on ``fwd_shape`` and
-    the exit thresholds calibrated from it; the anytime engine and EDF on
-    one request trace under a solar harvester and a persistent supply.  The
-    launch counts are zeroed before and read after: kernel G once per
-    attention layer and kernel I once per recurrent layer in each prefill
-    and in ``anytime_forward``, kernel H once per attention layer in every
-    decode step and engine step."""
+    weights, fresh exit heads; ``run.n_layers`` a depth cut): the prefill
+    of one prompt (``prefill_reps`` times, with the config's stub frames or
+    patches) and ``decode_steps`` decode steps; ``anytime_forward`` on
+    ``fwd_shape`` and the exit thresholds calibrated from it; the anytime
+    engine and EDF on one request trace under a solar harvester and a
+    persistent supply (``run.engines``).  The launch counts are zeroed
+    before and read after (:func:`_any_launches`)."""
     import torch
 
+    from repro_torch.configs import get_config
     from repro_torch.core import energy
     from repro_torch.kernels import ops
     from repro_torch.models import anytime as A
@@ -2433,37 +2548,53 @@ def _anytime_phase(device, scale: Scale, run: AnyRun) -> dict:
 
     cfg = _any_config(run)
     rng = np.random.default_rng(5)
-    t0 = time.perf_counter()
+    g = torch.Generator(device=device).manual_seed(7)
+    t_phase = t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device=device).manual_seed(0),
                            device=device)
     heads = A.init_heads(cfg, device=device)
+    _sync(device)
     n_params = sum(t.numel() for t in _leaves(params))
-    kinds = _layer_kinds(cfg)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    kinds = {k: n for k, n in _layer_kinds(cfg).items() if n}
     tag = " (reduced)" if run.narrow else ""
-    print(f"anytime model: {run.arch}{tag}, {cfg.n_layers} layers "
-          f"({kinds['attn']} attn, {kinds['rec']} rec), d_model "
-          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, hd "
-          f"{cfg.resolved_head_dim}, window {cfg.window}, vocab "
-          f"{cfg.padded_vocab}, {cfg.dtype}, {cfg.n_units} units "
-          f"({cfg.resolved_mandatory_units} mandatory), "
-          f"{n_params / 1e6:.1f} M parameters (param_count "
+    cut = (f" (a depth cut of its {get_config(run.arch).n_layers})"
+           if run.n_layers and not run.narrow else "")
+    extra = []
+    if cfg.n_experts:
+        extra.append(f"{cfg.n_experts} experts top-{cfg.top_k}, d_ff "
+                     f"{cfg.d_ff} each")
+    if cfg.is_encoder_decoder:
+        extra.append(f"{cfg.n_enc_layers} encoder layers over "
+                     f"{cfg.n_enc_tokens} stub frames")
+    if cfg.n_frontend_tokens:
+        extra.append(f"{cfg.n_frontend_tokens} stub patch rows prepended")
+    print(f"anytime model: {run.arch}{tag}, {cfg.n_layers} layers{cut} "
+          f"{json.dumps(kinds)}, d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"/ {cfg.n_kv_heads} kv, hd {cfg.resolved_head_dim}, window "
+          f"{cfg.window}, vocab {cfg.padded_vocab}, {cfg.dtype}, "
+          f"{cfg.n_units} units ({cfg.resolved_mandatory_units} mandatory)"
+          f"{''.join('; ' + e for e in extra)}; {n_params / 1e6:.1f} M "
+          f"parameters, {n_bytes / 2**30:.2f} GiB (param_count "
           f"{cfg.param_count() / 1e6:.1f} M), built in "
           f"{time.perf_counter() - t0:.2f} s")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 
     # ---- the main path: counts zeroed just before, read just after ------
-    # host-clock times spread between calls, so the prefill runs twice and
-    # the decode steps are timed in two halves
+    # host-clock times spread between calls, so the decode steps are timed
+    # in two halves (and phases 8 and 9 run the prefill twice)
     ops.reset_launch_counts()
     P, steps = run.prefill_len, run.decode_steps
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, P)).astype(
         np.int32)).to(device)
-    cache_len = P + steps if run.full_cache else None
+    batch = dict({"tokens": toks}, **_frontend(cfg, 1, g, device))
+    n_ctx = P + cfg.n_frontend_tokens
+    cache_len = n_ctx + steps if run.full_cache else None
     pre_s = []
-    for _ in range(2):
+    for _ in range(run.prefill_reps):
         (logits, state), secs = _timed(lambda: T.prefill(
-            cfg, params, {"tokens": toks}, cache_len=cache_len), device)
+            cfg, params, batch, cache_len=cache_len), device)
         pre_s.append(secs)
     tok = torch.argmax(logits, -1).to(torch.int32)
 
@@ -2476,46 +2607,59 @@ def _anytime_phase(device, scale: Scale, run: AnyRun) -> dict:
     halves = (steps // 2, steps - steps // 2)
     dec_ms = [1e3 * _timed(lambda: decode(n), device)[1] / n for n in halves]
     if not (bool(logits.isfinite().all())
-            and int(state["pos"][0]) == P + steps
+            and int(state["pos"][0]) == n_ctx + steps
             and tuple(logits.shape) == (1, cfg.padded_vocab)):
         raise AssertionError("prefill + decode: bad logits or state")
-    print(f"prefill {P} tokens: {pre_s[0]:.3f} s, again {pre_s[1]:.3f} s; "
+    front = (f" after {cfg.n_frontend_tokens} patch rows"
+             if cfg.n_frontend_tokens else
+             f" (the encoder over {cfg.n_enc_tokens} frames in it)"
+             if cfg.is_encoder_decoder else "")
+    front_fwd = (f", {cfg.n_frontend_tokens} patch rows each"
+                 if cfg.n_frontend_tokens else
+                 f", the encoder over {cfg.n_enc_tokens} frames each"
+                 if cfg.is_encoder_decoder else "")
+    print(f"prefill {P} tokens{front}: "
+          f"{', again '.join(f'{t:.3f} s' for t in pre_s)}; "
           f"{steps} decode steps: {dec_ms[0]:.2f} ms per step over the "
           f"first {halves[0]}, {dec_ms[1]:.2f} over the next {halves[1]} "
           f"(host clock, synchronised)")
 
-    B2, S2 = run.fwd_shape
-    toks2 = torch.from_numpy(rng.integers(0, cfg.vocab, (B2, S2)).astype(
-        np.int32)).to(device)
-    ul, fwd_s = _timed(lambda: A.anytime_forward(cfg, params, heads,
-                                                 {"tokens": toks2}), device)
-    if (tuple(ul.shape) != (cfg.n_units, B2, S2, cfg.padded_vocab)
-            or not bool(ul.isfinite().all())):
-        raise AssertionError("anytime_forward: bad logits")
-    (thr, use), cal_s = _timed(lambda: A.calibrate_thresholds(
-        ul, target_agreement=ANY_TARGET_AGREEMENT), device)
-    agree = [float((ul[u].argmax(-1) == ul[-1].argmax(-1)).float().mean())
-             for u in range(cfg.n_units)]
-    del ul
-    print(f"anytime_forward ({B2} x {S2}): {fwd_s:.3f} s; per-unit "
-          f"agreement with full depth {[round(a, 4) for a in agree]}; "
-          f"thresholds at {ANY_TARGET_AGREEMENT}: "
-          f"{[round(float(t), 3) for t in thr]} enabled "
-          f"{[bool(u) for u in use]} ({cal_s:.3f} s)")
+    fwd_s, thr, use = None, None, None
+    if run.fwd_shape:
+        B2, S2 = run.fwd_shape
+        toks2 = torch.from_numpy(rng.integers(0, cfg.vocab, (B2, S2)).astype(
+            np.int32)).to(device)
+        batch2 = dict({"tokens": toks2}, **_frontend(cfg, B2, g, device))
+        ul, fwd_s = _timed(lambda: A.anytime_forward(cfg, params, heads,
+                                                     batch2), device)
+        S_out = S2 + cfg.n_frontend_tokens
+        if (tuple(ul.shape) != (cfg.n_units, B2, S_out, cfg.padded_vocab)
+                or not bool(ul.isfinite().all())):
+            raise AssertionError("anytime_forward: bad logits")
+        (thr, use), cal_s = _timed(lambda: A.calibrate_thresholds(
+            ul, target_agreement=ANY_TARGET_AGREEMENT), device)
+        agree = [float((ul[u].argmax(-1) == ul[-1].argmax(-1)).float()
+                       .mean()) for u in range(cfg.n_units)]
+        del ul
+        print(f"anytime_forward ({B2} x {S2} tokens{front_fwd}): "
+              f"{fwd_s:.3f} s; "
+              f"per-unit agreement with full depth "
+              f"{[round(a, 4) for a in agree]}; thresholds at "
+              f"{ANY_TARGET_AGREEMENT}: {[round(float(t), 3) for t in thr]} "
+              f"enabled {[bool(u) for u in use]} ({cal_s:.3f} s)")
 
     reqs = _any_requests(cfg, run, rng)
     served, engine_ms = {}, []
     # the solar harvester of the §9.2 run, then a persistent supply: with
     # the engine's default energy model a 16-slot full-depth step costs far
     # more than 0.35 W refills
-    for supply_name, supply, policy in (
-            ("solar", energy.calibrate_harvester(0.71, 0.35), "anytime"),
-            ("solar", energy.calibrate_harvester(0.71, 0.35), "edf"),
-            ("persistent", None, "anytime"), ("persistent", None, "edf")):
+    supplies = {"solar": lambda: energy.calibrate_harvester(0.71, 0.35),
+                "persistent": lambda: None}
+    for supply_name, policy in run.engines:
         eng = AnytimeServeEngine(cfg, params, heads, serve_cfg=AnytimeConfig(
             policy=policy, batch_slots=run.slots, max_steps=run.max_steps,
             prompt_len=run.prompt, max_new_tokens=run.new),
-            supply=supply, seed=0)
+            supply=supplies[supply_name](), seed=0)
         knobs = (eng.default_knobs(exit_thr=thr, use_exit_thr=use.float())
                  if policy == "anytime" else eng.default_knobs())
         res, wall = _timed(lambda: eng.run(reqs, knobs=knobs), device)
@@ -2536,11 +2680,9 @@ def _anytime_phase(device, scale: Scale, run: AnyRun) -> dict:
               f"{res.agreement:.4f}, score {res.score:.4f}, simulated "
               f"horizon {res.horizon:.2f} s")
     counts = ops.launch_counts()
-    want = {"flash_attention": 3 * kinds["attn"],
-            "decode_gqa": kinds["attn"] * (steps + 4 * run.max_steps),
-            "rglru_scan": 3 * kinds["rec"]}
-    want = {k: n for k, n in want.items() if n}
+    want = _any_launches(cfg, run, run.prefill_reps + bool(run.fwd_shape))
     launches = {k: counts[k] for k in want}
+    peak = None
     if device.type == "cuda":
         if launches != want:
             raise AssertionError(f"{run.arch}: launches {launches} on the "
@@ -2548,19 +2690,23 @@ def _anytime_phase(device, scale: Scale, run: AnyRun) -> dict:
         peak = torch.cuda.max_memory_allocated(device) / 2**30
         print(f"anytime launches {json.dumps(launches)}; peak device memory "
               f"{peak:.2f} GiB")
-    # where a decode step's and an engine step's time goes (the prefix
-    # state goes on decoding past its cache: the ring buffer wraps)
-    _profile(device, "decode step", 1, 10, decode)
-    tables = eng.pack(reqs)
-    carry = [eng.init_carry(tables)]
+    if run.profile:
+        # where a decode step's and an engine step's time goes (the prefix
+        # state goes on decoding past its cache: the ring buffer wraps)
+        _profile(device, "decode step", 1, 10, decode)
+        tables = eng.pack(reqs)
+        carry = [eng.init_carry(tables)]
 
-    def engine_steps(n):
-        for _ in range(n):
-            carry[0] = eng._step(tables, carry[0], knobs)
+        def engine_steps(n):
+            for _ in range(n):
+                carry[0] = eng._step(tables, carry[0], knobs)
 
-    _profile(device, "engine step", run.slots, 5, engine_steps)
+        _profile(device, "engine step", run.slots, 5, engine_steps)
+    secs = time.perf_counter() - t_phase
+    print(f"anytime path {run.arch}: {secs:.1f} s in all")
     return dict(launches=launches, prefill_s=pre_s, decode_ms=dec_ms,
-                forward_s=fwd_s, engine_ms=engine_ms,
+                forward_s=fwd_s, engine_ms=engine_ms, peak_gib=peak,
+                seconds=secs,
                 engine={p: r.as_dict() for p, r in served.items()})
 
 
@@ -2583,8 +2729,8 @@ def _flash_pairs(S, Skv, causal, window, q_offset) -> int:
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
-def _flash_phase(device, scale: Scale) -> dict:
-    """Kernel G against its plain version at ``scale.flash_shapes`` in bf16
+def _flash_phase(device, shapes) -> dict:
+    """Kernel G against its plain version at ``shapes`` in bf16
     and f32, with the times of G, the plain version and one
     ``scaled_dot_product_attention`` call (the yardstick; never on the
     port's path) and the bound: the larger of the bytes (q, k, v read
@@ -2597,7 +2743,7 @@ def _flash_phase(device, scale: Scale) -> dict:
 
     g = torch.Generator(device=device).manual_seed(3)
     rows = []
-    for shape in scale.flash_shapes:
+    for shape in shapes:
         B, S, Skv, H, KV, hd, causal, window, qo = shape
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
@@ -2683,8 +2829,8 @@ def _decode_inputs(shape, g, device):
     return q, k, v, slot_pos, pos
 
 
-def _decode_phase(device, scale: Scale) -> dict:
-    """Kernel H against its plain version at ``scale.decode_shapes``, with
+def _decode_phase(device, shapes) -> dict:
+    """Kernel H against its plain version at ``shapes``, with
     the times of H, the plain version and one
     ``scaled_dot_product_attention`` call on the same cache with a boolean
     slot mask (the yardstick; never on the port's path) and the bound: the
@@ -2699,7 +2845,7 @@ def _decode_phase(device, scale: Scale) -> dict:
 
     g = torch.Generator(device=device).manual_seed(4)
     rows = []
-    for shape in scale.decode_shapes:
+    for shape in shapes:
         B, H, KV, hd, C, dtype, round_p, window = shape
         q, k, v, slot_pos, pos = _decode_inputs(shape, g, device)
         kw = dict(window=window, round_p=round_p)
@@ -2797,17 +2943,68 @@ def _rglru_phase(device, scale: Scale) -> dict:
     return row
 
 
-def _any_cpu_check(device, run: AnyRun, S: int) -> None:
+class _RouteLog:
+    """Records every MoE routing of a run (``moe.route`` wrapped while the
+    log is open), so two runs' routers can be compared choice by choice."""
+
+    def __init__(self):
+        self.routes = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._route = route = moe.route
+
+        def logged(*args, **kw):
+            r = route(*args, **kw)
+            self.routes.append((r.expert_idx.cpu(), r.keep.cpu()))
+            return r
+
+        moe.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self._route
+
+
+def _same_routes(a: _RouteLog, b: _RouteLog, what: str) -> int:
+    """The routers' choices (``expert_idx``) and kept pairs (``keep``) of
+    two runs equal, call by call; a flip is reported as one.  Returns the
+    routing calls compared."""
+    import torch
+
+    if len(a.routes) != len(b.routes):
+        raise AssertionError(f"{what}: {len(a.routes)} routing calls "
+                             f"against {len(b.routes)}")
+    for i, ((ia, ka), (ib, kb)) in enumerate(zip(a.routes, b.routes)):
+        flips = int((ia != ib).sum())
+        drops = int((ka != kb).sum())
+        if flips or drops:
+            raise AssertionError(f"{what}: routing call {i} flipped "
+                                 f"{flips} expert choices and {drops} kept "
+                                 f"pairs (a near-tie of the router, not a "
+                                 f"gap of the layer)")
+    return len(a.routes)
+
+
+def _any_cpu_check(device, run: AnyRun, S: int, *, engine: bool = True,
+                   telemetry: bool = True, engine_steps: int = 96) -> None:
     """The port on the card against the port on the CPU at the config's
-    reduced size (f32): a ``forward`` of 2 x ``S`` tokens (kernels G and I
-    against the chunked path and the associative scan, rtol = atol =
-    1e-4), a prefill of ``S`` tokens and four decode steps (kernel H
-    against the einsum path, 1e-4), and one EDF engine run (the result
-    arrays equal: the depth is fixed and every emitted token agrees with
-    itself), also with ``telemetry=full`` (the same result arrays; the
-    telemetry's integer fields equal the CPU's, its floats within
-    ``tests/test_telemetry.py``'s tolerances).  The config's window must be a multiple of the CPU path's
-    chunk (``attention.chunk_size``): on any other window the reference's
+    reduced size (f32), with the config's stub frames or patches: a
+    ``forward`` of 2 x ``S`` tokens (kernels G and I against the chunked or
+    dense path and the associative scan, rtol = atol = 1e-4; an MoE
+    config's aux loss too), a prefill of ``S`` tokens and four decode steps
+    (kernel H against the einsum path, 1e-4); an MoE config's router
+    choices and kept pairs equal call by call first, so that a near-tie
+    flip is reported as a flip.  With ``engine``, one EDF engine run (the
+    result arrays equal: the depth is fixed and every emitted token agrees
+    with itself); with ``telemetry`` also with ``telemetry=full`` (the same
+    result arrays; the telemetry's integer fields equal the CPU's, its
+    floats within ``tests/test_telemetry.py``'s tolerances).  The config's
+    window must be a multiple of the CPU path's chunk
+    (``attention.chunk_size``): on any other window the reference's
     chunked path, which the CPU port mirrors, drops keys that kernel G
     keeps (ROADMAP Queue 3), so the check asserts it first."""
     import torch
@@ -2828,51 +3025,110 @@ def _any_cpu_check(device, run: AnyRun, S: int) -> None:
     params = T.init_params(cfg, torch.Generator().manual_seed(1), device=cpu)
     on_dev = convert.tree(params, device)
     rng = np.random.default_rng(9)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, S)).astype(
-        np.int32))
-    a = T.forward(cfg, on_dev, {"tokens": toks.to(device)})[0].cpu()
-    b = T.forward(cfg, params, {"tokens": toks})[0]
+    batch = dict({"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (2, S)).astype(np.int32))},
+        **_frontend(cfg, 2, torch.Generator().manual_seed(2), cpu))
+    dev_batch = {k: v.to(device) for k, v in batch.items()}
+    with _RouteLog() as ra:
+        a, aux_a = T.forward(cfg, on_dev, dev_batch)
+    with _RouteLog() as rb:
+        b, aux_b = T.forward(cfg, params, batch)
+    n_routes = _same_routes(ra, rb, f"{run.arch} forward on the card vs CPU")
+    a = a.cpu()
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
-    la, sa = T.prefill(cfg, on_dev, {"tokens": toks.to(device)})
-    lb, sb = T.prefill(cfg, params, {"tokens": toks})
+    torch.testing.assert_close(aux_a.cpu(), aux_b, rtol=1e-4, atol=1e-4)
+    with _RouteLog() as ra:
+        la, sa = T.prefill(cfg, on_dev, dev_batch)
+    with _RouteLog() as rb:
+        lb, sb = T.prefill(cfg, params, batch)
     dec_err = _max_err(la.cpu(), lb)
     for _ in range(4):
         torch.testing.assert_close(la.cpu(), lb, rtol=1e-4, atol=1e-4)
         tok = torch.argmax(lb, -1).to(torch.int32)
-        la, sa = T.decode_step(cfg, on_dev, sa, tok.to(device))
-        lb, sb = T.decode_step(cfg, params, sb, tok)
+        with ra:
+            la, sa = T.decode_step(cfg, on_dev, sa, tok.to(device))
+        with rb:
+            lb, sb = T.decode_step(cfg, params, sb, tok)
         dec_err = max(dec_err, _max_err(la.cpu(), lb))
     torch.testing.assert_close(la.cpu(), lb, rtol=1e-4, atol=1e-4)
-    sc = AnytimeConfig(policy="edf", batch_slots=2, max_steps=96,
-                       prompt_len=4, max_new_tokens=4)
-    reqs = _any_requests(cfg, dataclasses.replace(
-        run, requests=6, prompt=4, new=4), rng)
-    r_dev = AnytimeServeEngine(cfg, on_dev, serve_cfg=sc).run(reqs)
-    r_cpu = AnytimeServeEngine(cfg, params, serve_cfg=sc).run(reqs)
-    full = TelemetryConfig(ring_size=64, level="full")
-    t_dev = AnytimeServeEngine(cfg, on_dev, serve_cfg=sc).run(
-        reqs, telemetry=full)
-    t_cpu = AnytimeServeEngine(cfg, params, serve_cfg=sc).run(
-        reqs, telemetry=full)
-    for f in ("status", "finish", "agree", "tokens", "depth_sum"):
-        if not np.array_equal(getattr(r_dev, f), getattr(r_cpu, f)):
-            raise AssertionError(f"{run.arch} engine on the card != the "
-                                 f"CPU: {f}")
-        if not (np.array_equal(getattr(t_dev, f), getattr(r_dev, f))
-                and np.array_equal(getattr(t_cpu, f), getattr(r_cpu, f))):
-            raise AssertionError(f"{run.arch} engine with telemetry != "
-                                 f"without: {f}")
-    tel_gap = _tel_gap(t_dev.telemetry, t_cpu.telemetry,
-                       f"{run.arch} engine telemetry on the card vs CPU")
-    if int(t_dev.telemetry.exit_hist.sum()) != int(t_dev.tokens.sum()):
-        raise AssertionError(f"{run.arch} engine telemetry: the depth "
-                             "histogram does not count every token")
+    n_routes += _same_routes(ra, rb, f"{run.arch} prefill + decode on the "
+                             "card vs CPU")
+    routes = (f"; {n_routes} routing calls with equal expert choices and "
+              f"kept pairs" if n_routes else "")
+    eng_line = ""
+    if engine:
+        sc = AnytimeConfig(policy="edf", batch_slots=2,
+                           max_steps=engine_steps, prompt_len=4,
+                           max_new_tokens=4)
+        reqs = _any_requests(cfg, dataclasses.replace(
+            run, requests=6, prompt=4, new=4), rng)
+        r_dev = AnytimeServeEngine(cfg, on_dev, serve_cfg=sc).run(reqs)
+        r_cpu = AnytimeServeEngine(cfg, params, serve_cfg=sc).run(reqs)
+        for f in ("status", "finish", "agree", "tokens", "depth_sum"):
+            if not np.array_equal(getattr(r_dev, f), getattr(r_cpu, f)):
+                raise AssertionError(f"{run.arch} engine on the card != the "
+                                     f"CPU: {f}")
+        eng_line = (f"; EDF engine run equal on every result array "
+                    f"({r_dev.on_time}/{r_dev.n_requests} on time)")
+    if engine and telemetry:
+        full = TelemetryConfig(ring_size=64, level="full")
+        t_dev = AnytimeServeEngine(cfg, on_dev, serve_cfg=sc).run(
+            reqs, telemetry=full)
+        t_cpu = AnytimeServeEngine(cfg, params, serve_cfg=sc).run(
+            reqs, telemetry=full)
+        for f in ("status", "finish", "agree", "tokens", "depth_sum"):
+            if not (np.array_equal(getattr(t_dev, f), getattr(r_dev, f))
+                    and np.array_equal(getattr(t_cpu, f),
+                                       getattr(r_cpu, f))):
+                raise AssertionError(f"{run.arch} engine with telemetry != "
+                                     f"without: {f}")
+        tel_gap = _tel_gap(t_dev.telemetry, t_cpu.telemetry,
+                           f"{run.arch} engine telemetry on the card vs CPU")
+        if int(t_dev.telemetry.exit_hist.sum()) != int(t_dev.tokens.sum()):
+            raise AssertionError(f"{run.arch} engine telemetry: the depth "
+                                 "histogram does not count every token")
+        eng_line += (f", also with telemetry=full, whose fields equal the "
+                     f"CPU's (ints exact, largest float gap {tel_gap:.3g})")
     print(f"anytime card vs CPU ({run.arch} reduced): forward within 1e-4 "
           f"(max err {_max_err(a, b):.3g}); prefill + 4 decode steps within "
-          f"1e-4 (max err {dec_err:.3g}); EDF engine run equal on every "
-          f"result array ({r_dev.on_time}/{r_dev.n_requests} on time), "
-          f"also with telemetry=full, whose fields equal the CPU's (ints "
-          f"exact, largest float gap {tel_gap:.3g})")
+          f"1e-4 (max err {dec_err:.3g}){routes}{eng_line}")
+
+
+def _zoo_phase(device, scale: Scale) -> dict:
+    """Phase 10: the rest of the model zoo, one model resident at a time
+    (each freed before the next), then kernels G and H at the zoo's new
+    geometries and every family's reduced size on the card against the
+    CPU."""
+    import gc
+
+    import torch
+
+    out = {}
+    for run in scale.zoo:
+        out[run.arch] = _anytime_phase(device, scale, run)
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    g_rows = _flash_phase(device, scale.zoo_flash_shapes)
+    h_rows = _decode_phase(device, scale.zoo_decode_shapes)
+    for run in scale.zoo:
+        _any_cpu_check(device, run, 64, engine=bool(run.engines),
+                       telemetry=False, engine_steps=scale.zoo_check_steps)
+    return dict(runs=out, g_row=g_rows, h_row=h_rows)
+
+
+def _unnest(row: dict) -> list:
+    """A kernel check's rows as one flat list: its first row, then the
+    rest (``shapes``)."""
+    return [{k: v for k, v in row.items() if k != "shapes"}] + row["shapes"]
+
+
+def _phase(name: str, fn, *args):
+    """``fn(*args)``, its seconds printed on a line of their own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
@@ -2885,35 +3141,49 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
         # f32 products in full f32 on the card (no TF32), as on the CPU
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        _build_phase()
-    d_row = _l1_phase(device, scale, rng)
-    e_row = _cu_phase(device, scale, rng)
-    models, sets = _models(device, scale)
-    serve = _serve_phase(device, scale, models, sets)
-    scalar = _scalar_phase(device, scale, models, sets,
-                           serve["runs"]["scan adapt per-device"].jobs_per_sec)
-    _parity_phase(device, scale, models, sets)
-    _intermittent_phase(device, scale, models, sets)
-    stream = _stream_phase(device, scale, models, sets, serve["runs"])
-    replay = _replay_phase(device, scale, models, sets)
-    telemetry = _telemetry_phase(device, scale, replay, serve, models, sets)
-    f_row = _pw_phase(device, scale, rng)
-    tune = _tune_phase(device, scale)
-    online = _online_phase(device, scale)
-    anytime = _anytime_phase(device, scale, scale.anytime)
-    g_row = _flash_phase(device, scale)
-    _any_cpu_check(device, scale.anytime, 128)
-    hybrid = _anytime_phase(device, scale, scale.hybrid)
-    h_row = _decode_phase(device, scale)
-    i_row = _rglru_phase(device, scale)
-    _any_cpu_check(device, scale.hybrid, 128)
+        _phase("1 (build)", _build_phase)
+    d_row = _phase("2 (l1_topk2)", _l1_phase, device, scale, rng)
+    e_row = _phase("2 (centroid_update)", _cu_phase, device, scale, rng)
+    models, sets = _phase("3 (models)", _models, device, scale)
+    serve = _phase("3 (serve)", _serve_phase, device, scale, models, sets)
+    scalar = _phase("3a (scalar)", _scalar_phase, device, scale, models, sets,
+                    serve["runs"]["scan adapt per-device"].jobs_per_sec)
+    _phase("3b (parity)", _parity_phase, device, scale, models, sets)
+    _phase("3c (intermittent)", _intermittent_phase, device, scale, models,
+           sets)
+    stream = _phase("3d (stream)", _stream_phase, device, scale, models, sets,
+                    serve["runs"])
+    replay = _phase("4 (replay)", _replay_phase, device, scale, models, sets)
+    telemetry = _phase("4a (telemetry)", _telemetry_phase, device, scale,
+                       replay, serve, models, sets)
+    f_row = _phase("5 (pairwise_l1)", _pw_phase, device, scale, rng)
+    tune = _phase("6 (tuning)", _tune_phase, device, scale)
+    online = _phase("7 (online)", _online_phase, device, scale)
+    anytime = _phase("8 (anytime, dense)", _anytime_phase, device, scale,
+                     scale.anytime)
+    g_row = _phase("8 (flash_attention)", _flash_phase, device,
+                   scale.flash_shapes)
+    _phase("8 (card vs CPU)", _any_cpu_check, device, scale.anytime, 128)
+    hybrid = _phase("9 (anytime, hybrid)", _anytime_phase, device, scale,
+                    scale.hybrid)
+    h_row = _phase("9 (decode_gqa)", _decode_phase, device,
+                   scale.decode_shapes)
+    i_row = _phase("9 (rglru_scan)", _rglru_phase, device, scale)
+    _phase("9 (card vs CPU)", _any_cpu_check, device, scale.hybrid, 128)
+    zoo = _phase("10 (the model zoo)", _zoo_phase, device, scale)
     # each path's launches were counted from zero; a kernel on several
     # paths reports their sum and the count of each
     paths = dict(serve=serve["launches"], scalar=scalar["launches"],
                  stream=stream["launches"], replay=replay["launches"],
                  telemetry=telemetry["launches"],
                  tune=tune["launches"], online=online["launches"],
-                 anytime=anytime["launches"], hybrid=hybrid["launches"])
+                 anytime=anytime["launches"], hybrid=hybrid["launches"],
+                 **{arch: r["launches"] for arch, r in zoo["runs"].items()})
+    g_row, h_row = (dict(row, shapes=row["shapes"] + _unnest(z),
+                         max_abs_err=max(row["max_abs_err"],
+                                         z["max_abs_err"]))
+                    for row, z in ((g_row, zoo["g_row"]),
+                                   (h_row, zoo["h_row"])))
     rows = []
     for name, row in (("fleet_priority", replay["a_row"]),
                       ("fleet_fused_steps", replay["b_row"]),

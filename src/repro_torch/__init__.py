@@ -21,9 +21,10 @@ device (:class:`repro_torch.serve.engine.ServeEngine`) and across a fleet
 O(chunk) ``run_stream``, scan and fused modes); online adaptation (:mod:`repro_torch.adapt`: offline tuning with
 ``TuneProblem`` and ``tune``, the runtime eta/E_opt loop of
 ``OnlineAdapter`` and the harvest forecaster); the model configs
-(:mod:`repro_torch.configs`) and anytime serving of the dense attention
-family and the RG-LRU hybrid (:mod:`repro_torch.models.transformer`,
-:mod:`repro_torch.models.rglru`, :mod:`repro_torch.models.anytime`,
+(:mod:`repro_torch.configs`) and anytime serving of every one of them
+(:mod:`repro_torch.models.transformer`, :mod:`repro_torch.models.moe`,
+:mod:`repro_torch.models.rglru`, :mod:`repro_torch.models.xlstm`,
+:mod:`repro_torch.models.anytime`,
 :class:`repro_torch.serve.anytime.AnytimeServeEngine`); telemetry
 (:mod:`repro_torch.telemetry`: the ``telemetry=`` of ``simulate_fleet``,
 ``run_segments``, ``FleetServeEngine.run``/``run_stream``,

@@ -6,9 +6,7 @@ numpy-only modules.  One dataclass describes every architecture family
 (dense / MoE / hybrid-recurrent / xLSTM / VLM / audio enc-dec) plus the
 Zygarde "agile" (early-exit) settings; ``reduced()`` derives the small
 CPU test variant (<=2 layers, d_model<=256, float32).  The port's model
-(:mod:`repro_torch.models.transformer`) runs the dense family and the
-RG-LRU hybrid; the other families resolve here and raise
-``NotImplementedError`` there.
+(:mod:`repro_torch.models.transformer`) runs every family.
 """
 from __future__ import annotations
 

@@ -114,9 +114,14 @@ def tree(obj, device="cuda"):
 def transformer_params(params, device="cuda") -> dict:
     """The reference transformer's parameter pytree (``embed``, ``layers``
     with its stacked ``stack`` and its ``rem`` blocks, ``final_norm``,
-    ``lm_head``) as the port's: the same nested dicts and tuples, every
-    leaf a tensor of the same dtype and layout (bf16 leaves arrive as
-    ``ml_dtypes.bfloat16`` numpy arrays and become ``torch.bfloat16``)."""
+    ``lm_head``; an MoE block's ``moe`` with its f32 ``router``, an xLSTM
+    block's ``cell`` with its f32 gates, an encoder-decoder's ``enc`` and
+    ``frontend_proj``) as the port's: the same nested dicts and tuples,
+    every leaf a tensor of the same dtype and layout (bf16 leaves arrive as
+    ``ml_dtypes.bfloat16`` numpy arrays and become ``torch.bfloat16``).  A
+    decode state converts with :func:`tree` too: an xLSTM cell stays a
+    tuple, an encoder-decoder's ``enc_out`` and ``xk``/``xv`` carry
+    over."""
     return tree(params, device)
 
 

@@ -4,8 +4,7 @@ runtime centroid adaptation, and centroid propagation past early exits.
 
 Two frontends share one engine: :class:`AgileCNN` (the paper's CNNs, unit
 = one layer) and :class:`AgileTransformer` (the model configs, unit = a
-group of ``cfg.exit_every`` blocks; the dense family and the RG-LRU hybrid
-in this port).
+group of ``cfg.exit_every`` blocks).
 """
 from __future__ import annotations
 

@@ -16,9 +16,9 @@
 //
 // * bf16: flash_tc_kernel, on the tensor cores.  One warpgroup (128
 //   threads) per 64 query rows, one per block (two at hd 256); a query row
-//   is (position, head of the kv group), so a block covers 64/G positions
-//   (128/G) and all G heads and each k/v tile is loaded once for the whole
-//   group.  Causal blocks run longest first.  TMA
+//   is (position, head of the kv group), so a block covers P = 64/G
+//   positions (128/G), rounded down, and all G heads, and each k/v tile is
+//   loaded once for the whole group.  Causal blocks run longest first.  TMA
 //   brings the q tile and a ring of two (k, v) tile stages into shared
 //   memory as bf16 (128-byte swizzle, completion on mbarriers), issued by
 //   one thread: the load of tile t + 2 runs while tile t + 1 is computed.
@@ -45,6 +45,14 @@
 //   4*ty .. 4*ty+3, the keys tx + 8 j of each tile's score matrix and the
 //   columns tx + 8 c of the output; tiles staged as f32 in shared memory,
 //   products as __fmaf_rn chains.
+//
+// Any group G <= 64 (H % KV == 0): a block of R rows (64, or 128 at bf16
+// hd 256) takes P = R / G whole positions, rounded down, so its rows
+// r < P * G map to (position p0 + r / G, head kvh * G + r % G) in the q
+// load, the tile skip test and the output store alike; the last R - P * G
+// rows are padding.  They load zeros (the bf16 kernel zero-fills them in
+// shared memory; TMA writes only the P * G rows of its box), go through the
+// products like any row (wgmma's M tile is 64 rows), and are never stored.
 //
 // In both, the kv loop lives inside the block (Hopper blocks run in no
 // order; the TPU grid's sequential kv axis becomes this loop).  Tiles
@@ -129,6 +137,7 @@ __global__ void __launch_bounds__(THREADS)
 
   const int G = H / KV;
   const int ppb = BQ / G;                      // positions per block
+  const int live = ppb * G;                    // rows past this are padding
   const int p0 = blockIdx.x * ppb;             // first position
   const int b = blockIdx.y / KV;
   const int kvh = blockIdx.y % KV;
@@ -142,7 +151,7 @@ __global__ void __launch_bounds__(THREADS)
     int r = i / hd, d = i % hd;
     int pos = p0 + r / G;
     float x = 0.f;
-    if (pos < S)
+    if (r < live && pos < S)
       x = q[((long)b * S + pos) * qrow + (long)(kvh * G + r % G) * hd + d];
     Qs[r * ks + d] = x;
   }
@@ -262,7 +271,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int i = 0; i < 4; ++i) {
     int r = ty * 4 + i;
     int pos = p0 + r / G;
-    if (pos >= S) continue;
+    if (r >= live || pos >= S) continue;
     float li = m[i] == NEG ? ref_kv_count : l[i];
     float den = fmaxf(li, 1e-30f);
     float* o = out + ((long)b * S + pos) * qrow + (long)(kvh * G + r % G) * hd;
@@ -288,8 +297,8 @@ int launch_simt(const void* q, const void* k, const void* v, int B, int S,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_for(HDMAX));
   if (e) return e;
   const int smem = smem_for(hd);
-  int G = H / KV;
-  dim3 grid((S + BQ / G - 1) / (BQ / G), B * KV);
+  const int ppb = BQ / (H / KV);
+  dim3 grid((S + ppb - 1) / ppb, B * KV);
   kern<<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, S, Skv, H, KV, hd,
       causal, window, q_offset, scale, ref_kv_count, out);
@@ -469,6 +478,7 @@ __global__ void __launch_bounds__(TcShape<HDP>::THREADS, 1)
   // longest under a causal mask) first
   const int G = H / KV;
   const int ppb = L::ROWS / G;
+  const int live = ppb * G;  // rows past this are padding
   const int nbk = gridDim.x / ((S + ppb - 1) / ppb);  // B * KV
   const int lin = gridDim.x - 1 - blockIdx.x;
   const int p0 = lin / nbk * ppb;
@@ -482,6 +492,17 @@ __global__ void __launch_bounds__(TcShape<HDP>::THREADS, 1)
   const int n = t_hi - t_lo + 1;
   const int qmin = p0 + q_offset, qmax = min(p0 + ppb, S) - 1 + q_offset;
 
+  // the padding rows of the q tile, zero in every column block (TMA
+  // writes only the box's live rows)
+  for (int i = tid; i < NB * (L::ROWS - live) * (ROW_BYTES / 16);
+       i += L::THREADS) {
+    const int c = i / ((L::ROWS - live) * (ROW_BYTES / 16));
+    const int rest = i % ((L::ROWS - live) * (ROW_BYTES / 16));
+    *reinterpret_cast<uint4*>(Qs + c * L::ROWS * ROW_BYTES +
+                              (live + rest / (ROW_BYTES / 16)) * ROW_BYTES +
+                              rest % (ROW_BYTES / 16) * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
   if (tid == 0) {
     mbar_init(&bars[0], 1);
     mbar_init(&bars[1], 1);
@@ -491,7 +512,7 @@ __global__ void __launch_bounds__(TcShape<HDP>::THREADS, 1)
   __syncthreads();
 
   if (tid == 0) {
-    mbar_expect_tx(&bars[0], L::Q_BYTES);
+    mbar_expect_tx(&bars[0], NB * live * ROW_BYTES);
 #pragma unroll
     for (int c = 0; c < NB; ++c)
       tma_load(Qs + c * L::ROWS * ROW_BYTES, &tq, &bars[0], c * 64, kvh * G,
@@ -654,7 +675,7 @@ __global__ void __launch_bounds__(TcShape<HDP>::THREADS, 1)
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + 8 * h;
     const int pos = p0 + r / G;
-    if (pos >= S) continue;
+    if (r >= live || pos >= S) continue;
     const float li = m[h] == NEG ? ref_kv_count : l[h];
     const float den = fmaxf(li, 1e-30f);
     float* o = out + (((long)b * S + pos) * H + kvh * G + r % G) * hd;

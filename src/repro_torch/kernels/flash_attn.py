@@ -21,8 +21,9 @@ tile, which changes no bit (such a tile adds exact zeros, or is wiped by
 ``alpha = 0`` when a live tile comes later).
 
 The CUDA kernels (``csrc/flash_attn.cu``) run one block per (64 query rows
-of one batch x kv head, i.e. ``64 / G`` positions x ``G`` heads); the kv
-loop lives inside the block.  The dtype picks the kernel
+of one batch x kv head: ``P = 64 // G`` positions x ``G`` heads, the last
+``64 - P * G`` rows padding that is never stored, so any ``G <= 64``
+runs); the kv loop lives inside the block.  The dtype picks the kernel
 (:func:`kernel_path`): bf16 runs on the tensor cores (TMA loads of bf16
 tiles, ``Q K^T`` on the f64 tensor cores, ``P V`` by ``wgmma`` with f32
 accumulators; ``hd`` a multiple of 8), f32 on the CUDA cores (SIMT).
@@ -46,7 +47,8 @@ from . import _build
 launches = 0
 
 NEG = -1e30
-#: query rows (positions x heads of a kv group) and keys per tile
+#: query rows (positions x heads of a kv group) and keys per tile; a
+#: group of G heads fills ``BLOCK_Q // G * G`` rows of a tile
 BLOCK_Q = 64
 BLOCK_K = 64
 #: the largest head dim the kernel takes
@@ -177,7 +179,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0) -> torch.Tensor:
     """``(B, S, H, hd)`` f32 attention output.  A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel of
-    :func:`kernel_path` (``G = H // KV`` dividing 64)."""
+    :func:`kernel_path` (``G = H // KV`` up to :data:`BLOCK_Q`)."""
     global launches
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -189,8 +191,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
     path = kernel_path(q.dtype, hd)
-    if BLOCK_Q % G:
-        raise ValueError(f"flash_attention: the kernel takes G dividing "
+    if G > BLOCK_Q:
+        raise ValueError(f"flash_attention: the kernel takes G <= "
                          f"{BLOCK_Q}; got G={G}")
     q, k, v = _dense(q), _dense(k), _dense(v)
     out = torch.empty((B, S, H, hd), dtype=torch.float32, device=q.device)

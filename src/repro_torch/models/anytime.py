@@ -69,7 +69,9 @@ def exit_readout(cfg, params, heads, x: torch.Tensor,
 def anytime_forward(cfg, params, heads, batch: dict, *,
                     window: Optional[int] = None) -> torch.Tensor:
     """Sequence-path anytime forward: ``(U, B, S, V)`` per-unit logits; row
-    ``U-1`` equals ``forward(...)[0]`` bit for bit."""
+    ``U-1`` equals ``forward(...)[0]`` bit for bit.  ``batch`` may carry a
+    ``"frontend"`` (an encoder-decoder's frames, encoded once and read by
+    every unit's cross-attention; a VLM's patches, prepended)."""
     x, enc_out = T.embed_inputs(cfg, params, batch)
     outs = []
     for u in range(cfg.n_units):
@@ -86,7 +88,8 @@ def unit_decode_step(cfg, params, heads, state: dict, token: torch.Tensor,
 
     Runs every layer in order as :func:`~repro_torch.models.transformer
     .decode_step` does and reads an exit head at each unit boundary; takes
-    a ``stacked=False`` decode state.  The final unit's row equals
+    a ``stacked=False`` decode state (an encoder-decoder's carries its
+    ``enc_out`` and cross keys and values through).  The final unit's row equals
     ``decode_step``'s logits bit for bit.  The full stack always runs:
     depth is charged by the scheduler (:mod:`repro_torch.serve.anytime`).
     """
@@ -102,7 +105,8 @@ def unit_decode_step(cfg, params, heads, state: dict, token: torch.Tensor,
         if i + 1 == bounds[unit]:
             unit_logits.append(exit_readout(cfg, params, heads, x, unit))
             unit += 1
-    new_state = T._assemble_state(cfg, pos + 1, new_layers, stacked=False)
+    new_state = T._assemble_state(cfg, state, pos + 1, new_layers,
+                                  stacked=False)
     return torch.stack(unit_logits), new_state
 
 

@@ -1,23 +1,23 @@
-"""Model assembly for the dense attention family and the RG-LRU hybrid
-(port of :mod:`repro.models.transformer`).
+"""Model assembly for every family of the model zoo (port of
+:mod:`repro.models.transformer`): dense attention, the MoE FFN
+(:mod:`repro_torch.models.moe`), the RG-LRU hybrid
+(:mod:`repro_torch.models.rglru`), the xLSTM blocks
+(:mod:`repro_torch.models.xlstm`), the encoder-decoder (a bidirectional
+encoder over stub frame embeddings, cross-attention in every decoder block)
+and the VLM (stub patch embeddings prepended to the text).
 
 Parameters keep the reference's stacked layout, so a converted JAX pytree
 drops straight in (:func:`repro_torch.convert.transformer_params`):
 ``params["layers"]["stack"]`` is a tuple over the block pattern's period
 of dicts whose leaves carry a leading ``(n_scan, ...)`` layer axis, and
-``params["layers"]["rem"]`` holds the remainder blocks.  The reference
-scans over that axis under ``jit``; the port loops over it eagerly.
-
-The port runs the ``"attn"`` block kind with a dense FFN (the ``dense``
-family: qwen1.5-0.5b, glm4-9b, minitron-8b, stablelm-3b) and the ``"rec"``
-block kind (conv1d + RG-LRU, :mod:`repro_torch.models.rglru`; the hybrid
-recurrentgemma-9b).  The xLSTM block kinds, the MoE FFN, the
-encoder-decoder's cross-attention and the VLM's frontend tokens raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
-``remat`` / ``remat_attention`` are training knobs: accepted and ignored
-in the forward pass.  JAX's arrays are immutable; the port's
-functions return new state dicts too (a KV-cache write copies the cache of
-that layer), so a caller's state is never changed in place.
+``params["layers"]["rem"]`` holds the remainder blocks; an encoder-decoder
+adds ``params["enc"]`` (its stacked blocks and final norm) and, with the
+VLM, ``params["frontend_proj"]``.  The reference scans over the layer axis
+under ``jit``; the port loops over it eagerly.  ``remat`` /
+``remat_attention`` are training knobs: accepted and ignored in the forward
+pass.  JAX's arrays are immutable; the port's functions return new state
+dicts too (a KV-cache write copies the cache of that layer), so a caller's
+state is never changed in place.
 
 Public entry points:
     init_params / forward / prefill / decode_step / init_decode_state
@@ -30,7 +30,9 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import moe as moe_mod
 from . import rglru as rg
+from . import xlstm as xl
 from .attention import chunked_attention, decode_attention
 from .common import (
     apply_norm,
@@ -46,38 +48,6 @@ from .common import (
 
 _F32 = torch.float32
 _I32 = torch.int32
-
-#: the block kinds the port runs
-_KINDS = ("attn", "rec")
-#: what each unported part of the model zoo waits for
-_TODO = {
-    "mlstm": "the xLSTM blocks (models/xlstm.py)",
-    "slstm": "the xLSTM blocks (models/xlstm.py)",
-    "moe": "the MoE FFN (models/moe.py)",
-    "xattn": "the encoder-decoder (cross-attention and the encoder)",
-    "frontend": "the VLM/audio frontend tokens",
-}
-
-
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with {_TODO[what]} "
-        f"(ROADMAP Queue 1, the model-zoo item)")
-
-
-def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is built of the block
-    kinds ``"attn"`` and ``"rec"`` with no experts, no encoder and no
-    frontend."""
-    for kind in cfg.block_pattern:
-        if kind not in _KINDS:
-            raise _unported(kind)
-    if cfg.n_experts:
-        raise _unported("moe")
-    if cfg.is_encoder_decoder:
-        raise _unported("xattn")
-    if cfg.n_frontend_tokens:
-        raise _unported("frontend")
 
 
 # --------------------------------------------------------------------------- #
@@ -110,24 +80,39 @@ def _init_ffn(g, cfg, dtype) -> dict:
     return p
 
 
-def init_block(g, cfg, kind: str) -> dict:
-    if kind not in _KINDS:
-        raise _unported(kind)
+def init_block(g, cfg, kind: str, *, cross: bool = False) -> dict:
+    """One block's parameters; ``cross`` adds the decoder's cross-attention
+    (``norm_x``, ``xattn``) to an ``"attn"`` block."""
     dtype = dtype_of(cfg)
     d = cfg.d_model
-    p: dict = {"norm1": norm_init(cfg.norm, d, dtype, g.device)}
+    dev = g.device
+    p: dict = {"norm1": norm_init(cfg.norm, d, dtype, dev)}
     if kind == "attn":
         p["attn"] = _init_attn(g, cfg, dtype)
-    else:
+        p["norm2"] = norm_init(cfg.norm, d, dtype, dev)
+        if cfg.n_experts:
+            p["moe"] = moe_mod.init_moe(g, cfg, dtype)
+        elif cfg.d_ff:
+            p["ffn"] = _init_ffn(g, cfg, dtype)
+        if cross:
+            p["norm_x"] = norm_init(cfg.norm, d, dtype, dev)
+            p["xattn"] = _init_attn(g, cfg, dtype)
+    elif kind == "rec":
         w = cfg.resolved_rglru_width
         p["gate_proj"] = dense_init(g, d, (w,), dtype)
         p["rec_proj"] = dense_init(g, d, (w,), dtype)
         p["conv"] = rg.init_conv1d(g, w, cfg.conv1d_width, dtype)
         p["rglru"] = rg.init_rglru(g, w, dtype, n_blocks=cfg.n_heads)
         p["out_proj"] = dense_init(g, w, (d,), dtype)
-    p["norm2"] = norm_init(cfg.norm, d, dtype, g.device)
-    if cfg.d_ff:
-        p["ffn"] = _init_ffn(g, cfg, dtype)
+        p["norm2"] = norm_init(cfg.norm, d, dtype, dev)
+        if cfg.d_ff:
+            p["ffn"] = _init_ffn(g, cfg, dtype)
+    elif kind == "mlstm":
+        p["cell"] = xl.init_mlstm(g, d, cfg.n_heads, dtype)
+    elif kind == "slstm":
+        p["cell"] = xl.init_slstm(g, d, cfg.n_heads, dtype)
+    else:
+        raise ValueError(kind)
     return p
 
 
@@ -154,16 +139,15 @@ def block_seq(p: dict, cfg, kind: str, x: torch.Tensor, *,
     """x: (B, S, D) -> (x, aux_loss, cache_kv or None).  ``scanned``: the
     reference runs this layer inside its compiled layer scan (see
     :mod:`repro_torch.models.rglru`)."""
-    if kind not in _KINDS:
-        raise _unported(kind)
-    if "xattn" in p or enc_out is not None:
-        raise _unported("xattn")
-    if "moe" in p:
-        raise _unported("moe")
     aux = torch.zeros((), dtype=_F32, device=x.device)
     if kind == "rec":
         x, _, _ = _rec_seq(p, cfg, x, scanned)
         return x, aux, None
+    if kind in ("mlstm", "slstm"):
+        x, _ = _xlstm_seq(p, cfg, kind, x)
+        return x, aux, None
+    if kind != "attn":
+        raise ValueError(kind)
     cache = None
     B, S, D = x.shape
     window = cfg.window if window is None else window
@@ -175,10 +159,38 @@ def block_seq(p: dict, cfg, kind: str, x: torch.Tensor, *,
     x = x + torch.einsum("bsnh,nhd->bsd", o, p["attn"]["wo"])
     if collect_cache:
         cache = (k, v)
+    if "xattn" in p:
+        if enc_out is None:
+            raise ValueError("a cross-attention block needs enc_out")
+        hx = apply_norm(cfg.norm, p["norm_x"], x)
+        qx = torch.einsum("bsd,dnh->bsnh", hx, p["xattn"]["wq"])
+        kx, vx = _cross_kv(p, enc_out)
+        ox = chunked_attention(qx, kx, vx, causal=False, window=0)
+        x = x + torch.einsum("bsnh,nhd->bsd", ox, p["xattn"]["wo"])
     h2 = apply_norm(cfg.norm, p["norm2"], x)
-    y = (_apply_ffn(p["ffn"], cfg, h2) if "ffn" in p
-         else torch.zeros_like(x))
+    if "moe" in p:
+        y, aux = moe_mod.apply_moe(p["moe"], cfg, h2)
+    elif "ffn" in p:
+        y = _apply_ffn(p["ffn"], cfg, h2)
+    else:
+        y = torch.zeros_like(x)
     return x + y, aux, cache
+
+
+def _cross_kv(p: dict, enc_out: torch.Tensor):
+    """The cross-attention's keys and values over the encoder output (no
+    RoPE)."""
+    return (torch.einsum("bsd,dnh->bsnh", enc_out, p["xattn"]["wk"]),
+            torch.einsum("bsd,dnh->bsnh", enc_out, p["xattn"]["wv"]))
+
+
+def _xlstm_seq(p: dict, cfg, kind: str, x: torch.Tensor):
+    """An ``"mlstm"`` / ``"slstm"`` block over a sequence: (x, the cell's
+    state after it)."""
+    h = apply_norm(cfg.norm, p["norm1"], x)
+    seq_fn = xl.mlstm_seq if kind == "mlstm" else xl.slstm_seq
+    y, cell = seq_fn(p["cell"], h, cfg.n_heads)
+    return x + y, cell
 
 
 def _rec_seq(p: dict, cfg, x: torch.Tensor, scanned: bool = False):
@@ -239,12 +251,6 @@ def block_step(p: dict, cfg, kind: str, x: torch.Tensor, state: dict,
                scanned: bool = False):
     """x: (B, D); state: per-block decode state; pos: (B,) current
     position; ``scanned`` as in :func:`block_seq`."""
-    if kind not in _KINDS:
-        raise _unported(kind)
-    if "xattn" in p:
-        raise _unported("xattn")
-    if "moe" in p:
-        raise _unported("moe")
     window = cfg.window if window is None else window
     new_state = dict(state)
     if kind == "rec":
@@ -260,6 +266,15 @@ def block_step(p: dict, cfg, kind: str, x: torch.Tensor, state: dict,
             h2 = apply_norm(cfg.norm, p["norm2"], x)
             x = x + _apply_ffn(p["ffn"], cfg, h2[:, None])[:, 0]
         return x, new_state
+    if kind in ("mlstm", "slstm"):
+        h = apply_norm(cfg.norm, p["norm1"], x)
+        step_fn = xl.mlstm_step if kind == "mlstm" else xl.slstm_step
+        y, new_state["cell"] = step_fn(p["cell"], h, cfg.n_heads,
+                                       state["cell"])
+        return x + y, new_state
+    if kind != "attn":
+        raise ValueError(kind)
+    B = x.shape[0]
     h = apply_norm(cfg.norm, p["norm1"], x)[:, None]            # (B, 1, D)
     q, k, v = _qkv(p["attn"], cfg, h, pos[:, None])
     q, k, v = q[:, 0], k[:, 0], v[:, 0]
@@ -271,9 +286,24 @@ def block_step(p: dict, cfg, kind: str, x: torch.Tensor, state: dict,
     o = decode_attention(q, k_cache, v_cache, slot_pos, pos, window)
     x = x + torch.einsum("bnh,nhd->bd", o, p["attn"]["wo"])
     new_state["k"], new_state["v"] = k_cache, v_cache
+    if "xattn" in p:
+        hx = apply_norm(cfg.norm, p["norm_x"], x)
+        qx = torch.einsum("bd,dnh->bnh", hx, p["xattn"]["wq"])
+        xk, xv = state["xk"], state["xv"]
+        nenc = xk.shape[1]
+        enc_pos = torch.arange(nenc, dtype=_I32, device=x.device).expand(
+            B, nenc)
+        ox = decode_attention(qx, xk, xv, enc_pos,
+                              torch.full((B,), nenc, dtype=_I32,
+                                         device=x.device), 0)
+        x = x + torch.einsum("bnh,nhd->bd", ox, p["xattn"]["wo"])
     h2 = apply_norm(cfg.norm, p["norm2"], x)
-    y = (_apply_ffn(p["ffn"], cfg, h2[:, None])[:, 0] if "ffn" in p
-         else torch.zeros_like(x))
+    if "moe" in p:
+        y = moe_mod.apply_moe(p["moe"], cfg, h2[:, None])[0][:, 0]
+    elif "ffn" in p:
+        y = _apply_ffn(p["ffn"], cfg, h2[:, None])[:, 0]
+    else:
+        y = torch.zeros_like(x)
     return x + y, new_state
 
 
@@ -290,17 +320,37 @@ def _layer_plan(cfg) -> Tuple[int, int, list]:
     return period, n_scan, rem_kinds
 
 
-def _stack_dicts(blocks: list) -> dict:
-    first = blocks[0]
-    return {k: (_stack_dicts([b[k] for b in blocks]) if isinstance(v, dict)
-                else torch.stack([b[k] for b in blocks]))
-            for k, v in first.items()}
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of trees of one structure (dicts, tuples)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_map(fn, *[t[k] for t in trees]) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def _stack_dicts(blocks: list):
+    """Blocks (trees of one structure) stacked leaf by leaf."""
+    return _tree_map(lambda *xs: torch.stack(xs), *blocks)
 
 
 def _index(tree, r: int):
-    if isinstance(tree, dict):
-        return {k: _index(v, r) for k, v in tree.items()}
-    return tree[r]
+    return _tree_map(lambda a: a[r], tree)
+
+
+def _init_stacked(make, n: int):
+    """``n`` blocks from ``make()`` stacked leaf by leaf, each block copied
+    into its slot as soon as it is drawn: the stack never exists twice
+    (a whole dbrx-132b layer is ~6.5 GB in bf16)."""
+    stacked = None
+    for r in range(n):
+        blk = make()
+        if stacked is None:
+            stacked = _tree_map(lambda a: a.new_empty((n, *a.shape)), blk)
+        _tree_map(lambda dst, src: dst[r].copy_(src), stacked, blk)
+        del blk
+    return stacked
 
 
 def init_params(cfg, generator: Optional[torch.Generator] = None, *,
@@ -308,17 +358,17 @@ def init_params(cfg, generator: Optional[torch.Generator] = None, *,
     """Random parameters in the reference's layout and distributions, drawn
     from ``generator`` (default: a fresh one on ``device`` seeded with
     ``seed``); the parameters live on the generator's device."""
-    check_supported(cfg)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
     g = generator
     dtype = dtype_of(cfg)
     period, n_scan, rem_kinds = _layer_plan(cfg)
+    cross = cfg.is_encoder_decoder
     stack = tuple(
-        _stack_dicts([init_block(g, cfg, cfg.layer_kind(q))
-                      for _ in range(n_scan)])
+        _init_stacked(lambda q=q: init_block(g, cfg, cfg.layer_kind(q),
+                                             cross=cross), n_scan)
         for q in range(period))
-    rem = tuple(init_block(g, cfg, kind) for kind in rem_kinds)
+    rem = tuple(init_block(g, cfg, kind, cross=cross) for kind in rem_kinds)
     params = {
         "embed": embed_init(g, cfg.padded_vocab, cfg.d_model, dtype),
         "layers": {"stack": stack, "rem": rem},
@@ -327,6 +377,15 @@ def init_params(cfg, generator: Optional[torch.Generator] = None, *,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(g, cfg.d_model, (cfg.padded_vocab,),
                                        dtype)
+    if cfg.n_frontend_tokens or cfg.is_encoder_decoder:
+        params["frontend_proj"] = dense_init(g, cfg.d_model, (cfg.d_model,),
+                                             dtype)
+    if cfg.is_encoder_decoder:
+        params["enc"] = {
+            "stack": _init_stacked(lambda: init_block(g, cfg, "attn"),
+                                   cfg.n_enc_layers),
+            "final_norm": norm_init(cfg.norm, cfg.d_model, dtype, g.device),
+        }
     return params
 
 
@@ -339,10 +398,31 @@ def _embed(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"][tokens.long()]
 
 
-def _check_batch(cfg, batch: dict) -> None:
-    check_supported(cfg)
-    if "frontend" in batch:
-        raise _unported("frontend")
+def _encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
+    """Bidirectional encoder over stubbed frontend embeddings (B, F, D)."""
+    x = torch.einsum("bsd,de->bse", frames.to(dtype_of(cfg)),
+                     params["frontend_proj"])
+    enc = params["enc"]
+    for r in range(cfg.n_enc_layers):
+        x, _, _ = block_seq(_index(enc["stack"], r), cfg, "attn", x,
+                            causal=False, window=0)
+    return apply_norm(cfg.norm, enc["final_norm"], x)
+
+
+def embed_inputs(cfg, params, batch: dict) -> Tuple[torch.Tensor, Any]:
+    """Embedding (+ frontend) shared by every sequence path: ``(x,
+    enc_out)``.  An encoder-decoder encodes ``batch["frontend"]`` (its
+    frames); a VLM given ``batch["frontend"]`` (its patches) prepends their
+    projection to the text, so ``x`` holds ``F + S`` positions."""
+    x = _embed(cfg, params, batch["tokens"])
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = _encode(cfg, params, batch["frontend"])
+    elif cfg.n_frontend_tokens and "frontend" in batch:
+        fx = torch.einsum("bsd,de->bse", batch["frontend"].to(x.dtype),
+                          params["frontend_proj"])
+        x = torch.cat([fx, x], dim=1)
+    return x, enc_out
 
 
 def _blocks(cfg, params):
@@ -362,18 +442,18 @@ def _readout(cfg, params, x: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg, params, batch: dict, *, window: Optional[int] = None,
             remat: bool = True):
-    """batch: {"tokens": (B, S) int32}.  Returns (logits (B, S, V) f32,
-    aux_loss scalar).  ``remat`` only says which layers the reference
-    scans: its groups of ``remat_every`` periods (every period without
-    ``remat``); the leftover periods and the remainder run op by op."""
-    _check_batch(cfg, batch)
+    """batch: {"tokens": (B, S) int32, optional "frontend": (B, F, D)}.
+    Returns (logits (B, S_total, V) f32, aux_loss: the MoE layers' sum, f32
+    scalar).  ``remat`` only says which layers the reference scans: its
+    groups of ``remat_every`` periods (every period without ``remat``); the
+    leftover periods and the remainder run op by op."""
     period, n_scan, _ = _layer_plan(cfg)
     k = max(1, cfg.remat_every) if remat else 1
     n_scanned = (n_scan // k) * k * period
-    x = _embed(cfg, params, batch["tokens"])
+    x, enc_out = embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=_F32, device=x.device)
     for i, (kind, bp) in enumerate(_blocks(cfg, params)):
-        x, a, _ = block_seq(bp, cfg, kind, x, window=window,
+        x, a, _ = block_seq(bp, cfg, kind, x, enc_out=enc_out, window=window,
                             scanned=i < n_scanned)
         aux = aux + a
     return _readout(cfg, params, x), aux
@@ -384,21 +464,31 @@ def forward(cfg, params, batch: dict, *, window: Optional[int] = None,
 # --------------------------------------------------------------------------- #
 
 
-def _block_state(cfg, kind: str, batch: int, cache_len: int,
-                 device) -> dict:
-    if kind not in _KINDS:
-        raise _unported(kind)
+def _block_state(cfg, kind: str, batch: int, cache_len: int, device, *,
+                 cross: bool) -> dict:
     dtype = dtype_of(cfg)
     if kind == "rec":
         w = cfg.resolved_rglru_width
         return {"h": torch.zeros((batch, w), dtype=_F32, device=device),
                 "buf": torch.zeros((batch, cfg.conv1d_width - 1, w),
                                    dtype=dtype, device=device)}
+    if kind == "mlstm":
+        return {"cell": xl.mlstm_init_state(batch, cfg.d_model, cfg.n_heads,
+                                            device)}
+    if kind == "slstm":
+        return {"cell": xl.slstm_init_state(batch, cfg.d_model, cfg.n_heads,
+                                            device)}
+    if kind != "attn":
+        raise ValueError(kind)
     hd, KV = cfg.resolved_head_dim, cfg.n_kv_heads
-    return {"k": torch.zeros((batch, cache_len, KV, hd), dtype=dtype,
-                             device=device),
-            "v": torch.zeros((batch, cache_len, KV, hd), dtype=dtype,
-                             device=device)}
+
+    def kv(n):
+        return torch.zeros((batch, n, KV, hd), dtype=dtype, device=device)
+
+    st = {"k": kv(cache_len), "v": kv(cache_len)}
+    if cross:
+        st["xk"], st["xv"] = kv(cfg.n_enc_tokens), kv(cfg.n_enc_tokens)
+    return st
 
 
 def cache_capacity(cfg, seq_len: int, window: Optional[int] = None) -> int:
@@ -418,27 +508,35 @@ def init_decode_state(cfg, batch: int, seq_len: int, *,
                       device="cuda") -> dict:
     """Decode state.  ``stacked=True`` holds per-period ``(n_scan, ...)``
     tensors (the reference's scanned layout); ``stacked=False`` one buffer
-    per layer (the layout of the unrolled decode and the anytime engine)."""
-    check_supported(cfg)
+    per layer (the layout of the unrolled decode and the anytime engine).
+    An encoder-decoder's state also holds ``enc_out`` and each block's
+    cross-attention keys and values ``xk``/``xv`` (zeros until a
+    prefill)."""
     period, n_scan, rem_kinds = _layer_plan(cfg)
     cache_len = cache_len or cache_capacity(cfg, seq_len, window)
+    cross = cfg.is_encoder_decoder
+
+    def one(kind):
+        return _block_state(cfg, kind, batch, cache_len, device, cross=cross)
 
     def stacked_state(kind):
-        one = _block_state(cfg, kind, batch, cache_len, device)
-        return {k: v.expand(n_scan, *v.shape).clone()
-                for k, v in one.items()}
+        return _tree_map(lambda v: v.expand(n_scan, *v.shape).clone(),
+                         one(kind))
 
     def unstacked_state(kind):
-        return tuple(_block_state(cfg, kind, batch, cache_len, device)
-                     for _ in range(n_scan))
+        return tuple(one(kind) for _ in range(n_scan))
 
     make = stacked_state if stacked else unstacked_state
-    return {
+    state = {
         "pos": torch.zeros((batch,), dtype=_I32, device=device),
         "stack": tuple(make(cfg.layer_kind(q)) for q in range(period)),
-        "rem": tuple(_block_state(cfg, kind, batch, cache_len, device)
-                     for kind in rem_kinds),
+        "rem": tuple(one(kind) for kind in rem_kinds),
     }
+    if cross:
+        state["enc_out"] = torch.zeros(
+            (batch, cfg.n_enc_tokens, cfg.d_model), dtype=dtype_of(cfg),
+            device=device)
+    return state
 
 
 def _layer_state(cfg, state, i: int) -> dict:
@@ -450,17 +548,18 @@ def _layer_state(cfg, state, i: int) -> dict:
     return _index(st, r) if isinstance(st, dict) else st[r]
 
 
-def _assemble_state(cfg, pos: torch.Tensor, new_layers: list,
+def _assemble_state(cfg, state: dict, pos: torch.Tensor, new_layers: list,
                     stacked: bool) -> dict:
-    """A decode state from one block state per layer, stacked per period
-    (``stacked``) or one buffer per layer."""
+    """``state`` with ``pos`` and one block state per layer, stacked per
+    period (``stacked``) or one buffer per layer; its other entries
+    (``enc_out``) carry over."""
     period, n_scan, _ = _layer_plan(cfg)
     per_q = [[new_layers[r * period + q] for r in range(n_scan)]
              for q in range(period)]
     stack = tuple(_stack_dicts(states) if stacked else tuple(states)
                   for states in per_q)
-    return {"pos": pos, "stack": stack,
-            "rem": tuple(new_layers[n_scan * period:])}
+    return dict(state, pos=pos, stack=stack,
+                rem=tuple(new_layers[n_scan * period:]))
 
 
 def decode_step(cfg, params, state: dict, token: torch.Tensor, *,
@@ -471,7 +570,6 @@ def decode_step(cfg, params, state: dict, token: torch.Tensor, *,
     stacked state is the reference's scanned decode: its periods run as
     ``scanned`` layers; an unstacked one its unrolled, op-by-op decode."""
     del unroll
-    check_supported(cfg)
     period, n_scan, _ = _layer_plan(cfg)
     stacked = bool(state["stack"]) and isinstance(state["stack"][0], dict)
     n_scanned = n_scan * period if stacked else 0
@@ -484,22 +582,23 @@ def decode_step(cfg, params, state: dict, token: torch.Tensor, *,
         new_layers.append(ns)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = torch.einsum("bd,dv->bv", x, _head(cfg, params)).to(_F32)
-    return logits, _assemble_state(cfg, pos + 1, new_layers, stacked)
+    return logits, _assemble_state(cfg, state, pos + 1, new_layers, stacked)
 
 
 def prefill(cfg, params, batch: dict, *, window: Optional[int] = None,
             cache_len: Optional[int] = None):
-    """Run the full prompt, returning last-position logits + a (stacked)
-    decode state whose KV caches hold the last ``cache_len`` positions and
-    whose recurrent blocks hold the RG-LRU's last state and the conv's last
-    ``k - 1`` inputs.  For full-attention serving pass ``cache_len >=
-    prompt + max_new_tokens``."""
-    _check_batch(cfg, batch)
+    """Run the full prompt (and its frontend), returning last-position
+    logits + a (stacked) decode state.  Its KV caches hold the last
+    ``cache_len`` positions (default: the text's length, capped by the
+    window); recurrent blocks hold the RG-LRU's last state and the conv's
+    last ``k - 1`` inputs, xLSTM blocks their cells; an encoder-decoder's
+    state holds ``enc_out`` and each block's cross keys and values.  For
+    full-attention serving pass ``cache_len >= prompt + max_new_tokens``."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     cache_len = cache_len or cache_capacity(cfg, S, window)
     period, n_scan, _ = _layer_plan(cfg)
-    x = _embed(cfg, params, tokens)
+    x, enc_out = embed_inputs(cfg, params, batch)
     new_layers = []
     for i, (kind, bp) in enumerate(_blocks(cfg, params)):
         if kind == "rec":
@@ -508,13 +607,23 @@ def prefill(cfg, params, batch: dict, *, window: Optional[int] = None,
             new_layers.append({"h": h_last, "buf": _conv_tail(
                 r, bp["conv"]["w"].shape[0])})
             continue
-        x, _, (k, v) = block_seq(bp, cfg, kind, x, window=window,
-                                 collect_cache=True)
-        new_layers.append({"k": _ring_fill(k, cache_len),
-                           "v": _ring_fill(v, cache_len)})
+        if kind in ("mlstm", "slstm"):
+            x, cell = _xlstm_seq(bp, cfg, kind, x)
+            new_layers.append({"cell": cell})
+            continue
+        x, _, (k, v) = block_seq(bp, cfg, kind, x, enc_out=enc_out,
+                                 window=window, collect_cache=True)
+        st = {"k": _ring_fill(k, cache_len), "v": _ring_fill(v, cache_len)}
+        if "xattn" in bp:
+            st["xk"], st["xv"] = _cross_kv(bp, enc_out)
+        new_layers.append(st)
+    state = {}
+    if enc_out is not None:
+        state["enc_out"] = enc_out
     pos = torch.full((B,), x.shape[1], dtype=_I32, device=x.device)
     logits = _readout(cfg, params, x[:, -1:])[:, 0]
-    return logits, _assemble_state(cfg, pos, new_layers, stacked=True)
+    return logits, _assemble_state(cfg, state, pos, new_layers,
+                                   stacked=True)
 
 
 def _conv_tail(r: torch.Tensor, kw: int) -> torch.Tensor:
@@ -571,19 +680,11 @@ def unit_forward(cfg, params, x: torch.Tensor, unit: int, *, enc_out=None,
     Returns (x, pooled_features (B, D) f32) — the features feed the
     per-unit k-means classifier + utility test.
     """
-    if enc_out is not None:
-        raise _unported("xattn")
     for i in unit_layers(cfg, unit):
         kind, bp = get_block(cfg, params, i)
-        x, _, _ = block_seq(bp, cfg, kind, x, window=window)
+        x, _, _ = block_seq(bp, cfg, kind, x, enc_out=enc_out, window=window)
     pooled = torch.mean(x.to(_F32), dim=1)
     return x, pooled
-
-
-def embed_inputs(cfg, params, batch: dict) -> Tuple[torch.Tensor, Any]:
-    """Embedding shared by the agile execution paths: (x, enc_out=None)."""
-    _check_batch(cfg, batch)
-    return _embed(cfg, params, batch["tokens"]), None
 
 
 def readout(cfg, params, x: torch.Tensor) -> torch.Tensor:

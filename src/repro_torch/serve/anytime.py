@@ -276,9 +276,10 @@ def _add_at(values: torch.Tensor, idx: torch.Tensor,
 
 
 class AnytimeServeEngine:
-    """Continuous-batching anytime engine for one model config (the dense
-    family or the RG-LRU hybrid; admission resets a slot's KV caches and
-    recurrent states alike).
+    """Continuous-batching anytime engine for any model config (admission
+    resets every leaf of a slot's decode state: KV caches, recurrent and
+    xLSTM cells, an encoder-decoder's ``enc_out`` and cross keys and values,
+    which stay zero as in the reference's engine).
 
     ``supply`` is a :class:`repro_torch.core.energy.Harvester` (its power
     trace is sampled with ``seed``), a precomputed watts array, or ``None``
@@ -289,7 +290,6 @@ class AnytimeServeEngine:
     def __init__(self, cfg, params, heads=None, *,
                  serve_cfg: AnytimeConfig = AnytimeConfig(),
                  supply=None, seed: int = 0):
-        T.check_supported(cfg)
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device

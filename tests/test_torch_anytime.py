@@ -11,7 +11,8 @@ package.
 * The engine's result arrays equal the JAX engine's bit for bit on the
   tiny model of ``tests/test_anytime.py`` (weights carried over), for
   ``anytime``, ``edf`` and ``edf-m`` and for 1 and 4 segments, and on the
-  reduced recurrentgemma-9b (rec, rec, attn: 3 units); with a
+  reduced recurrentgemma-9b (rec, rec, attn: 3 units), xlstm-125m and
+  dbrx-132b; with a
   small capacitor the clock and the charge also match after every step.
   The model's logits differ from JAX's at f32 round-off, so a margin at a
   threshold or a near-tie of two logits could flip a decision: the
@@ -221,6 +222,30 @@ def test_hybrid_engine_matches_jax(policy):
     jreqs, preqs = _requests(ragged=True)
     jres, pres = je.run(jreqs), pe.run(preqs)
     assert pres.completed == len(preqs) and pres.n_units == 3
+    _assert_same(jres, pres)
+
+
+@pytest.mark.parametrize("policy", ["anytime", "edf", "edf-m"])
+def test_xlstm_engine_matches_jax(policy):
+    """The reduced xlstm-125m (mLSTM, sLSTM: 2 units) behind the engine:
+    admission resets a slot's xLSTM cells (``m`` back to -1e30) like any
+    other leaf, and the result arrays equal the JAX engine's."""
+    je, pe = _engines(_port_model("xlstm-125m"), policy=policy, max_steps=96)
+    jreqs, preqs = _requests(ragged=True)
+    jres, pres = je.run(jreqs), pe.run(preqs)
+    assert pres.completed == len(preqs) and pres.n_units == 2
+    _assert_same(jres, pres)
+
+
+@pytest.mark.parametrize("policy", ["anytime", "edf", "edf-m"])
+def test_moe_engine_matches_jax(policy):
+    """The reduced dbrx-132b (2 MoE layers: 2 units) behind the engine, the
+    batch slots one dispatch group per step; the result arrays equal the
+    JAX engine's."""
+    je, pe = _engines(_port_model("dbrx-132b"), policy=policy, max_steps=96)
+    jreqs, preqs = _requests(ragged=True)
+    jres, pres = je.run(jreqs), pe.run(preqs)
+    assert pres.completed == len(preqs) and pres.n_units == 2
     _assert_same(jres, pres)
 
 

@@ -189,9 +189,20 @@ def test_centroid_update_kernel_rejects_too_many_clusters(cuda):
 # main path's (anytime_forward at 2 x 512 on qwen1.5-0.5b), causal 4,096,
 # the long-context window, glm4-9b's GQA geometry, an odd length, a query
 # offset, no mask, a row that sees no key, and recurrentgemma-9b's MQA
-# geometry (16 heads on one kv head, hd 256) under a window
+# geometry (16 heads on one kv head, hd 256) under a window; then groups
+# that do not divide the 64-row tile: dbrx-132b's 48 heads on 8 (G = 6) at
+# causal 4,096, groups of 3, 5, 12, 48 and 64, a non-causal S != Skv row
+# (cross-attention) and a ragged length, both at G = 6
 FLASH_CASES = [
     (1, 1024, 1024, 16, 1, 256, True, 512, 0),
+    (1, 4096, 4096, 48, 8, 128, True, 0, 0),
+    (2, 100, 100, 6, 2, 64, True, 0, 0),
+    (1, 77, 77, 10, 2, 32, True, 16, 0),
+    (1, 300, 300, 24, 2, 64, True, 0, 0),
+    (1, 20, 20, 48, 1, 64, True, 0, 0),
+    (1, 33, 33, 64, 1, 64, True, 0, 0),
+    (2, 90, 200, 12, 2, 64, False, 0, 0),
+    (1, 37, 37, 6, 1, 128, True, 0, 0),
     (2, 512, 512, 16, 16, 64, True, 0, 0),
     (1, 4096, 4096, 16, 16, 64, True, 0, 0),
     (1, 8192, 8192, 16, 16, 64, True, 4096, 0),
@@ -234,9 +245,21 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype):
 # q_offset): every padded head dim (16, 32, 64, 128, 256, and 80 and 136
 # that pad inside a block), groups of 1, 2 and 16, ragged lengths (37,
 # 4,097), a query offset, windows that are no multiple of the 64-key tile,
-# no mask, and rows that see no key (a negative offset)
+# no mask, and rows that see no key (a negative offset); then groups that
+# leave padding rows in the 64-row tile (128 at hd 256): 3, 5, 6, 12 and
+# 48, dbrx-132b's 48 heads on 8 at hd 128, a non-causal S != Skv row and a
+# ragged length at G = 6, and G = 6 at hd 256 (126 of 128 rows)
 FLASH_TC_CASES = [
     (2, 37, 37, 2, 1, 16, True, 0, 0),
+    (1, 500, 500, 48, 8, 128, True, 0, 0),
+    (2, 100, 100, 6, 2, 64, True, 0, 0),
+    (1, 77, 77, 10, 2, 32, True, 16, 0),
+    (1, 300, 300, 24, 2, 80, True, 0, 0),
+    (1, 20, 20, 48, 1, 64, True, 0, 0),
+    (2, 90, 200, 12, 2, 128, False, 0, 0),
+    (1, 37, 37, 6, 1, 128, True, 0, 0),
+    (1, 130, 130, 6, 1, 256, True, 0, 0),
+    (1, 64, 1024, 6, 1, 64, True, 0, 960),
     (1, 130, 130, 4, 2, 32, True, 0, 0),
     (1, 4097, 4097, 2, 2, 64, True, 0, 0),
     (1, 300, 4097, 16, 1, 128, True, 100, 3797),
@@ -943,11 +966,13 @@ def test_rglru_scan_kernel_copy_paths(cuda, B, S, W, offset, path):
 
 # kernel H shapes: (B, H, KV, hd, C, window); each runs in f32 and bf16,
 # with and without round_p: recurrentgemma-9b's decode and engine batch,
-# glm4-9b's geometry, qwen1.5-0.5b's, the JAX sweep's and a ragged cache
+# glm4-9b's geometry, qwen1.5-0.5b's, the JAX sweep's and a ragged cache;
+# dbrx-132b's 48 heads on 8 (G = 6) and a G = 6 group under a window
 DECODE_CASES = [(1, 16, 1, 256, 2176, 2048), (16, 16, 1, 256, 64, 2048),
                 (1, 32, 2, 128, 4096, 16), (1, 16, 16, 64, 4160, 0),
                 (4, 8, 2, 32, 128, 16), (5, 4, 2, 16, 37, 0),
-                (3, 8, 8, 32, 96, 0)]
+                (3, 8, 8, 32, 96, 0), (3, 48, 8, 128, 300, 0),
+                (2, 12, 2, 64, 100, 16)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1346,3 +1371,52 @@ def test_serve_telemetry_on_card_matches_cpu(cuda):
     for f in run.telemetry._fields:
         assert torch.equal(getattr(run.telemetry, f),
                            getattr(st.telemetry, f)), f
+
+
+# the rest of the model zoo at its reduced sizes: (arch, kernel G launches
+# of one forward): an attention layer each, and for the encoder-decoder its
+# encoder layers and a cross-attention per decoder layer too
+ZOO_CASES = [("dbrx-132b", 2), ("qwen3-moe-235b-a22b", 2), ("xlstm-125m", 0),
+             ("seamless-m4t-medium", 6), ("internvl2-2b", 2)]
+
+
+@pytest.mark.parametrize("arch,n_flash", ZOO_CASES)
+def test_zoo_forward_on_card_matches_cpu(cuda, arch, n_flash):
+    """Each family's reduced ``forward`` (the MoE FFN, the xLSTM cells, the
+    encoder over stub frames with cross-attention, the VLM's prepended
+    patches) on the card against the CPU within rtol = atol = 1e-4 (f32;
+    kernel G against the CPU's dense or chunked path), the MoE aux loss
+    too, with kernel G launched as counted; then a prefill and two decode
+    steps, kernel H once per attention and cross-attention layer."""
+    cfg = get_config(arch).reduced()
+    params = TF.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    on_card = convert.tree(params, cuda)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))}
+    n_front = cfg.n_enc_tokens or cfg.n_frontend_tokens
+    if n_front:
+        batch["frontend"] = torch.from_numpy(rng.normal(
+            size=(2, n_front, cfg.d_model)).astype(np.float32))
+    dev_batch = {k: v.to(cuda) for k, v in batch.items()}
+    n0 = FA.launches
+    logits, aux = TF.forward(cfg, on_card, dev_batch)
+    torch.cuda.synchronize()
+    assert FA.launches - n0 == n_flash
+    want, want_aux = TF.forward(cfg, params, batch)
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-4, atol=1e-4)
+    la, sa = TF.prefill(cfg, on_card, dev_batch, cache_len=96)
+    lb, sb = TF.prefill(cfg, params, batch, cache_len=96)
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    per_step = kinds.count("attn") * (2 if cfg.is_encoder_decoder else 1)
+    for _ in range(2):
+        torch.testing.assert_close(la.cpu(), lb, rtol=1e-4, atol=1e-4)
+        tok = torch.argmax(lb, -1).to(torch.int32)
+        n0 = DG.launches
+        la, sa = TF.decode_step(cfg, on_card, sa, tok.to(cuda))
+        torch.cuda.synchronize()
+        assert DG.launches - n0 == per_step
+        lb, sb = TF.decode_step(cfg, params, sb, tok)
+    torch.testing.assert_close(la.cpu(), lb, rtol=1e-4, atol=1e-4)

@@ -87,8 +87,9 @@ def test_chip_smoke_rehearsal_on_cpu():
     engine, scalar == fleet, the intermittent substrate, the stream, the
     replay sweep, kernel F, offline tuning, online adaptation with the
     fleet forecast arm, telemetry on the replay sweep and the serve scan,
-    anytime serving of the dense model with kernel G's checks and of the
-    RG-LRU hybrid with kernel H's and I's: the kernels
+    anytime serving of the dense model with kernel G's checks, of the
+    RG-LRU hybrid with kernel H's and I's, and of the rest of the model
+    zoo (MoE, xLSTM, the encoder-decoder, the VLM): the kernels
     report names A to I with the contract's keys (no launches on the CPU),
     each with the paths that ran it."""
     sys.path.insert(0, str(ROOT))
@@ -109,7 +110,8 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert paths["fleet_fused_steps"] == ["online", "replay", "tune"]
     assert paths["pairwise_l1"] == ["online"]
     assert paths["flash_attention"] == paths["decode_gqa"] == [
-        "anytime", "hybrid"]
+        "anytime", "dbrx-132b", "hybrid", "internvl2-2b",
+        "qwen3-moe-235b-a22b", "seamless-m4t-medium"]
     assert paths["rglru_scan"] == ["hybrid"]
     assert paths["serve_fused_steps"] == ["serve", "stream"]
     assert paths["l1_topk2"] == paths["centroid_update"] == [

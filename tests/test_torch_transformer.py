@@ -10,8 +10,9 @@ in another order in each framework.  The hybrid's gates follow the
 reference's program: ``1 - a * a`` op by op, ``1 - exp(2 log_a)`` in the
 layers the reference compiles in its layer scan (prefill, the stacked
 decode step, ``forward`` without remat; see
-:mod:`repro_torch.models.rglru`).  Every family the port does not run yet
-raises ``NotImplementedError``.
+:mod:`repro_torch.models.rglru`).  Every registered config builds its
+decode state (the other families run against JAX in
+``tests/test_torch_zoo.py``).
 """
 import numpy as np
 import pytest
@@ -206,18 +207,42 @@ def test_convert_hybrid_params_drop_in():
 
 def test_full_hybrid_config_is_supported():
     cfg = get_config("recurrentgemma-9b")
-    PT.check_supported(cfg)
     assert cfg.n_layers == 38 and cfg.n_units == 10
     kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
     assert kinds.count("rec") == 26 and kinds.count("attn") == 12
+    state = PT.init_decode_state(cfg.reduced(), 1, 4, device="cpu")
+    assert set(state["stack"][0]) == {"h", "buf"}
 
 
-@pytest.mark.parametrize("arch", [n for n in (
-    "dbrx-132b", "qwen3-moe-235b-a22b", "xlstm-125m",
-    "internvl2-2b", "seamless-m4t-medium")])
-def test_unsupported_families_raise(arch):
+@pytest.mark.parametrize("arch", list_configs())
+def test_every_config_builds_its_decode_state(arch):
+    """Each registered config, at its reduced size, builds its decode state
+    in both layouts: KV caches for attention blocks (and the
+    encoder-decoder's cross keys, values and ``enc_out``), the RG-LRU's
+    ``h`` and conv buffer, the xLSTM cells as tuples; the stacked layout
+    carries one leading layer axis per period."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError):
-        PT.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError):
-        PT.init_decode_state(cfg, 1, 4, device="cpu")
+    period, n_scan, rem = PT._layer_plan(cfg)
+    st = PT.init_decode_state(cfg, 2, 8, device="cpu")
+    un = PT.init_decode_state(cfg, 2, 8, stacked=False, device="cpu")
+    assert len(st["stack"]) == len(un["stack"]) == period
+    assert len(st["rem"]) == len(rem)
+    want_keys = {"attn": {"k", "v"}, "rec": {"h", "buf"},
+                 "mlstm": {"cell"}, "slstm": {"cell"}}
+    for q in range(period):
+        kind = cfg.layer_kind(q)
+        keys = want_keys[kind] | ({"xk", "xv"} if cfg.is_encoder_decoder
+                                  and kind == "attn" else set())
+        assert set(st["stack"][q]) == keys
+        assert len(un["stack"][q]) == n_scan
+        flat_s = jax.tree.leaves(st["stack"][q])
+        flat_u = jax.tree.leaves(un["stack"][q][0])
+        assert len(flat_s) == len(flat_u)
+        for a, b in zip(flat_s, flat_u):
+            assert a.shape == (n_scan, *b.shape) and a.dtype == b.dtype
+        if kind in ("mlstm", "slstm"):
+            assert isinstance(un["stack"][q][0]["cell"], tuple)
+    assert ("enc_out" in st) == cfg.is_encoder_decoder
+    if cfg.is_encoder_decoder:
+        assert st["enc_out"].shape == (2, cfg.n_enc_tokens, cfg.d_model)
+    assert int(st["pos"].sum()) == 0
