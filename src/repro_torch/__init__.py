@@ -28,10 +28,13 @@ O(chunk) ``run_stream``, scan and fused modes); online adaptation (:mod:`repro_t
 :class:`repro_torch.serve.anytime.AnytimeServeEngine`); telemetry
 (:mod:`repro_torch.telemetry`: the ``telemetry=`` of ``simulate_fleet``,
 ``run_segments``, ``FleetServeEngine.run``/``run_stream``,
-``OnlineAdapter.hook`` and ``AnytimeServeEngine``).  Kernels:
-``fleet_priority``, ``fleet_fused_steps``, ``serve_fused_steps``,
+``OnlineAdapter.hook`` and ``AnytimeServeEngine``); training
+(:mod:`repro_torch.train`: AdamW, checkpoints, ``train_agile_cnn`` and the
+LM step, with :mod:`repro_torch.core.losses` and the data pipeline).
+Kernels: ``fleet_priority``, ``fleet_fused_steps``, ``serve_fused_steps``,
 ``l1_topk2``, ``centroid_update``, ``pairwise_l1``, ``flash_attention``,
-``decode_gqa`` and ``rglru_scan``.
+``decode_gqa`` and ``rglru_scan``, and the backward kernels
+``flash_attention_bwd`` and ``rglru_scan_bwd``.
 """
 from . import adapt  # noqa: F401
 from . import telemetry  # noqa: F401

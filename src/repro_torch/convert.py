@@ -99,6 +99,20 @@ def cnn_params(params: dict, device="cuda") -> dict:
     }
 
 
+def cnn_params_to_reference(params: dict) -> dict:
+    """The inverse of :func:`cnn_params`: the port's CNN parameters as the
+    reference's numpy pytree (conv weights OIHW -> HWIO)."""
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    return {
+        "convs": [{"w": np.ascontiguousarray(np.transpose(arr(p["w"]),
+                                                          (2, 3, 1, 0))),
+                   "b": arr(p["b"])} for p in params["convs"]],
+        "fcs": [{"w": arr(p["w"]), "b": arr(p["b"])} for p in params["fcs"]],
+    }
+
+
 def tree(obj, device="cuda"):
     """Dicts, tuples and lists of numpy leaves (or tensors) as the same
     structure of tensors on ``device`` (tuples stay tuples)."""
@@ -123,6 +137,19 @@ def transformer_params(params, device="cuda") -> dict:
     tuple, an encoder-decoder's ``enc_out`` and ``xk``/``xv`` carry
     over."""
     return tree(params, device)
+
+
+def adamw_state(obj, device="cuda"):
+    """A reference ``AdamWState(step, mu, nu)`` (its numpy leaves) as the
+    port's :class:`repro_torch.train.AdamWState`; ``mu`` and ``nu`` keep
+    the params' tree, as :func:`transformer_params` or :func:`cnn_params`
+    lays it out (a CNN's moments of conv weights go OIHW like the
+    weights: pass them through :func:`cnn_params` first)."""
+    from .train.optimizer import AdamWState
+
+    step, mu, nu = _fields(obj, AdamWState._fields)
+    return AdamWState(tensor(np.asarray(step, np.int32), device),
+                      tree(mu, device), tree(nu, device))
 
 
 def unit_classifier(obj, device="cuda") -> UnitClassifier:

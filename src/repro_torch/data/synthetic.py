@@ -1,6 +1,7 @@
-"""Deterministic synthetic datasets (port of the part of
-:mod:`repro.data.synthetic` that serving needs; numpy, copied verbatim
-against the port's own :data:`repro_torch.models.cnn.PAPER_CNNS`).
+"""Deterministic synthetic datasets (port of :mod:`repro.data.synthetic`;
+numpy, copied verbatim against the port's own
+:data:`repro_torch.models.cnn.PAPER_CNNS`, so every array equals the
+reference's).
 
 The container has no network access, so MNIST / ESC-10 / CIFAR-100 / VWW are
 replaced by class-structured Gaussian-prototype generators with the same
@@ -10,6 +11,7 @@ input shapes and class counts.  ``separability`` controls the SNR, and
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Tuple
 
 import numpy as np
 
@@ -76,3 +78,68 @@ def make_dataset(
     x_tr, y_tr = sample(n_train, seed * 7 + 1)
     x_te, y_te = sample(n_test, seed * 7 + 2)
     return Dataset(name, x_tr, y_tr, x_te, y_te)
+
+
+def make_siamese_pairs(
+    x: np.ndarray, y: np.ndarray, n_pairs: int, seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """50% same-class / 50% different-class pairs (paper §4.2).
+
+    Returns (x1, x2, different) where different=1 for cross-class pairs.
+    """
+    rng = np.random.default_rng(seed)
+    by_class = {c: np.flatnonzero(y == c) for c in np.unique(y)}
+    classes = sorted(by_class)
+    i1 = np.empty(n_pairs, np.int64)
+    i2 = np.empty(n_pairs, np.int64)
+    diff = np.zeros(n_pairs, np.int32)
+    for p in range(n_pairs):
+        if p % 2 == 0:  # same class
+            c = classes[rng.integers(len(classes))]
+            a, b = rng.choice(by_class[c], 2, replace=True)
+        else:
+            c1, c2 = rng.choice(len(classes), 2, replace=False)
+            a = rng.choice(by_class[classes[c1]])
+            b = rng.choice(by_class[classes[c2]])
+            diff[p] = 1
+        i1[p], i2[p] = a, b
+    return x[i1], x[i2], diff
+
+
+def make_token_dataset(
+    vocab: int,
+    seq_len: int,
+    n_classes: int,
+    n_samples: int,
+    *,
+    separability: float = 1.5,
+    seed: int = 0,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Sequence-classification tokens: each class has a biased unigram
+    distribution over a class-specific vocabulary slice."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, n_classes, n_samples).astype(np.int32)
+    logits = rng.normal(size=(n_classes, vocab))
+    for c in range(n_classes):
+        lo = (c * vocab) // n_classes
+        hi = ((c + 1) * vocab) // n_classes
+        logits[c, lo:hi] += separability
+    probs = np.exp(logits - logits.max(-1, keepdims=True))
+    probs /= probs.sum(-1, keepdims=True)
+    toks = np.stack(
+        [rng.choice(vocab, seq_len, p=probs[c]) for c in y]
+    ).astype(np.int32)
+    return toks, y
+
+
+def make_lm_tokens(
+    vocab: int, seq_len: int, n_samples: int, seed: int = 0
+) -> np.ndarray:
+    """Markov-ish token streams for LM training demos."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, vocab, (n_samples, seq_len))
+    # short-range structure: next token correlated with previous
+    for t in range(1, seq_len):
+        copy = rng.random(n_samples) < 0.3
+        base[copy, t] = (base[copy, t - 1] + 1) % vocab
+    return base.astype(np.int32)

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("l1_topk2", "centroid_update", "serve_fused", "fleet_fused",
            "fleet_priority", "pairwise_l1", "flash_attn", "decode_gqa",
-           "rglru_scan")
+           "rglru_scan", "flash_attn_bwd", "rglru_scan_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -123,6 +123,19 @@ def stream_handle(device) -> ctypes.c_void_p:
     if index is None:
         index = torch.cuda.current_device()
     return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
+
+
+def no_grad_inputs(kernel: str, *tensors) -> None:
+    """Raise if autograd would need a gradient of one of ``tensors``: a
+    kernel launched through ctypes builds no graph, so its output would
+    silently drop that gradient."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel} has no backward: call it under "
+                           f"torch.no_grad() or on inputs that need no "
+                           f"gradient")
 
 
 def check(err: int, kernel: str) -> None:

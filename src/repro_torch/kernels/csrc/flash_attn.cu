@@ -126,7 +126,7 @@ __global__ void __launch_bounds__(THREADS)
                       const float* __restrict__ v, int S, int Skv, int H,
                       int KV, int hd, int causal, int window, int q_offset,
                       float scale, float ref_kv_count,
-                      float* __restrict__ out) {
+                      float* __restrict__ out, float* __restrict__ lse) {
   constexpr int CPT = HDMAX / 8;  // output columns per thread
   extern __shared__ float smem[];
   const int ks = hd + 1;          // padded row stride of q/k tiles
@@ -274,6 +274,9 @@ __global__ void __launch_bounds__(THREADS)
     if (r >= live || pos >= S) continue;
     float li = m[i] == NEG ? ref_kv_count : l[i];
     float den = fmaxf(li, 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((long)b * S + pos) * H + kvh * G + r % G] =
+          m[i] == NEG ? NEG : __fadd_rn(m[i], logf(li));
     float* o = out + ((long)b * S + pos) * qrow + (long)(kvh * G + r % G) * hd;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
@@ -287,7 +290,7 @@ template <int HDMAX>
 int launch_simt(const void* q, const void* k, const void* v, int B, int S,
                 int Skv, int H, int KV, int hd, int causal, int window,
                 int q_offset, float scale, float ref_kv_count, float* out,
-                cudaStream_t stream) {
+                float* lse, cudaStream_t stream) {
   auto smem_for = [](int d) {
     return (int)sizeof(float) * (BQ * (d + 1) + BK * (d + 1) + BK * d +
                                  BQ * (BK + 1));
@@ -301,7 +304,7 @@ int launch_simt(const void* q, const void* k, const void* v, int B, int S,
   dim3 grid((S + ppb - 1) / ppb, B * KV);
   kern<<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, S, Skv, H, KV, hd,
-      causal, window, q_offset, scale, ref_kv_count, out);
+      causal, window, q_offset, scale, ref_kv_count, out, lse);
   return (int)cudaGetLastError();
 }
 
@@ -463,7 +466,7 @@ __global__ void __launch_bounds__(TcShape<HDP>::THREADS, 1)
                     const __grid_constant__ CUtensorMap tv, int S, int Skv,
                     int H, int KV, int hd, int causal, int window,
                     int q_offset, float scale, float ref_kv_count,
-                    float* __restrict__ out) {
+                    float* __restrict__ out, float* __restrict__ lse) {
   using L = TcShape<HDP>;
   constexpr int NB = L::NB;
   extern __shared__ uint8_t smem_raw[];
@@ -678,6 +681,9 @@ __global__ void __launch_bounds__(TcShape<HDP>::THREADS, 1)
     if (r >= live || pos >= S) continue;
     const float li = m[h] == NEG ? ref_kv_count : l[h];
     const float den = fmaxf(li, 1e-30f);
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((long)b * S + pos) * H + kvh * G + r % G] =
+          m[h] == NEG ? NEG : __fadd_rn(m[h], logf(li));
     float* o = out + (((long)b * S + pos) * H + kvh * G + r % G) * hd;
 #pragma unroll
     for (int c = 0; c < NB; ++c)
@@ -720,7 +726,7 @@ template <int HDP>
 int launch_tc(const void* q, const void* k, const void* v, int B, int S,
               int Skv, int H, int KV, int hd, int causal, int window,
               int q_offset, float scale, float ref_kv_count, float* out,
-              cudaStream_t stream) {
+              float* lse, cudaStream_t stream) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return ERR_NO_ENCODER;
   using L = TcShape<HDP>;
@@ -739,7 +745,7 @@ int launch_tc(const void* q, const void* k, const void* v, int B, int S,
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   kern<<<(unsigned)blocks, L::THREADS, smem, stream>>>(
       tq, tk, tv, S, Skv, H, KV, hd, causal, window, q_offset, scale,
-      ref_kv_count, out);
+      ref_kv_count, out, lse);
   return (int)cudaGetLastError();
 }
 
@@ -747,31 +753,32 @@ int launch_tc(const void* q, const void* k, const void* v, int B, int S,
 
 // bf16 takes the tensor-core kernel (hd <= 256, hd % 8 == 0: the TMA
 // strides are whole 16 bytes), f32 the SIMT kernel (hd <= 256); the wrapper
-// checks both before it calls.
+// checks both before it calls.  lse (B, S, H) f32, or null: each row's
+// log-sum-exp m + log(l) for the backward (-1e30 where no key is seen).
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  int B, int S, int Skv, int H, int KV, int hd,
                                  int causal, int window, int q_offset,
                                  float scale, int bf16, float* out,
-                                 void* stream) {
+                                 void* stream, float* lse) {
   int bk = Skv < 128 ? Skv : 128;  // the reference's kv tile
   float ref_kv_count = bk > 0 ? (float)((Skv + bk - 1) / bk * bk) : 0.f;
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16) {
     if (hd <= 64)
       return launch_tc<64>(q, k, v, B, S, Skv, H, KV, hd, causal, window,
-                           q_offset, scale, ref_kv_count, out, st);
+                           q_offset, scale, ref_kv_count, out, lse, st);
     if (hd <= 128)
       return launch_tc<128>(q, k, v, B, S, Skv, H, KV, hd, causal, window,
-                            q_offset, scale, ref_kv_count, out, st);
+                            q_offset, scale, ref_kv_count, out, lse, st);
     return launch_tc<256>(q, k, v, B, S, Skv, H, KV, hd, causal, window,
-                          q_offset, scale, ref_kv_count, out, st);
+                          q_offset, scale, ref_kv_count, out, lse, st);
   }
   if (hd <= 64)
     return launch_simt<64>(q, k, v, B, S, Skv, H, KV, hd, causal, window,
-                           q_offset, scale, ref_kv_count, out, st);
+                           q_offset, scale, ref_kv_count, out, lse, st);
   if (hd <= 128)
     return launch_simt<128>(q, k, v, B, S, Skv, H, KV, hd, causal, window,
-                            q_offset, scale, ref_kv_count, out, st);
+                            q_offset, scale, ref_kv_count, out, lse, st);
   return launch_simt<256>(q, k, v, B, S, Skv, H, KV, hd, causal, window,
-                          q_offset, scale, ref_kv_count, out, st);
+                          q_offset, scale, ref_kv_count, out, lse, st);
 }

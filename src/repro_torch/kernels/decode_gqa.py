@@ -167,7 +167,9 @@ def decode_gqa(q: torch.Tensor, k_cache: torch.Tensor,
                round_p: bool = False) -> torch.Tensor:
     """``(B, H, hd)`` f32 attention output.  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel (``hd <= 256``, ``G = H //
-    KV <= 32``; positions are cast to int32)."""
+    KV <= 32``; positions are cast to int32).  The kernel has no backward:
+    under autograd, with an input that needs a gradient, a CUDA call
+    raises rather than return a tensor without a graph."""
     global launches
     _check(q, k_cache, v_cache, slot_pos, my_pos)
     if q.device.type == "cpu":
@@ -175,6 +177,7 @@ def decode_gqa(q: torch.Tensor, k_cache: torch.Tensor,
                                 window=window, round_p=round_p)
     if q.device.type != "cuda":
         raise ValueError(f"decode_gqa: unsupported device {q.device}")
+    _build.no_grad_inputs("decode_gqa", q, k_cache, v_cache)
     B, H, hd = q.shape
     C, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV

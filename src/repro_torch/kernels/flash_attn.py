@@ -34,6 +34,16 @@ the kernel's f64 tensor cores, the plain version's f64 einsum), so the
 bf16 rounding of ``p`` sees the same value in both and they differ only in
 the summation order of the PV product; the f32 kernel's scores are f32
 fused multiply-add chains, a few ulps from the plain version's.
+
+Training (:class:`_FlashAttention`): under autograd, with an input that
+requires a gradient, a CUDA call launches the forward kernel with its rows'
+log-sum-exp ``lse = m + log(l)`` as a second, f32 output (``out`` does not
+move by one bit) and saves it; the backward launches the two kernels of
+``csrc/flash_attn_bwd.cu`` (:func:`flash_attention_bwd`): ``dq`` per query
+tile, ``dk`` and ``dv`` per key tile, deterministic, no atomics.
+:func:`flash_attention_bwd_plain` computes the same formulas tile by tile.
+Without autograd (``torch.no_grad()``, or no input that needs a gradient)
+the call launches exactly the forward it launches for serving.
 """
 from __future__ import annotations
 
@@ -45,6 +55,8 @@ from . import _build
 
 #: launches of the CUDA kernel (the plain version never counts)
 launches = 0
+#: launches of the two backward kernels (two per CUDA call)
+bwd_launches = 0
 
 NEG = -1e30
 #: query rows (positions x heads of a kv group) and keys per tile; a
@@ -91,12 +103,13 @@ def _mask(qpos, kpos, skv: int, causal: bool, window: int):
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
-                          window: int = 0,
-                          q_offset: int = 0) -> torch.Tensor:
+                          window: int = 0, q_offset: int = 0,
+                          return_lse: bool = False):
     """The plain PyTorch version: every kv tile of :data:`BLOCK_K` keys in
     ascending order, every query row at once.  A score is the f32 rounding
     of its dot product taken in f64 (exact for bf16 inputs), as the
-    kernel's."""
+    kernel's.  With ``return_lse``, ``(out, lse)``: ``lse`` (B, S, H) f32
+    is each row's ``m + log(l)`` (``-1e30`` for a row that sees no key)."""
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -129,9 +142,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
         acc = acc * alpha[..., None] + pv
         m = m_new
     # rows that never saw a real key: the reference's padded key count
-    l = torch.where(m == NEG, float(_ref_kv_count(Skv)), l)
+    dead = m == NEG
+    l = torch.where(dead, float(_ref_kv_count(Skv)), l)
     out = acc / torch.clamp(l[..., None], min=1e-30)
-    return out.reshape(B, S, H, hd)
+    out = out.reshape(B, S, H, hd)
+    if not return_lse:
+        return out
+    lse = torch.where(dead, NEG, m + torch.log(l))
+    return out, lse.reshape(B, S, H)
 
 
 def _check(q, k, v):
@@ -162,7 +180,7 @@ def _launcher():
         fn = _build.load("flash_attn").flash_attn_launch
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                          ctypes.c_void_p])
+                          ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LAUNCH = fn
     return _LAUNCH
@@ -174,19 +192,10 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    q_offset: int = 0) -> torch.Tensor:
-    """``(B, S, H, hd)`` f32 attention output.  A CPU tensor takes the
-    plain version; a CUDA tensor launches the kernel of
-    :func:`kernel_path` (``G = H // KV`` up to :data:`BLOCK_Q`)."""
+def _launch(q, k, v, causal: bool, window: int, q_offset: int,
+            with_lse: bool):
+    """Kernel G on CUDA tensors: ``(out, lse or None)``."""
     global launches
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -196,12 +205,157 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{BLOCK_Q}; got G={G}")
     q, k, v = _dense(q), _dense(k), _dense(v)
     out = torch.empty((B, S, H, hd), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, Skv, H,
                       KV, hd, int(causal), int(window), int(q_offset),
                       hd ** -0.5, int(path == "tensor-core"), out.data_ptr(),
-                      _build.stream_handle(q.device))
+                      _build.stream_handle(q.device),
+                      lse.data_ptr() if with_lse else None)
     _build.check(err, "flash_attention")
     launches += 1
-    return out
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel G with its gradient: the forward saves ``out`` and the rows'
+    log-sum-exp, the backward runs :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out, lse = _launch(q, k, v, causal, window, q_offset, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, q_offset = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=causal, window=window,
+                                         q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """``(B, S, H, hd)`` f32 attention output.  A CPU tensor takes the
+    plain version (differentiable by autograd); a CUDA tensor launches the
+    kernel of :func:`kernel_path` (``G = H // KV`` up to :data:`BLOCK_Q`),
+    through :class:`_FlashAttention` when autograd needs a gradient of an
+    input."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return _launch(q, k, v, causal, window, q_offset, False)[0]
+
+
+# --------------------------------------------------------------------------- #
+# The backward.
+# --------------------------------------------------------------------------- #
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
+                              window=0, q_offset=0):
+    """The plain PyTorch version of the backward: over kv tiles of
+    :data:`BLOCK_K` keys, ``s = q.k * scale`` with the forward's masks,
+    ``p = exp(s - lse)`` (0 on masked pairs), ``D = rowsum(dout * out)``,
+    ``dv = p^T dout``, ``ds = p * (dout v^T - D)``, ``dk = ds^T q *
+    scale``, ``dq = ds k * scale``, all in f32.  Returns ``(dq, dk, dv)``
+    in the inputs' dtypes."""
+    B, S, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    dev = q.device
+    f32 = torch.float32
+    scale = hd ** -0.5
+    qf = q.to(f32).reshape(B, S, KV, G, hd)
+    go = dout.to(f32).reshape(B, S, KV, G, hd)
+    D = (go * out.to(f32).reshape(B, S, KV, G, hd)).sum(-1)
+    lse = lse.to(f32).reshape(B, S, KV, G)
+    qpos = torch.arange(S, device=dev) + q_offset
+    dq = torch.zeros((B, S, KV, G, hd), dtype=f32, device=dev)
+    dk = torch.zeros((B, Skv, KV, hd), dtype=f32, device=dev)
+    dv = torch.zeros((B, Skv, KV, hd), dtype=f32, device=dev)
+    for j0 in range(0, Skv, BLOCK_K):
+        kt = k[:, j0:j0 + BLOCK_K].to(f32)
+        vt = v[:, j0:j0 + BLOCK_K].to(f32)
+        n = kt.shape[1]
+        kpos = torch.arange(j0, j0 + n, device=dev)
+        mask = _mask(qpos, kpos, Skv, causal, window)[None, :, None, None]
+        s = torch.einsum("bqkgh,bckh->bqkgc", qf, kt) * scale
+        p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        dv[:, j0:j0 + n] = torch.einsum("bqkgc,bqkgh->bckh", p, go)
+        dp = torch.einsum("bqkgh,bckh->bqkgc", go, vt)
+        ds = p * (dp - D[..., None])
+        dk[:, j0:j0 + n] = torch.einsum("bqkgc,bqkgh->bckh", ds, qf) * scale
+        dq = dq + torch.einsum("bqkgc,bckh->bqkgh", ds, kt) * scale
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+_BWD = None
+
+
+def _bwd_launcher():
+    """``flash_attn_bwd_launch`` of the built library, bound once."""
+    global _BWD
+    if _BWD is None:
+        fn = _build.load("flash_attn_bwd").flash_attn_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_int]
+                       + [ctypes.c_void_p] * 5)
+        fn.restype = ctypes.c_int
+        _BWD = fn
+    return _BWD
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
+                        q_offset=0):
+    """``(dq, dk, dv)`` in the inputs' dtypes from the forward's ``out``
+    and ``lse`` and the output's cotangent ``dout``.  A CPU tensor takes
+    the plain version; a CUDA tensor launches ``csrc/flash_attn_bwd.cu``
+    (two kernels, f32 accumulation, any ``G`` and ``hd <= 256``)."""
+    global bwd_launches
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                         causal=causal, window=window,
+                                         q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    B, S, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_bwd: hd <= {MAX_HEAD_DIM}; got "
+                         f"hd={hd}")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    out, lse, dout = (t.to(torch.float32).contiguous()
+                      for t in (out, lse, dout))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq = torch.empty((B, S, H, hd), **f32)
+    dk = torch.zeros((B, Skv, KV, hd), **f32)
+    dv = torch.zeros((B, Skv, KV, hd), **f32)
+    dbuf = torch.empty((B, S, H), **f32)
+    if dq.numel() and dk.numel():
+        err = _bwd_launcher()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), B, S, Skv, H, KV, hd,
+            int(causal), int(window), int(q_offset), hd ** -0.5,
+            int(q.dtype == torch.bfloat16), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dbuf.data_ptr(), _build.stream_handle(q.device))
+        _build.check(err, "flash_attention_bwd")
+        bwd_launches += 2
+    else:
+        dq.zero_()
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -22,12 +22,12 @@ from . import pairwise_l1 as _pw
 from . import rglru_scan as _rg
 from .centroid_update import centroid_update  # noqa: F401
 from .decode_gqa import decode_gqa  # noqa: F401
-from .flash_attn import flash_attention  # noqa: F401
+from .flash_attn import flash_attention, flash_attention_bwd  # noqa: F401
 from .fleet_priority import fleet_priority  # noqa: F401
 from .fleet_step import fleet_fused_steps, serve_fused_steps  # noqa: F401
 from .l1_topk2 import l1_topk2  # noqa: F401
 from .pairwise_l1 import pairwise_l1  # noqa: F401
-from .rglru_scan import rglru_scan  # noqa: F401
+from .rglru_scan import rglru_scan, rglru_scan_bwd  # noqa: F401
 
 #: kernel name -> (module, name of its launch counter)
 _MODULES = {"fleet_priority": (_fp, "launches"),
@@ -38,7 +38,9 @@ _MODULES = {"fleet_priority": (_fp, "launches"),
             "pairwise_l1": (_pw, "launches"),
             "flash_attention": (_fa, "launches"),
             "decode_gqa": (_dg, "launches"),
-            "rglru_scan": (_rg, "launches")}
+            "rglru_scan": (_rg, "launches"),
+            "flash_attention_bwd": (_fa, "bwd_launches"),
+            "rglru_scan_bwd": (_rg, "bwd_launches")}
 
 
 def launch_counts() -> dict[str, int]:

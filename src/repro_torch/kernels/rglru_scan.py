@@ -16,6 +16,15 @@ row and feeds it ``a`` and ``b`` through a ring of tiles of
 :data:`STEP_TILE` steps in shared memory, filled by TMA or by ``cp.async``
 (:func:`copy_path`); :func:`tile_plan` lists the tiles.
 
+Training (:class:`_RGLRUScan`): under autograd, with an input that requires
+a gradient, a CUDA call saves ``a``, ``h0`` and ``h`` and its backward
+launches ``csrc/rglru_scan_bwd.cu`` (:func:`rglru_scan_bwd`): the
+recurrence in reverse, ``g_t = a_{t+1} g_{t+1} + dh_t`` (the product and the
+sum rounded apart, as the reference's ``jax.vjp`` of its scan rounds them),
+``db = g``, ``da_t = g_t h_{t-1}``, ``dh0 = a_0 g_0``, bit-equal to
+:func:`rglru_scan_bwd_plain` and to the reference.  Without autograd the call launches exactly
+the forward it launches for serving.
+
 The model's own path (:func:`repro_torch.models.rglru.rglru_seq`) launches
 this kernel for a CUDA tensor; a CPU tensor there runs the port of the
 reference's associative scan.
@@ -31,6 +40,8 @@ from . import _build
 
 #: launches of the CUDA kernel (the plain version never counts)
 launches = 0
+#: launches of the backward kernel
+bwd_launches = 0
 
 #: lanes per block (one warp) and steps per stage tile, as
 #: ``csrc/rglru_scan.cu`` has them (``LANES``, ``TS``)
@@ -96,25 +107,118 @@ def _kernel():
     return fn
 
 
+def _launch(a, b, h0):
+    """Kernel I on CUDA tensors: ``h`` (B, S, W) f32."""
+    global launches
+    B, S, W = a.shape
+    a, b, h0 = (t.to(torch.float32).contiguous() for t in (a, b, h0))
+    h = torch.empty_like(a)
+    if h.numel() == 0:
+        return h
+    tma = copy_path(W, a.data_ptr(), b.data_ptr(), h.data_ptr()) == "tma"
+    err = _kernel()(a.data_ptr(), b.data_ptr(), h0.data_ptr(), B, S, W,
+                    int(tma), h.data_ptr(), _build.stream_handle(a.device))
+    _build.check(err, "rglru_scan")
+    launches += 1
+    return h
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """Kernel I with its gradient (:func:`rglru_scan_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = _launch(a, b, h0)
+        ctx.save_for_backward(a, h0, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h0, h = ctx.saved_tensors
+        return rglru_scan_bwd(a, h0, h, dh)
+
+
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     """``(h (B, S, W), h_last (B, W))`` f32.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel (inputs cast to f32 and made
-    contiguous), and ``h_last`` is then the view ``h[:, -1]``."""
-    global launches
+    version (differentiable by autograd); a CUDA tensor launches the kernel
+    (inputs cast to f32 and made contiguous), through
+    :class:`_RGLRUScan` when autograd needs a gradient of an input, and
+    ``h_last`` is then the view ``h[:, -1]``."""
     _check(a, b, h0)
     dev = a.device
     if dev.type == "cpu":
         return rglru_scan_plain(a, b, h0)
     if dev.type != "cuda":
         raise ValueError(f"rglru_scan: unsupported device {dev}")
-    B, S, W = a.shape
-    a, b, h0 = (t.to(torch.float32).contiguous() for t in (a, b, h0))
-    h = torch.empty_like(a)
-    if h.numel() == 0:
-        return h, h0.clone()
-    tma = copy_path(W, a.data_ptr(), b.data_ptr(), h.data_ptr()) == "tma"
-    err = _kernel()(a.data_ptr(), b.data_ptr(), h0.data_ptr(), B, S, W,
-                    int(tma), h.data_ptr(), _build.stream_handle(dev))
-    _build.check(err, "rglru_scan")
-    launches += 1
+    if a.shape[1] == 0:
+        return torch.empty_like(a, dtype=torch.float32), h0.to(
+            torch.float32).clone()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (a, b, h0)):
+        h = _RGLRUScan.apply(a.to(torch.float32), b.to(torch.float32),
+                             h0.to(torch.float32))
+    else:
+        h = _launch(a, b, h0)
     return h, h[:, -1]
+
+
+# --------------------------------------------------------------------------- #
+# The backward.
+# --------------------------------------------------------------------------- #
+
+
+def rglru_scan_bwd_plain(a: torch.Tensor, h0: torch.Tensor, h: torch.Tensor,
+                         dh: torch.Tensor):
+    """The plain PyTorch version of the backward: a reverse loop over
+    ``S`` with the kernel's roundings (``g = a_{t+1} * g + dh_t``, product
+    and sum each rounded, then ``da_t = g * h_{t-1}``).  Returns ``(da,
+    db, dh0)`` f32."""
+    a, h0, h, dh = (t.to(torch.float32) for t in (a, h0, h, dh))
+    S = a.shape[1]
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    g = torch.zeros_like(h0)
+    a_next = torch.zeros_like(h0)
+    for t in range(S - 1, -1, -1):
+        g = a_next * g + dh[:, t]
+        db[:, t] = g
+        da[:, t] = g * (h[:, t - 1] if t > 0 else h0)
+        a_next = a[:, t]
+    return da, db, a_next * g
+
+
+_BWD = {}
+
+
+def _bwd_kernel():
+    """``rglru_scan_bwd_launch``, bound once."""
+    fn = _BWD.get("launch")
+    if fn is None:
+        fn = _build.load("rglru_scan_bwd").rglru_scan_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 4)
+        fn.restype = ctypes.c_int
+        _BWD["launch"] = fn
+    return fn
+
+
+def rglru_scan_bwd(a: torch.Tensor, h0: torch.Tensor, h: torch.Tensor,
+                   dh: torch.Tensor):
+    """``(da, db, dh0)`` f32 of the recurrence from the forward's ``a``,
+    ``h0`` and ``h`` and the cotangent ``dh`` of ``h``.  A CPU tensor takes
+    the plain version; a CUDA tensor launches ``csrc/rglru_scan_bwd.cu``."""
+    global bwd_launches
+    if a.device.type == "cpu":
+        return rglru_scan_bwd_plain(a, h0, h, dh)
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru_scan_bwd: unsupported device {a.device}")
+    B, S, W = a.shape
+    a, h0, h, dh = (t.to(torch.float32).contiguous() for t in (a, h0, h, dh))
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = torch.empty_like(h0)
+    if a.numel() == 0:
+        return da, db, dh0.zero_()
+    err = _bwd_kernel()(a.data_ptr(), h0.data_ptr(), h.data_ptr(),
+                        dh.data_ptr(), B, S, W, da.data_ptr(), db.data_ptr(),
+                        dh0.data_ptr(), _build.stream_handle(a.device))
+    _build.check(err, "rglru_scan_bwd")
+    bwd_launches += 1
+    return da, db, dh0

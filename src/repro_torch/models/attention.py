@@ -16,6 +16,13 @@ dtype; a CPU tensor keeps the plain einsum path.  The reference computes
 ``decode_attention`` with einsums and never reaches its Pallas kernel; the
 port takes the kernel's place on the card as it does for
 ``chunked_attention``.
+
+Both paths are differentiable: on the card kernel G runs under its
+``autograd.Function`` with the backward kernel when a gradient is needed
+(:mod:`repro_torch.kernels.flash_attn`); the CPU path keeps its online
+softmax carry per query chunk in lists and rebinds it, never writing in
+place, so autograd follows it (the arithmetic and its order are the
+reference's, so every forward bit is as before).
 """
 from __future__ import annotations
 
@@ -80,10 +87,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kb = k.reshape(B, nkv, chunk, KV, hd)
     vb = v.reshape(B, nkv, chunk, KV, hd)
 
-    o = torch.zeros((B, nq, chunk, KV, G, hd), dtype=_F32, device=q.device)
-    m = torch.full((B, nq, chunk, KV, G), NEG_INF, dtype=_F32,
-                   device=q.device)
-    l = torch.zeros((B, nq, chunk, KV, G), dtype=_F32, device=q.device)
+    # the carry of each query chunk, rebound (never written in place) so
+    # that autograd can differentiate the loop
+    o = [torch.zeros((B, chunk, KV, G, hd), dtype=_F32, device=q.device)
+         for _ in range(nq)]
+    m = [torch.full((B, chunk, KV, G), NEG_INF, dtype=_F32, device=q.device)
+         for _ in range(nq)]
+    l = [torch.zeros((B, chunk, KV, G), dtype=_F32, device=q.device)
+         for _ in range(nq)]
     pos_in_chunk = torch.arange(chunk, device=q.device)
 
     for i, j in _block_pairs(nq, chunk, window).tolist():
@@ -98,16 +109,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             mask = mask & (qpos[:, None] - kpos[None, :] <= window)
         s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
 
-        mi, li, oi = m[:, i], l[:, i], o[:, i]
-        m_new = torch.maximum(mi, s.amax(dim=-1))
-        alpha = torch.exp(mi - m_new)
+        m_new = torch.maximum(m[i], s.amax(dim=-1))
+        alpha = torch.exp(m[i] - m_new)
         p = torch.exp(s - m_new[..., None])
-        l[:, i] = li * alpha + p.sum(dim=-1)
-        o[:, i] = oi * alpha[..., None] + torch.einsum(
+        l[i] = l[i] * alpha + p.sum(dim=-1)
+        o[i] = o[i] * alpha[..., None] + torch.einsum(
             "bqkgc,bckh->bqkgh", p, vj.to(_F32))
-        m[:, i] = m_new
+        m[i] = m_new
 
-    out = o / torch.clamp(l[..., None], min=1e-30)
+    out = torch.stack(o, 1) / torch.clamp(torch.stack(l, 1)[..., None],
+                                          min=1e-30)
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 

@@ -31,6 +31,11 @@ to 1.5e-5 apart after three layers, and both exponentials take XLA's own
 the reference's do.  The other transcendentals are torch's and differ from
 XLA's by an ulp here and there, which the gates carry without
 amplification.
+
+Training: on the card the scan runs kernel I under its ``autograd.Function``
+with the backward kernel when a gradient is needed
+(:mod:`repro_torch.kernels.rglru_scan`); the CPU's associative scan and the
+gates are differentiated by autograd (``xla_exp_f32``'s polynomial included).
 """
 from __future__ import annotations
 

@@ -1,0 +1,121 @@
+"""Kernel G's backward, plain version, against the JAX package.
+
+``flash_attention_bwd_plain`` (the formulas ``csrc/flash_attn_bwd.cu``
+computes, tile by tile) against ``jax.vjp`` of
+``repro/kernels/ref.py:flash_attention_ref`` in f32 at rtol = atol = 1e-5
+(both sum in f32, in other orders), for query-head groups 1, 2 and 6,
+causal, a window, and non-causal with ``S != Skv`` and a ``q_offset``; the
+rows' log-sum-exp the forward returns for it against JAX's ``logsumexp`` of
+the masked scores; the forward's ``out`` unchanged by ``return_lse``; and
+the wrapper's dispatch on the CPU.
+"""
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from _torch_threads import one_torch_thread  # noqa: F401
+
+from repro.kernels import ref
+
+from repro_torch.kernels import flash_attn as FA
+from repro_torch.kernels import ops
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+CASES = [  # B, S, Skv, H, KV, hd, causal, window, q_offset
+    (2, 40, 40, 4, 4, 16, True, 0, 0),
+    (1, 70, 70, 4, 2, 32, True, 0, 0),
+    (1, 67, 67, 12, 2, 8, True, 16, 0),
+    (2, 24, 56, 6, 1, 16, False, 0, 7),
+    (1, 16, 80, 4, 4, 16, True, 0, 64),
+]
+
+
+def _inputs(B, S, Skv, H, KV, hd, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, S, H, hd)).astype(np.float32)
+    k = rng.normal(size=(B, Skv, KV, hd)).astype(np.float32)
+    v = rng.normal(size=(B, Skv, KV, hd)).astype(np.float32)
+    dout = rng.normal(size=(B, S, H, hd)).astype(np.float32)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_flash_bwd_plain_matches_jax_vjp(case):
+    B, S, Skv, H, KV, hd, causal, window, qo = case
+    q, k, v, dout = _inputs(B, S, Skv, H, KV, hd, sum(case[:6]))
+    fn = lambda q, k, v: ref.flash_attention_ref(  # noqa: E731
+        q, k, v, causal=causal, window=window, q_offset=qo)
+    want = jax.jit(lambda q, k, v, do: jax.vjp(fn, q, k, v)[1](do))(
+        *(jnp.asarray(x) for x in (q, k, v, dout)))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    out, lse = FA.flash_attention_plain(tq, tk, tv, causal=causal,
+                                        window=window, q_offset=qo,
+                                        return_lse=True)
+    got = FA.flash_attention_bwd_plain(tq, tk, tv, out, lse,
+                                       torch.from_numpy(dout), causal=causal,
+                                       window=window, q_offset=qo)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_flash_forward_lse_matches_jax(case):
+    B, S, Skv, H, KV, hd, causal, window, qo = case
+    q, k, v, _ = _inputs(B, S, Skv, H, KV, hd, 1)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    out, lse = FA.flash_attention_plain(tq, tk, tv, causal=causal,
+                                        window=window, q_offset=qo,
+                                        return_lse=True)
+    assert torch.equal(out, FA.flash_attention_plain(
+        tq, tk, tv, causal=causal, window=window, q_offset=qo))
+    G = H // KV
+
+    @jax.jit
+    def want(q, k):
+        s = jnp.einsum("bqkgh,bckh->bqkgc", q.reshape(B, S, KV, G, hd),
+                       k) * hd ** -0.5
+        qpos = jnp.arange(S)[:, None] + qo
+        kpos = jnp.arange(Skv)[None, :]
+        mask = jnp.ones((S, Skv), bool)
+        if causal:
+            mask &= qpos >= kpos
+        if window:
+            mask &= qpos - kpos <= window
+        s = jnp.where(mask[None, :, None, None, :], s, -jnp.inf)
+        return jax.scipy.special.logsumexp(s, axis=-1).reshape(B, S, H)
+
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(want(jnp.asarray(q),
+                                               jnp.asarray(k))), **TOL)
+
+
+def test_flash_bwd_plain_matches_autograd_of_the_forward():
+    q, k, v, dout = _inputs(1, 33, 33, 6, 2, 16, 5)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = FA.flash_attention_plain(tq, tk, tv, causal=True, window=8)
+    out.backward(torch.from_numpy(dout))
+    with torch.no_grad():
+        o2, lse = FA.flash_attention_plain(tq, tk, tv, causal=True, window=8,
+                                           return_lse=True)
+        got = FA.flash_attention_bwd_plain(tq, tk, tv, o2, lse,
+                                           torch.from_numpy(dout),
+                                           causal=True, window=8)
+    for g, t in zip(got, (tq, tk, tv)):
+        np.testing.assert_allclose(g.numpy(), t.grad.numpy(), **TOL)
+
+
+def test_flash_bwd_wrapper_takes_the_plain_version_on_the_cpu():
+    q, k, v, dout = (torch.from_numpy(x).to(torch.bfloat16)
+                     for x in _inputs(1, 20, 20, 4, 2, 16, 9))
+    out, lse = FA.flash_attention_plain(q, k, v, return_lse=True)
+    before = ops.launch_counts()
+    got = ops.flash_attention_bwd(q, k, v, out, lse, dout.float())
+    want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout.float())
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [g.dtype for g in got] == [torch.bfloat16] * 3
+    assert ops.launch_counts() == before

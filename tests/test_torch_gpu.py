@@ -1420,3 +1420,196 @@ def test_zoo_forward_on_card_matches_cpu(cuda, arch, n_flash):
         assert DG.launches - n0 == per_step
         lb, sb = TF.decode_step(cfg, params, sb, tok)
     torch.testing.assert_close(la.cpu(), lb, rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------- #
+# Training: the backward kernels of G and I, and the train step.
+# --------------------------------------------------------------------------- #
+
+# (B, S, Skv, H, KV, hd, causal, window, q_offset): qwen1.5-0.5b's layer at
+# 4,096 tokens, dbrx-132b's 48 heads on 8 at hd 128, recurrentgemma-9b's
+# window of 2,048 at 4,096 (MQA, hd 256), a non-causal S != Skv row with a
+# query offset (cross-attention's shape class), then ragged lengths,
+# groups of 6 and 64, hd 80 and a window that is no multiple of a tile
+FLASH_BWD_CASES = [
+    (1, 4096, 4096, 16, 16, 64, True, 0, 0),
+    (1, 1024, 1024, 48, 8, 128, True, 0, 0),
+    (1, 4096, 4096, 16, 1, 256, True, 2048, 0),
+    (1, 512, 1024, 16, 16, 64, False, 0, 512),
+    (2, 37, 37, 12, 2, 32, True, 0, 0),
+    (1, 33, 33, 64, 1, 16, True, 0, 0),
+    (2, 90, 200, 6, 1, 80, False, 0, 0),
+    (1, 300, 300, 4, 2, 64, True, 70, 0),
+]
+
+
+def _flash_bwd_inputs(case, dt, g, device):
+    B, S, Skv, H, KV, hd, causal, window, qo = case
+    q = torch.randn((B, S, H, hd), generator=g, device=device).to(dt)
+    k = torch.randn((B, Skv, KV, hd), generator=g, device=device).to(dt)
+    v = torch.randn((B, Skv, KV, hd), generator=g, device=device).to(dt)
+    dout = torch.randn((B, S, H, hd), generator=g, device=device)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, case, dtype):
+    """G's backward kernels against the plain backward on the forward's
+    own ``out`` and ``lse``: each gradient within 1e-4 of its largest value
+    in f32 (both sum in f32, in other orders) and within 2^-7 in bf16 (the
+    results rounded to bf16), one counted call of two launches."""
+    B, S, Skv, H, KV, hd, causal, window, qo = case
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v, dout = _flash_bwd_inputs(case, dt, g, cuda)
+    kw = dict(causal=causal, window=window, q_offset=qo)
+    out, lse = FA._launch(q, k, v, causal, window, qo, True)
+    n0 = FA.bwd_launches
+    got = FA.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert FA.bwd_launches == n0 + 2
+    want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    tol = 1e-4 if dtype == "float32" else 2.0 ** -7
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dt and bool(a.isfinite().all())
+        gap = float((a.float() - b.float()).abs().max())
+        top = float(b.float().abs().max())
+        assert gap <= tol * top, (case, dtype, "d" + name, gap, top)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_lse_leaves_out_unchanged(cuda, dtype):
+    """The forward with its log-sum-exp output gives ``out`` bit for bit as
+    the serving launch does, and ``lse`` within 1e-5 of the plain one."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    for case in FLASH_BWD_CASES:
+        B, S, Skv, H, KV, hd, causal, window, qo = case
+        q, k, v, _ = _flash_bwd_inputs(case, dt, g, cuda)
+        plain_out = FA._launch(q, k, v, causal, window, qo, False)[0]
+        out, lse = FA._launch(q, k, v, causal, window, qo, True)
+        assert torch.equal(out, plain_out)
+        _, want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window, q_offset=qo,
+                                           return_lse=True)
+        torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_autograd_launches_the_backward(cuda):
+    """Under autograd the wrapper runs the Function: one forward launch,
+    one backward call of two launches, gradients equal to the backward
+    wrapper's; under ``no_grad`` nothing but the serving launch."""
+    case = (1, 130, 130, 8, 2, 64, True, 0, 0)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v, dout = _flash_bwd_inputs(case, torch.bfloat16, g, cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    f0, b0 = FA.launches, FA.bwd_launches
+    out = FA.flash_attention(*leaves)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (FA.launches - f0, FA.bwd_launches - b0) == (1, 2)
+    o2, lse = FA._launch(q, k, v, True, 0, 0, True)
+    want = FA.flash_attention_bwd(q, k, v, o2, lse, dout)
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, w)
+    n_bwd = FA.bwd_launches
+    with torch.no_grad():
+        FA.flash_attention(*leaves)
+    assert FA.bwd_launches == n_bwd
+
+
+RGLRU_BWD_CASES = [(1, 4096, 4096), (2, 512, 4096), (3, 37, 53), (1, 7, 5)]
+
+
+@pytest.mark.parametrize("B,S,W", RGLRU_BWD_CASES)
+def test_rglru_scan_bwd_kernel_bit_equal(cuda, B, S, W):
+    """I's backward kernel against the plain reverse chain, bit for bit
+    (every product and sum one f32 rounding in both)."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    a = 0.7 + 0.299 * torch.rand((B, S, W), generator=g, device=cuda)
+    b = 0.1 * torch.randn((B, S, W), generator=g, device=cuda)
+    h0 = torch.randn((B, W), generator=g, device=cuda)
+    dh = torch.randn((B, S, W), generator=g, device=cuda)
+    h, _ = RS.rglru_scan(a, b, h0)
+    n0 = RS.bwd_launches
+    got = RS.rglru_scan_bwd(a, h0, h, dh)
+    torch.cuda.synchronize()
+    assert RS.bwd_launches == n0 + 1
+    want = RS.rglru_scan_bwd_plain(a, h0, h, dh)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_rglru_scan_autograd_launches_the_backward(cuda):
+    g = torch.Generator(device=cuda).manual_seed(15)
+    a = (0.7 + 0.299 * torch.rand((2, 40, 33), generator=g, device=cuda))
+    b = 0.1 * torch.randn((2, 40, 33), generator=g, device=cuda)
+    h0 = torch.randn((2, 33), generator=g, device=cuda)
+    dh = torch.randn((2, 40, 33), generator=g, device=cuda)
+    leaves = [t.clone().requires_grad_() for t in (a, b, h0)]
+    b0 = RS.bwd_launches
+    h, last = RS.rglru_scan(*leaves)
+    (h * dh).sum().backward()
+    assert RS.bwd_launches - b0 == 1
+    want = RS.rglru_scan_bwd(a, h0, RS.rglru_scan(a, b, h0)[0], dh)
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, w)
+
+
+def test_decode_gqa_raises_under_grad(cuda):
+    """Kernel H has no backward: under autograd with an input that needs a
+    gradient it raises instead of returning a tensor without a graph."""
+    q = torch.randn((1, 4, 16), device=cuda, requires_grad=True)
+    kc = torch.randn((1, 8, 2, 16), device=cuda)
+    slot = torch.arange(8, device=cuda, dtype=torch.int32)[None]
+    pos = torch.tensor([7], device=cuda, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        DG.decode_gqa(q, kc, kc, slot, pos)
+    with torch.no_grad():
+        assert DG.decode_gqa(q, kc, kc, slot, pos).shape == (1, 4, 16)
+
+
+TRAIN_FAMILIES = ("qwen1.5-0.5b", "recurrentgemma-9b", "dbrx-132b",
+                  "xlstm-125m", "seamless-m4t-medium", "internvl2-2b")
+
+
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """One reduced LM step per family on the card against the CPU from the
+    same parameters and batch (f32): loss and aux within 1e-4, every
+    gradient leaf within 1e-4 of that leaf's largest, or of 1e-3 of the
+    model's largest if that is more (a leaf under it is rounding noise, as
+    the sLSTM's input-gate bias; kernels G and I and their backward
+    kernels on the card, the plain paths on the CPU)."""
+    from repro_torch.train import trainer as TR
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = get_config(arch).reduced()
+    params = TF.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))}
+    n_front = cfg.n_enc_tokens or cfg.n_frontend_tokens
+    if n_front:
+        batch["frontend"] = torch.from_numpy(rng.normal(
+            size=(2, n_front, cfg.d_model)).astype(np.float32))
+    b0 = (FA.bwd_launches, RS.bwd_launches)
+    g_card, m_card = TR.lm_grads(cfg, convert.tree(params, cuda),
+                                 {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    if "attn" in kinds:
+        assert FA.bwd_launches > b0[0]
+    if "rec" in kinds:
+        assert RS.bwd_launches > b0[1]
+    g_cpu, m_cpu = TR.lm_grads(cfg, params, batch)
+    for key in ("loss", "aux"):
+        torch.testing.assert_close(m_card[key].cpu(), m_cpu[key], rtol=1e-4,
+                                   atol=1e-4)
+    top = max(float(b.abs().max()) for b in tree_leaves(g_cpu))
+    for a, b in zip(tree_leaves(g_card), tree_leaves(g_cpu)):
+        gap = float((a.cpu() - b).abs().max())
+        assert gap <= 1e-4 * max(float(b.abs().max()), 1e-3 * top), (arch,
+                                                                      gap)

@@ -89,9 +89,11 @@ def test_chip_smoke_rehearsal_on_cpu():
     fleet forecast arm, telemetry on the replay sweep and the serve scan,
     anytime serving of the dense model with kernel G's checks, of the
     RG-LRU hybrid with kernel H's and I's, and of the rest of the model
-    zoo (MoE, xLSTM, the encoder-decoder, the VLM): the kernels
-    report names A to I with the contract's keys (no launches on the CPU),
-    each with the paths that ran it."""
+    zoo (MoE, xLSTM, the encoder-decoder, the VLM), and training (the
+    agile CNNs, the LM step of the dense model and the hybrid, the
+    backward kernels of G and I): the kernels report names A to I and the
+    two backward kernels with the contract's keys (no launches on the
+    CPU), each with the paths that ran it."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
@@ -105,17 +107,22 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert [r["name"] for r in rows] == [
         "fleet_priority", "fleet_fused_steps", "serve_fused_steps",
         "l1_topk2", "centroid_update", "pairwise_l1", "flash_attention",
-        "decode_gqa", "rglru_scan"]
+        "decode_gqa", "rglru_scan", "flash_attention_bwd", "rglru_scan_bwd"]
     paths = {r["name"]: sorted(r["launches_by_path"]) for r in rows}
     assert paths["fleet_fused_steps"] == ["online", "replay", "tune"]
     assert paths["pairwise_l1"] == ["online"]
-    assert paths["flash_attention"] == paths["decode_gqa"] == [
-        "anytime", "dbrx-132b", "hybrid", "internvl2-2b",
-        "qwen3-moe-235b-a22b", "seamless-m4t-medium"]
-    assert paths["rglru_scan"] == ["hybrid"]
+    serving = ["anytime", "dbrx-132b", "hybrid", "internvl2-2b",
+               "qwen3-moe-235b-a22b", "seamless-m4t-medium"]
+    training = ["train qwen1.5-0.5b", "train recurrentgemma-9b"]
+    assert paths["decode_gqa"] == serving
+    assert paths["flash_attention"] == sorted(serving + training)
+    assert paths["flash_attention_bwd"] == training
+    assert paths["rglru_scan"] == ["hybrid", "train recurrentgemma-9b"]
+    assert paths["rglru_scan_bwd"] == ["train recurrentgemma-9b"]
     assert paths["serve_fused_steps"] == ["serve", "stream"]
-    assert paths["l1_topk2"] == paths["centroid_update"] == [
+    assert paths["centroid_update"] == [
         "online", "scalar", "serve", "stream", "telemetry"]
+    assert paths["l1_topk2"] == paths["centroid_update"] + ["train_cnn"]
     assert paths["fleet_priority"] == ["replay", "telemetry"]
     for r in rows:
         assert keys <= set(r)
