@@ -8,8 +8,9 @@ Phases, each printing one line (any failure exits non-zero):
 1. the card's name and power limit (``nvidia-smi``), then the build of every
    CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc`` (one
    process per source, all started together); every instance of kernels
-   B, C, E, F and I must build with no stack frame and no spills (F's
-   instances also print their registers);
+   B, C, E, F and I and of the backward kernels of G and I must build with
+   no stack frame and no spills (F's instances and G's forward and
+   backward instances also print their registers);
 2. the k-means kernels ``l1_topk2`` and ``centroid_update`` at the serve
    path's shapes (``centroid_update`` also at k = 8, d = 8,192 with 1,024
    rows all assigned), each held bit for bit against its plain PyTorch
@@ -184,13 +185,17 @@ Phases, each printing one line (any failure exits non-zero):
     4,096 in 2 microbatches, 3 steps; 8 x 4,096 in the config's 8, 2
     steps): the loss must fall, with ms per step, tokens/s, peak memory and
     the launches of kernels G and I forward and backward (counted per
-    layer and microbatch); (d) the backward kernels of G and I against
-    their plain versions (G within 1e-4 of each gradient's largest in f32
-    and 2^-7 in bf16 at qwen's, dbrx's, the hybrid's window and a
-    non-causal offset shape; I bit for bit) with times, bounds and, for G,
-    the backward of ``scaled_dot_product_attention`` by autograd as the
-    yardstick; (e) one step's gradients of every assigned config at its
-    reduced size on the card against the CPU;
+    layer and microbatch), then one further step under ``torch.profiler``:
+    the device-time shares of G's backward, I's backward, G's and I's
+    forwards, the products (cuBLAS / CUTLASS GEMMs) and the rest, and the
+    card's idle share of the step; (d) the backward kernels of G and I
+    against their plain versions (G within 1e-4 of each gradient's largest
+    in f32 and 2^-7 in bf16 at qwen's, dbrx's, the hybrid's window and a
+    non-causal offset shape, each row with its instance: tensor-core in
+    bf16, SIMT in f32, and its registers; I bit for bit) with times,
+    bounds and, for G, the backward of ``scaled_dot_product_attention`` by
+    autograd as the yardstick; (e) one step's gradients of every assigned
+    config at its reduced size on the card against the CPU;
 12. one JSON line naming every kernel with its launches, error, times and
     bound.  Every phase prints its seconds.
 
@@ -680,6 +685,39 @@ def _flash_registers(log: str) -> dict:
     return found
 
 
+#: G's backward instances in this run's build: (path, padded head dim) ->
+#: "dq: N registers, M bytes spilled; dk/dv: ..."
+FLASH_BWD_REGISTERS: dict = {}
+
+
+def _flash_bwd_registers(log: str) -> dict:
+    """G's backward instances in a ``-Xptxas -v`` log: the tensor-core
+    pair ``dq_tc_kernel<HDP>`` / ``dkdv_tc_kernel<HDP>`` and the SIMT pair
+    ``dq_kernel<HD, float>`` / ``dkdv_kernel<HD, float>``, each with its
+    register count and spill stores."""
+    import re
+
+    found, entry, spill = {}, None, "0"
+    for line in log.splitlines():
+        m = re.search(r"entry function '\S*?(dq|dkdv)(_tc)?_kernelILi(\d+)E",
+                      line)
+        if m:
+            entry = ("tensor-core" if m.group(2) else "simt",
+                     int(m.group(3)), "dq" if m.group(1) == "dq" else "dk/dv")
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            path, hdp, kernel = entry
+            part = f"{kernel}: {m.group(1)} registers, {spill} bytes spilled"
+            found[(path, hdp)] = "; ".join(
+                sorted(filter(None, (found.get((path, hdp)), part))))
+            entry = None
+    return found
+
+
 def _pw_registers(log: str) -> dict:
     """Kernel F's instances in a ``-Xptxas -v`` log: ``{(BM, BN,
     three-level fold): registers}`` of each ``pairwise_l1_kernel<BM, BN,
@@ -731,6 +769,8 @@ def _build_phase() -> None:
             if "registers" in line or "spill" in line:
                 usage.append(f"{name}: {line.strip()}")
     FLASH_REGISTERS.update(_flash_registers(logs.get("flash_attn", "")))
+    FLASH_BWD_REGISTERS.update(_flash_bwd_registers(
+        _build.build_log("flash_attn_bwd")))
     print(f"build: {len(_build.SOURCES)} kernels in {secs:.2f} s "
           f"({len(logs)} compiled this run)")
     for line in usage:
@@ -738,6 +778,9 @@ def _build_phase() -> None:
     for (path, hdp), regs in sorted(FLASH_REGISTERS.items()):
         print(f"  flash_attention {path} instance, head dim padded to {hdp}: "
               f"{regs}")
+    for (path, hdp), regs in sorted(FLASH_BWD_REGISTERS.items()):
+        print(f"  flash_attention_bwd {path} instance, head dim padded to "
+              f"{hdp}: {regs}")
     pw_log = _build.build_log("pairwise_l1")
     for (bm, bn, multi), regs in sorted(_pw_registers(pw_log).items()):
         print(f"  pairwise_l1 instance, {bm} x {bn} tile"
@@ -753,10 +796,12 @@ def _build_phase() -> None:
             ("centroid_update", "centroid_update", "centroid_update_kernel",
              1),
             ("pairwise_l1", "pairwise_l1", "pairwise_l1_kernel", 4),
-            ("flash_attention_bwd", "flash_attn_bwd", "dq_kernel", 6),
-            ("flash_attention_bwd", "flash_attn_bwd", "dkdv_kernel", 6),
+            ("flash_attention_bwd", "flash_attn_bwd", "dq_kernel", 3),
+            ("flash_attention_bwd", "flash_attn_bwd", "dkdv_kernel", 3),
+            ("flash_attention_bwd", "flash_attn_bwd", "dq_tc_kernel", 3),
+            ("flash_attention_bwd", "flash_attn_bwd", "dkdv_tc_kernel", 3),
             ("rglru_scan_bwd", "rglru_scan_bwd", "rglru_scan_bwd_kernel",
-             1)):
+             2)):
         frames = _stack_frames(_build.build_log(lib))
         print(f"  {kernel} functions (stack frame, spill stores in bytes): "
               f"{json.dumps(frames)}")
@@ -3448,6 +3493,17 @@ def _train_lm_phase(device, run: TrainRun) -> dict:
                              f"expected {want}")
     if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"{run.arch}: the loss did not fall: {losses}")
+    shares = {}
+    if device.type == "cuda":
+        # one further step under the profiler (after the counts were read)
+        def step():
+            nonlocal params, opt
+            params, opt, _ = train_step_lm(cfg, params, opt, batch,
+                                           microbatches=run.microbatches)
+
+        shares = _step_shares(step, device)
+        print(f"train_step_lm ({run.arch}) profiled step: " + json.dumps(
+            {k: round(v, 4) for k, v in shares.items()}))
     upd_ms = []
     if device.type == "cuda":
         grads = tree_map(lambda p: torch.full_like(p, 1e-4), params)
@@ -3475,7 +3531,52 @@ def _train_lm_phase(device, run: TrainRun) -> dict:
         torch.cuda.empty_cache()
     return dict(losses=losses, step_ms=step_ms, tokens_per_s=rates,
                 update_ms=upd_ms, peak_gib=peak, n_params=n_params,
-                launches=launches)
+                launches=launches, profile=shares)
+
+
+#: kernel-name fragments of each part of a train step's device time
+STEP_PARTS = (("g_bwd", ("dq_tc_kernel", "dkdv_tc_kernel", "dq_kernel",
+                         "dkdv_kernel")),
+              ("i_bwd", ("rglru_scan_bwd_kernel",)),
+              ("g_fwd", ("flash_tc_kernel", "flash_attn_kernel")),
+              ("i_fwd", ("rglru_scan_kernel",)),
+              ("products", ("gemm", "Gemm", "GEMM", "cutlass", "xmma",
+                            "nvjet", "cublas", "sm90_")))
+
+
+def _step_shares(fn, device) -> dict:
+    """One call of ``fn`` (a train step) under ``torch.profiler``: the
+    step's host-clock ms (ending in a synchronisation; the profiler's own
+    cost included), the device ms of all its kernels, the share of that
+    device time in each part of :data:`STEP_PARTS` (by kernel name; the
+    first part that matches takes a kernel) and in the rest, and the
+    card's idle share of the step (1 - device / host)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        host = (time.perf_counter() - t0) * 1e3
+    parts = dict.fromkeys([p for p, _ in STEP_PARTS] + ["rest"], 0.0)
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = e.cuda_time_total
+        if not t or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        part = next((p for p, keys in STEP_PARTS
+                     if any(k in e.key for k in keys)), "rest")
+        parts[part] += t / 1e3
+    dev = sum(parts.values())
+    out = dict(host_ms=host, device_ms=dev,
+               idle_share=1.0 - dev / host if host else float("nan"))
+    out.update({f"{p}_share": (t / dev if dev else float("nan"))
+                for p, t in parts.items()})
+    return out
 
 
 def _sdpa_inputs(q, k, v, causal, window, qo):
@@ -3505,7 +3606,9 @@ def _flash_bwd_phase(device, shapes) -> dict:
     autograd (the yardstick; never on the port's path).  The bound: the
     bytes of q, k, v, out, dout and lse read once and dq, dk, dv written
     once, against 10 * hd flops per visible pair (s, dp, dv, dk, dq) over
-    the dense peak of the input type."""
+    the dense peak of the input type (both instances do 14 * hd: s and dp
+    are formed in both launches).  Each row names its instance
+    (tensor-core in bf16, SIMT in f32) and its registers."""
     import torch
     import torch.nn.functional as F
 
@@ -3569,12 +3672,16 @@ def _flash_bwd_phase(device, shapes) -> dict:
                      f"{' causal' if causal else ''}"
                      f"{f' window={window}' if window else ''}"
                      f"{f' q_offset={qo}' if qo else ''} {dtype}")
-            print(f"flash_attention_bwd ({label}): max err {err:.3g} vs "
-                  f"plain; kernel {ms:.4f} ms (device {dev_ms:.4f} ms, "
-                  f"{flops / dev_ms / 1e9:.2f} TFLOP/s useful), plain "
-                  f"{plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound "
-                  f"{bound_ms:.6f} ms ({by})")
-            rows.append(dict(shape=label, max_abs_err=err, ms=ms,
+            path = FA.kernel_path(dt, hd)
+            regs = FLASH_BWD_REGISTERS.get(
+                (path, 64 if hd <= 64 else 128 if hd <= 128 else 256),
+                "registers not read (no build log)")
+            print(f"flash_attention_bwd ({label}, {path}: {regs}): max err "
+                  f"{err:.3g} vs plain; kernel {ms:.4f} ms (device "
+                  f"{dev_ms:.4f} ms, {flops / dev_ms / 1e9:.2f} TFLOP/s "
+                  f"useful), plain {plain_ms:.4f} ms, sdpa backward "
+                  f"{lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({by})")
+            rows.append(dict(shape=label, path=path, max_abs_err=err, ms=ms,
                              device_ms=dev_ms, plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=bound_ms,
                              bound_by=by, tflop_s=flops / dev_ms / 1e9))

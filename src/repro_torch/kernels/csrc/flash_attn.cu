@@ -67,6 +67,7 @@
 #include <stdint.h>
 
 #include "async_copy.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -74,7 +75,6 @@ constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per tile
 constexpr int THREADS = 128;  // SIMT: 16 row groups x 8 lanes
 constexpr float NEG = -1e30f;
-constexpr int ROW_BYTES = 128;  // 64 bf16: one swizzled row of a tile block
 
 __device__ __forceinline__ bool unmasked(int qpos, int kpos, int Skv,
                                          int causal, int window) {
@@ -316,67 +316,15 @@ using acopy::mbar_expect_tx;
 using acopy::mbar_init;
 using acopy::mbar_wait;
 using acopy::smem_u32;
-
-// a 4-D TMA box (coordinates innermost first) into shared memory
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: 128-byte swizzle, byte offsets
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  const uint64_t a = smem_u32(p);
-  return ((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// keep the compiler from reading an accumulator before the wait
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_D32                                                             \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-#define WG_D32_OUT(d)                                                       \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
-      "+f"(d[31])
-
-// d (64 x 64 f32) += a (64 x 16 bf16 in registers) * b (16 x 64,
-// MN-major in shared memory)
-__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                       uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
-      : WG_D32_OUT(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
+using tc::fence_regs;
+using tc::gmma_desc;
+using tc::mma_rs;
+using tc::pack_bf16;
+using tc::ROW_BYTES;
+using tc::tma_load;
+using tc::wg_commit;
+using tc::wg_fence;
+using tc::wg_wait_all;
 
 // d (16 x 8 f64) += a (16 x 16) * b (16 x 8) on the f64 tensor cores, with
 // g = lane/4, t = lane%4: a[i] = a[g + 8 (i & 1)][t + 4 (i >> 1)],
@@ -406,11 +354,6 @@ __device__ __forceinline__ uint32_t tile_pair(const uint8_t* t, int rows,
 __device__ __forceinline__ void bf16x2_f64(uint32_t u, double (&x)[2]) {
   x[0] = (double)__uint_as_float(u << 16);
   x[1] = (double)__uint_as_float(u & 0xffff0000u);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -700,27 +643,7 @@ __global__ void __launch_bounds__(TcShape<HDP>::THREADS, 1)
 
 using acopy::encoder;
 using acopy::EncodeTiled;
-using acopy::ERR_ENCODE;
 using acopy::ERR_NO_ENCODER;
-
-// A bf16 tensor (d3, d2, d1, hd) row-major as a 4-D TMA map whose box is
-// 64 columns x b1 x b2 x 1, 128-byte swizzle, zeros out of bounds.
-int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int hd, int d1,
-           int d2, int d3, int b1, int b2) {
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)d1, (cuuint64_t)d2,
-                              (cuuint64_t)d3};
-  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
-                                 (cuuint64_t)hd * d1 * 2,
-                                 (cuuint64_t)hd * d1 * d2 * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)b1, (cuuint32_t)b2, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                  const_cast<void*>(ptr), dims, strides, box, elem,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
-}
 
 template <int HDP>
 int launch_tc(const void* q, const void* k, const void* v, int B, int S,
@@ -732,9 +655,9 @@ int launch_tc(const void* q, const void* k, const void* v, int B, int S,
   using L = TcShape<HDP>;
   const int G = H / KV, ppb = L::ROWS / G;
   CUtensorMap tq, tk, tv;
-  int err = encode(fn, &tq, q, hd, H, S, B, G, ppb);
-  if (!err) err = encode(fn, &tk, k, hd, KV, Skv, B, 1, BK);
-  if (!err) err = encode(fn, &tv, v, hd, KV, Skv, B, 1, BK);
+  int err = tc::encode(fn, &tq, q, hd, H, S, B, G, ppb);
+  if (!err) err = tc::encode(fn, &tk, k, hd, KV, Skv, B, 1, BK);
+  if (!err) err = tc::encode(fn, &tv, v, hd, KV, Skv, B, 1, BK);
   if (err) return err;
   const int smem = L::BYTES;
   auto kern = flash_tc_kernel<HDP>;

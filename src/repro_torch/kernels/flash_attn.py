@@ -40,8 +40,12 @@ requires a gradient, a CUDA call launches the forward kernel with its rows'
 log-sum-exp ``lse = m + log(l)`` as a second, f32 output (``out`` does not
 move by one bit) and saves it; the backward launches the two kernels of
 ``csrc/flash_attn_bwd.cu`` (:func:`flash_attention_bwd`): ``dq`` per query
-tile, ``dk`` and ``dv`` per key tile, deterministic, no atomics.
-:func:`flash_attention_bwd_plain` computes the same formulas tile by tile.
+tile, ``dk`` and ``dv`` per key tile, deterministic, no atomics; in bf16
+on the tensor cores (every product a ``wgmma``, ``dout`` rounded to bf16
+once by the first launch for both), in f32 on the CUDA cores.
+:func:`flash_attention_bwd_plain` computes the same formulas tile by tile;
+:func:`bwd_dq_plan` and :func:`bwd_dkdv_plan` list the tiles the bf16
+kernels visit.
 Without autograd (``torch.no_grad()``, or no input that needs a gradient)
 the call launches exactly the forward it launches for serving.
 """
@@ -303,6 +307,54 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
             dv.to(v.dtype))
 
 
+def bwd_dq_rows(hd: int) -> int:
+    """Rows of a dq block of the bf16 backward (``csrc/flash_attn_bwd.cu``:
+    ``DqShape``): two warpgroups of 64, one at a padded head dim of 256."""
+    return 64 if hd > 128 else 128
+
+
+def bwd_dq_plan(S: int, Skv: int, G: int, hd: int, causal: bool,
+                window: int, q_offset: int):
+    """The dq kernel's blocks of one (batch, kv head) in the bf16 backward:
+    ``[(first position, end position, [first key of each key tile])]``,
+    each block ``bwd_dq_rows(hd) // G`` positions x ``G`` heads, its key
+    tiles of :data:`BLOCK_K` the range its rows can see (``dq_tc_kernel``'s
+    arithmetic)."""
+    ppb = bwd_dq_rows(hd) // G
+    plan = []
+    for p0 in range(0, S, ppb):
+        qmin, qmax = p0 + q_offset, min(p0 + ppb, S) - 1 + q_offset
+        k_lo, k_hi = 0, Skv - 1
+        if window:
+            k_lo = max(0, qmin - window)
+        if causal:
+            k_hi = min(k_hi, qmax)
+        tiles = (list(range(k_lo // BLOCK_K * BLOCK_K, k_hi + 1, BLOCK_K))
+                 if k_hi >= k_lo else [])
+        plan.append((p0, min(p0 + ppb, S), tiles))
+    return plan
+
+
+def bwd_dkdv_plan(S: int, Skv: int, G: int, causal: bool, window: int,
+                  q_offset: int):
+    """The dk/dv kernel's blocks of one (batch, kv head) in the bf16
+    backward: ``[(first key, [first position of each row tile])]``, each
+    block :data:`BLOCK_K` keys, its row tiles ``BLOCK_K // G`` positions x
+    ``G`` heads over the positions that can see its keys
+    (``dkdv_tc_kernel``'s arithmetic)."""
+    ppb = BLOCK_K // G
+    plan = []
+    for k0 in range(0, Skv, BLOCK_K):
+        k_hi = min(k0 + BLOCK_K, Skv) - 1
+        p_lo, p_hi = 0, S - 1
+        if causal:
+            p_lo = max(0, k0 - q_offset)
+        if window:
+            p_hi = min(p_hi, k_hi + window - q_offset)
+        plan.append((k0, list(range(p_lo, p_hi + 1, ppb))))
+    return plan
+
+
 _BWD = None
 
 
@@ -313,7 +365,7 @@ def _bwd_launcher():
         fn = _build.load("flash_attn_bwd").flash_attn_bwd_launch
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_int]
-                       + [ctypes.c_void_p] * 5)
+                       + [ctypes.c_void_p] * 6)
         fn.restype = ctypes.c_int
         _BWD = fn
     return _BWD
@@ -324,7 +376,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
     """``(dq, dk, dv)`` in the inputs' dtypes from the forward's ``out``
     and ``lse`` and the output's cotangent ``dout``.  A CPU tensor takes
     the plain version; a CUDA tensor launches ``csrc/flash_attn_bwd.cu``
-    (two kernels, f32 accumulation, any ``G`` and ``hd <= 256``)."""
+    (two kernels, f32 accumulation, any ``G <= 64`` and ``hd <= 256``,
+    the instance of :func:`kernel_path`: bf16 on the tensor cores with
+    ``hd`` a multiple of 8, f32 on the CUDA cores)."""
     global bwd_launches
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -336,24 +390,27 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
                          f"{q.device}")
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention_bwd: hd <= {MAX_HEAD_DIM}; got "
-                         f"hd={hd}")
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    out, lse, dout = (t.to(torch.float32).contiguous()
-                      for t in (out, lse, dout))
+    tc = kernel_path(q.dtype, hd) == "tensor-core"
+    if H // KV > BLOCK_Q:
+        raise ValueError(f"flash_attention_bwd: G <= {BLOCK_Q}; got "
+                         f"G={H // KV}")
+    q, k, v = _dense(q), _dense(k), _dense(v)
+    out, lse, dout = (_dense(t.to(torch.float32)) for t in (out, lse, dout))
     f32 = dict(dtype=torch.float32, device=q.device)
     dq = torch.empty((B, S, H, hd), **f32)
     dk = torch.zeros((B, Skv, KV, hd), **f32)
     dv = torch.zeros((B, Skv, KV, hd), **f32)
     dbuf = torch.empty((B, S, H), **f32)
+    # the bf16 copy of dout that the first launch writes for the second
+    dob = (_dense(torch.empty((B, S, H, hd), dtype=torch.bfloat16,
+                              device=q.device)) if tc else None)
     if dq.numel() and dk.numel():
         err = _bwd_launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), B, S, Skv, H, KV, hd,
-            int(causal), int(window), int(q_offset), hd ** -0.5,
-            int(q.dtype == torch.bfloat16), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dbuf.data_ptr(), _build.stream_handle(q.device))
+            int(causal), int(window), int(q_offset), hd ** -0.5, int(tc),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbuf.data_ptr(),
+            dob.data_ptr() if tc else None, _build.stream_handle(q.device))
         _build.check(err, "flash_attention_bwd")
         bwd_launches += 2
     else:

@@ -18,12 +18,13 @@ row and feeds it ``a`` and ``b`` through a ring of tiles of
 
 Training (:class:`_RGLRUScan`): under autograd, with an input that requires
 a gradient, a CUDA call saves ``a``, ``h0`` and ``h`` and its backward
-launches ``csrc/rglru_scan_bwd.cu`` (:func:`rglru_scan_bwd`): the
-recurrence in reverse, ``g_t = a_{t+1} g_{t+1} + dh_t`` (the product and the
-sum rounded apart, as the reference's ``jax.vjp`` of its scan rounds them),
-``db = g``, ``da_t = g_t h_{t-1}``, ``dh0 = a_0 g_0``, bit-equal to
-:func:`rglru_scan_bwd_plain` and to the reference.  Without autograd the call launches exactly
-the forward it launches for serving.
+launches ``csrc/rglru_scan_bwd.cu`` (:func:`rglru_scan_bwd`, on the
+forward's ring of stage tiles walked from the end: :func:`bwd_tile_plan`):
+the recurrence in reverse, ``g_t = a_{t+1} g_{t+1} + dh_t`` (the product
+and the sum rounded apart, as the reference's ``jax.vjp`` of its scan
+rounds them), ``db = g``, ``da_t = g_t h_{t-1}``, ``dh0 = a_0 g_0``,
+bit-equal to :func:`rglru_scan_bwd_plain` and to the reference.  Without
+autograd the call launches exactly the forward it launches for serving.
 
 The model's own path (:func:`repro_torch.models.rglru.rglru_seq`) launches
 this kernel for a CUDA tensor; a CPU tensor there runs the port of the
@@ -80,6 +81,17 @@ def tile_plan(S: int, W: int):
     steps = [(t, min(t + STEP_TILE, S)) for t in range(0, S, STEP_TILE)]
     lanes = [(w, min(w + LANES, W)) for w in range(0, W, LANES)]
     return steps, lanes
+
+
+def bwd_tile_plan(S: int, W: int):
+    """``(step tiles, lane tiles)`` of the backward kernel: the ``(start,
+    end)`` ranges of ``S`` in the order each block walks them, from the end
+    of the sequence (the forward's step tiles reversed, the ragged one
+    first), and the lane tiles of :func:`tile_plan`.  A tile's h is staged
+    one step behind (``start - 1 .. end - 2``), so its first step's
+    ``h_{t-1}`` is in the same stage, ``h0`` at ``t = 0``."""
+    steps, lanes = tile_plan(S, W)
+    return steps[::-1], lanes
 
 
 def _check(a, b, h0):
@@ -193,7 +205,7 @@ def _bwd_kernel():
     fn = _BWD.get("launch")
     if fn is None:
         fn = _build.load("rglru_scan_bwd").rglru_scan_bwd_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
         _BWD["launch"] = fn
@@ -204,7 +216,9 @@ def rglru_scan_bwd(a: torch.Tensor, h0: torch.Tensor, h: torch.Tensor,
                    dh: torch.Tensor):
     """``(da, db, dh0)`` f32 of the recurrence from the forward's ``a``,
     ``h0`` and ``h`` and the cotangent ``dh`` of ``h``.  A CPU tensor takes
-    the plain version; a CUDA tensor launches ``csrc/rglru_scan_bwd.cu``."""
+    the plain version; a CUDA tensor launches ``csrc/rglru_scan_bwd.cu``
+    (its ring filled as :func:`copy_path` says, the tiles of
+    :func:`bwd_tile_plan`)."""
     global bwd_launches
     if a.device.type == "cpu":
         return rglru_scan_bwd_plain(a, h0, h, dh)
@@ -216,9 +230,12 @@ def rglru_scan_bwd(a: torch.Tensor, h0: torch.Tensor, h: torch.Tensor,
     dh0 = torch.empty_like(h0)
     if a.numel() == 0:
         return da, db, dh0.zero_()
+    tma = copy_path(W, a.data_ptr(), h.data_ptr(), dh.data_ptr(),
+                    da.data_ptr(), db.data_ptr()) == "tma"
     err = _bwd_kernel()(a.data_ptr(), h0.data_ptr(), h.data_ptr(),
-                        dh.data_ptr(), B, S, W, da.data_ptr(), db.data_ptr(),
-                        dh0.data_ptr(), _build.stream_handle(a.device))
+                        dh.data_ptr(), B, S, W, int(tma), da.data_ptr(),
+                        db.data_ptr(), dh0.data_ptr(),
+                        _build.stream_handle(a.device))
     _build.check(err, "rglru_scan_bwd")
     bwd_launches += 1
     return da, db, dh0

@@ -8,12 +8,14 @@ order the reference sums the global gradient norm in.
 The arithmetic is the reference's compiled program on the CPU
 (``jax.jit(adamw_update)``), so on CPU tensors the result is bit-equal:
 
-- each leaf's sum of squares follows XLA's tree reduction
-  (:func:`xla_sum`: windows of 32 along every axis of 32 or more, half the
-  padding in front, each window summed in one sequential chain, then the
-  window sums reduced the same way, a final grid of 2, 4 or 8 rows of at
-  most 8 as row chains added by halving), and the leaves' sums are added
-  in flatten order;
+- each leaf's sum of squares follows XLA's CPU program
+  (:func:`xla_sum_of_squares`): the tree-reduction rewrite into windows of
+  32 where an axis is longer than 32, each window's and then the window
+  grid's loop nest as LLVM compiles it (the innermost loop unrolled, the
+  loop around it vectorised at the width its cost model picks, lanes
+  reduced by halving, a scalar epilogue), the square fused into the nest
+  (its adds fused multiply-adds) where no axis is longer than 32; the
+  leaves' sums are added in flatten order;
 - XLA rewrites ``(m / bc1) / (sqrt(v / bc2) + eps)`` into ``m / (bc1 *
   (sqrt(v / bc2) + eps))`` and LLVM contracts three multiply-adds into one
   rounding each: ``b1 * m + (1 - b1) * g`` (into ``fma(m, b1, (1 - b1) *
@@ -76,50 +78,173 @@ def _sequential(a: np.ndarray) -> np.ndarray:
     return np.add.accumulate(a, axis=-1, dtype=np.float32)[..., -1]
 
 
-def xla_sum(x: torch.Tensor) -> torch.Tensor:
-    """The f32 sum of every element of ``x`` in XLA's CPU order (its tree
-    reduction rewrite: along each axis of 32 or more, windows of 32 with
-    the padding split, half in front; an axis under 32 is one window; a
-    window's elements summed in one chain in row-major order; repeated on
-    the window sums until every axis is under 32, then one chain, or for a
-    grid of 2, 4 or 8 rows of at most 8 its row chains added by halving:
-    LLVM's vectorised reduce)."""
-    a = x.detach().to(_F32).cpu().numpy()
-    windowed = False
-    while any(d >= _WIN for d in a.shape):
-        windowed = True
-        pads, shape = [], []
-        for d in a.shape:
-            if d >= _WIN:
-                n = -(-d // _WIN) * _WIN
-                pads.append(((n - d) // 2, n - d - (n - d) // 2))
-                shape += [n // _WIN, _WIN]
-            else:
-                pads.append((0, 0))
-                shape += [1, d]
-        a = np.pad(a, pads).reshape(shape)
-        r = a.ndim // 2
-        a = a.transpose(list(range(0, 2 * r, 2)) + list(range(1, 2 * r, 2)))
-        a = _sequential(a.reshape(a.shape[:r] + (-1,)))
-    a = a.reshape([d for d in a.shape if d != 1])
-    if windowed and a.ndim == 2 and a.shape[0] in (2, 4, 8) \
-            and a.shape[1] <= 8:
-        # LLVM vectorises the reduce of a small window grid across its
-        # rows: one lane per row, each a chain, then the lanes added by
-        # halving (XLA's optimised IR of a 2 x 2 grid; the other sizes
-        # here by their results)
-        lanes = _sequential(a)
-        while len(lanes) > 1:
-            h = len(lanes) // 2
-            lanes = lanes[:h] + lanes[h:]
-        return torch.tensor(lanes[0], device=x.device)
-    return torch.tensor(_sequential(a.reshape(-1)), device=x.device)
+def tree_windows(shape) -> list | None:
+    """XLA's CPU tree-reduction rewrite of a full reduce over ``shape``
+    (``TreeReductionRewriter``, window 32): ``None`` where no axis is
+    longer than 32 (the reduce stays one loop nest, the square fused into
+    it), else each axis's ``(window, padding in front, padding behind)``:
+    an axis longer than 32 takes windows of 32 over its length padded to a
+    multiple of 32, half the padding in front; a shorter one is one
+    window."""
+    if all(d <= _WIN for d in shape):
+        return None
+    out = []
+    for d in shape:
+        if d <= _WIN:
+            out.append((d, 0, 0))
+        else:
+            pad = -(-d // _WIN) * _WIN - d
+            out.append((_WIN, pad // 2, pad - pad // 2))
+    return out
+
+
+def loop_vf(T: int, F: int, fused: bool) -> int:
+    """The vector width LLVM's loop vectoriser gives a reduction loop of
+    ``T`` iterations whose body is the (fully unrolled) inner loop of
+    ``F`` elements, an interleave group of ``F`` strided loads; 0 where it
+    stays scalar.  ``fused``: the body squares each element (the square
+    fused into the reduce).  Read from the optimised IR of XLA's CPU
+    programs (AVX-512 host, ``prefer-vector-width=256``: 8 f32 lanes at
+    most) over T = 2..32, F = 1..32:
+
+    * F = 1 (no inner loop: the loop itself is unrolled) or F > 8 (the
+      interleave group costs more than it saves): scalar;
+    * T < 16 (LLVM's tiny trip count, no scalar epilogue allowed): one
+      vector iteration, VF = T, where T is 2, 4 or 8; else scalar;
+    * T >= 16: VF 8 or 4, whichever costs less with the scalar epilogue
+      of ``T % VF`` iterations: 8 where ``T % 8 < 4`` (or F = 2 and T >=
+      28), else 4; an unfused body of 7 or 8 loads always takes 4.
+    """
+    if F == 1 or F > 8:
+        return 0
+    if T < 16:
+        return T if T in (2, 4, 8) else 0
+    if not fused and F >= 7:
+        return 4
+    return 8 if T % 8 < 4 or (F == 2 and T >= 28) else 4
+
+
+def _halving(lanes: torch.Tensor) -> torch.Tensor:
+    """``llvm.vector.reduce.fadd`` with ``reassoc`` as x86 lowers it: the
+    upper half of the lanes added to the lower half until one is left."""
+    while lanes.shape[-1] > 1:
+        h = lanes.shape[-1] // 2
+        lanes = lanes[..., :h] + lanes[..., h:]
+    return lanes[..., 0]
+
+
+def _nest_sum(a: torch.Tensor, fused: bool, vectorise: bool = True,
+              init: torch.Tensor | None = None) -> torch.Tensor:
+    """The f32 sum over every axis of ``a`` but the first (a batch of
+    independent reductions), as XLA's CPU loop nest over those axes in
+    row-major order computes it after LLVM: one scalar accumulator from
+    0; the innermost loop fully unrolled; the loop around it vectorised
+    at :func:`loop_vf` (lane 0 starts from the accumulator, the others
+    from -0; lane l takes iterations i VF + l; then the lanes are reduced
+    by halving and the ``T % VF`` remaining iterations follow as scalar
+    steps); outer loops carry the scalar.  ``fused``: ``a`` holds the
+    unsquared values, a scalar step is one fused multiply-add ``x * x +
+    acc`` (LLVM contracts an ``fmul`` whose only use is the ``fadd``) and a
+    vector step adds its square by a fused multiply-add where the group
+    has at most four members (x86 splits such a group into one load per
+    member, so the ``fmul`` feeds the ``fadd`` alone) and the rounded
+    square otherwise.  ``vectorise`` False: every loop stays scalar (a
+    window nest that bounds-checks padding in its two innermost loops)."""
+    dims = [d for d in a.shape[1:] if d != 1]
+    a = a.reshape(a.shape[0], *dims)
+    acc = torch.zeros(a.shape[0], dtype=_F32) if init is None else init
+
+    def steps(acc, x):  # x: (batch, n) in loop order
+        if not fused:
+            return torch.from_numpy(_sequential(np.concatenate(
+                [acc.numpy()[:, None], x.numpy()], axis=1)))
+        for t in range(x.shape[1]):
+            acc = fma_f32(x[:, t], x[:, t], acc)
+        return acc
+
+    if len(dims) < 2:
+        return steps(acc, a.reshape(a.shape[0], -1))
+    T, F = dims[-2], dims[-1]
+    vf = loop_vf(T, F, fused) if vectorise else 0
+    a = a.reshape(a.shape[0], -1, T, F)
+    n = T // vf * vf if vf else 0
+    for o in range(a.shape[1]):
+        blk = a[:, o]
+        if vf:
+            lanes = torch.full((a.shape[0], vf), -0.0, dtype=_F32)
+            lanes[:, 0] = acc
+            for i in range(0, n, vf):
+                for f in range(F):
+                    x = blk[:, i:i + vf, f]
+                    if not fused:
+                        lanes = lanes + x
+                    elif F <= 4:  # x86 splits the group: fmul per member
+                        lanes = fma_f32(x, x, lanes)
+                    else:
+                        lanes = lanes + x * x
+            acc = _halving(lanes)
+        acc = steps(acc, blk[:, n:].reshape(a.shape[0], -1))
+    return acc
+
+
+def _window_sum(a: torch.Tensor, pads) -> torch.Tensor:
+    """Each window's sum (``a``: windows x window dims) as XLA's
+    reduce-window loop nest computes it, ``pads`` each window axis's
+    padding (in front, behind).  A padded axis bounds-checks its index in
+    the loop, which keeps the order but, in one of the two innermost
+    loops, also the nest scalar.  Where one of those two loops is padded
+    by one element behind only, its check is on its last index alone and
+    LLVM unswitches it (the inner one first): the nest over the axis's
+    first ``w - 1`` indices runs first, then the last index's slice
+    (zeros in the last window) continues the chain, scalar, in row-major
+    order."""
+    dims = [i for i, d in enumerate(a.shape[1:]) if d != 1]
+    cut = next((i for i in reversed(dims[-2:]) if pads[i] == (0, 1)),
+               None)
+    if cut is not None:
+        w = a.shape[1 + cut]
+        tail = a.narrow(1 + cut, w - 1, 1)
+        a = a.narrow(1 + cut, 0, w - 1)
+        pads = [(0, 0) if i == cut else p for i, p in enumerate(pads)]
+    inner = [pads[i] != (0, 0) for i in dims][-2:]
+    acc = _nest_sum(a, False, vectorise=not any(inner))
+    if cut is not None:
+        acc = _nest_sum(tail, False, vectorise=False, init=acc)
+    return acc
+
+
+def xla_sum_of_squares(x: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of the squares of ``x``'s elements in the order of
+    ``jax.jit(lambda x: jnp.sum(x * x))`` on XLA's CPU backend: where
+    :func:`tree_windows` rewrites the reduce, the squares (a kernel of
+    their own) are summed per window, then the window grid again (while
+    an axis of it is longer than 32), then the grid, each by
+    :func:`_nest_sum`; else one loop nest with the square fused in.  The
+    vector widths are this CPU's (:func:`loop_vf`)."""
+    a = x.detach().to(_F32).cpu()
+    shape = tuple(a.shape)
+    win = tree_windows(shape)
+    if win is None:
+        return _nest_sum(a.reshape(1, *shape), True)[0].to(x.device)
+    a = a * a
+    while win is not None:
+        a = torch.nn.functional.pad(
+            a, [p for w, lo, hi in reversed(win) for p in (lo, hi)])
+        grid = [a.shape[i] // w for i, (w, _, _) in enumerate(win)]
+        split = [v for g, (w, _, _) in zip(grid, win) for v in (g, w)]
+        r = len(win)
+        a = a.reshape(split).permute(list(range(0, 2 * r, 2))
+                                     + list(range(1, 2 * r, 2)))
+        a = _window_sum(a.reshape(-1, *[w for w, _, _ in win]),
+                        [(lo, hi) for _, lo, hi in win]).reshape(grid)
+        win = tree_windows(tuple(a.shape))
+    return _nest_sum(a.reshape(1, *a.shape), False)[0].to(x.device)
 
 
 def _sum_of_squares(g: torch.Tensor) -> torch.Tensor:
-    sq = g.to(_F32) * g.to(_F32)
     if g.device.type == "cpu":
-        return xla_sum(sq)
+        return xla_sum_of_squares(g)
+    sq = g.to(_F32) * g.to(_F32)
     return torch.sum(sq)
 
 

@@ -6,8 +6,10 @@ computes, tile by tile) against ``jax.vjp`` of
 (both sum in f32, in other orders), for query-head groups 1, 2 and 6,
 causal, a window, and non-causal with ``S != Skv`` and a ``q_offset``; the
 rows' log-sum-exp the forward returns for it against JAX's ``logsumexp`` of
-the masked scores; the forward's ``out`` unchanged by ``return_lse``; and
-the wrapper's dispatch on the CPU.
+the masked scores; the forward's ``out`` unchanged by ``return_lse``; the
+bf16 kernels' tile plans (``bwd_dq_plan``, ``bwd_dkdv_plan``) covering every
+visible (row, key) pair exactly once at the GPU tests' shapes; and the
+wrapper's dispatch on the CPU.
 """
 import numpy as np
 import pytest
@@ -22,6 +24,8 @@ from repro.kernels import ref
 
 from repro_torch.kernels import flash_attn as FA
 from repro_torch.kernels import ops
+
+from test_torch_gpu import FLASH_BWD_CASES
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -119,3 +123,32 @@ def test_flash_bwd_wrapper_takes_the_plain_version_on_the_cpu():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert [g.dtype for g in got] == [torch.bfloat16] * 3
     assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_bwd_tile_plans_cover_each_visible_pair_once(case):
+    """The dq kernel's key tiles and the dk/dv kernel's row tiles (the
+    bf16 instance's arithmetic, mirrored in ``flash_attn.py``) each take
+    every visible (position, key) pair exactly once; a tile holds every
+    head of its positions, so every (row, key) pair with them."""
+    B, S, Skv, H, KV, hd, causal, window, qo = case
+    G = H // KV
+    qpos = np.arange(S)[:, None] + qo
+    kpos = np.arange(Skv)[None, :]
+    seen = np.ones((S, Skv), bool)
+    if causal:
+        seen &= qpos >= kpos
+    if window:
+        seen &= qpos - kpos <= window
+    dq = np.zeros((S, Skv), np.int8)
+    for p0, p1, keys in FA.bwd_dq_plan(S, Skv, G, hd, causal, window, qo):
+        assert p1 - p0 <= FA.bwd_dq_rows(hd) // G
+        for k0 in keys:
+            dq[p0:p1, k0:k0 + FA.BLOCK_K] += 1
+    ppb = FA.BLOCK_K // G
+    dkdv = np.zeros((S, Skv), np.int8)
+    for k0, starts in FA.bwd_dkdv_plan(S, Skv, G, causal, window, qo):
+        for p in starts:
+            dkdv[p:p + ppb, k0:k0 + FA.BLOCK_K] += 1
+    for count in (dq, dkdv):
+        assert (count[seen] == 1).all() and count.max() <= 1

@@ -1430,7 +1430,9 @@ def test_zoo_forward_on_card_matches_cpu(cuda, arch, n_flash):
 # 4,096 tokens, dbrx-132b's 48 heads on 8 at hd 128, recurrentgemma-9b's
 # window of 2,048 at 4,096 (MQA, hd 256), a non-causal S != Skv row with a
 # query offset (cross-attention's shape class), then ragged lengths,
-# groups of 6 and 64, hd 80 and a window that is no multiple of a tile
+# groups of 6 and 64, hd 80 and a window that is no multiple of a tile;
+# then hd 256 with G = 6 (ten positions a row tile, four padding rows)
+# under ragged windows, causal and not
 FLASH_BWD_CASES = [
     (1, 4096, 4096, 16, 16, 64, True, 0, 0),
     (1, 1024, 1024, 48, 8, 128, True, 0, 0),
@@ -1440,6 +1442,8 @@ FLASH_BWD_CASES = [
     (1, 33, 33, 64, 1, 16, True, 0, 0),
     (2, 90, 200, 6, 1, 80, False, 0, 0),
     (1, 300, 300, 4, 2, 64, True, 70, 0),
+    (1, 301, 301, 12, 2, 256, True, 70, 0),
+    (2, 150, 203, 6, 1, 256, False, 45, 30),
 ]
 
 
@@ -1476,6 +1480,23 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, case, dtype):
         gap = float((a.float() - b.float()).abs().max())
         top = float(b.float().abs().max())
         assert gap <= tol * top, (case, dtype, "d" + name, gap, top)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [FLASH_BWD_CASES[1], FLASH_BWD_CASES[-1]])
+def test_flash_attention_bwd_is_deterministic(cuda, case, dtype):
+    """Two calls of G's backward on the same inputs give the same bits (no
+    float atomics, a fixed summation order)."""
+    B, S, Skv, H, KV, hd, causal, window, qo = case
+    g = torch.Generator(device=cuda).manual_seed(16)
+    q, k, v, dout = _flash_bwd_inputs(case, getattr(torch, dtype), g, cuda)
+    kw = dict(causal=causal, window=window, q_offset=qo)
+    out, lse = FA._launch(q, k, v, causal, window, qo, True)
+    first = FA.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    second = FA.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1532,6 +1553,35 @@ def test_rglru_scan_bwd_kernel_bit_equal(cuda, B, S, W):
     h0 = torch.randn((B, W), generator=g, device=cuda)
     dh = torch.randn((B, S, W), generator=g, device=cuda)
     h, _ = RS.rglru_scan(a, b, h0)
+    n0 = RS.bwd_launches
+    got = RS.rglru_scan_bwd(a, h0, h, dh)
+    torch.cuda.synchronize()
+    assert RS.bwd_launches == n0 + 1
+    want = RS.rglru_scan_bwd_plain(a, h0, h, dh)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("B,S,W,offset,path", RGLRU_PATH_CASES)
+def test_rglru_scan_bwd_kernel_copy_paths(cuda, B, S, W, offset, path):
+    """I's backward kernel == its plain version bit for bit on the copy
+    path the host picks (TMA, or cp.async for a ragged W or inputs off 16
+    bytes), with S a multiple of the step tile or not, one launch per
+    call."""
+    rng = np.random.default_rng(S * W + offset + 1)
+    n = B * S * W
+
+    def on_card(arr):
+        flat = torch.zeros(n + offset, device=cuda)
+        flat[offset:] = torch.from_numpy(arr.reshape(-1)).to(cuda)
+        return flat[offset:].view(B, S, W)
+
+    a = on_card(rng.uniform(0.7, 0.999, (B, S, W)).astype(np.float32))
+    h = on_card(rng.normal(size=(B, S, W)).astype(np.float32))
+    dh = on_card(rng.normal(size=(B, S, W)).astype(np.float32))
+    h0 = torch.from_numpy(rng.normal(size=(B, W)).astype(np.float32)).to(
+        cuda)
+    assert RS.copy_path(W, a.data_ptr(), h.data_ptr(), dh.data_ptr()) == path
     n0 = RS.bwd_launches
     got = RS.rglru_scan_bwd(a, h0, h, dh)
     torch.cuda.synchronize()

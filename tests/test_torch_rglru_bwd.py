@@ -5,9 +5,11 @@ runs: ``g = a_{t+1} * g + dh_t``, ``da_t = g_t h_{t-1}``, ``dh0 = a_0
 g_0``) against ``jax.vjp`` of ``repro/kernels/ref.py:rglru_scan_ref`` (the
 ``lax.scan`` oracle of the Pallas kernel), cotangents on both outputs, bit
 for bit: XLA on the CPU rounds the transposed step's product and sum
-apart (unlike the forward's ``a * h + b``, which it fuses).  Also against autograd through the port's CPU
-scan (the model's path, the associative scan) at 1e-5, and the wrapper's
-dispatch.
+apart (unlike the forward's ``a * h + b``, which it fuses).  Also against
+autograd through the port's CPU scan (the model's path, the associative
+scan) at 1e-5, the kernel's reverse tile walk (``bwd_tile_plan``, its h
+staged one step behind) in numpy against the plain version bit for bit,
+and the wrapper's dispatch.
 """
 import numpy as np
 import pytest
@@ -72,3 +74,51 @@ def test_rglru_bwd_wrapper_takes_the_plain_version_on_the_cpu():
     want = RS.rglru_scan_bwd_plain(a, h0, h, dh)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     assert ops.launch_counts() == before
+
+
+def _walk_bwd_tiles(a, h0, h, dh):
+    """The backward kernel's walk in numpy f32: per lane tile, the step
+    tiles of ``bwd_tile_plan`` from the end, each stage holding a, dh and
+    h one step behind (h0 before step 0), the chain from the tile's last
+    step to its first."""
+    B, S, W = a.shape
+    f32 = np.float32
+    steps, lanes = RS.bwd_tile_plan(S, W)
+    da, db = np.empty_like(a), np.empty_like(a)
+    dh0 = np.empty_like(h0)
+    for row in range(B):
+        for w0, w1 in lanes:
+            g = np.zeros(w1 - w0, f32)
+            a_next = np.zeros(w1 - w0, f32)
+            for t0, t1 in steps:
+                hp = h[row, max(t0 - 1, 0):t1 - 1, w0:w1]
+                if t0 == 0:
+                    hp = np.concatenate([h0[row, None, w0:w1], hp])
+                for j in range(t1 - t0 - 1, -1, -1):
+                    g = (a_next * g).astype(f32) + dh[row, t0 + j, w0:w1]
+                    db[row, t0 + j, w0:w1] = g
+                    da[row, t0 + j, w0:w1] = g * hp[j]
+                    a_next = a[row, t0 + j, w0:w1]
+            dh0[row, w0:w1] = a_next * g
+    return da, db, dh0
+
+
+@pytest.mark.parametrize("B,S,W", [(2, 37, 40), (1, 64, 33), (3, 5, 8),
+                                   (1, 1, 4), (2, 100, 65)])
+def test_bwd_tile_walk_matches_the_plain_version(B, S, W):
+    """The reverse tiles cover every step once, last tile (the ragged one)
+    first, and walking them as the kernel does gives the plain version's
+    bits."""
+    a, b, h0, dh, _ = _inputs(B, S, W, S + W)
+    steps, lanes = RS.bwd_tile_plan(S, W)
+    assert [t for t0, t1 in reversed(steps) for t in range(t0, t1)] == \
+        list(range(S))
+    assert steps[-1][0] == 0 and all(t1 - t0 <= RS.STEP_TILE
+                                     for t0, t1 in steps)
+    assert lanes == RS.tile_plan(S, W)[1]
+    h, _ = RS.rglru_scan_plain(*(torch.from_numpy(x) for x in (a, b, h0)))
+    got = _walk_bwd_tiles(a, h0, h.numpy(), dh)
+    want = RS.rglru_scan_bwd_plain(torch.from_numpy(a), torch.from_numpy(h0),
+                                   h, torch.from_numpy(dh))
+    for x, w in zip(got, want):
+        np.testing.assert_array_equal(x, w.numpy())

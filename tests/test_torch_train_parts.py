@@ -3,11 +3,14 @@
 * ``make_siamese_pairs``, ``make_token_dataset``, ``make_lm_tokens``,
   ``batches`` and ``siamese_batches``: numpy, bit-equal to the reference's.
 * ``adamw_update`` bit for bit against ``jax.jit(adamw_update)`` from the
-  same (converted) parameters, gradients and state: XLA's tree-reduction
+  same (converted) parameters, gradients and state: XLA's CPU summation
   order for the global norm, its four contracted multiply-adds, its
   ``powf`` and its correctly rounded ``sqrt`` (see
   ``repro_torch/train/optimizer.py``), with clipping active and inactive,
-  bf16 parameters, several steps, and a reduced transformer's tree.
+  bf16 parameters, several steps, and a reduced transformer's tree;
+  ``xla_sum_of_squares`` against ``jax.jit(jnp.sum(x * x))`` on one leaf
+  of each loop-nest family (the summation orders are LLVM's choices for
+  this host's x86 CPU).
 * Checkpoints both ways: a transformer tree written by the JAX package
   loads into the port and one written by the port loads into the JAX
   package, leaf for leaf; a CNN round-trips within the port.
@@ -152,20 +155,40 @@ def test_adamw_update_bit_equal_on_a_transformer_tree():
             assert np.array_equal(_bits(a), _ref_bits(b))
 
 
-@pytest.mark.parametrize("shape", [(5,), (31,), (32,), (33,), (70,), (1025,),
-                                   (5, 40), (64, 64), (3, 64, 33),
-                                   (33, 2, 65), (1000, 70), (24, 64, 96),
-                                   (40, 40), (100, 100), (256, 192)])
-def test_adamw_global_norm_order(shape):
+NORM_SHAPES = [(5,), (31,), (32,), (33,), (70,), (1025,), (5, 40), (64, 64),
+               (3, 64, 33), (33, 2, 65), (1000, 70), (24, 64, 96), (40, 40),
+               (100, 100), (256, 192)]
+# the witnesses of the norm-order fault (ROADMAP Queue 3, PR 24), each
+# over seeds 0-7 with gradient = parameters = default_rng(seed).normal
+NORM_WITNESSES = [(64, 64, 2), (2, 2, 32, 32), (2, 2), (64, 64, 64),
+                  (512, 192), (512, 256), (512, 512)]
+NORM_CASES = (
+    [pytest.param(s, None, id=f"shape{i}") for i, s in enumerate(NORM_SHAPES)]
+    + [pytest.param(s, seed, id="x".join(map(str, s)) + f"-seed{seed}")
+       for s in NORM_WITNESSES for seed in range(8)])
+
+
+@pytest.mark.parametrize("shape,seed", NORM_CASES)
+def test_adamw_global_norm_order(shape, seed):
     """One leaf, clipping active: the clip scale, and with it every moment,
-    carries the bits of the leaf's sum of squares in XLA's order, also
-    where LLVM vectorises the reduce of the window grid across its rows
-    (2 x 2, 4 x 4, 8 x 6 grids).  (Other grids and short windows are summed
-    in orders not yet known; those leaf shapes are an open fault, listed
-    with their witness in ROADMAP Queue 3.)"""
-    rng = np.random.default_rng(1)
-    p = {"x": jnp.asarray(rng.normal(size=shape).astype(np.float32))}
-    g = {"x": jnp.asarray(rng.normal(size=shape).astype(np.float32))}
+    carries the bits of the leaf's sum of squares in XLA's CPU order
+    (``optimizer.xla_sum_of_squares``): the window grids LLVM vectorises
+    across their rows (2 x 2, 4 x 4, 8 x 6, 16 x 6 at 8 lanes, 16 x 8 at
+    4), a window whose short inner axis is interleaved into 8-lane rows
+    (32 x 32 x 2), a 2 x 2 x 2 grid's vector loop inside a scalar one, and
+    leaves with no axis over 32, whose squares are fused into the reduce
+    as fused multiply-adds ((2, 2, 32, 32), (2, 2)).  The vector widths
+    and the fused multiply-adds are LLVM's choices for this host's x86
+    CPU (AVX-512, XLA's preferred 256-bit vectors): a host whose cost
+    model picks other widths sums in another order.  ``seed`` None: the
+    parameters and the gradient are two draws of ``default_rng(1)``."""
+    if seed is None:
+        rng = np.random.default_rng(1)
+        p = {"x": jnp.asarray(rng.normal(size=shape).astype(np.float32))}
+        g = {"x": jnp.asarray(rng.normal(size=shape).astype(np.float32))}
+    else:
+        x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+        p = g = {"x": jnp.asarray(x)}
     state = JO.adamw_init(p)
     new_j, st_j = jax.jit(JO.adamw_update)(p, g, state)
     new_p, st_p = PO.adamw_update(
@@ -174,6 +197,34 @@ def test_adamw_global_norm_order(shape):
         convert.adamw_state(jax.tree.map(np.asarray, state), "cpu"))
     assert np.array_equal(_bits(st_p.mu["x"]), _ref_bits(st_j.mu["x"]))
     assert np.array_equal(_bits(new_p["x"]), _ref_bits(new_j["x"]))
+
+
+# one leaf of each loop-nest family of XLA's CPU sum of squares: fused
+# scalar chains, fused vector loops (groups of up to four members by
+# fused multiply-adds, of five to eight by rounded squares), vectorised
+# window grids at 8 and 4 lanes with a scalar epilogue, a padded window
+# loop kept scalar, padding only on a window's last index (unswitched),
+# and a second level of windows
+SUM_FAMILIES = [(7,), (3, 5), (8, 3), (8, 6), (4, 3, 7), (2, 2, 2, 2),
+                (17, 3), (20, 2), (28, 2), (16, 7), (40, 8), (70, 64, 6),
+                (3, 63), (63, 3), (63, 63, 2), (2, 63, 63), (6, 63, 9, 27),
+                (65, 32, 4), (48, 19, 2, 6), (1100, 1100), (40000,)]
+
+
+@pytest.mark.parametrize("shape", SUM_FAMILIES)
+def test_xla_sum_of_squares_matches_jit(shape):
+    """``xla_sum_of_squares`` == ``jax.jit(lambda x: jnp.sum(x * x))`` bit
+    for bit on seeds 0-3.  The vector widths and which adds are fused
+    multiply-adds are LLVM's choices for this host's x86 CPU (AVX-512,
+    XLA's preferred 256-bit vectors), read from the dumped IR
+    (``XLA_FLAGS=--xla_dump_to``); another host's cost model may pick
+    others."""
+    f = jax.jit(lambda x: jnp.sum(x * x))
+    for seed in range(4):
+        x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+        want = np.asarray(f(jnp.asarray(x)))
+        got = PO.xla_sum_of_squares(torch.from_numpy(x)).numpy()
+        assert want.view(np.uint32) == got.view(np.uint32), (shape, seed)
 
 
 def test_transformer_checkpoint_loads_both_ways(tmp_path):

@@ -1,6 +1,7 @@
 """Device time per launch of kernels A-I, from the profiler.
 
     PYTHONPATH=src python tools/kernel_device_times.py [--only E,F,I]
+    PYTHONPATH=src python tools/kernel_device_times.py --only Gbwd,Ibwd
 
 CUDA-event times of a wrapper call (``chip_smoke.py``) include the host
 work between launches: at small sizes the card waits on the wrapper.
@@ -40,11 +41,20 @@ their sum, and the host-clock time per call:
   ``anytime_forward``'s (2, 512, 4,096), each with its bound;
 * T: one tuning objective call (``chip_smoke.py``'s tuning problem, one
   population block of 16 candidates), with B's share of its host-clock
-  time.
+  time;
+* Gbwd: G's backward (``flash_attention_bwd``) in bf16 at phase 11d's
+  shapes (``chip_smoke.FULL.flash_bwd_shapes``), each kernel of a call,
+  their sum, the backward of ``scaled_dot_product_attention`` by autograd
+  on the same inputs (the yardstick) and the bound (``chip_smoke._bound``:
+  10 hd flops per visible pair at the bf16 peak, or the bytes);
+* Ibwd: I's backward (``rglru_scan_bwd``) at phase 11d's shapes
+  (``chip_smoke.FULL.rglru_bwd_shapes``), with its bound (bytes).
 
-E, F and I touch only the wrappers' public calls and ``chip_smoke``'s
-helpers, so the script also times an older checkout's E, F and I when
-copied into it.  Needs a CUDA card.
+E, F, I, Gbwd and Ibwd touch only the wrappers' public calls, ``_launch``
+and ``chip_smoke``'s helpers, so the script also times an older
+checkout's kernels when copied into it: ``PYTHONPATH`` names the tree,
+one process per tree, e.g. parent, change, change, parent.  Needs a CUDA
+card.
 """
 from __future__ import annotations
 
@@ -400,15 +410,78 @@ def kernel_h(dev) -> None:
                 lambda: DG.decode_gqa(q, k, v, slot_pos, pos, **kw))
 
 
+def kernel_gbwd(dev) -> None:
+    import torch.nn.functional as F
+
+    import repro_torch
+
+    print(f"Gbwd source: {repro_torch.__file__}")
+    g = torch.Generator(device=dev).manual_seed(6)
+    for shape in chip_smoke.FULL.flash_bwd_shapes:
+        B, S, Skv, H, KV, hd, causal, window, qo = shape
+        q = torch.randn((B, S, H, hd), generator=g, device=dev).bfloat16()
+        k = torch.randn((B, Skv, KV, hd), generator=g, device=dev).bfloat16()
+        v = torch.randn((B, Skv, KV, hd), generator=g, device=dev).bfloat16()
+        dout = torch.randn((B, S, H, hd), generator=g, device=dev)
+        kw = dict(causal=causal, window=window, q_offset=qo)
+        out, lse = FA._launch(q, k, v, causal, window, qo, True)
+        label = (f"B={B} S={S} Skv={Skv} H={H} KV={KV} hd={hd} causal="
+                 f"{causal} window={window} q_offset={qo}")
+        calls = 5 if hd > 128 else 20
+        dev_ms = profile(f"Gbwd ({label}) bf16",
+                         lambda: FA.flash_attention_bwd(q, k, v, out, lse,
+                                                        dout, **kw),
+                         calls=calls)
+        qt, kt, vt, sdpa_kw = chip_smoke._sdpa_inputs(q, k, v, causal,
+                                                      window, qo)
+        qt, kt, vt = (t.requires_grad_() for t in (qt, kt, vt))
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt,
+                                               enable_gqa=KV != H, **sdpa_kw)
+        g_lib = dout.transpose(1, 2).bfloat16().contiguous()
+        lib_ms = profile(f"  SDPA backward ({label}) bf16",
+                         lambda: torch.autograd.grad(o_lib, (qt, kt, vt),
+                                                     g_lib,
+                                                     retain_graph=True),
+                         calls=calls)
+        flops = 10.0 * hd * chip_smoke._flash_pairs(S, Skv, causal, window,
+                                                    qo) * H * B
+        nbytes = (chip_smoke._nbytes(q, k, v, out, dout, lse)
+                  + (q.numel() + k.numel() + v.numel()) * 2)
+        bound, by = chip_smoke._bound(nbytes, flops, chip_smoke.PEAK_BF16_S)
+        print(f"  Gbwd ({label}) bf16: device {dev_ms:.4f} ms per call, "
+              f"SDPA backward {lib_ms:.4f} ms, bound {bound:.6f} ms ({by}), "
+              f"{flops / dev_ms / 1e9:.2f} TFLOP/s useful")
+
+
+def kernel_ibwd(dev) -> None:
+    import repro_torch
+
+    print(f"Ibwd source: {repro_torch.__file__}")
+    g = torch.Generator(device=dev).manual_seed(7)
+    for B, S, W in chip_smoke.FULL.rglru_bwd_shapes:
+        a = 0.7 + 0.299 * torch.rand((B, S, W), generator=g, device=dev)
+        h = torch.randn((B, S, W), generator=g, device=dev)
+        dh = torch.randn((B, S, W), generator=g, device=dev)
+        h0 = torch.randn((B, W), generator=g, device=dev)
+        label = f"B={B} S={S} W={W}"
+        dev_ms = profile(f"Ibwd ({label})",
+                         lambda: RS.rglru_scan_bwd(a, h0, h, dh), calls=50)
+        bound = _bound_ms(4 * (5 * B * S * W + 2 * B * W))
+        print(f"  Ibwd ({label}): device {dev_ms:.5f} ms per call, bound "
+              f"{bound:.6f} ms (bytes), {100 * bound / dev_ms:.1f} % of it")
+
+
 KERNELS = {"A": kernel_a, "B": kernel_b, "C": kernel_c, "D": kernel_d,
            "E": kernel_e, "F": kernel_f, "G": kernel_g, "H": kernel_h,
-           "I": kernel_i, "T": tune_call}
+           "I": kernel_i, "T": tune_call, "Gbwd": kernel_gbwd,
+           "Ibwd": kernel_ibwd}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=",".join(KERNELS),
-                    help="what to time, comma-separated (A,B,C,D,E,F,G,H,I,T)")
+                    help="what to time, comma-separated (A,B,C,D,E,F,G,H,I,T,"
+                    "Gbwd,Ibwd)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
