@@ -24,8 +24,9 @@ Phases, each printing one line (any failure exits non-zero):
    (the example warms its fleet before timing it), scan with adaptation on a
    per-device and on a shared bank, then scan and fused (the
    ``serve_fused_steps`` kernel, one launch per segment) without adaptation,
-   which must agree on every carry leaf; the scan's serve loop must also
-   equal the CPU's plain run from the same built state.  The launch counts
+   which must agree on every carry leaf; the scan's serve loop (on the
+   card each step is two CUDA graph replays around kernel D's launch) must
+   also equal the CPU's plain run from the same built state.  The launch counts
    are zeroed before this phase and read after it (kernels C, D, E).
    Kernel C is then timed over the whole horizon (545 steps) at 64 and
    1,024 devices: CUDA events around the wrapper's calls, and its device
@@ -59,7 +60,7 @@ Phases, each printing one line (any failure exits non-zero):
    250 test samples per task, policies x eta x capacitor x seed = 1,600
    devices, 255 s at dt = 55 ms.  ``simulate_fleet`` in the ``vmap`` and
    ``pallas`` (the ``fleet_priority`` kernel, one launch per step) modes
-   over the first 1,159 of its 4,636 steps (a depth cut: both are
+   over the first 580 of its 4,636 steps (a depth cut: both are
    host-bound), and in the ``fused`` mode (the ``fleet_fused_steps``
    kernel, one launch per segment) over those steps and the whole
    horizon; the three modes must agree on every result leaf over the cut,
@@ -72,8 +73,8 @@ Phases, each printing one line (any failure exits non-zero):
    CUDA events around launches enqueued while the card spins, so that no
    host work falls inside).  The launch counts are zeroed before this
    phase and read after it (kernels A, B);
-4a. telemetry at full width: the phase 4 sweep over its first twentieth
-   (232 steps, a depth cut), ``ring_size=256``, in the ``vmap`` and ``pallas``
+4a. telemetry at full width: the phase 4 sweep over its first fortieth
+   (116 steps, a depth cut), ``ring_size=256``, in the ``vmap`` and ``pallas``
    modes, each plain, ``counters`` and ``full`` (kernel A once per step of
    each pallas run), every result and carry leaf equal to the plain run's
    and pallas telemetry equal to vmap's bit for bit, with the ms per step
@@ -196,13 +197,30 @@ Phases, each printing one line (any failure exits non-zero):
     bounds and, for G, the backward of ``scaled_dot_product_attention`` by
     autograd as the yardstick; (e) one step's gradients of every assigned
     config at its reduced size on the card against the CPU;
-12. one JSON line naming every kernel with its launches, error, times and
+12. the launch drivers as a user calls them, in process: (a)
+    ``repro_torch.launch.train.main`` on stablelm-3b whole (32 layers,
+    d_model 2,560, hd 80, bf16; 2.80 B parameters) at 16 x 4,096 in its 4
+    microbatches, 3 steps: s per step, tokens/s, peak memory, finite
+    losses, kernel G's forward and backward launches equal to the reckoned
+    counts under activation checkpointing (256 and 256 per step); (b) one
+    LM backward of stablelm-3b cut to 4 layers at 4 x 4,096 with and
+    without ``remat``: the peak above the call's start of each, and the
+    reduced config's gradients with and without ``remat`` card against
+    card; (c) ``launch.serve.main`` with the scalar engine (kernels D and
+    E) and the anytime engine on qwen1.5-0.5b (kernel H), and a reduced
+    xlstm-125m training run whose checkpoint under ``experiments/ckpt/``
+    reloads equal;
+13. one JSON line naming every kernel with its launches, error, times and
     bound.  Every phase prints its seconds.
 
 Depth cuts that pay for phase 11: the hybrid anytime path (phase 9) runs
 32 decode steps (from 64) and its engine 64 steps (from 128), the dense
 anytime engine (phase 8) 64 steps (from 128), and the telemetry sweep
-(phase 4a) its first 232 steps (from 464).
+(phase 4a) its first 232 steps (from 464).  Depth cuts that pay for phase
+12: the replay's vmap and pallas runs (phase 4) take 580 steps (from
+1,159), the telemetry sweep (phase 4a) 116 (from 232), and the hybrid
+anytime path (phase 9) 16 decode steps and a 32-step engine (from 32 and
+64).
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32``): f32 products are full f32, as on
@@ -333,6 +351,7 @@ class Scale:
     train_lm: tuple           # phases 11b-c: TrainRuns of the LM step
     flash_bwd_shapes: tuple   # phase 11d: G's backward, as flash_shapes
     rglru_bwd_shapes: tuple   # phase 11d: I's backward, (B, S, W)
+    launch: "LaunchRun"       # phase 12: the launch drivers
 
 
 # the anytime engine's runs of phases 8 and 9: (supply, policy)
@@ -391,13 +410,27 @@ class TrainRun:
     steps: int
 
 
+@dataclasses.dataclass(frozen=True)
+class LaunchRun:
+    """Phase 12: the drivers of ``repro_torch.launch`` called in process
+    as a user calls them, and what activation checkpointing buys."""
+
+    train: tuple         # argv of the training run (the device is added)
+    probe: tuple         # (arch, n_layers, batch, seq, reduced): one LM
+    #                      backward with and without remat, one microbatch
+    check_layers: int    # layers of the reduced card-vs-card gradients
+    serve_scalar: tuple  # argv of the two serving runs
+    serve_anytime: tuple
+    ckpt_train: tuple    # argv of the checkpointed training run
+
+
 FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
              n_requests=25, n_devices=64, big_devices=1024, n_segments=4,
              parity_jobs=6, stream_devices=4096, stream_jobs=123,
              stream_chunks=8, min_stream_jobs=1_000_000,
              l1_rows=2 * 25 * 5, l1_dim=150, l1_k=5,
              cu_shape=(5, 8192, 64), cu_wide=(8, 8192, 1024),
-             replay_jobs=250, replay_cut_steps=1159,
+             replay_jobs=250, replay_cut_steps=580,
              policies=("zygarde", "edf", "edf-m", "rr"),
              etas=(0.2, 0.5, 0.71, 0.9, 1.0),
              capacitors_f=(0.01, 0.025, 0.05, 0.1, 0.2), seeds=16,
@@ -409,15 +442,16 @@ FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
              cpu_check_s=106.0, check_gains=True,
              anytime=AnyRun("qwen1.5-0.5b", False, 4096, 64, True, (2, 512),
                             64, 16, 16, 48, 64),
-             hybrid=AnyRun("recurrentgemma-9b", False, 4096, 32, False,
-                           (2, 512), 64, 16, 16, 48, 64),
+             hybrid=AnyRun("recurrentgemma-9b", False, 4096, 16, False,
+                           (2, 512), 64, 16, 16, 48, 32),
              flash_shapes=((2, 512, 512, 16, 16, 64, True, 0, 0),
                            (1, 4096, 4096, 16, 16, 64, True, 0, 0),
                            (1, 8192, 8192, 16, 16, 64, True, 4096, 0),
                            (1, 4096, 4096, 32, 2, 128, True, 0, 0),
                            (2, 37, 37, 16, 16, 64, True, 0, 0),
                            (1, 512, 4608, 16, 16, 64, True, 0, 4096),
-                           (1, 4096, 4096, 16, 1, 256, True, 2048, 0)),
+                           (1, 4096, 4096, 16, 1, 256, True, 2048, 0),
+                           (1, 4096, 4096, 32, 32, 80, True, 0, 0)),
              decode_shapes=((1, 16, 1, 256, 2176, "bfloat16", True, 2048),
                             (16, 16, 1, 256, 64, "bfloat16", True, 2048),
                             (1, 16, 16, 64, 4160, "bfloat16", True, 0),
@@ -456,8 +490,20 @@ FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
              flash_bwd_shapes=((1, 4096, 4096, 16, 16, 64, True, 0, 0),
                                (1, 1024, 1024, 48, 8, 128, True, 0, 0),
                                (1, 4096, 4096, 16, 1, 256, True, 2048, 0),
-                               (1, 512, 1024, 16, 16, 64, False, 0, 512)),
-             rglru_bwd_shapes=((1, 4096, 4096), (2, 512, 4096)))
+                               (1, 512, 1024, 16, 16, 64, False, 0, 512),
+                               (1, 4096, 4096, 32, 32, 80, True, 0, 0)),
+             rglru_bwd_shapes=((1, 4096, 4096), (2, 512, 4096)),
+             launch=LaunchRun(
+                 train=("--arch", "stablelm-3b", "--steps", "3", "--batch",
+                        "16", "--seq", "4096", "--log-every", "1"),
+                 probe=("stablelm-3b", 4, 4, 4096, False), check_layers=6,
+                 serve_scalar=("--engine", "scalar", "--tasks", "mnist",
+                               "--requests", "20"),
+                 serve_anytime=("--engine", "anytime", "--arch",
+                                "qwen1.5-0.5b", "--requests", "12"),
+                 ckpt_train=("--arch", "xlstm-125m", "--reduced", "--steps",
+                             "4", "--batch", "2", "--seq", "16",
+                             "--ckpt-every", "4")))
 
 
 def _narrow():
@@ -518,7 +564,18 @@ def _narrow():
                   TrainRun("recurrentgemma-9b", True, 3, 2, 32, 2, 2)),
         flash_bwd_shapes=((1, 40, 40, 4, 4, 16, True, 0, 0),
                           (1, 24, 56, 6, 1, 16, False, 0, 7)),
-        rglru_bwd_shapes=((1, 48, 256), (3, 37, 53)))
+        rglru_bwd_shapes=((1, 48, 256), (3, 37, 53)),
+        launch=LaunchRun(
+            train=("--arch", "stablelm-3b", "--reduced", "--steps", "2",
+                   "--batch", "4", "--seq", "32", "--log-every", "1"),
+            probe=("stablelm-3b", 4, 2, 32, True), check_layers=6,
+            serve_scalar=("--engine", "scalar", "--tasks", "mnist",
+                          "--requests", "4"),
+            serve_anytime=("--engine", "anytime", "--arch", "qwen1.5-0.5b",
+                           "--requests", "4"),
+            ckpt_train=("--arch", "xlstm-125m", "--reduced", "--steps", "4",
+                        "--batch", "2", "--seq", "16", "--ckpt-every",
+                        "4")))
 
 
 # --------------------------------------------------------------------------- #
@@ -692,18 +749,21 @@ FLASH_BWD_REGISTERS: dict = {}
 
 def _flash_bwd_registers(log: str) -> dict:
     """G's backward instances in a ``-Xptxas -v`` log: the tensor-core
-    pair ``dq_tc_kernel<HDP>`` / ``dkdv_tc_kernel<HDP>`` and the SIMT pair
-    ``dq_kernel<HD, float>`` / ``dkdv_kernel<HD, float>``, each with its
+    pair ``dq_tc_kernel<HDP>`` / ``dkdv_tc_kernel<HDP, DEAD>`` and the
+    SIMT pair ``dq_kernel<HD>`` / ``dkdv_kernel<HD, DEAD>`` (``DEAD``: the
+    dk/dv instance that adds the rows that see no key), each with its
     register count and spill stores."""
     import re
 
     found, entry, spill = {}, None, "0"
     for line in log.splitlines():
-        m = re.search(r"entry function '\S*?(dq|dkdv)(_tc)?_kernelILi(\d+)E",
-                      line)
+        m = re.search(r"entry function '\S*?(dq|dkdv)(_tc)?_kernelILi(\d+)E"
+                      r"(Lb([01])E)?", line)
         if m:
+            kernel = ("dq" if m.group(1) == "dq" else
+                      "dk/dv with dead rows" if m.group(5) == "1" else "dk/dv")
             entry = ("tensor-core" if m.group(2) else "simt",
-                     int(m.group(3)), "dq" if m.group(1) == "dq" else "dk/dv")
+                     int(m.group(3)), kernel)
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -797,9 +857,9 @@ def _build_phase() -> None:
              1),
             ("pairwise_l1", "pairwise_l1", "pairwise_l1_kernel", 4),
             ("flash_attention_bwd", "flash_attn_bwd", "dq_kernel", 3),
-            ("flash_attention_bwd", "flash_attn_bwd", "dkdv_kernel", 3),
+            ("flash_attention_bwd", "flash_attn_bwd", "dkdv_kernel", 6),
             ("flash_attention_bwd", "flash_attn_bwd", "dq_tc_kernel", 3),
-            ("flash_attention_bwd", "flash_attn_bwd", "dkdv_tc_kernel", 3),
+            ("flash_attention_bwd", "flash_attn_bwd", "dkdv_tc_kernel", 6),
             ("rglru_scan_bwd", "rglru_scan_bwd", "rglru_scan_bwd_kernel",
              2)):
         frames = _stack_frames(_build.build_log(lib))
@@ -2042,7 +2102,7 @@ def _tel_gap(a, b, what: str, fields=None, tol: bool = True) -> float:
 def _telemetry_phase(device, scale: Scale, replay: dict, serve: dict,
                      models, sets) -> dict:
     """Telemetry at full width.  Replay: the 1,600-device sweep of phase 4
-    over its first twentieth (a depth cut), ``ring_size=256``, in the vmap and
+    over its first fortieth (a depth cut), ``ring_size=256``, in the vmap and
     pallas modes, each plain, ``counters`` and ``full`` (counts zeroed
     before, read after: kernel A once per step of each pallas run); every
     carry leaf equals the plain run's, pallas telemetry equals vmap's bit
@@ -2063,7 +2123,7 @@ def _telemetry_phase(device, scale: Scale, replay: dict, serve: dict,
     t0 = time.perf_counter()
     cfg, statics = replay["cfg"], replay["statics"]
     D = cfg.n_devices
-    n = -(-statics.n_steps // 20)
+    n = -(-statics.n_steps // 40)
     st = _steps(statics, n)
     tiers = {"plain": None,
              "counters": TEL.TelemetryConfig(ring_size=256,
@@ -3479,13 +3539,7 @@ def _train_lm_phase(device, run: TrainRun) -> dict:
     counts = ops.launch_counts()
     peak = (torch.cuda.max_memory_allocated(device) / 2**30
             if device.type == "cuda" else float("nan"))
-    kinds = _layer_kinds(cfg)
-    passes = run.steps * run.microbatches
-    want = {"flash_attention": kinds["attn"] * passes,
-            "flash_attention_bwd": 2 * kinds["attn"] * passes,
-            "rglru_scan": kinds["rec"] * passes,
-            "rglru_scan_bwd": kinds["rec"] * passes}
-    want = {k: n for k, n in want.items() if n}
+    want = _train_launches(cfg, run.steps * run.microbatches)
     launches = {k: counts[k] for k in want}
     if device.type == "cuda" and {k: n for k, n in counts.items()
                                   if n} != want:
@@ -3532,6 +3586,29 @@ def _train_lm_phase(device, run: TrainRun) -> dict:
     return dict(losses=losses, step_ms=step_ms, tokens_per_s=rates,
                 update_ms=upd_ms, peak_gib=peak, n_params=n_params,
                 launches=launches, profile=shares)
+
+
+def _train_launches(cfg, passes: int) -> dict:
+    """Kernel launches of ``passes`` forward and backward passes of
+    ``forward`` under activation checkpointing: a layer of the stacked
+    periods (every group, the leftover one too) runs its forward twice
+    (the pass and the backward's recompute), a remainder layer once; the
+    backward launches G's two kernels and I's one per layer."""
+    from repro_torch.models import transformer as T
+
+    period, n_scan, _ = T._layer_plan(cfg)
+    want = dict.fromkeys(("flash_attention", "flash_attention_bwd",
+                          "rglru_scan", "rglru_scan_bwd"), 0)
+    for i in range(cfg.n_layers):
+        kind = cfg.layer_kind(i)
+        fwd = 2 if i < n_scan * period else 1
+        if kind == "attn":
+            want["flash_attention"] += fwd * passes
+            want["flash_attention_bwd"] += 2 * passes
+        elif kind == "rec":
+            want["rglru_scan"] += fwd * passes
+            want["rglru_scan_bwd"] += passes
+    return {k: n for k, n in want.items() if n}
 
 
 #: kernel-name fragments of each part of a train step's device time
@@ -3800,6 +3877,202 @@ def _train_phase(device, scale: Scale) -> dict:
     return out
 
 
+def _lm_loss_grads(cfg, params, batch, remat: bool):
+    """The LM loss's gradients through ``forward(..., remat=remat)`` (one
+    microbatch; ``lm_grads``' loss), as a list in the tree's leaf order."""
+    import torch
+
+    from repro_torch.core import losses
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    logits, aux = T.forward(cfg, live, batch, remat=remat)
+    S = batch["tokens"].shape[1]
+    loss = (losses.lm_loss(logits[:, -S:], batch["tokens"])
+            + cfg.router_aux_weight * aux)
+    del logits
+    return list(torch.autograd.grad(loss, tree_leaves(live)))
+
+
+def _remat_probe(device, probe, check_layers: int) -> dict:
+    """Phase 12b: one backward of the LM loss at ``probe``'s (arch cut to
+    ``n_layers``, ``batch`` x ``seq``, one microbatch) through ``forward``
+    with ``remat`` and then without: the peak device memory above the
+    call's start of each and the difference per layer; then the same two
+    backwards of the reduced config (``check_layers`` layers: a group and a
+    leftover) on the card, their gradients compared card against card
+    (bit-equal or not, and within phase 11e's tolerance)."""
+    import dataclasses as dc
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.models import transformer as T
+
+    arch, n_layers, B, S, reduced = probe
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    cfg = dc.replace(cfg, n_layers=n_layers)
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(5),
+                           device=device)
+    batch = {"tokens": torch.from_numpy(make_lm_tokens(
+        cfg.vocab, S, B, seed=5)).to(device)}
+    peak = {}
+    for remat in (True, False):
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            start = torch.cuda.memory_allocated(device)
+        grads = _lm_loss_grads(cfg, params, batch, remat)
+        _sync(device)
+        peak[remat] = ((torch.cuda.max_memory_allocated(device) - start)
+                       / 2**30 if device.type == "cuda" else float("nan"))
+        del grads
+    del params, batch
+    per_layer = (peak[False] - peak[True]) / n_layers
+    print(f"remat probe ({arch} cut to {n_layers} layers, {B} x {S}, one "
+          f"microbatch, {str(T.dtype_of(cfg)).split('.')[-1]}): one LM "
+          f"backward peaks {peak[True]:.3f} GiB above its start with remat, "
+          f"{peak[False]:.3f} GiB without ({per_layer:.3f} GiB per layer "
+          f"saved)")
+    # the reduced config's gradients with and without remat, card vs card
+    cfg = dc.replace(get_config(arch).reduced(), n_layers=check_layers)
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(6),
+                           device=device)
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32)).to(device)}
+    a = _lm_loss_grads(cfg, params, batch, True)
+    b = _lm_loss_grads(cfg, params, batch, False)
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    top = max(float(y.abs().max()) for y in b)
+    rel = 0.0
+    for x, y in zip(a, b):
+        room = max(float(y.abs().max()), 1e-3 * top)
+        gap = float((x - y).abs().max())
+        if gap > 1e-4 * room:
+            raise AssertionError(f"remat gradients on the card: a leaf is "
+                                 f"{gap:.3g} from the no-remat one (room "
+                                 f"{1e-4 * room:.3g})")
+        rel = max(rel, gap / room)
+    print(f"remat gradients card vs card ({arch} reduced, {check_layers} "
+          f"layers, 2 x 64): {'bit-equal' if same else 'not bit-equal'}; "
+          f"worst leaf gap {rel:.3g} of its room (1e-4 allowed)")
+    return dict(peak_remat_gib=peak[True], peak_plain_gib=peak[False],
+                per_layer_gib=per_layer, bit_equal=same)
+
+
+def _launch_phase(device, scale: Scale) -> dict:
+    """Phase 12, the launch drivers on the card as a user calls them: (a)
+    ``repro_torch.launch.train.main`` on ``scale.launch.train`` (stablelm-3b
+    whole at 16 x 4,096 in its 4 microbatches): seconds per step (the
+    first warm), tokens/s, peak device memory, every loss finite, and the
+    launches of G forward and backward equal to the reckoned counts
+    (checkpointing: each layer's forward twice per microbatch); (b) what
+    checkpointing buys (``_remat_probe``); (c) ``launch.serve.main`` with
+    the scalar engine (kernels D and E must launch) and the anytime engine
+    (its decode loop: kernel H must launch; the engine decodes its prompts
+    token by token, so G does not), and a reduced checkpointed training run
+    whose ``.npz`` under ``experiments/ckpt/`` reloads through
+    ``repro_torch.train.load_checkpoint`` equal leaf by leaf.  Counts are
+    zeroed before each driver call and read after it."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import train as TR
+    from repro_torch.train import load_checkpoint
+    from repro_torch.train.optimizer import tree_leaves
+
+    run = scale.launch
+    dev = ["--device", device.type]
+    out = {}
+    # (a) the training driver at full width
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    res = TR.main(list(run.train) + dev)
+    counts = ops.launch_counts()
+    peak = (torch.cuda.max_memory_allocated(device) / 2**30
+            if device.type == "cuda" else float("nan"))
+    del res["params"]
+    def arg(flag):
+        return run.train[run.train.index(flag) + 1]
+
+    cfg = get_config(arg("--arch"))
+    if "--reduced" in run.train:
+        cfg = cfg.reduced()
+    steps, B, S = (int(arg(k)) for k in ("--steps", "--batch", "--seq"))
+    want = _train_launches(cfg, steps * cfg.train_microbatches)
+    if device.type == "cuda" and {k: n for k, n in counts.items()
+                                  if n} != want:
+        raise AssertionError(f"launch.train {cfg.name}: launches {counts}, "
+                             f"expected {want}")
+    if not np.all(np.isfinite(res["losses"])):
+        raise AssertionError(f"launch.train {cfg.name}: losses "
+                             f"{res['losses']}")
+    secs = res["seconds"]
+    print(f"launch.train ({cfg.name}, {cfg.n_layers} layers, "
+          f"{res['n_params'] / 1e9:.3f} B parameters, {B} x {S} in "
+          f"{cfg.train_microbatches} microbatches, {steps} steps): losses "
+          f"{[round(x, 4) for x in res['losses']]}; s per step "
+          f"{[round(x, 3) for x in secs]} (the first warm); "
+          f"{B * S / min(secs):.1f} tokens/s at best; peak {peak:.2f} GiB; "
+          f"launches per step " + json.dumps(
+              {k: counts[k] // steps for k in want}) + " (reckoned "
+          + json.dumps({k: n // steps for k, n in want.items()}) + ")")
+    out["train"] = dict(seconds=secs, losses=res["losses"], peak_gib=peak,
+                        launches={k: counts[k] for k in want})
+    del res
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # (b) what checkpointing buys
+    out["probe"] = _remat_probe(device, run.probe, run.check_layers)
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    # (c) the serving driver, both engines, and a checkpointed run
+    for name, argv, kernels in (("scalar", run.serve_scalar,
+                                 ("l1_topk2", "centroid_update")),
+                                ("anytime", run.serve_anytime,
+                                 ("decode_gqa",))):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = SV.main(list(argv) + dev)
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        ran = {k for k, n in counts.items() if n}
+        if device.type == "cuda" and ran != set(kernels):
+            raise AssertionError(f"launch.serve {name}: launches {counts}, "
+                                 f"expected {kernels} and nothing else")
+        counts = {k: counts[k] for k in kernels}
+        print(f"launch.serve ({name}): {secs:.2f} s; launches "
+              f"{json.dumps(counts)}")
+        out[f"serve {name}"] = dict(seconds=secs, result=res,
+                                    launches=counts)
+    ckpt = ROOT / "experiments" / "ckpt" / "chip_smoke_train"
+    res = TR.main(list(run.ckpt_train) + dev + ["--ckpt-path", str(ckpt)])
+    like = res["params"]
+    back = load_checkpoint(res["checkpoints"][-1], like)
+    if not all(torch.equal(x, y) for x, y in zip(tree_leaves(back),
+                                                   tree_leaves(like))):
+        raise AssertionError("launch.train checkpoint: a reloaded leaf "
+                             "differs")
+    print(f"launch.train checkpoint {res['checkpoints'][-1]}: "
+          f"{len(tree_leaves(like))} leaves reloaded equal")
+    return out
+
+
 def _unnest(row: dict) -> list:
     """A kernel check's rows as one flat list: its first row, then the
     rest (``shapes``)."""
@@ -3855,6 +4128,7 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
     _phase("9 (card vs CPU)", _any_cpu_check, device, scale.hybrid, 128)
     zoo = _phase("10 (the model zoo)", _zoo_phase, device, scale)
     train = _train_phase(device, scale)
+    launch = _phase("12 (launch drivers)", _launch_phase, device, scale)
     # each path's launches were counted from zero; a kernel on several
     # paths reports their sum and the count of each
     paths = dict(serve=serve["launches"], scalar=scalar["launches"],
@@ -3865,7 +4139,9 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
                  **{arch: r["launches"] for arch, r in zoo["runs"].items()},
                  train_cnn=train["cnn"]["launches"],
                  **{f"train {run.arch}": train[run.arch]["launches"]
-                    for run in scale.train_lm})
+                    for run in scale.train_lm},
+                 **{f"launch {k}": v["launches"] for k, v in launch.items()
+                    if "launches" in v})
     g_row, h_row = (dict(row, shapes=row["shapes"] + _unnest(z),
                          max_abs_err=max(row["max_abs_err"],
                                          z["max_abs_err"]))

@@ -14,11 +14,18 @@
 //   dv = p^T dout,  dp = dout v^T,  ds = p * (dp - D),
 //   dk = ds^T q * scale,  dq = ds k * scale.
 // The forward's rounding of p to v's dtype is taken as the identity.  A
-// row that sees no key gets zero gradients (p = 0 on every pair).  This
-// differs from jax.vjp of the reference's ref.flash_attention_ref, whose
-// -1e30 mask gives such a row a uniform p over the keys and so a nonzero
-// dv there; no training path has such rows (every causal row sees its own
-// position, and a window or q_offset never hides every key of a row).
+// row that sees no key (lse == -1e30: causal positions before key 0,
+// window positions past the last key) took the forward's mean of the Skv
+// keys over n, Skv rounded up to the reference's 128-key tile: it adds
+// dout / n to dv at each of the Skv keys (p = 1 / n for dv alone) and
+// keeps ds = 0, so dq and dk do not move.  Where n == Skv that is jax.vjp
+// of the reference's ref.flash_attention_ref, whose -1e30 mask gives such
+// a row a uniform p.  The dk/dv launches own their keys, so each adds the
+// dead rows' share to its dv accumulators after its tiles (add_dead_rows,
+// from f32 dout); the tile loops never meet a dead row.  Only a call whose
+// masks leave such rows launches the dk/dv instance with that epilogue
+// (DEAD = true): the other keeps the tile loop's code as it was (the
+// epilogue's mere presence cost the bf16 hd-64 instance 26 %).
 //
 // Bound on the H100: operations (the function needs 10 * hd flops per
 // visible (row, key) pair: s, dp, dv, dk, dq; both instances do 14 * hd,
@@ -120,6 +127,62 @@ __device__ __forceinline__ bool unmasked(int qpos, int kpos, int Skv,
   return kpos < Skv && (!causal || qpos >= kpos) &&
          (!window || qpos - kpos <= window);
 }
+
+// The positions whose rows see no key: [0, pre) (causal positions before
+// key 0) and [suf, S) (window positions past the last key); every other
+// row sees a key (kernels/flash_attn.py:dead_positions).
+__host__ __device__ __forceinline__ int2 dead_positions(int S, int Skv,
+                                                        int causal,
+                                                        int window,
+                                                        int q_offset) {
+  // pre = min(S, max(0, -q_offset)), suf = max(pre, min(S, Skv + window -
+  // q_offset)), in ternaries (the host computes it too)
+  const int pre = !causal || q_offset >= 0 ? 0 : -q_offset < S ? -q_offset
+                                                                : S;
+  const int end = Skv + window - q_offset < S ? Skv + window - q_offset : S;
+  return make_int2(pre, !window ? S : end > pre ? end : pre);
+}
+
+// acc[a][e] (a dv accumulator of the thread, of column col(a, e); none
+// past hd) += dout / n of every row of kv head kvh that sees no key (lse
+// == NEG), the rows in ascending order
+template <int NA, int NE, class Col>
+__device__ __forceinline__ void add_dead_rows(
+    float (&acc)[NA][NE], Col col, const float* __restrict__ lse,
+    const float* __restrict__ dout, int S, int Skv, int H, int G, int kvh,
+    int b, int hd, int causal, int window, int q_offset, float inv_n) {
+  const int2 dead = dead_positions(S, Skv, causal, window, q_offset);
+  for (int pos = dead.x > 0 ? 0 : dead.y; pos < S;
+       pos = pos + 1 == dead.x ? dead.y : pos + 1) {
+    for (int g = 0; g < G; ++g) {
+      const long off = ((long)b * S + pos) * H + kvh * G + g;
+      if (lse[off] != NEG) continue;
+      const float* d = dout + off * hd;
+#pragma unroll
+      for (int a = 0; a < NA; ++a)
+#pragma unroll
+        for (int e = 0; e < NE; ++e) {
+          const int c = col(a, e);
+          if (c < hd)
+            acc[a][e] = __fadd_rn(acc[a][e], __fmul_rn(d[c], inv_n));
+        }
+    }
+  }
+}
+
+// the dv accumulators' columns: SIMT av[i][cc] (keys ty + 16 i) holds
+// column tx + 16 cc; the wgmma accumulator acc[c][e] (keys r0, r0 + 8)
+// column 64 c + 8 (e / 4) + cq + (e & 1)
+struct SimtCol {
+  int tx;
+  __device__ int operator()(int, int cc) const { return tx + 16 * cc; }
+};
+struct WgmmaCol {
+  int cq;
+  __device__ int operator()(int c, int e) const {
+    return c * 64 + 8 * (e >> 2) + cq + (e & 1);
+  }
+};
 
 // rows [r0, r0 + n) of (B, S, H, hd) for batch b, kv head kvh as f32 tile
 // rows of stride ld_ (rows past n_rows are zero): a warp per row, its lanes
@@ -294,14 +357,14 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int HD>
+template <int HD, bool DEAD>
 __global__ void __launch_bounds__(THREADS)
     dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ dbuf, int S, int Skv, int H,
                 int KV, int hd, int causal, int window, int q_offset,
-                float scale, float* __restrict__ dk,
+                float scale, float inv_n, float* __restrict__ dk,
                 float* __restrict__ dv) {
   using L = Shape<HD>;
   extern __shared__ float smem[];
@@ -315,7 +378,6 @@ __global__ void __launch_bounds__(THREADS)
   float* Dr = Ls + L::BQ;
 
   const int G = H / KV;
-  const int n_rows = S * G;
   const int k0 = blockIdx.x * L::BKV;
   const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
@@ -416,6 +478,9 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
   }
+  if constexpr (DEAD)
+    add_dead_rows(av, SimtCol{tx}, lse, dout, S, Skv, H, G, kvh, b, hd,
+                  causal, window, q_offset, inv_n);
 
 #pragma unroll
   for (int i = 0; i < L::KJ; ++i) {
@@ -433,21 +498,27 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <class K>
+int max_smem(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
 template <int HD>
 int launch_simt(const void* q, const void* k, const void* v,
                 const float* out, const float* dout, const float* lse, int B,
                 int S, int Skv, int H, int KV, int hd, int causal, int window,
-                int q_offset, float scale, float* dq, float* dk, float* dv,
-                float* dbuf, cudaStream_t stream) {
+                int q_offset, float scale, float inv_n, int dead, float* dq,
+                float* dk, float* dv, float* dbuf, cudaStream_t stream) {
   using L = Shape<HD>;
   auto k1 = dq_kernel<HD>;
-  auto k2 = dkdv_kernel<HD>;
-  static const int e1 = (int)cudaFuncSetAttribute(
-      k1, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
-  static const int e2 = (int)cudaFuncSetAttribute(
-      k2, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  auto k2 = dead ? dkdv_kernel<HD, true> : dkdv_kernel<HD, false>;
+  static const int e1 = max_smem(k1, L::BYTES);
+  static const int e2 = max_smem(dkdv_kernel<HD, false>, L::BYTES);
+  static const int e3 = max_smem(dkdv_kernel<HD, true>, L::BYTES);
   if (e1) return e1;
   if (e2) return e2;
+  if (e3) return e3;
   const long rows = (long)S * (H / KV);
   const long g1 = (rows + L::BQ - 1) / L::BQ;
   const long g2 = ((long)Skv + L::BKV - 1) / L::BKV;
@@ -463,7 +534,7 @@ int launch_simt(const void* q, const void* k, const void* v,
   if (g2 > 0) {
     k2<<<dim3((unsigned)g2, B * KV), THREADS, L::BYTES, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, dout, lse, dbuf,
-        S, Skv, H, KV, hd, causal, window, q_offset, scale, dk, dv);
+        S, Skv, H, KV, hd, causal, window, q_offset, scale, inv_n, dk, dv);
   }
   return (int)cudaGetLastError();
 }
@@ -816,16 +887,17 @@ __device__ __forceinline__ void load_rows(uint8_t* Rs, int t_bytes,
   }
 }
 
-template <int HDP>
+template <int HDP, bool DEAD>
 __global__ void __launch_bounds__(KvShape<HDP>::THREADS, 1)
     dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    const __grid_constant__ CUtensorMap to,
+                   const float* __restrict__ dout,
                    const float* __restrict__ lse,
                    const float* __restrict__ dbuf, int S, int Skv, int H,
                    int KV, int hd, int causal, int window, int q_offset,
-                   float scale, float* __restrict__ dk,
+                   float scale, float inv_n, float* __restrict__ dk,
                    float* __restrict__ dv) {
   using L = KvShape<HDP>;
   constexpr int NB = L::NB;
@@ -962,6 +1034,12 @@ __global__ void __launch_bounds__(KvShape<HDP>::THREADS, 1)
                     G, kvh, b);
   }
 
+  if constexpr (DEAD) {
+    if (wg == 0)  // dV
+      add_dead_rows(acc, WgmmaCol{cq}, lse, dout, S, Skv, H, G, kvh, b, hd,
+                    causal, window, q_offset, inv_n);
+  }
+
   float* o[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -977,8 +1055,8 @@ template <int HDP>
 int launch_tc(const void* q, const void* k, const void* v, const float* out,
               const float* dout, const float* lse, int B, int S, int Skv,
               int H, int KV, int hd, int causal, int window, int q_offset,
-              float scale, float* dq, float* dk, float* dv, float* dbuf,
-              void* dob, cudaStream_t stream) {
+              float scale, float inv_n, int dead, float* dq, float* dk,
+              float* dv, float* dbuf, void* dob, cudaStream_t stream) {
   acopy::EncodeTiled fn = acopy::encoder();
   if (fn == nullptr) return acopy::ERR_NO_ENCODER;
   using A = DqShape<HDP>;
@@ -992,13 +1070,13 @@ int launch_tc(const void* q, const void* k, const void* v, const float* out,
   if (!err) err = tc::encode(fn, &tv, v, hd, KV, Skv, B, 1, TK);
   if (err) return err;
   auto k1 = dq_tc_kernel<HDP>;
-  auto k2 = dkdv_tc_kernel<HDP>;
-  static const int e1 = (int)cudaFuncSetAttribute(
-      k1, cudaFuncAttributeMaxDynamicSharedMemorySize, A::BYTES);
-  static const int e2 = (int)cudaFuncSetAttribute(
-      k2, cudaFuncAttributeMaxDynamicSharedMemorySize, K::BYTES);
+  auto k2 = dead ? dkdv_tc_kernel<HDP, true> : dkdv_tc_kernel<HDP, false>;
+  static const int e1 = max_smem(k1, A::BYTES);
+  static const int e2 = max_smem(dkdv_tc_kernel<HDP, false>, K::BYTES);
+  static const int e3 = max_smem(dkdv_tc_kernel<HDP, true>, K::BYTES);
   if (e1) return e1;
   if (e2) return e2;
+  if (e3) return e3;
   const int ppb = A::ROWS / G;
   const long g1 = (long)((S + ppb - 1) / ppb) * B * KV;
   const long g2 = (long)((Skv + TK - 1) / TK) * B * KV;
@@ -1013,8 +1091,8 @@ int launch_tc(const void* q, const void* k, const void* v, const float* out,
   }
   if (g2 > 0)
     k2<<<(unsigned)g2, K::THREADS, K::BYTES, stream>>>(
-        tq2, tk, tv, to, lse, dbuf, S, Skv, H, KV, hd, causal, window,
-        q_offset, scale, dk, dv);
+        tq2, tk, tv, to, dout, lse, dbuf, S, Skv, H, KV, hd, causal, window,
+        q_offset, scale, inv_n, dk, dv);
   return (int)cudaGetLastError();
 }
 
@@ -1034,9 +1112,16 @@ extern "C" int flash_attn_bwd_launch(const void* q, const void* k,
                                      float* dq, float* dk, float* dv,
                                      float* dbuf, void* dob, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  // a dead row's share of dv: 1 / n, n = Skv rounded up to the reference's
+  // 128-key tile (the forward's ref_kv_count)
+  const int bk = Skv < 128 ? Skv : 128;
+  const float inv_n =
+      bk > 0 ? 1.0f / (float)((Skv + bk - 1) / bk * bk) : 0.f;
+  const int2 deadp = dead_positions(S, Skv, causal, window, q_offset);
+  const int dead = deadp.x > 0 || deadp.y < S;
 #define FLASH_BWD_ARGS                                                      \
   q, k, v, out, dout, lse, B, S, Skv, H, KV, hd, causal, window, q_offset, \
-      scale, dq, dk, dv, dbuf
+      scale, inv_n, dead, dq, dk, dv, dbuf
   if (bf16) {
     if (hd <= 64) return launch_tc<64>(FLASH_BWD_ARGS, dob, st);
     if (hd <= 128) return launch_tc<128>(FLASH_BWD_ARGS, dob, st);

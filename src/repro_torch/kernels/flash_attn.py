@@ -274,8 +274,13 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
     :data:`BLOCK_K` keys, ``s = q.k * scale`` with the forward's masks,
     ``p = exp(s - lse)`` (0 on masked pairs), ``D = rowsum(dout * out)``,
     ``dv = p^T dout``, ``ds = p * (dout v^T - D)``, ``dk = ds^T q *
-    scale``, ``dq = ds k * scale``, all in f32.  Returns ``(dq, dk, dv)``
-    in the inputs' dtypes."""
+    scale``, ``dq = ds k * scale``, all in f32.  A row that sees no key
+    (``lse == -1e30``) took the forward's mean of the ``Skv`` real keys
+    over :func:`_ref_kv_count`'s ``n``, so it adds ``dout / n`` to ``dv`` at
+    each of them (``p = 1 / n`` for ``dv`` alone: its ``ds`` stays 0, so
+    ``dq`` and ``dk`` do not move), as ``jax.vjp`` of the reference's dense
+    softmax gives where ``n == Skv``.  Returns ``(dq, dk, dv)`` in the
+    inputs' dtypes."""
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -286,6 +291,8 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
     go = dout.to(f32).reshape(B, S, KV, G, hd)
     D = (go * out.to(f32).reshape(B, S, KV, G, hd)).sum(-1)
     lse = lse.to(f32).reshape(B, S, KV, G)
+    dead = (lse == NEG)[..., None]
+    inv_n = (torch.tensor(1.0, dtype=f32) / _ref_kv_count(Skv)).to(dev)
     qpos = torch.arange(S, device=dev) + q_offset
     dq = torch.zeros((B, S, KV, G, hd), dtype=f32, device=dev)
     dk = torch.zeros((B, Skv, KV, hd), dtype=f32, device=dev)
@@ -298,7 +305,8 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal=True,
         mask = _mask(qpos, kpos, Skv, causal, window)[None, :, None, None]
         s = torch.einsum("bqkgh,bckh->bqkgc", qf, kt) * scale
         p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
-        dv[:, j0:j0 + n] = torch.einsum("bqkgc,bqkgh->bckh", p, go)
+        dv[:, j0:j0 + n] = torch.einsum(
+            "bqkgc,bqkgh->bckh", torch.where(dead, inv_n, p), go)
         dp = torch.einsum("bqkgh,bckh->bqkgc", go, vt)
         ds = p * (dp - D[..., None])
         dk[:, j0:j0 + n] = torch.einsum("bqkgc,bqkgh->bckh", ds, qf) * scale
@@ -335,13 +343,25 @@ def bwd_dq_plan(S: int, Skv: int, G: int, hd: int, causal: bool,
     return plan
 
 
+def dead_positions(S: int, Skv: int, causal: bool, window: int,
+                   q_offset: int):
+    """The positions whose rows see no key: ``(pre, suf)``, the prefix
+    ``[0, pre)`` (causal rows before key 0, a negative ``q_offset``) and
+    the suffix ``[suf, S)`` (window rows past the last key); every other
+    row sees a key.  The forward gives these rows ``lse == -1e30``."""
+    pre = min(S, max(0, -q_offset)) if causal else 0
+    suf = max(pre, min(S, Skv + window - q_offset)) if window else S
+    return pre, suf
+
+
 def bwd_dkdv_plan(S: int, Skv: int, G: int, causal: bool, window: int,
                   q_offset: int):
     """The dk/dv kernel's blocks of one (batch, kv head) in the bf16
     backward: ``[(first key, [first position of each row tile])]``, each
     block :data:`BLOCK_K` keys, its row tiles ``BLOCK_K // G`` positions x
     ``G`` heads over the positions that can see its keys
-    (``dkdv_tc_kernel``'s arithmetic)."""
+    (``dkdv_tc_kernel``'s arithmetic).  The rows that see no key
+    (:func:`dead_positions`) are added after the tiles."""
     ppb = BLOCK_K // G
     plan = []
     for k0 in range(0, Skv, BLOCK_K):

@@ -1,0 +1,21 @@
+"""Launch drivers (port of :mod:`repro.launch`): the LM training CLI
+(:mod:`repro_torch.launch.train`) and the serving CLI
+(:mod:`repro_torch.launch.serve`).  Both run on the CUDA card, or on the
+CPU under ``--device cpu``; the pod meshes of the reference come with the
+mesh slice of the port."""
+from __future__ import annotations
+
+import sys
+
+import torch
+
+
+def resolve_device(name: str, prog: str) -> torch.device:
+    """``--device`` as a ``torch.device``; without a CUDA card a ``cuda``
+    device ends the program with a message that says so (there is no CPU
+    fallback: ``--device cpu`` asks for the CPU)."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        sys.exit(f"{prog}: no CUDA card is visible; the port's kernels run "
+                 f"on an H100 (pass --device cpu to run on the CPU)")
+    return device

@@ -13,11 +13,17 @@ of dicts whose leaves carry a leading ``(n_scan, ...)`` layer axis, and
 ``params["layers"]["rem"]`` holds the remainder blocks; an encoder-decoder
 adds ``params["enc"]`` (its stacked blocks and final norm) and, with the
 VLM, ``params["frontend_proj"]``.  The reference scans over the layer axis
-under ``jit``; the port loops over it eagerly.  ``remat`` /
-``remat_attention`` are training knobs: accepted and ignored in the forward
-pass.  JAX's arrays are immutable; the port's functions return new state
-dicts too (a KV-cache write copies the cache of that layer), so a caller's
-state is never changed in place.
+under ``jit``; the port loops over it eagerly.  Activation checkpointing
+follows the reference's: when autograd needs a parameter's gradient,
+:func:`forward` with ``remat`` runs the stacked layers in groups of
+``cfg.remat_every`` periods, each under ``torch.utils.checkpoint`` (the
+backward re-runs a group's forward instead of keeping every layer's
+saves), and ``cfg.remat_attention`` checkpoints the CPU path's attention
+call on its own; kernel G on the card already saves only ``q``, ``k``,
+``v``, its output and the rows' log-sum-exp.  Serving (no gradient) runs
+no checkpoint.  JAX's arrays are immutable; the port's functions return
+new state dicts too (a KV-cache write copies the cache of that layer), so
+a caller's state is never changed in place.
 
 Public entry points:
     init_params / forward / prefill / decode_step / init_decode_state
@@ -25,10 +31,12 @@ Public entry points:
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from . import moe as moe_mod
 from . import rglru as rg
@@ -154,8 +162,15 @@ def block_seq(p: dict, cfg, kind: str, x: torch.Tensor, *,
     h = apply_norm(cfg.norm, p["norm1"], x)
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _qkv(p["attn"], cfg, h, positions)
-    o = chunked_attention(q, k, v, causal=causal, window=window,
-                          chunk=cfg.attn_chunk)
+    attn = functools.partial(chunked_attention, causal=causal, window=window,
+                             chunk=cfg.attn_chunk)
+    if (cfg.remat_attention and q.device.type == "cpu"
+            and torch.is_grad_enabled() and q.requires_grad):
+        # the CPU path keeps each chunk's probabilities for its backward;
+        # kernel G on the card keeps only its inputs, output and lse
+        o = _checkpoint(attn, q, k, v)
+    else:
+        o = attn(q, k, v)
     x = x + torch.einsum("bsnh,nhd->bsd", o, p["attn"]["wo"])
     if collect_cache:
         cache = (k, v)
@@ -440,21 +455,64 @@ def _readout(cfg, params, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsd,dv->bsv", x, _head(cfg, params)).to(_F32)
 
 
+def _checkpoint(fn, *args):
+    """``fn(*args)`` under activation checkpointing: only ``args`` are kept
+    for the backward, which re-runs ``fn`` (nothing ``fn`` computes draws
+    random numbers, so no generator state is kept)."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
+def _needs_grad(params) -> bool:
+    """Whether autograd will want a gradient of a parameter of ``params``."""
+    if not torch.is_grad_enabled():
+        return False
+    found = []
+    _tree_map(lambda a: found.append(a.requires_grad), params)
+    return any(found)
+
+
 def forward(cfg, params, batch: dict, *, window: Optional[int] = None,
             remat: bool = True):
     """batch: {"tokens": (B, S) int32, optional "frontend": (B, F, D)}.
     Returns (logits (B, S_total, V) f32, aux_loss: the MoE layers' sum, f32
-    scalar).  ``remat`` only says which layers the reference scans: its
-    groups of ``remat_every`` periods (every period without ``remat``); the
-    leftover periods and the remainder run op by op."""
+    scalar).  The stacked layers run in the reference's groups
+    (``_run_stack``): ``remat_every`` periods a group with ``remat`` (one
+    period without), the leftover periods as one more group, then the
+    remainder blocks.  The reference scans its groups, so their layers are
+    ``scanned`` and the leftover's and remainder's are not.  With
+    ``remat``, when autograd needs a parameter's gradient, each group
+    (the leftover too) runs under a checkpoint that keeps only its input
+    ``(x, aux)``; the remainder and the encoder are not checkpointed.
+    Recomputation changes no bit."""
     period, n_scan, _ = _layer_plan(cfg)
     k = max(1, cfg.remat_every) if remat else 1
-    n_scanned = (n_scan // k) * k * period
+    n_groups = n_scan // k
     x, enc_out = embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=_F32, device=x.device)
-    for i, (kind, bp) in enumerate(_blocks(cfg, params)):
-        x, a, _ = block_seq(bp, cfg, kind, x, enc_out=enc_out, window=window,
-                            scanned=i < n_scanned)
+    stack = params["layers"]["stack"]
+
+    def periods(r0: int, r1: int, scanned: bool, x, aux):
+        # the stacked leaves are indexed here, inside a checkpoint, so a
+        # group's slices are not kept for the backward
+        for r in range(r0, r1):
+            for q in range(period):
+                x, a, _ = block_seq(_index(stack[q], r), cfg,
+                                    cfg.layer_kind(q), x, enc_out=enc_out,
+                                    window=window, scanned=scanned)
+                aux = aux + a
+        return x, aux
+
+    ckpt = remat and _needs_grad(params)
+    groups = [(r0, r0 + k, True) for r0 in range(0, n_groups * k, k)]
+    if n_groups * k < n_scan:
+        groups.append((n_groups * k, n_scan, False))
+    for r0, r1, scanned in groups:
+        fn = functools.partial(periods, r0, r1, scanned)
+        x, aux = _checkpoint(fn, x, aux) if ckpt else fn(x, aux)
+    for i in range(n_scan * period, cfg.n_layers):
+        kind, bp = get_block(cfg, params, i)
+        x, a, _ = block_seq(bp, cfg, kind, x, enc_out=enc_out, window=window)
         aux = aux + a
     return _readout(cfg, params, x), aux
 

@@ -29,9 +29,11 @@ exits fold into one ``online_update`` per (task, unit), through the
 Differences from the reference: the reference's ``lax.cond`` that skips
 adaptation on steps where no utility test passed is a host-side ``if`` here
 — one device synchronisation per step on the card.  Adaptation updates the
-run's own copy of the bank in place.  ``run_stream`` holds one carry at a
-time (each chunk takes the previous one's output, which nothing else
-keeps): the counterpart of the reference's donated carry; the reference's
+run's own copy of the bank in place.  Where the reference compiles its
+scan into one program, the card replays each step without telemetry as two
+CUDA graphs around kernel D (:class:`_GraphedSteps`).  ``run_stream``
+holds one carry at a time (each chunk takes the previous one's output,
+which nothing else keeps): the counterpart of the reference's donated carry; the reference's
 ahead-of-time compiled chunk programs have none, so ``compile_s`` is 0.
 ``telemetry=`` (both tiers in ``run``, the counters tier in ``run_stream``)
 collects the serve loop's telemetry beside the carry, the serve outcome
@@ -198,13 +200,15 @@ def classify_unit(bank: ServeBank, tables: ServeTables, tk: int, u: int,
 
 
 def _classify_rows(bank: ServeBank, tables: ServeTables, tk, u, job):
-    """Batched classify of every device's selected (task, unit, job).
+    """The rows of the batched classify of every device's selected (task,
+    unit, job): ``(features (D, S), centroid columns (D, C, S))``, both
+    contiguous, as kernel D takes them.
 
     ``tk``/``u``/``job`` are ``(D,)``; the bank and the feature tables may
     or may not carry the leading ``D`` axis (shared vs per-device).  Only
     the ``S`` selected columns of the ``C`` centroid rows each device needs
     are gathered; the L1 top-2 then runs through the ``l1_topk2`` kernel
-    with one centroid set per row.  Returns ``(margin, cluster_idx, pred)``.
+    with one centroid set per row.
     """
     K, Ub, S_ = tables.fidx.shape
     Wl = tables.labels.shape[-1]
@@ -221,34 +225,36 @@ def _classify_rows(bank: ServeBank, tables: ServeTables, tk, u, job):
            + idxs.to(torch.int64)[:, None, :])                # (D, C, S)
     csel = torch.gather(cflat.expand(D, -1), 1,
                         lin.reshape(D, C * S_)).reshape(D, C, S_)
-    d1, d2, ci = ops.l1_topk2(fsel.contiguous(), csel)
-    margin = km.margin_of(d1, d2)
-    pred = S._take1(tables.clabels.reshape(K * Ub * C), ku * C + ci)
-    return margin, ci, pred
+    return fsel.contiguous(), csel
 
 
-def serve_step(cfg: FleetConfig, tables: ServeTables, dev, bank: ServeBank,
-               log: ServeLog, t, job0, *, statics: FleetStatics,
-               trace: bool = False):
-    """One live-serving timestep for every device (leading ``(D,)`` axis):
-    admit → drop-expired → pick → classify against the bank → inject
-    ``(margin, passed, correct)`` into :func:`apply_step` → latch the
-    utility pass → write the per-job outcome log.
+class _Pick(NamedTuple):
+    """What :func:`serve_step` carries from the pick across kernel D's
+    launch: the selected slot (pre-apply) and the rows D classifies."""
 
-    ``job0`` (``(K,)`` int32) rebases global job ids into the table window
-    (zeros for a whole run).  ``t`` is the f32 clock ``i * dt``; the
-    step's end time is ``t + dt`` (a second rounding), as in the reference.
-    Returns ``(dev, log, (first_pass, tk, u, job, ci))`` — the aux drives
-    the engine's bank adaptation.  ``trace`` runs the step core's
-    descriptor-emitting stages (the same ops, plus the words) and appends
-    the step's :class:`~repro_torch.core.step.StepTrace` to the return.
-    """
+    sel: torch.Tensor
+    picked: torch.Tensor
+    run: torch.Tensor
+    e_new: torch.Tensor
+    tk: torch.Tensor
+    u: torch.Tensor
+    job: torch.Tensor
+    complete: torch.Tensor
+    exited_pre: torch.Tensor
+    apass_pre: torch.Tensor
+    ddl: torch.Tensor
+    fsel: torch.Tensor
+    csel: torch.Tensor
+
+
+def _serve_pick(cfg: FleetConfig, tables: ServeTables, dev, bank: ServeBank,
+                t, job0, *, statics: FleetStatics, trace: bool = False):
+    """:func:`serve_step` up to kernel D: admit → drop-expired → pick, the
+    selected slot's identity and the classify's rows.  Returns ``(dev,
+    pick)``, and with ``trace`` the stages' trace words after them."""
     K = cfg.period.shape[-1]
     n_u = cfg.unit_time.shape[-1]
-    Ue = cfg.exit_thr.shape[-1]
     Wl = tables.labels.shape[-1]
-    Ub = tables.fidx.shape[-2]
-    Q = statics.queue_size
 
     if trace:
         act0 = dev.q_active
@@ -267,13 +273,33 @@ def serve_step(cfg: FleetConfig, tables: ServeTables, dev, bank: ServeBank,
     job = (S._take1(dev.q_job, sel) - S._take1(job0, tk)).clamp(0, Wl - 1)
     complete = run & (S._take1(dev.q_time_left, sel) - statics.dt
                       <= statics.dt_eps)
-    exited_pre = S._take1(dev.q_exited, sel)
-    apass_pre = S._take1(dev.q_apass, sel)
-    ddl = S._take1(dev.q_deadline, sel)
+    pick = _Pick(sel, picked, run, e_new, tk, u, job, complete,
+                 S._take1(dev.q_exited, sel), S._take1(dev.q_apass, sel),
+                 S._take1(dev.q_deadline, sel),
+                 *_classify_rows(bank, tables, tk, u, job))
+    if trace:
+        return dev, pick, (act0, adm, ev, ev_dl, exp, exp_dl)
+    return dev, pick
+
+
+def _serve_apply(cfg: FleetConfig, tables: ServeTables, dev, log: ServeLog,
+                 t, p: _Pick, d1, d2, ci, *, statics: FleetStatics,
+                 words=None):
+    """:func:`serve_step` from kernel D's ``(d1, d2, ci)`` on: the margin
+    and prediction, :func:`apply_step`, the utility-pass latch and the
+    outcome log.  ``words`` (the pick's trace words) traces the step."""
+    K = cfg.period.shape[-1]
+    Ue = cfg.exit_thr.shape[-1]
+    Wl = tables.labels.shape[-1]
+    Ub, C = tables.fidx.shape[-2], tables.clabels.shape[-1]
+    Q = statics.queue_size
+    tk, u, job, complete = p.tk, p.u, p.job, p.complete
+
     nu_sel = S._take1(cfg.n_units, tk)
     thr_cfg = S._take1(S._flat2(cfg.exit_thr), tk * Ue + u)
-
-    margin, ci, pred = _classify_rows(bank, tables, tk, u, job)
+    margin = km.margin_of(d1, d2)
+    pred = S._take1(tables.clabels.reshape(K * Ub * C), (tk * Ub + u) * C
+                    + ci)
     label = S._take1(
         tables.labels.reshape(tables.labels.shape[:-2] + (K * Wl,)),
         tk * Wl + job)
@@ -281,27 +307,28 @@ def serve_step(cfg: FleetConfig, tables: ServeTables, dev, bank: ServeBank,
     pass_bank = margin > S._take1(tables.thr.reshape(K * Ub), tk * Ub + u)
     passed = torch.where(cfg.use_exit_thr, margin > thr_cfg, pass_bank)
 
-    if trace:
+    if words is not None:
+        act0, adm, ev, ev_dl, exp, exp_dl = words
         dev, (comp, comp_dl) = S.apply_step(
-            cfg, dev, t, sel, picked, run, e_new, statics, True,
+            cfg, dev, t, p.sel, p.picked, p.run, p.e_new, statics, True,
             (margin, passed, correct), trace=True, q_active_pre=act0)
     else:
-        dev = S.apply_step(cfg, dev, t, sel, picked, run, e_new, statics,
-                           True, (margin, passed, correct))
+        dev = S.apply_step(cfg, dev, t, p.sel, p.picked, p.run, p.e_new,
+                           statics, True, (margin, passed, correct))
 
     # engine-owned utility-pass latch: adaptation fires at the FIRST
     # bank-threshold pass (even under EDF, which never exits early)
-    first_pass = complete & pass_bank & ~apass_pre
-    oh = S._oh_eq(sel, Q)
+    first_pass = complete & pass_bank & ~p.apass_pre
+    oh = S._oh_eq(p.sel, Q)
     dev = dev._replace(
         q_apass=dev.q_apass | (oh & (complete & pass_bank)[..., None]))
 
     # per-job outcome log (mirrors apply_step's completion math)
-    exit_now = complete & cfg.imprecise & (exited_pre < 0) & passed
-    exited_mid = torch.where(exit_now, u, exited_pre)
+    exit_now = complete & cfg.imprecise & (p.exited_pre < 0) & passed
+    exited_mid = torch.where(exit_now, u, p.exited_pre)
     full_mand = complete & (exited_mid < 0) & (u + 1 >= nu_sel)
     mand_now = exit_now | full_mand
-    sched_now = (t + statics.dt) <= ddl
+    sched_now = (t + statics.dt) <= p.ddl
     kk = torch.arange(K, device=tk.device, dtype=_I32)[:, None]
     jj = torch.arange(Wl, device=tk.device, dtype=_I32)[None, :]
     m_jd = (complete[:, None, None] & (kk == tk[:, None, None])
@@ -319,11 +346,36 @@ def serve_step(cfg: FleetConfig, tables: ServeTables, dev, bank: ServeBank,
         exit_unit=put(log.exit_unit, u, first_pass),
         sched=put(log.sched, sched_now, mand_now),
     )
-    if trace:
+    if words is not None:
         return dev, log, (first_pass, tk, u, job, ci), S.StepTrace(
             adm=adm, evict=ev, evict_dl=ev_dl, expire=exp, expire_dl=exp_dl,
             complete=comp, complete_dl=comp_dl)
     return dev, log, (first_pass, tk, u, job, ci)
+
+
+def serve_step(cfg: FleetConfig, tables: ServeTables, dev, bank: ServeBank,
+               log: ServeLog, t, job0, *, statics: FleetStatics,
+               trace: bool = False):
+    """One live-serving timestep for every device (leading ``(D,)`` axis):
+    admit → drop-expired → pick → classify against the bank → inject
+    ``(margin, passed, correct)`` into :func:`apply_step` → latch the
+    utility pass → write the per-job outcome log.
+
+    ``job0`` (``(K,)`` int32) rebases global job ids into the table window
+    (zeros for a whole run).  ``t`` is the f32 clock ``i * dt``; the
+    step's end time is ``t + dt`` (a second rounding), as in the reference.
+    Returns ``(dev, log, (first_pass, tk, u, job, ci))`` — the aux drives
+    the engine's bank adaptation.  ``trace`` runs the step core's
+    descriptor-emitting stages (the same ops, plus the words) and appends
+    the step's :class:`~repro_torch.core.step.StepTrace` to the return.
+    The step is :func:`_serve_pick`, kernel D, :func:`_serve_apply`.
+    """
+    out = _serve_pick(cfg, tables, dev, bank, t, job0, statics=statics,
+                      trace=trace)
+    dev, pick = out[:2]
+    return _serve_apply(cfg, tables, dev, log, t, pick,
+                        *ops.l1_topk2(pick.fsel, pick.csel), statics=statics,
+                        words=out[2] if trace else None)
 
 
 def _shift_log(log: ServeLog, shift: torch.Tensor) -> ServeLog:
@@ -407,6 +459,70 @@ class FleetServeResult:
     @property
     def jobs_per_sec(self) -> float:
         return self.jobs / max(self.wall_s, 1e-9)
+
+
+class _GraphedSteps:
+    """:func:`serve_step` on the card as two CUDA graph replays around
+    kernel D's launch, for steps without telemetry.
+
+    The eager step is ~700 launches of small ops at 64 devices, so its
+    host's launch rate bounds it (a few % device busy).  Here the pick and
+    the apply halves are each captured once per call and replayed every
+    step; kernel D is launched between them by its wrapper, as in
+    :func:`serve_step`, so its count rises once a step.  The graphs read
+    the carry from copies of ``dev`` and ``log`` that the apply graph
+    overwrites with the step's carry, and the bank where it lies, so the
+    adaptation's in-place updates between steps reach the next step.  The
+    same kernels on the same inputs: the outcome is the eager step's, bit
+    for bit."""
+
+    def __init__(self, cfg: FleetConfig, tables: ServeTables,
+                 carry: ServeCarry, job0, *, statics: FleetStatics):
+        dev, bank, log = carry
+        self.dev = type(dev)(*[x.clone() for x in dev])
+        self.log = ServeLog(*[x.clone() for x in log])
+        self.t = torch.zeros((), dtype=_F32, device=dev.energy.device)
+        self.d = (torch.zeros_like(dev.energy, dtype=_F32),
+                  torch.zeros_like(dev.energy, dtype=_F32),
+                  torch.zeros_like(dev.energy, dtype=_I32))
+        self.dt = statics.dt
+
+        def pick():
+            return _serve_pick(cfg, tables, self.dev, bank, self.t, job0,
+                               statics=statics)
+
+        def apply(dev1, p):
+            return _serve_apply(cfg, tables, dev1, self.log, self.t, p,
+                                *self.d, statics=statics)
+
+        # one pass outside capture first (torch.cuda.graphs' warm-up); it
+        # writes nothing that the graphs read
+        side = torch.cuda.Stream(self.t.device)
+        side.wait_stream(torch.cuda.current_stream(self.t.device))
+        with torch.cuda.stream(side):
+            apply(*pick())
+        torch.cuda.current_stream(self.t.device).wait_stream(side)
+        self.g_pick, self.g_apply = torch.cuda.CUDAGraph(), \
+            torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.g_pick):
+            self._dev1, self.pick = pick()
+        with torch.cuda.graph(self.g_apply):
+            dev2, log2, self.aux = apply(self._dev1, self.pick)
+            for old, new in zip(self.dev + self.log, dev2 + log2):
+                if new is not old:
+                    old.copy_(new)
+
+    def __call__(self, i: int):
+        """Step ``i``; returns its aux ``(first_pass, tk, u, job, ci)``,
+        valid until the next call."""
+        # S.step_clock's value: f32(i) * f32(dt), rounded once
+        self.t.fill_(float(np.float32(i) * np.float32(self.dt)))
+        self.g_pick.replay()
+        for out, x in zip(self.d, ops.l1_topk2(self.pick.fsel,
+                                               self.pick.csel)):
+            out.copy_(x)
+        self.g_apply.replay()
+        return self.aux
 
 
 class FleetServeEngine:
@@ -664,7 +780,8 @@ class FleetServeEngine:
         its aux outputs on steps where some device's utility test passed
         for the first time (a host-side check: one device sync per step).
         A shared bank has 4-D centroids; per-device request streams give
-        5-D feature tables.
+        5-D feature tables.  On the card without ``tcfg`` the steps run as
+        :class:`_GraphedSteps`.
 
         With ``tcfg`` each step also emits the tier's telemetry columns,
         reduced into ``tel`` after the segment (the full tier's rare ring
@@ -683,16 +800,23 @@ class FleetServeEngine:
         st0, ys = dev, []
         if adapt:
             bank = ServeBank(*[l.clone() for l in bank])
+        graphs = (None if tcfg is not None or not n_steps
+                  or cfg.policy.device.type != "cuda"
+                  else _GraphedSteps(cfg, tables, ServeCarry(dev, bank, log),
+                                     job0, statics=statics))
         for i in range(i0, i0 + n_steps):
-            t = S.step_clock(i, statics.dt, cfg.policy.device)
-            dev_pre = dev
-            out = serve_step(cfg, tables, dev, bank, log, t, job0,
-                             statics=statics, trace=trace)
-            dev, log, (first_pass, tk, u, job, ci) = out[:3]
-            if trace:
-                ys.append(T_trace.emit_full(spec, out[3], dev_pre, dev))
-            elif tcfg is not None:
-                ys.append(T_trace.emit_counters(dev))
+            if graphs is not None:
+                first_pass, tk, u, job, ci = graphs(i)
+            else:
+                t = S.step_clock(i, statics.dt, cfg.policy.device)
+                dev_pre = dev
+                out = serve_step(cfg, tables, dev, bank, log, t, job0,
+                                 statics=statics, trace=trace)
+                dev, log, (first_pass, tk, u, job, ci) = out[:3]
+                if trace:
+                    ys.append(T_trace.emit_full(spec, out[3], dev_pre, dev))
+                elif tcfg is not None:
+                    ys.append(T_trace.emit_counters(dev))
             if not adapt or not bool(first_pass.any()):
                 continue
             Ub = tables.fidx.shape[-2]
@@ -711,6 +835,8 @@ class FleetServeEngine:
             else:
                 bank = self._adapt_per_device(bank, x_full, tk, u, ci,
                                               first_pass)
+        if graphs is not None:
+            dev, log = graphs.dev, graphs.log
         out = ServeCarry(dev=dev, bank=bank, log=log)
         if tcfg is None:
             return out

@@ -6,9 +6,12 @@ computes, tile by tile) against ``jax.vjp`` of
 (both sum in f32, in other orders), for query-head groups 1, 2 and 6,
 causal, a window, and non-causal with ``S != Skv`` and a ``q_offset``; the
 rows' log-sum-exp the forward returns for it against JAX's ``logsumexp`` of
-the masked scores; the forward's ``out`` unchanged by ``return_lse``; the
-bf16 kernels' tile plans (``bwd_dq_plan``, ``bwd_dkdv_plan``) covering every
-visible (row, key) pair exactly once at the GPU tests' shapes; and the
+the masked scores; the forward's ``out`` unchanged by ``return_lse``; rows
+that see no key (the dead-row witness, a negative offset, and ``Skv`` no
+multiple of the reference's tile against autograd of the port's forward);
+the bf16 kernels' tile plans (``bwd_dq_plan``, ``bwd_dkdv_plan``) covering
+every visible (row, key) pair exactly once, and ``dead_positions`` naming
+exactly the rows that see no key, at the GPU tests' shapes; and the
 wrapper's dispatch on the CPU.
 """
 import numpy as np
@@ -35,6 +38,10 @@ CASES = [  # B, S, Skv, H, KV, hd, causal, window, q_offset
     (1, 67, 67, 12, 2, 8, True, 16, 0),
     (2, 24, 56, 6, 1, 16, False, 0, 7),
     (1, 16, 80, 4, 4, 16, True, 0, 64),
+    # rows that see no key: the witness of the dead-row fault (row 5 of a
+    # window-3 offset past the keys) and causal rows before key 0
+    (1, 6, 16, 2, 1, 8, False, 3, 14),
+    (1, 20, 24, 4, 2, 8, True, 0, -6),
 ]
 
 
@@ -93,9 +100,11 @@ def test_flash_forward_lse_matches_jax(case):
         s = jnp.where(mask[None, :, None, None, :], s, -jnp.inf)
         return jax.scipy.special.logsumexp(s, axis=-1).reshape(B, S, H)
 
-    np.testing.assert_allclose(lse.numpy(),
-                               np.asarray(want(jnp.asarray(q),
-                                               jnp.asarray(k))), **TOL)
+    want = np.asarray(want(jnp.asarray(q), jnp.asarray(k)))
+    # a row that sees no key: -inf in JAX, the forward's -1e30 here
+    dead = np.isneginf(want)
+    assert (lse.numpy()[dead] == FA.NEG).all()
+    np.testing.assert_allclose(lse.numpy()[~dead], want[~dead], **TOL)
 
 
 def test_flash_bwd_plain_matches_autograd_of_the_forward():
@@ -109,6 +118,50 @@ def test_flash_bwd_plain_matches_autograd_of_the_forward():
         got = FA.flash_attention_bwd_plain(tq, tk, tv, o2, lse,
                                            torch.from_numpy(dout),
                                            causal=True, window=8)
+    for g, t in zip(got, (tq, tk, tv)):
+        np.testing.assert_allclose(g.numpy(), t.grad.numpy(), **TOL)
+
+
+def test_flash_bwd_dead_rows_move_only_dv():
+    """The dead-row witness (numpy seed 0; row 5 sees no key): ``dv``
+    within 1e-6 of ``jax.vjp`` of the reference, and ``dq`` and ``dk`` bit
+    for bit those of the same call with the dead row's ``dout`` zeroed (a
+    row that sees no key moves neither)."""
+    B, S, Skv, H, KV, hd = 1, 6, 16, 2, 1, 8
+    kw = dict(causal=False, window=3, q_offset=14)
+    q, k, v, dout = _inputs(B, S, Skv, H, KV, hd, 0)
+    fn = lambda q, k, v: ref.flash_attention_ref(q, k, v, **kw)  # noqa: E731
+    want = jax.vjp(fn, *(jnp.asarray(x) for x in (q, k, v)))[1](
+        jnp.asarray(dout))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    out, lse = FA.flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+    dead = lse == FA.NEG
+    assert dead[0, 5].all() and int(dead.sum()) == H
+    got = FA.flash_attention_bwd_plain(tq, tk, tv, out, lse,
+                                       torch.from_numpy(dout), **kw)
+    assert float((got[2] - torch.from_numpy(np.array(want[2]))).abs()
+                 .max()) <= 1e-6
+    quiet = torch.from_numpy(dout).masked_fill(dead[..., None], 0.0)
+    base = FA.flash_attention_bwd_plain(tq, tk, tv, out, lse, quiet, **kw)
+    assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
+    assert not torch.equal(got[2], base[2])
+
+
+def test_flash_bwd_plain_dead_rows_match_autograd_of_the_forward():
+    """Dead rows where ``Skv`` (200) is no multiple of the reference's
+    128-key tile: the forward divides their mean by 256, so the backward
+    is held to autograd of the port's own forward, its CPU training
+    path."""
+    kw = dict(causal=False, window=5, q_offset=200)
+    q, k, v, dout = _inputs(1, 8, 200, 4, 2, 8, 6)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = FA.flash_attention_plain(tq, tk, tv, **kw)
+    out.backward(torch.from_numpy(dout))
+    with torch.no_grad():
+        o2, lse = FA.flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+        assert int((lse == FA.NEG).sum()) == 3 * 4   # positions 5, 6, 7
+        got = FA.flash_attention_bwd_plain(tq, tk, tv, o2, lse,
+                                           torch.from_numpy(dout), **kw)
     for g, t in zip(got, (tq, tk, tv)):
         np.testing.assert_allclose(g.numpy(), t.grad.numpy(), **TOL)
 
@@ -152,3 +205,7 @@ def test_bwd_tile_plans_cover_each_visible_pair_once(case):
             dkdv[p:p + ppb, k0:k0 + FA.BLOCK_K] += 1
     for count in (dq, dkdv):
         assert (count[seen] == 1).all() and count.max() <= 1
+    # the rows that see no key, which every dk/dv block adds after its
+    # tiles: exactly the kernels' dead prefix and suffix
+    pre, suf = FA.dead_positions(S, Skv, causal, window, qo)
+    assert (np.flatnonzero(~seen.any(axis=1)) == np.r_[0:pre, suf:S]).all()

@@ -211,6 +211,7 @@ FLASH_CASES = [
     (1, 64, 320, 8, 2, 64, True, 0, 256),
     (2, 100, 200, 4, 2, 80, False, 0, 0),
     (1, 256, 256, 2, 2, 256, True, 0, -200),
+    (1, 4096, 4096, 32, 32, 80, True, 0, 0),   # stablelm-3b: hd 80, MHA
 ]
 
 
@@ -528,6 +529,31 @@ def test_adaptive_serving_runs_through_the_kernels(cuda, bank_mode):
         assert counts["centroid_update"] > 0
     assert (res.exit_unit >= 0).any()
     assert np.isfinite(res.margin).all()
+
+
+@pytest.mark.parametrize("bank_mode", ["per-device", "shared"])
+def test_graphed_adaptive_scan_matches_eager(cuda, bank_mode):
+    """The card's scan replays each step as two CUDA graphs around one
+    launch of kernel D; with adaptation between the steps it equals the
+    eager loop (the telemetry run's, which only adds outputs) on every
+    carry leaf, with the same launches of kernels D and E."""
+    from repro_torch import telemetry as TEL
+
+    eng, reqs = _engine(cuda, True, bank_mode)
+    runs, counts = [], []
+    for tcfg in (None, TEL.TelemetryConfig(ring_size=16, level="counters")):
+        ops.reset_launch_counts()
+        runs.append(eng.run(reqs, 4, seeds=range(4), n_segments=3,
+                            telemetry=tcfg))
+        counts.append({k: ops.launch_counts()[k]
+                       for k in ("l1_topk2", "centroid_update")})
+    graphed, eager = runs
+    assert counts[0] == counts[1] and counts[0]["l1_topk2"] > 0
+    assert (graphed.exit_unit >= 0).any()
+    for part in ("dev", "bank", "log"):
+        a_p, b_p = getattr(graphed.carry, part), getattr(eager.carry, part)
+        for f, a, b in zip(a_p._fields, a_p, b_p):
+            assert torch.equal(a, b), f"{part}.{f}"
 
 
 def _leaves_equal(out, ref, what):
@@ -1443,6 +1469,10 @@ FLASH_BWD_CASES = [
     (2, 90, 200, 6, 1, 80, False, 0, 0),
     (1, 300, 300, 4, 2, 64, True, 70, 0),
     (1, 301, 301, 12, 2, 256, True, 70, 0),
+    # rows that see no key: causal positions before key 0 and window
+    # positions past the last (Skv 130: the forward's mean over 256)
+    (1, 200, 130, 8, 2, 64, True, 20, -40),
+    (1, 4096, 4096, 32, 32, 80, True, 0, 0),   # stablelm-3b: hd 80, MHA
     (2, 150, 203, 6, 1, 256, False, 45, 30),
 ]
 
@@ -1663,3 +1693,41 @@ def test_train_step_on_card_matches_cpu(cuda, arch):
         gap = float((a.cpu() - b).abs().max())
         assert gap <= 1e-4 * max(float(b.abs().max()), 1e-3 * top), (arch,
                                                                       gap)
+
+
+def test_remat_gradients_agree_on_the_card(cuda):
+    """The LM loss's gradients of reduced stablelm-3b (6 layers: a
+    checkpointed group of 4 and a leftover of 2) through ``forward`` with
+    and without ``remat`` on the card: every leaf within 1e-4 of that
+    leaf's largest, or of 1e-3 of the model's largest if that is more (the
+    train tests' tolerance); with ``remat`` each layer's forward kernel
+    launches twice, without once."""
+    import dataclasses
+
+    from repro_torch.core import losses
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("stablelm-3b").reduced(),
+                              n_layers=6)
+    params = TF.init_params(cfg, torch.Generator(device=cuda).manual_seed(2),
+                            device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32)).to(cuda)
+
+    def grads(remat):
+        live = tree_map(lambda p: p.detach().requires_grad_(), params)
+        logits, _ = TF.forward(cfg, live, {"tokens": tokens}, remat=remat)
+        loss = losses.lm_loss(logits, tokens)
+        return torch.autograd.grad(loss, tree_leaves(live))
+
+    f0 = FA.launches
+    a = grads(True)
+    torch.cuda.synchronize()
+    f1 = FA.launches
+    b = grads(False)
+    torch.cuda.synchronize()
+    assert (f1 - f0, FA.launches - f1) == (12, 6)
+    top = max(float(y.abs().max()) for y in b)
+    for x, y in zip(a, b):
+        gap = float((x - y).abs().max())
+        assert gap <= 1e-4 * max(float(y.abs().max()), 1e-3 * top), gap

@@ -91,9 +91,9 @@ def test_chip_smoke_rehearsal_on_cpu():
     RG-LRU hybrid with kernel H's and I's, and of the rest of the model
     zoo (MoE, xLSTM, the encoder-decoder, the VLM), and training (the
     agile CNNs, the LM step of the dense model and the hybrid, the
-    backward kernels of G and I): the kernels report names A to I and the
-    two backward kernels with the contract's keys (no launches on the
-    CPU), each with the paths that ran it."""
+    backward kernels of G and I), and the launch drivers: the kernels
+    report names A to I and the two backward kernels with the contract's
+    keys (no launches on the CPU), each with the paths that ran it."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
@@ -113,15 +113,17 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert paths["pairwise_l1"] == ["online"]
     serving = ["anytime", "dbrx-132b", "hybrid", "internvl2-2b",
                "qwen3-moe-235b-a22b", "seamless-m4t-medium"]
-    training = ["train qwen1.5-0.5b", "train recurrentgemma-9b"]
-    assert paths["decode_gqa"] == serving
+    training = ["launch train", "train qwen1.5-0.5b",
+                "train recurrentgemma-9b"]
+    assert paths["decode_gqa"] == sorted(serving + ["launch serve anytime"])
     assert paths["flash_attention"] == sorted(serving + training)
     assert paths["flash_attention_bwd"] == training
     assert paths["rglru_scan"] == ["hybrid", "train recurrentgemma-9b"]
     assert paths["rglru_scan_bwd"] == ["train recurrentgemma-9b"]
     assert paths["serve_fused_steps"] == ["serve", "stream"]
     assert paths["centroid_update"] == [
-        "online", "scalar", "serve", "stream", "telemetry"]
+        "launch serve scalar", "online", "scalar", "serve", "stream",
+        "telemetry"]
     assert paths["l1_topk2"] == paths["centroid_update"] + ["train_cnn"]
     assert paths["fleet_priority"] == ["replay", "telemetry"]
     for r in rows:
