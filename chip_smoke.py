@@ -60,7 +60,7 @@ Phases, each printing one line (any failure exits non-zero):
    250 test samples per task, policies x eta x capacitor x seed = 1,600
    devices, 255 s at dt = 55 ms.  ``simulate_fleet`` in the ``vmap`` and
    ``pallas`` (the ``fleet_priority`` kernel, one launch per step) modes
-   over the first 580 of its 4,636 steps (a depth cut: both are
+   over the first 290 of its 4,636 steps (a depth cut: both are
    host-bound), and in the ``fused`` mode (the ``fleet_fused_steps``
    kernel, one launch per segment) over those steps and the whole
    horizon; the three modes must agree on every result leaf over the cut,
@@ -200,7 +200,7 @@ Phases, each printing one line (any failure exits non-zero):
 12. the launch drivers as a user calls them, in process: (a)
     ``repro_torch.launch.train.main`` on stablelm-3b whole (32 layers,
     d_model 2,560, hd 80, bf16; 2.80 B parameters) at 16 x 4,096 in its 4
-    microbatches, 3 steps: s per step, tokens/s, peak memory, finite
+    microbatches, 2 steps: s per step, tokens/s, peak memory, finite
     losses, kernel G's forward and backward launches equal to the reckoned
     counts under activation checkpointing (256 and 256 per step); (b) one
     LM backward of stablelm-3b cut to 4 layers at 4 x 4,096 with and
@@ -210,7 +210,17 @@ Phases, each printing one line (any failure exits non-zero):
     E) and the anytime engine on qwen1.5-0.5b (kernel H), and a reduced
     xlstm-125m training run whose checkpoint under ``experiments/ckpt/``
     reloads equal;
-13. one JSON line naming every kernel with its launches, error, times and
+13. the mesh entry points on the card's meshes (``make_fleet_mesh()``,
+    ``make_host_mesh``: one block each), each mesh run equal on every leaf
+    to its run without a mesh: phase 4's grid over its first fortieth by
+    ``sweep`` in pallas mode and phase 4's config by ``run_segments`` in 3
+    pallas segments with a hook (kernel A), an objective block of phase
+    6's problem (B), phase 3's two adaptive serve runs (D, E), the reduced
+    qwen1.5-0.5b anytime engine (H) and ``launch.train.main --mesh host``
+    on the reduced config (G forward and backward); ``--mesh single-pod``
+    exits 1 naming the 256 cards needed and the cards visible.  Counts
+    zeroed before the mesh runs and read after;
+14. one JSON line naming every kernel with its launches, error, times and
     bound.  Every phase prints its seconds.
 
 Depth cuts that pay for phase 11: the hybrid anytime path (phase 9) runs
@@ -220,7 +230,9 @@ anytime engine (phase 8) 64 steps (from 128), and the telemetry sweep
 12: the replay's vmap and pallas runs (phase 4) take 580 steps (from
 1,159), the telemetry sweep (phase 4a) 116 (from 232), and the hybrid
 anytime path (phase 9) 16 decode steps and a 32-step engine (from 32 and
-64).
+64).  Depth cuts that pay for phase 13: the replay's vmap and pallas runs
+(phase 4) take 290 steps (from 580) and the stablelm-3b training run
+(phase 12a) 2 steps (from 3).
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32``): f32 products are full f32, as on
@@ -263,6 +275,9 @@ ONLINE_KERNELS = ("fleet_fused_steps", "l1_topk2", "centroid_update",
                   "pairwise_l1")
 TELEMETRY_KERNELS = ("fleet_priority", "l1_topk2", "centroid_update")
 TRAIN_CNN_KERNELS = ("l1_topk2",)
+MESH_KERNELS = ("fleet_priority", "fleet_fused_steps", "l1_topk2",
+                "centroid_update", "decode_gqa", "flash_attention",
+                "flash_attention_bwd")
 REPLACES = {
     "fleet_priority": "src/repro/kernels/fleet_priority.py:83",
     "fleet_fused_steps": "src/repro/kernels/fleet_step.py:114",
@@ -430,7 +445,7 @@ FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
              stream_chunks=8, min_stream_jobs=1_000_000,
              l1_rows=2 * 25 * 5, l1_dim=150, l1_k=5,
              cu_shape=(5, 8192, 64), cu_wide=(8, 8192, 1024),
-             replay_jobs=250, replay_cut_steps=580,
+             replay_jobs=250, replay_cut_steps=290,
              policies=("zygarde", "edf", "edf-m", "rr"),
              etas=(0.2, 0.5, 0.71, 0.9, 1.0),
              capacitors_f=(0.01, 0.025, 0.05, 0.1, 0.2), seeds=16,
@@ -494,7 +509,7 @@ FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
                                (1, 4096, 4096, 32, 32, 80, True, 0, 0)),
              rglru_bwd_shapes=((1, 4096, 4096), (2, 512, 4096)),
              launch=LaunchRun(
-                 train=("--arch", "stablelm-3b", "--steps", "3", "--batch",
+                 train=("--arch", "stablelm-3b", "--steps", "2", "--batch",
                         "16", "--seq", "4096", "--log-every", "1"),
                  probe=("stablelm-3b", 4, 4, 4096, False), check_layers=6,
                  serve_scalar=("--engine", "scalar", "--tasks", "mnist",
@@ -1956,7 +1971,7 @@ def _replay_phase(device, scale: Scale, models, sets) -> dict:
     b_row.update(ms_big_fleet=ms_big, device_ms_big_fleet=dev_big,
                  big_fleet=len(meta_big))
     return dict(launches=launches, a_row=a_row, b_row=b_row, cfg=cfg,
-                statics=statics)
+                statics=statics, grid=grid)
 
 
 def _priority_inputs(device, cfg, statics):
@@ -4073,6 +4088,190 @@ def _launch_phase(device, scale: Scale) -> dict:
     return out
 
 
+def _train_plain(cfg, device, steps: int, batch: int, seq: int):
+    """``launch.train``'s loop without a mesh: parameters from a generator
+    on ``device`` seeded 0, ``make_lm_tokens`` seeded 0, lr 3e-4."""
+    import torch
+
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.models import transformer as T
+    from repro_torch.train import adamw_init, make_train_step
+
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, lr=3e-4)
+    tokens = make_lm_tokens(cfg.vocab, seq, batch * steps, seed=0)
+    for i in range(steps):
+        params, opt, _ = step(params, opt, {"tokens": torch.from_numpy(
+            tokens[i * batch:(i + 1) * batch]).to(device)})
+    return params
+
+
+def _same_carry(a, b, what: str) -> None:
+    for part in ("dev", "bank", "log"):
+        _equal_leaves(getattr(a, part), getattr(b, part), f"{what} {part}")
+
+
+def _mesh_phase(device, scale: Scale, replay: dict, serve: dict, models,
+                sets) -> dict:
+    """Phase 13, the mesh entry points on the card's meshes
+    (``make_fleet_mesh()``: every visible card, one block each;
+    ``make_host_mesh``: 1 x 1), each mesh run held equal, on every leaf, to
+    its run without a mesh: ``sweep`` of phase 4's grid over its first
+    fortieth in pallas mode (kernel A), ``run_segments`` of phase 4's
+    config over those steps in 3 pallas segments with a hook that rewrites
+    eta (it must see the device axis padded to the mesh size), one block
+    of phase 6's objective (kernel B), phase 3's serve runs with
+    adaptation on both bank modes (kernels D and E; phase 3's own runs are
+    the runs without a mesh), the reduced qwen1.5-0.5b anytime engine on
+    the host mesh (kernel H) and ``launch.train.main --mesh host`` on the
+    reduced config (kernel G forward and backward) against the same steps
+    without a mesh; then ``--mesh single-pod`` must exit 1 naming the 256
+    cards needed and the cards visible.  The runs without a mesh go first;
+    the counts are zeroed just before the mesh runs and read just after."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.fleet import run_segments, sweep
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as TR
+    from repro_torch.launch.mesh import make_fleet_mesh, make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import AnytimeConfig, AnytimeServeEngine
+    from repro_torch.train.optimizer import tree_leaves
+
+    fleet_mesh, host = make_fleet_mesh(device=device), make_host_mesh(device)
+    cfg, statics = replay["cfg"], replay["statics"]
+    n = -(-statics.n_steps // 40)
+    grid = dataclasses.replace(replay["grid"], horizon=n * statics.dt)
+    cut = _steps(statics, n)
+    seen = []
+
+    def hook(seg, t_end, cfg, carry):
+        seen.append(cfg.n_devices)
+        return cfg._replace(eta=torch.full_like(cfg.eta, 0.4 + 0.2 * seg))
+
+    problem, space = _tune_problem(device, scale)
+    block = space.to_dict(space.sample(np.random.default_rng(1),
+                                       scale.tune_pop))
+    any_cfg = get_config("qwen1.5-0.5b").reduced()
+    any_params = T.init_params(
+        any_cfg, torch.Generator(device=device).manual_seed(1), device=device)
+    any_sc = AnytimeConfig(policy="edf", batch_slots=2, max_steps=48,
+                           prompt_len=4, max_new_tokens=4)
+    any_reqs = _any_requests(any_cfg, dataclasses.replace(
+        scale.anytime, requests=6, prompt=4, new=4),
+        np.random.default_rng(9))
+    train_cfg = get_config("qwen1.5-0.5b").reduced()
+    steps, B, S = 2, 2, 32
+    argv = ["--arch", "qwen1.5-0.5b", "--reduced", "--steps", str(steps),
+            "--batch", str(B), "--seq", str(S), "--log-every", "1",
+            "--device", device.type]
+    requests = _serve_requests(scale, sets)
+    seeds = list(range(scale.n_devices))
+
+    # ---- the runs without a mesh ------------------------------------------
+    t0 = time.perf_counter()
+    plain = dict(sweep=sweep(grid, mode="pallas", device=device)[0],
+                 segments=run_segments(cfg, cut, 3, hook=hook,
+                                       mode="pallas"),
+                 objective=problem.objective()(block),
+                 anytime=AnytimeServeEngine(any_cfg, any_params,
+                                            serve_cfg=any_sc).run(any_reqs),
+                 train=_train_plain(train_cfg, device, steps, B, S))
+    _sync(device)
+    plain_s = time.perf_counter() - t0
+
+    # ---- the mesh path: counts zeroed just before, read just after ------
+    ops.reset_launch_counts()
+    secs = {}
+
+    def timed(name, fn):
+        out, secs[name] = _timed(fn, device)
+        return out
+
+    swept, meta = timed("sweep", lambda: sweep(
+        grid, mode="pallas", device=device, mesh=fleet_mesh))
+    segments = timed("run_segments", lambda: run_segments(
+        cfg, cut, 3, hook=hook, mode="pallas", mesh=fleet_mesh))
+    objective = timed("objective", lambda: dataclasses.replace(
+        problem, mesh=fleet_mesh).objective()(block))
+    served = {m: timed(f"serve {m}", lambda m=m: _serve_engine(
+        device, scale, models, True, m).run(
+        requests, scale.n_devices, seeds=seeds, n_segments=scale.n_segments,
+        mesh=fleet_mesh)) for m in ("per-device", "shared")}
+    anytime = timed("anytime", lambda: AnytimeServeEngine(
+        any_cfg, any_params, serve_cfg=any_sc).run(any_reqs, mesh=host))
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        trained = timed("train", lambda: TR.main(argv + ["--mesh", "host"]))
+    mesh_s = sum(secs.values())
+    counts = ops.launch_counts()
+    launches = {k: counts[k] for k in MESH_KERNELS}
+    print(f"mesh path launches {json.dumps(launches)}")
+    if device.type == "cuda":
+        want = dict(
+            fleet_priority=2 * fleet_mesh.size * n, fleet_fused_steps=1,
+            **{k: sum(serve["run_launches"][f"scan adapt {m}"][k]
+                      for m in served)
+               for k in ("l1_topk2", "centroid_update")},
+            **_train_launches(train_cfg, steps * train_cfg.train_microbatches))
+        got = {k: launches[k] for k in want}
+        if got != want or launches["decode_gqa"] == 0:
+            raise AssertionError(f"mesh path launched {launches}, expected "
+                                 f"{want} and kernel H at least once")
+
+    # ---- outputs are right --------------------------------------------------
+    _equal_leaves(plain["sweep"], swept, "sweep over the fleet mesh")
+    for what, a, b in zip(("result", "carry"), plain["segments"], segments):
+        _equal_leaves(a, b, f"run_segments over the fleet mesh: {what}")
+    D = cfg.n_devices
+    pad = -(-D // fleet_mesh.size) * fleet_mesh.size
+    if seen != [D] * 3 + [pad] * 3 or len(meta) != D:
+        raise AssertionError(f"the hook saw {seen} devices, not {D} without "
+                             f"the mesh and {pad} with it, or the sweep "
+                             f"laid out {len(meta)} devices")
+    if not np.array_equal(objective, plain["objective"]):
+        raise AssertionError("objective over the fleet mesh != without")
+    for m, r in served.items():
+        _same_carry(serve["runs"][f"scan adapt {m}"].carry, r.carry,
+                    f"serve ({m}) over the fleet mesh")
+    for f in ("status", "finish", "agree", "tokens", "depth_sum"):
+        if not np.array_equal(getattr(anytime, f),
+                              getattr(plain["anytime"], f)):
+            raise AssertionError(f"anytime engine over the host mesh: {f}")
+    if "mesh={'data': 1, 'model': 1}" not in text.getvalue() or not all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(trained["params"]),
+                                              tree_leaves(plain["train"]))):
+        raise AssertionError("launch.train --mesh host != the same steps "
+                             "without a mesh")
+    err = io.StringIO()
+    code = 0
+    with contextlib.redirect_stderr(err):
+        try:
+            TR.main(argv + ["--mesh", "single-pod"])
+        except SystemExit as e:
+            code = e.code
+    visible = torch.cuda.device_count()
+    if code != 1 or f"needs 256 CUDA cards; {visible} " not in err.getvalue():
+        raise AssertionError(f"launch.train --mesh single-pod: exit {code}, "
+                             f"{err.getvalue().strip()!r}")
+    print(f"mesh ({fleet_mesh!r}, {host!r}): sweep of {len(meta)} devices "
+          f"over {n} steps (pallas), run_segments in 3 segments with a hook "
+          f"(saw {pad} devices), an objective block of {scale.tune_pop}, "
+          f"serve in both bank modes, the reduced anytime engine and "
+          f"launch.train --mesh host each equal to its run without a mesh "
+          f"on every leaf; mesh runs {mesh_s:.2f} s ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+          + f"), runs without {plain_s:.2f} s (serve's are phase 3's); "
+          f"--mesh single-pod exits 1: {err.getvalue().strip()}")
+    return dict(launches=launches, seconds=secs)
+
+
 def _unnest(row: dict) -> list:
     """A kernel check's rows as one flat list: its first row, then the
     rest (``shapes``)."""
@@ -4129,6 +4328,8 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
     zoo = _phase("10 (the model zoo)", _zoo_phase, device, scale)
     train = _train_phase(device, scale)
     launch = _phase("12 (launch drivers)", _launch_phase, device, scale)
+    mesh = _phase("13 (mesh)", _mesh_phase, device, scale, replay, serve,
+                  models, sets)
     # each path's launches were counted from zero; a kernel on several
     # paths reports their sum and the count of each
     paths = dict(serve=serve["launches"], scalar=scalar["launches"],
@@ -4141,7 +4342,8 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
                  **{f"train {run.arch}": train[run.arch]["launches"]
                     for run in scale.train_lm},
                  **{f"launch {k}": v["launches"] for k, v in launch.items()
-                    if "launches" in v})
+                    if "launches" in v},
+                 mesh=mesh["launches"])
     g_row, h_row = (dict(row, shapes=row["shapes"] + _unnest(z),
                          max_abs_err=max(row["max_abs_err"],
                                          z["max_abs_err"]))

@@ -28,8 +28,11 @@ Recognised parameter names:
 
 Unset cells fall back to the base config's threshold table.
 ``task_weights`` scalarizes the per-task metric columns instead of the
-aggregate counts.  ``mesh=`` (sharding the population across cards) comes
-with a later slice of the port and raises ``NotImplementedError``.
+aggregate counts.  ``mesh=`` cuts each block's devices over a
+:class:`repro_torch.launch.mesh.Mesh` (:func:`repro_torch.fleet.simulator
+.simulate_fleet_sharded`, one launch of the fused kernel per mesh device)
+and reduces the scores after the join, so the sharded objective equals
+the unsharded one bit for bit.
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ from ..core._fma import fma_f32
 from ..core.energy import Capacitor, Harvester, eta_factor
 from ..core.scheduler import TaskSpec
 from ..fleet import grid as fgrid
-from ..fleet.simulator import simulate_fleet
+from ..fleet.simulator import simulate_fleet_sharded
 from ..fleet.state import FleetConfig, FleetStatics
 from ..kernels.l1_topk2 import ordered_sum
 
@@ -282,14 +285,9 @@ class TuneProblem:
     task_weights: Optional[Sequence[float]] = None
     # base per-unit utility-test thresholds, (U,) shared or (K, U) per task
     exit_thresholds: Optional[Sequence[float]] = None
-    mesh: Optional[object] = None       # not ported: raises
+    # cuts each block's devices over a launch.mesh.Mesh
+    mesh: Optional[object] = None
     device: object = "cuda"
-
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "TuneProblem(mesh=...) is not ported yet (it comes with the "
-                "launch slice)")
 
     @property
     def tasks(self) -> tuple[TaskSpec, ...]:
@@ -354,7 +352,8 @@ class TuneProblem:
 
     def _evaluate(self, params: Mapping[str, np.ndarray]) -> torch.Tensor:
         """Score one block of ``n`` candidates as given (no bucketing):
-        ``(n,)`` float32 scores on the problem's device."""
+        ``(n,)`` float32 scores on the problem's device (under a mesh, the
+        mesh's first device)."""
         base, statics = self._base
         d0 = base.n_devices
         dev = base.eta.device
@@ -364,7 +363,9 @@ class TuneProblem:
             k: torch.as_tensor(np.asarray(v, np.float32), device=dev
                                ).repeat_interleave(d0)
             for k, v in params.items()})
-        res = simulate_fleet(cfg, statics, mode="fused")
+        res = simulate_fleet_sharded(cfg, statics, mesh=self.mesh,
+                                     mode="fused")
+        dev = res.released.device
         task_w = None if self.task_weights is None else self._task_w.to(dev)
         return _compiled_scores(res, d0, self.miss_weight,
                                 self.optional_weight, task_w)
@@ -384,6 +385,10 @@ class TuneProblem:
             # it fixes which padded rows exist; the real rows' scores do
             # not depend on them
             n_pad = 1 << (n - 1).bit_length() if n > 1 else 1
+            if self.mesh is not None:
+                # whole blocks: the devices divide over the mesh unpadded
+                while (n_pad * self.n_cells) % self.mesh.size:
+                    n_pad += 1
             if n_pad != n:
                 arrs = {k: np.concatenate([v, np.repeat(v[:1], n_pad - n)])
                         for k, v in arrs.items()}

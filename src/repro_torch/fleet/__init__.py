@@ -5,6 +5,7 @@ Public API::
 
     result, meta = fleet.sweep(fleet.SweepGrid(task=..., policies=(...)))
     result = fleet.simulate_fleet(cfg, statics, mode="fused")
+    result = fleet.simulate_fleet_sharded(cfg, statics, mesh=mesh)
     result, carry = fleet.run_segments(cfg, statics, n_segments=8, hook=...)
     cfg, statics = fleet.from_sim_config(tasks, harv, eta, cap, sim)
 """
@@ -25,6 +26,7 @@ from .simulator import (  # noqa: F401
     init_fleet,
     run_segments,
     simulate_fleet,
+    simulate_fleet_sharded,
 )
 from .state import (  # noqa: F401
     DeviceState,

@@ -347,12 +347,11 @@ def sweep(grid: SweepGrid, use_pallas=None, mesh=None, mode=None,
 
     Returns ``(FleetResult, meta)``: the stacked ``(D,)`` metrics (plus the
     ``(D, K)`` per-task breakdowns) and the per-device metadata rows.
-    ``mesh`` (device-axis sharding) comes with a later slice of the port
-    and raises ``NotImplementedError``."""
-    from .simulator import simulate_fleet
+    ``mesh`` (e.g. :func:`repro_torch.launch.mesh.make_fleet_mesh`) cuts
+    the device axis over its devices (:func:`simulate_fleet_sharded`): the
+    results equal the call without a mesh bit for bit."""
+    from .simulator import simulate_fleet_sharded
 
-    if mesh is not None:
-        raise NotImplementedError("sweep(mesh=...) is not ported yet")
     cfg, statics, meta = build(grid, device)
-    return simulate_fleet(cfg, statics, use_pallas=use_pallas,
-                          mode=mode), meta
+    return simulate_fleet_sharded(cfg, statics, mesh=mesh,
+                                  use_pallas=use_pallas, mode=mode), meta

@@ -28,8 +28,14 @@ the ``vmap`` and ``pallas`` modes: each step emits the tier's columns
 (:mod:`repro_torch.telemetry.trace`), the segment reduces them once, and
 at the ``"full"`` tier the rare ring and histogram events are folded on
 the host.  The simulation is the same bit for bit either way.
-``mode="fused"`` rejects it, as the reference does.  ``mesh=`` comes with
-a later slice of the port and raises ``NotImplementedError``.
+``mode="fused"`` rejects it, as the reference does.
+
+``mesh=`` (:func:`simulate_fleet_sharded`, :func:`run_segments`) cuts the
+device axis over a :class:`repro_torch.launch.mesh.Mesh` by
+:func:`repro_torch.launch.sharding.shard_fleet_config`: each block runs on
+its own mesh device, in block order, and the results are joined on the
+first one and sliced back to the real devices, equal bit for bit to the
+run without a mesh.
 """
 from __future__ import annotations
 
@@ -77,13 +83,6 @@ def _resolve_mode(mode: Optional[str],
     if mode not in FLEET_MODES:
         raise ValueError(f"mode must be one of {FLEET_MODES}, got {mode!r}")
     return mode
-
-
-def _not_ported(**kw) -> None:
-    for name, value in kw.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}= is not ported yet (it comes with a later slice)")
 
 
 def init_fleet(cfg: FleetConfig, statics: FleetStatics) -> DeviceState:
@@ -302,12 +301,24 @@ def run_segments(cfg: FleetConfig, statics: FleetStatics,
     ``telemetry_carry`` resumes a prior telemetry the way ``carry``
     resumes the simulation.  The simulation is the same either way.
 
+    ``mesh`` cuts the device axis over the mesh as
+    :func:`simulate_fleet_sharded` does; the carry and the telemetry are
+    placed like the config (:func:`repro_torch.launch.sharding
+    .shard_fleet_carry`).  The hook sees the padded device axis, joined on
+    the first mesh device; a config it returns is placed again, so config
+    and carry stay aligned block for block.  The result, carry and
+    telemetry are sliced back to the real devices.  ``mode="fused"`` with a
+    mesh is the reference's ``ValueError``.
+
     Returns ``(FleetResult, DeviceState)``: the finalized metrics and the
     end-of-horizon carry (plus the telemetry when it is on).
     """
-    _not_ported(mesh=mesh)
+    from ..launch import sharding as SH
+
     mode = _resolve_mode(mode, use_pallas)
     _no_fused_telemetry(mode, telemetry)
+    if mode == "fused" and mesh is not None:
+        raise ValueError("mode='fused' does not support mesh sharding yet")
     remaining = statics.n_steps - int(start_step)
     if not 0 <= int(start_step) <= statics.n_steps:
         raise ValueError(
@@ -318,12 +329,21 @@ def run_segments(cfg: FleetConfig, statics: FleetStatics,
             f"got {n_segments}")
     if telemetry is None and telemetry_carry is not None:
         raise ValueError("telemetry_carry requires telemetry=TelemetryConfig")
-    if carry is None:
-        carry = init_fleet(cfg, statics)
-    tel = None
+
+    def place(tree):
+        """``tree`` as per-block trees: itself without a mesh."""
+        if mesh is None:
+            return [tree]
+        return SH.blocks(SH.shard_fleet_carry(mesh, tree))
+
+    n_real = cfg.n_devices
+    cfgs = place(cfg)
+    carries = ([init_fleet(c, statics) for c in cfgs] if carry is None
+               else place(carry))
+    tels = [None] * len(cfgs)
     if telemetry is not None:
-        tel = (telemetry_carry if telemetry_carry is not None
-               else T.init_fleet_telemetry(telemetry, cfg))
+        tels = ([T.init_fleet_telemetry(telemetry, c) for c in cfgs]
+                if telemetry_carry is None else place(telemetry_carry))
     hook_wants_tel = (hook is not None and telemetry is not None
                       and _hook_takes_telemetry(hook))
     sizes = [len(c) for c in np.array_split(np.arange(remaining),
@@ -331,26 +351,58 @@ def run_segments(cfg: FleetConfig, statics: FleetStatics,
     i0 = int(start_step)
     for seg, n in enumerate(sizes):
         if n:
-            if tel is None:
-                carry = _run_steps(cfg, carry, i0, statics, n, mode)
-            else:
-                carry, tel = _run_steps_tel(cfg, carry, tel, i0, statics, n,
-                                            mode, telemetry)
+            for b, c in enumerate(cfgs):
+                if telemetry is None:
+                    carries[b] = _run_steps(c, carries[b], i0, statics, n,
+                                            mode)
+                else:
+                    carries[b], tels[b] = _run_steps_tel(
+                        c, carries[b], tels[b], i0, statics, n, mode,
+                        telemetry)
             i0 += n
         if hook is not None:
             t_end = i0 * statics.dt
+            cfg_all, carry_all = SH.join(cfgs), SH.join(carries)
             if hook_wants_tel:
-                new_cfg = hook(seg, t_end, cfg, carry,
-                               telemetry=T_export.summarize(tel, t_end))
+                new_cfg = hook(seg, t_end, cfg_all, carry_all,
+                               telemetry=T_export.summarize(SH.join(tels),
+                                                            t_end))
             else:
-                new_cfg = hook(seg, t_end, cfg, carry)
+                new_cfg = hook(seg, t_end, cfg_all, carry_all)
             if new_cfg is not None:
-                if tel is not None:
-                    changed = _knob_change_mask(cfg, new_cfg)
+                if telemetry is not None:
+                    changed = _knob_change_mask(cfg_all, new_cfg)
                     if changed is not None and changed.any():
-                        tel = T.record_knob_updates(tel, changed, t_end)
-                cfg = new_cfg
-    res = finalize_fleet(cfg, carry, statics)
-    if tel is None:
+                        tels = place(T.record_knob_updates(
+                            SH.join(tels), changed, t_end))
+                cfgs = place(new_cfg)
+    res = SH.join([finalize_fleet(c, k, statics)
+                   for c, k in zip(cfgs, carries)])
+    res, carry = (SH.take_rows(x, n_real) for x in (res, SH.join(carries)))
+    if telemetry is None:
         return res, carry
-    return res, carry, tel
+    return res, carry, SH.take_rows(SH.join(tels), n_real)
+
+
+def simulate_fleet_sharded(cfg: FleetConfig, statics: FleetStatics,
+                           mesh=None, use_pallas: Optional[bool] = None,
+                           mode: Optional[str] = None) -> FleetResult:
+    """:func:`simulate_fleet` with the device axis cut over ``mesh``.
+
+    The fleet axis is independent (no device reads another's state), so
+    each block of :func:`repro_torch.launch.sharding.shard_fleet_config`
+    runs alone on its mesh device, in block order.  ``D`` is padded to a
+    multiple of the mesh size by wrapping around the existing configs and
+    the padding is cut from the joined result, so every real device's
+    result equals the run without a mesh bit for bit.  On a mesh of one
+    device that is the run itself.  ``mesh=None`` is :func:`simulate_fleet`.
+    """
+    mode = _resolve_mode(mode, use_pallas)
+    if mesh is None:
+        return simulate_fleet(cfg, statics, mode=mode)
+    from ..launch import sharding as SH
+
+    n_real = cfg.n_devices
+    res = [simulate_fleet(b, statics, mode=mode)
+           for b in SH.blocks(SH.shard_fleet_config(mesh, cfg))]
+    return SH.take_rows(SH.join(res), n_real)

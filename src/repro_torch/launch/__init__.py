@@ -1,8 +1,10 @@
 """Launch drivers (port of :mod:`repro.launch`): the LM training CLI
 (:mod:`repro_torch.launch.train`) and the serving CLI
-(:mod:`repro_torch.launch.serve`).  Both run on the CUDA card, or on the
-CPU under ``--device cpu``; the pod meshes of the reference come with the
-mesh slice of the port."""
+(:mod:`repro_torch.launch.serve`), both on the CUDA card or on the CPU
+under ``--device cpu``; the meshes and their logical-axis rules
+(:mod:`repro_torch.launch.mesh`), the spec tables and the placement over a
+mesh (:mod:`repro_torch.launch.sharding`), and the shape stand-ins of every
+model input (:mod:`repro_torch.launch.inputs`)."""
 from __future__ import annotations
 
 import sys

@@ -2,8 +2,14 @@
 
 Runs the LM ``train_step`` for an assigned architecture on the CUDA card
 (``--device cpu``: the CPU; ``--reduced`` for the smoke-scale variant).
-Parameters are drawn on the device from a ``torch.Generator`` seeded with
-``--seed`` (no host copy of a multi-billion-parameter model), data comes
+``--mesh host`` (the default) is the 1 x 1 ``("data", "model")`` mesh of
+that device: the parameter and AdamW specs are inferred from a shape-only
+tree (``meta``) and the parameters placed by them, whole on the one
+device.  ``--mesh single-pod`` / ``multi-pod`` need 256 / 512 cards and
+exit 1 with :func:`repro_torch.launch.mesh.make_production_mesh`'s message
+on a machine with fewer.  Parameters are drawn on the device from a
+``torch.Generator`` seeded with ``--seed`` (no host copy of a
+multi-billion-parameter model), data comes
 from the deterministic synthetic LM stream, each step is
 :func:`repro_torch.train.make_train_step` in the config's
 ``train_microbatches`` (activation checkpointing per ``remat_every``
@@ -31,6 +37,14 @@ from ..models import transformer as tfm
 from ..train import adamw_init, make_train_step, save_checkpoint
 from ..train.optimizer import tree_leaves
 from . import resolve_device
+from . import sharding as shd
+from .mesh import make_host_mesh, make_production_mesh
+
+
+def build_mesh(kind: str, device):
+    if kind == "host":
+        return make_host_mesh(device)
+    return make_production_mesh(multi_pod=(kind == "multi-pod"))
 
 
 def _sync(device) -> None:
@@ -47,10 +61,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--mesh", choices=("host",), default="host",
-                    help="one device: the card, or the CPU under --device "
-                         "cpu (the reference's single-pod and multi-pod "
-                         "meshes come with the port's mesh slice)")
+    ap.add_argument("--mesh", choices=("host", "single-pod", "multi-pod"),
+                    default="host",
+                    help="host: one device (the card, or the CPU under "
+                         "--device cpu); single-pod / multi-pod: 256 / 512 "
+                         "cards")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--ckpt-path", default="experiments/ckpt/train")
     ap.add_argument("--log-every", type=int, default=10)
@@ -62,13 +77,26 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    try:
+        mesh = build_mesh(args.mesh, device)
+    except ValueError as e:
+        ap.exit(1, f"{ap.prog}: --mesh {args.mesh}: {e}\n")
+    if mesh.size > 1:
+        ap.exit(1, f"{ap.prog}: --mesh {args.mesh}: the step runs on one "
+                   f"device; {mesh.size} need the model's tensor-parallel "
+                   f"split\n")
+    shapes = tfm.init_params(cfg, device="meta")
+    psp = shd.param_specs(mesh, shapes)
+    osp = shd.param_specs(mesh, adamw_init(shapes))
     params = tfm.init_params(
         cfg, torch.Generator(device=device).manual_seed(args.seed),
         device=device)
-    opt = adamw_init(params)
+    params = shd.blocks(shd.device_put(params, shd.named(mesh, psp)))[0]
+    opt = shd.blocks(shd.device_put(adamw_init(params),
+                                    shd.named(mesh, osp)))[0]
     n_params = sum(x.numel() for x in tree_leaves(params))
     print(f"arch={cfg.name} params={n_params / 1e6:.1f}M "
-          f"mesh={{'data': 1, 'model': 1}} device={device}")
+          f"mesh={mesh.shape} device={device}")
 
     step_fn = make_train_step(cfg, lr=args.lr)
 

@@ -1,17 +1,20 @@
 """Shared building blocks: norms, activations, RoPE, initializers (port of
 :mod:`repro.models.common`).
 
-The reference's logical-axis sharding hooks (``shard``, the mesh rules)
-have no counterpart: the port runs on one card, and an entry point given a
-``mesh`` raises ``NotImplementedError`` (the launch item of the ROADMAP).
-Initializers draw from an explicit :class:`torch.Generator`; their
-distributions and scales are the reference's, their numbers are not (the
-tests carry the reference's weights over with
-:func:`repro_torch.convert.transformer_params`).
+:func:`sanitize_dim` is the reference's rule for dropping the mesh axes a
+dimension does not divide (:mod:`repro_torch.launch.sharding` infers its
+specs with it).  The reference's in-model sharding constraints (``shard``,
+``logical_axis_rules``) split one model over several cards and have no
+counterpart yet.  Initializers draw from an explicit
+:class:`torch.Generator`; their distributions and scales are the
+reference's, their numbers are not (the tests carry the reference's weights
+over with :func:`repro_torch.convert.transformer_params`).  A
+:class:`ShapeOnly` generator draws nothing: its trees live on the ``meta``
+device, with the shapes and dtypes of the real ones.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -26,13 +29,47 @@ def dtype_of(cfg) -> torch.dtype:
     return DTYPES[cfg.dtype]
 
 
+def sanitize_dim(axes, dim: int, axis_sizes: Mapping[str, int]):
+    """Drop the mesh axes a dim is not divisible by (e.g. 2 KV heads on a
+    16-way model axis fall back to replication).  Axes are kept greedily in
+    order, each while the product of those kept so far still divides
+    ``dim``; an axis the sizes do not name counts as size 1."""
+    if axes is None:
+        return None
+    if isinstance(axes, str):
+        axes = (axes,)
+    total, kept = 1, []
+    for a in axes:
+        sz = axis_sizes.get(a, 1)
+        if dim % (total * sz) == 0:
+            kept.append(a)
+            total *= sz
+    if not kept:
+        return None
+    return tuple(kept) if len(kept) > 1 else kept[0]
+
+
 # --------------------------------------------------------------------------- #
 # Initializers (parameters stored in the config's dtype).
 # --------------------------------------------------------------------------- #
 
 
-def _normal(shape, generator: torch.Generator) -> torch.Tensor:
-    return torch.randn(tuple(shape), generator=generator,
+class ShapeOnly:
+    """A generator stand-in that draws nothing: initializers given it make
+    tensors on the ``meta`` device (a ``torch.Generator`` cannot live
+    there), so a whole-size parameter tree costs no memory."""
+
+    device = torch.device("meta")
+
+
+def draws(generator):
+    """``generator`` as the ``generator=`` of a ``torch`` random call:
+    ``None`` for a :class:`ShapeOnly` one (meta tensors hold no values)."""
+    return None if isinstance(generator, ShapeOnly) else generator
+
+
+def _normal(shape, generator) -> torch.Tensor:
+    return torch.randn(tuple(shape), generator=draws(generator),
                        device=generator.device, dtype=_F32)
 
 

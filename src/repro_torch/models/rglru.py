@@ -45,7 +45,7 @@ import torch
 
 from ..core._fma import xla_exp_f32
 from ..kernels import ops as kops
-from .common import scaled_normal, zeros
+from .common import draws, scaled_normal, zeros
 
 C_FACTOR = 8.0
 _F32 = torch.float32
@@ -59,7 +59,7 @@ def init_rglru(g: torch.Generator, width: int, dtype,
     ``(0.9, 0.999)``."""
     dh = width // n_blocks
     dev = g.device
-    u = torch.rand((width,), generator=g, device=dev, dtype=_F32)
+    u = torch.rand((width,), generator=draws(g), device=dev, dtype=_F32)
     u = u * (0.999 - 0.9) + 0.9
     lam = torch.log(torch.expm1(-torch.log(u) / C_FACTOR))
     return {

@@ -51,6 +51,7 @@ from .common import (
     embed_init,
     norm_init,
     scaled_normal,
+    ShapeOnly,
     zeros,
 )
 
@@ -372,9 +373,12 @@ def init_params(cfg, generator: Optional[torch.Generator] = None, *,
                 seed: int = 0, device="cuda") -> dict:
     """Random parameters in the reference's layout and distributions, drawn
     from ``generator`` (default: a fresh one on ``device`` seeded with
-    ``seed``); the parameters live on the generator's device."""
+    ``seed``); the parameters live on the generator's device.  On
+    ``device="meta"`` nothing is drawn: the tree holds the shapes and
+    dtypes only (:class:`~repro_torch.models.common.ShapeOnly`)."""
     if generator is None:
-        generator = torch.Generator(device=device).manual_seed(seed)
+        generator = (ShapeOnly() if torch.device(device).type == "meta"
+                     else torch.Generator(device=device).manual_seed(seed))
     g = generator
     dtype = dtype_of(cfg)
     period, n_scan, rem_kinds = _layer_plan(cfg)

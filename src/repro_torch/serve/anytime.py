@@ -47,8 +47,11 @@ How the port runs the reference's jitted scan eagerly:
   .record_anytime_step`: admissions, on-time and late completions, the
   per-token depth histogram, slack, busy slots, energy); the result
   arrays are the same bit for bit either way.
-* ``mesh=`` raises ``NotImplementedError``: it comes with the launch item
-  of the ROADMAP.
+* ``mesh=`` places the decode state by
+  :func:`repro_torch.launch.sharding.state_specs` (the reference's batch
+  and kv-head split) on a mesh of one device; a larger mesh raises
+  ``NotImplementedError``: splitting the kv heads over ``model`` is tensor
+  parallelism.
 """
 from __future__ import annotations
 
@@ -562,16 +565,26 @@ class AnytimeServeEngine:
         any split); ``hook(seg_index, carry, knobs)`` runs between segments
         and may return replacement :class:`AnytimeKnobs`.  ``telemetry``
         (a :class:`repro_torch.telemetry.TelemetryConfig`) fills
-        ``AnytimeResult.telemetry``.
+        ``AnytimeResult.telemetry``.  ``mesh`` (a
+        :class:`repro_torch.launch.mesh.Mesh` of one device) places the
+        decode state by :func:`repro_torch.launch.sharding.state_specs`.
         """
-        if mesh is not None:
+        if mesh is not None and mesh.size > 1:
             raise NotImplementedError(
-                "run(mesh=...) is not ported yet: it comes with the launch "
-                "item (ROADMAP Queue 1)")
+                f"AnytimeServeEngine.run over a mesh of {mesh.size} devices: "
+                "the decode state's kv heads split over the 'model' axis, "
+                "which is tensor parallelism, and the slots' batch over "
+                "'data'; the engine runs on a mesh of one device")
         tables = (requests if isinstance(requests, AnytimeTables)
                   else self.pack(requests))
         knobs = knobs if knobs is not None else self.default_knobs()
         carry = self.init_carry(tables, telemetry=telemetry)
+        if mesh is not None:
+            from ..launch import sharding as SH
+
+            carry = carry._replace(state=SH.blocks(SH.device_put(
+                carry.state,
+                SH.named(mesh, SH.state_specs(mesh, carry.state))))[0])
         T_total = self.scfg.max_steps
         if not 1 <= n_segments <= T_total:
             raise ValueError(f"n_segments {n_segments} outside "

@@ -852,6 +852,30 @@ class FleetServeEngine:
     # Public entry point.
     # ------------------------------------------------------------------ #
 
+    def _place(self, mesh, cfg, carry, tables, tel, per_dev: bool):
+        """``run``'s state placed over a one-device ``mesh`` by the sharding
+        functions, as the one block that device runs."""
+        from ..launch import sharding as SH
+
+        D = cfg.n_devices
+        if D % mesh.size:
+            raise ValueError(
+                f"D={D} devices must divide over mesh size {mesh.size}")
+        if mesh.size > 1:
+            raise NotImplementedError(
+                f"FleetServeEngine.run over a mesh of {mesh.size} devices: "
+                "the shared bank's update sums over every device and the "
+                "adaptive convs compute their features over the whole batch "
+                "of devices (the CNN's features move with the batch they "
+                "are computed in), so the serve scan does not split into "
+                "blocks; it runs on a mesh of one device")
+        placed = (SH.shard_fleet_config(mesh, cfg),
+                  SH.shard_serve_carry(mesh, carry,
+                                       shared_bank=self.bank_mode == "shared"),
+                  SH.shard_serve_tables(mesh, tables, per_device=per_dev),
+                  None if tel is None else SH.shard_fleet_carry(mesh, tel))
+        return tuple(SH.blocks(x)[0] for x in placed)
+
     def run(
         self,
         requests,
@@ -875,28 +899,38 @@ class FleetServeEngine:
         folded on the host per segment); the serve outcome is the same bit
         for bit either way.  ``mode="fused"`` runs each segment as ONE
         launch of the ``serve_fused_steps`` kernel (``adapt=False`` and no
-        ``telemetry``).  ``mesh=`` waits for the port's mesh module and
-        raises.
+        ``telemetry``, no ``mesh``).
+
+        ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) places the
+        config, carry, tables and telemetry by the sharding functions
+        (:func:`repro_torch.launch.sharding.shard_serve_carry`; ``D`` must
+        be a multiple of the mesh size).  On a mesh of one device the scan
+        then runs unchanged; a larger mesh raises ``NotImplementedError``:
+        the shared bank's update sums over every device, and the adaptive
+        convs compute their features over the whole batch of devices (the
+        CNN's features move with the batch they are computed in), so a
+        run block by block would not be the same run.
         """
         if mode not in ("scan", "fused"):
             raise ValueError(f"unknown serve mode {mode!r}")
-        if mesh is not None:
-            raise NotImplementedError("mesh= is not part of the port yet")
         adapt = bool(self.config.adapt)
         if mode == "fused" and adapt:
             raise ValueError(
                 "mode='fused' requires adapt=False: bank adaptation "
                 "propagates centroids through whole-model convs that "
                 "cannot run inside a device thread")
-        if mode == "fused" and telemetry is not None:
+        if mode == "fused" and (telemetry is not None or mesh is not None):
             raise ValueError(
                 "mode='fused' does not support telemetry= or mesh=")
-        cfg, statics, tables, carry0, _ = self.build(
+        cfg, statics, tables, carry0, per_dev = self.build(
             requests, n_devices, seeds=seeds)
         if carry is not None:
             carry0 = carry
         tel = (None if telemetry is None
                else T.init_fleet_telemetry(telemetry, cfg))
+        if mesh is not None:
+            cfg, carry0, tables, tel = self._place(
+                mesh, cfg, carry0, tables, tel, per_dev)
         K = len(self.models)
         job0 = torch.zeros(K, dtype=_I32, device=self.device)
         sizes = [len(c) for c in

@@ -8,6 +8,7 @@ the same order give an identical ``history`` and ``best_params``.
 one jitted program in the reference — gives the same float32 scores on
 every candidate, so ``tune`` takes the same path.  All bit for bit.
 """
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -26,6 +27,7 @@ from repro.core.utility import scalarized_objective as j_scalarized
 from repro_torch import adapt as PA
 from repro_torch import convert
 from repro_torch.core.utility import scalarized_objective as p_scalarized
+from repro_torch.launch.mesh import make_fleet_mesh
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_fleet import port_harvester, port_tasks  # noqa: E402
@@ -227,10 +229,16 @@ def test_tune_es_identical():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        PA.TuneProblem(task=port_tasks([make_task()]),
-                       harvesters=(port_harvester(HARVESTERS[0]),),
-                       mesh=object(), device="cpu")
+    """``mesh=`` runs: on a one-device mesh the objective equals the one
+    without a mesh bit for bit (the many-device mesh against the
+    reference's 4-device run: ``tests/test_torch_fleet_mesh.py``); a
+    ``task_weights`` of the wrong length is the reference's ValueError."""
+    base = PA.TuneProblem(task=port_tasks([make_task()]),
+                          harvesters=(port_harvester(HARVESTERS[0]),),
+                          horizon=5.0, device="cpu")
+    x = {"eta": np.linspace(0.1, 1.0, 3, dtype=np.float32)}
+    one = dataclasses.replace(base, mesh=make_fleet_mesh(device="cpu"))
+    np.testing.assert_array_equal(one.objective()(x), base.objective()(x))
     p = PA.TuneProblem(task=port_tasks([make_task()]),
                        harvesters=(port_harvester(HARVESTERS[0]),),
                        task_weights=(1.0, 2.0), device="cpu")

@@ -40,6 +40,7 @@ from repro.serve import AnytimeServeEngine as JEngine
 from repro_torch import adapt as PAD
 from repro_torch import convert
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_host_mesh, make_mesh
 from repro_torch.models import anytime as A
 from repro_torch.models import transformer as T
 from repro_torch.serve import AnytimeConfig, AnytimeRequest
@@ -250,8 +251,10 @@ def test_moe_engine_matches_jax(policy):
 
 
 def test_engine_rejects_what_it_does_not_run(tiny):
-    """``mesh=`` (not ported) raises; ``telemetry=`` runs and leaves the
-    result arrays as the plain run's."""
+    """``telemetry=`` runs and leaves the result arrays as the plain
+    run's; so does ``mesh=`` on a one-device host mesh (the decode state
+    placed by ``state_specs``), while a mesh of two devices raises
+    ``NotImplementedError`` (tensor parallelism)."""
     _, pe = _engines(tiny)
     _, preqs = _requests()
     out = pe.run(preqs, telemetry=TelemetryConfig(level="full"))
@@ -260,8 +263,12 @@ def test_engine_rejects_what_it_does_not_run(tiny):
         np.testing.assert_array_equal(getattr(out, name),
                                       getattr(plain, name), err_msg=name)
     assert int(out.telemetry.exit_hist.sum()) == int(out.tokens.sum())
-    with pytest.raises(NotImplementedError):
-        pe.run(preqs, mesh=object())
+    on_mesh = pe.run(preqs, mesh=make_host_mesh("cpu"))
+    for name in RESULT_FIELDS:
+        np.testing.assert_array_equal(getattr(on_mesh, name),
+                                      getattr(plain, name), err_msg=name)
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        pe.run(preqs, mesh=make_mesh((2, 1), ("data", "model"), "cpu"))
 
 
 def test_score_fn_and_tune_match_jax(tiny):

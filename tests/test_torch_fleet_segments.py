@@ -23,6 +23,7 @@ from repro.fleet.state import pack_carry as j_pack_carry
 
 from repro_torch import fleet as PF
 from repro_torch import telemetry as PT
+from repro_torch.launch.mesh import make_fleet_mesh
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import _workloads as W  # noqa: E402
@@ -112,7 +113,8 @@ def test_hook_rewrites_eta_like_jax(fleet_case):
 def test_pack_carry_round_trip(fleet_case):
     """``pack_carry`` casts exactly the boolean leaves to int32, equals
     the reference's layout leaf for leaf, and ``unpack_carry`` inverts it;
-    ``mesh=`` (not ported) raises; ``telemetry=`` returns the same result
+    ``mesh=`` on a one-device mesh returns the same result and carry (the
+    carry resumed over it too); ``telemetry=`` returns the same result
     and carry beside a telemetry, and ``telemetry_carry`` without it is
     the reference's ValueError."""
     cfg, statics, _, ref_carry = fleet_case
@@ -125,9 +127,16 @@ def test_pack_carry_round_trip(fleet_case):
     back = PF.unpack_carry(packed)
     for f, a, b in zip(back._fields, back, carry):
         assert a.dtype == b.dtype and torch.equal(a, b), f
-    with pytest.raises(NotImplementedError):
-        PF.run_segments(port_cfg(cfg), port_statics(statics), 1,
-                        mesh=object())
+    one = make_fleet_mesh(device="cpu")
+    half = statics.n_steps // 2
+    _, c_half = PF.run_segments(port_cfg(cfg), dataclasses.replace(
+        port_statics(statics), horizon=half * statics.dt), 1)
+    res_m, carry_m = PF.run_segments(port_cfg(cfg), port_statics(statics),
+                                     2, carry=c_half, start_step=half,
+                                     mesh=one)
+    for f, a, b in zip(carry_m._fields, carry_m, carry):
+        assert torch.equal(a, b), f
+    assert_result_equal(res_m, JF.run_segments(cfg, statics, 1)[0])
     res, tcarry, tel = PF.run_segments(port_cfg(cfg), port_statics(statics),
                                        2, telemetry=PT.TelemetryConfig())
     for f, a, b in zip(tcarry._fields, tcarry, carry):
@@ -143,7 +152,7 @@ def test_pack_carry_round_trip(fleet_case):
 
 def test_sweep_builds_the_reference_grid():
     """``build``/``sweep`` lay out the same devices and metadata as the
-    JAX builders; an unported ``mesh=`` raises instead of being ignored;
+    JAX builders; ``mesh=`` over a one-device mesh gives the same result;
     ``simulate_fleet(telemetry=)`` returns the same result beside its
     telemetry and is the reference's ValueError in the fused mode."""
     harv, _ = W.MODES["intermittent"]
@@ -160,8 +169,10 @@ def test_sweep_builds_the_reference_grid():
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f)
     res, meta = PF.sweep(pgrid, mode="fused", device="cpu")
     assert_result_equal(res, JF.sweep(jgrid)[0])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        PF.sweep(pgrid, mesh=object(), device="cpu")
+    res_m, meta_m = PF.sweep(pgrid, mesh=make_fleet_mesh(device="cpu"),
+                             device="cpu")
+    assert meta_m == pmeta
+    assert_result_equal(res_m, JF.sweep(jgrid)[0])
     plain = PF.simulate_fleet(pcfg, pst)
     res_t, tel = PF.simulate_fleet(pcfg, pst, mode="pallas",
                                    telemetry=PT.TelemetryConfig(level="full"))

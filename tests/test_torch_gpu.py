@@ -26,6 +26,7 @@ from repro_torch.kernels import l1_topk2 as L1
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_l1 as PW
 from repro_torch.kernels import rglru_scan as RS
+from repro_torch.launch.mesh import make_fleet_mesh
 from repro_torch.configs import get_config
 from repro_torch.models import anytime as AT
 from repro_torch.models import attention as PA
@@ -682,7 +683,7 @@ def test_serve_fused_kernel_keeps_a_nan_charge(cuda):
 # --------------------------------------------------------------------------- #
 
 
-def _replay_cfg(device, n_seeds, horizon=6.0):
+def _replay_grid(n_seeds, horizon=6.0):
     """Two random periodic tasks (numpy seed 5) over all four policies, a
     bursty and a weak intermittent harvester and ``n_seeds`` seeds."""
     rng = np.random.default_rng(5)
@@ -701,7 +702,12 @@ def _replay_cfg(device, n_seeds, horizon=6.0):
             energy.Harvester("rf", 0.93, 0.93, 0.07),
             energy.Harvester("rf-strong", 0.93, 0.93, 0.7)),
         seeds=tuple(range(n_seeds)), horizon=horizon, dt=0.01)
-    cfg, statics, _ = fleet.build(grid, device)
+    return grid
+
+
+def _replay_cfg(device, n_seeds, horizon=6.0):
+    """:func:`_replay_grid` built on ``device``."""
+    cfg, statics, _ = fleet.build(_replay_grid(n_seeds, horizon), device)
     return cfg, statics
 
 
@@ -898,6 +904,38 @@ def test_replay_modes_agree_and_launch_per_segment(cuda):
         for f, a, b in zip(ref._fields, ref, other):
             assert torch.equal(a, b), f
     assert int(ref.units_executed.sum()) > 0
+
+
+def test_sweep_over_the_fleet_mesh_matches_unsharded(cuda):
+    """``sweep(mesh=make_fleet_mesh())`` in pallas mode (every visible
+    card, one block each) equals the sweep without a mesh on every result
+    leaf, kernel A launching once per block per step; so does
+    ``run_segments`` over the mesh with a hook that rewrites eta, which
+    sees the device axis padded to the mesh size."""
+    grid = _replay_grid(2)
+    cfg, statics, meta = fleet.build(grid, cuda)
+    mesh = make_fleet_mesh()
+    ops.reset_launch_counts()
+    res, _ = fleet.sweep(grid, mesh=mesh, mode="pallas", device=cuda)
+    assert ops.launch_counts()["fleet_priority"] == (mesh.size
+                                                     * statics.n_steps)
+    plain, _ = fleet.sweep(grid, mode="pallas", device=cuda)
+    for f, a, b in zip(plain._fields, plain, res):
+        assert torch.equal(a, b), f
+    seen = []
+
+    def hook(seg, t_end, cfg, carry):
+        seen.append(cfg.eta.shape[0])
+        return cfg._replace(eta=torch.full_like(cfg.eta, 0.5 + 0.1 * seg))
+
+    out = [fleet.run_segments(cfg, statics, 3, hook=hook, mesh=m,
+                              mode="pallas") for m in (mesh, None)]
+    for tree in range(2):
+        for f, a, b in zip(out[0][tree]._fields, out[0][tree],
+                           out[1][tree]):
+            assert torch.equal(a, b), f
+    pad = -(-len(meta) // mesh.size) * mesh.size
+    assert seen == [pad] * 3 + [len(meta)] * 3
 
 
 def test_forward_launches_flash_once_per_attention_layer(cuda):

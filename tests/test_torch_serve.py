@@ -36,6 +36,7 @@ from repro_torch.core import energy as PE
 from repro_torch.core.agile import AgileCNN
 from repro_torch.core.step import StepStatics
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_fleet_mesh
 from repro_torch.models import cnn as PC
 from repro_torch.serve import FleetServeEngine, Request, ServeConfig
 from repro_torch.telemetry import TelemetryConfig
@@ -263,6 +264,11 @@ def test_fused_matches_scan(models, bank_mode, per_device):
 
 
 def test_fused_rejects_adapt_and_unported_options(models):
+    """The fused mode's ValueErrors (adaptation, telemetry, a mesh); a run
+    over a one-device mesh equals the run without one (a per-device bank
+    without adaptation, a shared bank with it); ``D`` that does not divide
+    over the mesh is the reference's ValueError, and a mesh of two devices
+    raises ``NotImplementedError``."""
     reqs = _requests(Request, _streams(False), False)
     with pytest.raises(ValueError, match="adapt"):
         _port_engine(models, "zygarde", True, "per-device").run(
@@ -275,8 +281,19 @@ def test_fused_rejects_adapt_and_unported_options(models):
         == out.jobs
     with pytest.raises(ValueError, match="telemetry"):
         eng.run(reqs, 1, telemetry=TelemetryConfig(), mode="fused")
-    with pytest.raises(NotImplementedError):
-        eng.run(reqs, 1, mesh=object())
+    one = make_fleet_mesh(device="cpu")
+    for e in (eng, _port_engine(models, "zygarde", True, "shared")):
+        plain, on_mesh = e.run(reqs, 2), e.run(reqs, 2, mesh=one)
+        for (name, a), (_, b) in zip(_leaves(plain.carry),
+                                     _leaves(on_mesh.carry)):
+            assert torch.equal(a, b), name
+    two = make_fleet_mesh(2, device="cpu")
+    with pytest.raises(ValueError, match="mesh size 2"):
+        eng.run(reqs, 3, mesh=two)
+    with pytest.raises(ValueError, match="mesh"):
+        eng.run(reqs, 2, mesh=two, mode="fused")
+    with pytest.raises(NotImplementedError, match="shared bank"):
+        eng.run(reqs, 2, mesh=two)
 
 
 @pytest.mark.parametrize("bank_mode", ["per-device", "shared"])

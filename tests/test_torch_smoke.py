@@ -91,9 +91,10 @@ def test_chip_smoke_rehearsal_on_cpu():
     RG-LRU hybrid with kernel H's and I's, and of the rest of the model
     zoo (MoE, xLSTM, the encoder-decoder, the VLM), and training (the
     agile CNNs, the LM step of the dense model and the hybrid, the
-    backward kernels of G and I), and the launch drivers: the kernels
-    report names A to I and the two backward kernels with the contract's
-    keys (no launches on the CPU), each with the paths that ran it."""
+    backward kernels of G and I), the launch drivers and the mesh entry
+    points: the kernels report names A to I and the two backward kernels
+    with the contract's keys (no launches on the CPU), each with the paths
+    that ran it."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
@@ -109,23 +110,24 @@ def test_chip_smoke_rehearsal_on_cpu():
         "l1_topk2", "centroid_update", "pairwise_l1", "flash_attention",
         "decode_gqa", "rglru_scan", "flash_attention_bwd", "rglru_scan_bwd"]
     paths = {r["name"]: sorted(r["launches_by_path"]) for r in rows}
-    assert paths["fleet_fused_steps"] == ["online", "replay", "tune"]
+    assert paths["fleet_fused_steps"] == ["mesh", "online", "replay", "tune"]
     assert paths["pairwise_l1"] == ["online"]
     serving = ["anytime", "dbrx-132b", "hybrid", "internvl2-2b",
                "qwen3-moe-235b-a22b", "seamless-m4t-medium"]
     training = ["launch train", "train qwen1.5-0.5b",
                 "train recurrentgemma-9b"]
-    assert paths["decode_gqa"] == sorted(serving + ["launch serve anytime"])
-    assert paths["flash_attention"] == sorted(serving + training)
-    assert paths["flash_attention_bwd"] == training
+    assert paths["decode_gqa"] == sorted(serving + ["launch serve anytime",
+                                                    "mesh"])
+    assert paths["flash_attention"] == sorted(serving + training + ["mesh"])
+    assert paths["flash_attention_bwd"] == sorted(training + ["mesh"])
     assert paths["rglru_scan"] == ["hybrid", "train recurrentgemma-9b"]
     assert paths["rglru_scan_bwd"] == ["train recurrentgemma-9b"]
     assert paths["serve_fused_steps"] == ["serve", "stream"]
     assert paths["centroid_update"] == [
-        "launch serve scalar", "online", "scalar", "serve", "stream",
+        "launch serve scalar", "mesh", "online", "scalar", "serve", "stream",
         "telemetry"]
     assert paths["l1_topk2"] == paths["centroid_update"] + ["train_cnn"]
-    assert paths["fleet_priority"] == ["replay", "telemetry"]
+    assert paths["fleet_priority"] == ["mesh", "replay", "telemetry"]
     for r in rows:
         assert keys <= set(r)
         assert r["launches"] == 0 and r["max_abs_err"] == 0.0
