@@ -220,8 +220,24 @@ Phases, each printing one line (any failure exits non-zero):
     on the reduced config (G forward and backward); ``--mesh single-pod``
     exits 1 naming the 256 cards needed and the cards visible.  Counts
     zeroed before the mesh runs and read after;
-14. one JSON line naming every kernel with its launches, error, times and
-    bound.  Every phase prints its seconds.
+14. profiling and the H100 roofline (``repro_torch.launch.profiling``,
+    ``op_cost``, ``op_stats``, ``lowering``, ``dryrun``) on qwen1.5-0.5b
+    whole: ``profile_call`` of a 4,096-token ``prefill`` (10 timed calls)
+    and of the train step at 2 x 4,096 in 2 microbatches (3 timed calls),
+    each with its first call, steady times, modelled flops by type, bytes,
+    bound, dominant term and measured over bound; the op counter's items
+    of kernel G (and its backward) equal the launches of the counted call,
+    and ``lower_step`` on ``meta`` for the same ``InputShape`` equals the
+    card's count on flops, products, bytes and the items of each kernel;
+    the train step's costliest items; ``profile_call`` of phase 4's fused
+    sweep (kernel B); a Chrome trace of one prefill that names G's CUDA
+    function; and ``dryrun.main`` for qwen1.5-0.5b x train_4k on the
+    single-pod layout (256 devices, ``meta``).  Its counted calls'
+    launches are checked in the phase and kept out of the paths' counts;
+15. one JSON line naming every kernel with its launches, error, times and
+    bound.  Every phase prints its seconds.  Each kernel's bound is its
+    ``work()`` (:mod:`repro_torch.kernels._cost`) over the H100 peaks of
+    :mod:`repro_torch.launch.op_stats`.
 
 Depth cuts that pay for phase 11: the hybrid anytime path (phase 9) runs
 32 decode steps (from 64) and its engine 64 steps (from 128), the dense
@@ -257,12 +273,6 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 outside tensor
-# cores, dense bf16 on the tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
-PEAK_BF16_S = 989e12
 
 SRC = "src/repro_torch/kernels/csrc/"
 # the kernels each main path runs
@@ -620,11 +630,16 @@ def _ms(fn, device, reps=20, warmup=2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound(nbytes: float, nops: float, peak_ops: float = PEAK_F32_S):
-    """Least time on the card: the larger of bytes over HBM bandwidth and
-    operations over the peak of their type (f32 by default)."""
-    t_b, t_o = nbytes / PEAK_BYTES_S, nops / peak_ops
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+def _bound(work):
+    """``(ms, "bytes" or "operations")``: the least time on the card of
+    one kernel call's ``work()`` (:mod:`repro_torch.kernels._cost`), the
+    larger of its bytes over HBM bandwidth and its operations over the
+    peak of their type (the H100 data sheet's, in
+    :mod:`repro_torch.launch.op_stats`)."""
+    from repro_torch.launch.op_stats import kernel_bound
+
+    seconds, by = kernel_bound(work)
+    return seconds * 1e3, by
 
 
 def _nbytes(*tensors) -> int:
@@ -907,8 +922,7 @@ def _l1_times(device, xx, cc) -> dict:
         return torch.topk(dist, 2, dim=-1, largest=False)
 
     lib_ms = _ms(yardstick, device)
-    bound_ms, by = _bound(_nbytes(xx, cc) + xx.shape[0] * 12,
-                          3.0 * xx.shape[0] * k * d)
+    bound_ms, by = _bound(L1.work(xx.shape[0], k, d, cc.dim() == 3))
     # the kernel's own time on the card, without the wrapper's host work
     dev_ms = _kernel_ms(lambda: L1.l1_topk2(xx, cc), device,
                         "l1_topk2_kernel")
@@ -976,8 +990,7 @@ def _cu_times(device, c, x, a) -> dict:
     xv, av = x[valid], a[valid].to(torch.int64)
     lib_ms = _ms(lambda: torch.zeros_like(c).index_add_(0, av, xv), device)
     n_valid = int(valid.sum())
-    bound_ms, by = _bound(n_valid * d * 4 + 2 * _nbytes(c) + _nbytes(a),
-                          float(n_valid * d + 4 * k * d))
+    bound_ms, by = _bound(CU.work(k, d, B, n_valid))
     print(f"centroid_update (k={k}, d={d}, B={B}, {n_valid} rows "
           f"assigned): bit-equal to plain; kernel {ms:.4f} ms (device "
           f"{dev_ms:.5f} ms per launch), plain {plain_ms:.4f} ms, "
@@ -1260,14 +1273,9 @@ def _serve_kernel_times(device, scale: Scale, models, requests, n_dev: int,
     units = int(out.dev.m_units.sum())
     S_, C_ = tab.fidx.shape[-1], car.bank.centroids.shape[-2]
     carry_b = _nbytes(*car.dev) + _nbytes(*car.log)
-    cfg_b = sum(_nbytes(getattr(cfg, f)) for f in fleet_step._CFG_FIELDS)
-    per_unit_b = 4 * (2 * S_ + C_ * S_) + 4 * (C_ + 2)
-    nbytes = 2 * carry_b + cfg_b + units * per_unit_b
-    # per device-step: ~40 operations per queue slot (scores, energy
-    # gates, admission); per completed unit: the C x S L1 distances
-    nops = float(n_dev * st.n_steps * 40 * st.queue_size
-                 + units * 3 * C_ * S_)
-    bound_ms, by = _bound(nbytes, nops)
+    cfg_b = fleet_step._cfg_bytes(cfg)
+    bound_ms, by = _bound(fleet_step.serve_work(
+        n_dev, st.queue_size, st.n_steps, cfg_b, carry_b, S_, C_, units))
     return dict(ms=ms, device_ms=dev_ms, us_per_step=1e3 * dev_ms / st.n_steps,
                 units=units, steps=st.n_steps, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by)
@@ -2023,11 +2031,7 @@ def _priority_check(device, cfg, statics, FP) -> dict:
     dev_ms = _busy_ms(lambda: FP.fleet_priority(*args, **kw), device,
                       reps=50)
     plain_ms = _ms(lambda: FP.fleet_priority_plain(*args, **kw), device)
-    out_bytes = D * (4 + 1 + 1 + 4)
-    # per slot: the score's ~20 operations and the argmax compare; per
-    # device: the rank, threshold, gate and capacitor update (~10)
-    bound_ms, by = _bound(_nbytes(*args) + out_bytes,
-                          float(D * (21 * Q + 10)))
+    bound_ms, by = _bound(FP.work(D, Q, _nbytes(*args)))
     print(f"fleet_priority (D={D}, Q={Q}; also D={odd}): bit-equal to "
           f"plain; kernel {ms:.4f} ms (device {dev_ms:.5f} ms back to "
           f"back), plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by})")
@@ -2055,12 +2059,8 @@ def _fused_check(device, cfg, statics, FS, init_fleet) -> dict:
         cfg, c0, 0, statics=statics, n_steps=n), device)
     D, Q = cfg.policy.shape[0], statics.queue_size
     units = int(out.m_units.sum())
-    scalars = sum(_nbytes(getattr(cfg, f)) for f in FS._CFG_FIELDS)
-    # the config once, the carry in and out, and per completed unit the
-    # margin, pass and correctness entries it reads
-    nbytes = scalars + 2 * _nbytes(*c0) + units * 6
-    nops = float(D * n * 40 * Q)
-    bound_ms, by = _bound(nbytes, nops)
+    bound_ms, by = _bound(FS.fleet_work(D, Q, n, FS._cfg_bytes(cfg),
+                                        _nbytes(*c0), units))
     print(f"fleet_fused_steps (D={D}, {n} steps, {units} units): bit-equal "
           f"to plain on every carry leaf; kernel {ms:.3f} ms/launch (device "
           f"{dev_ms:.3f} ms, {1e3 * dev_ms / n:.3f} us per step of the "
@@ -2336,7 +2336,7 @@ def _pw_phase(device, scale: Scale, rng) -> dict:
         plain_ms = _ms(lambda: PW.pairwise_l1_plain(x, y), device,
                        reps=3 if big else 20, warmup=1)
         lib_ms = _ms(lambda: torch.cdist(x, y, p=1), device)
-        bound_ms, by = _bound(_nbytes(x, y) + B1 * B2 * 4, 3.0 * B1 * B2 * d)
+        bound_ms, by = _bound(PW.work(B1, B2, d))
         tile = PW.tile_plan(B1, B2, min(512, d))
         print(f"pairwise_l1 ({B1} x {B2} x {d}, {tile} tile): kernel "
               f"{ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} "
@@ -2944,14 +2944,6 @@ def _leaves(tree):
         yield tree
 
 
-def _flash_pairs(S, Skv, causal, window, q_offset) -> int:
-    """Unmasked (query, key) pairs of one head: the useful work."""
-    qpos = np.arange(S, dtype=np.int64) + q_offset
-    hi = np.minimum(qpos, Skv - 1) if causal else np.full(S, Skv - 1)
-    lo = np.maximum(qpos - window, 0) if window else np.zeros(S, np.int64)
-    return int(np.clip(hi - lo + 1, 0, None).sum())
-
-
 def _flash_phase(device, shapes) -> dict:
     """Kernel G against its plain version at ``shapes`` in bf16
     and f32, with the times of G, the plain version and one
@@ -3006,11 +2998,9 @@ def _flash_phase(device, shapes) -> dict:
                     qt, kt, vt, enable_gqa=KV != H, **sdpa_kw)
 
             lib_ms = _ms(sdpa, device, reps=5 if big else 20)
-            pairs = _flash_pairs(S, Skv, causal, window, qo)
-            flops = 4.0 * hd * pairs * H * B
-            bound_ms, by = _bound(
-                _nbytes(q, k, v) + out.numel() * 4, flops,
-                PEAK_BF16_S if dtype == "bfloat16" else PEAK_F32_S)
+            work = FA.work(B, S, Skv, H, KV, hd, dt, **kw)
+            flops = work.ops
+            bound_ms, by = _bound(work)
             path = FA.kernel_path(dt, hd)
             hdp = 64 if hd <= 64 else 128 if hd <= 128 else 256
             regs = FLASH_REGISTERS.get((path, hdp), "registers not reported")
@@ -3081,9 +3071,7 @@ def _decode_phase(device, shapes) -> dict:
         plain_ms = _ms(lambda: DG.decode_gqa_plain(q, k, v, slot_pos, pos,
                                                    **kw), device, reps=5,
                        warmup=1)
-        valid = (slot_pos >= 0) & (slot_pos <= pos[:, None])
-        if window:
-            valid &= pos[:, None] - slot_pos <= window
+        valid = DG.kept_slots(slot_pos, pos, window)
         qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
         kt, vt = kt.contiguous(), vt.contiguous()
         mask = valid[:, None, None, :]
@@ -3093,11 +3081,9 @@ def _decode_phase(device, shapes) -> dict:
                 qt, kt, vt, attn_mask=mask, enable_gqa=KV != H)
 
         lib_ms = _ms(sdpa, device)
-        n_valid = int(valid.sum())             # kept (row, slot) pairs
-        kv_row = KV * hd * k.element_size()  # one slot's k (or v) row
-        nbytes = (_nbytes(q, slot_pos, pos) + 2 * n_valid * kv_row
-                  + out.numel() * 4)
-        bound_ms, by = _bound(nbytes, 4.0 * H * hd * n_valid)
+        work = DG.work(B, H, KV, hd, C, q.dtype, n_valid=int(valid.sum()))
+        nbytes = work.bytes
+        bound_ms, by = _bound(work)
         nsplit, chunk = DG.split_plan(
             B, KV, C, torch.cuda.get_device_properties(
                 device).multi_processor_count if device.type == "cuda"
@@ -3151,7 +3137,7 @@ def _rglru_phase(device, scale: Scale) -> dict:
         plain_ms = _ms(lambda: RS.rglru_scan_plain(a, b, h0), device, reps=1,
                        warmup=0)
         # h_last is the view h[:, -1]: no bytes of its own
-        bound_ms, by = _bound(_nbytes(a, b, h0, h), 2.0 * B * S * W)
+        bound_ms, by = _bound(RS.work(B, S, W))
         path = RS.copy_path(W, a.data_ptr(), b.data_ptr(), h.data_ptr())
         label = f"B={B} S={S} W={W}{' h0' if with_h0 else ''}"
         print(f"rglru_scan ({label}, {path} path): equal to plain; kernel "
@@ -3754,12 +3740,9 @@ def _flash_bwd_phase(device, shapes) -> dict:
             lib_ms = _ms(lambda: torch.autograd.grad(
                 o_lib, (qt, kt, vt), g_lib, retain_graph=True), device,
                 reps=3 if big else 10)
-            pairs = _flash_pairs(S, Skv, causal, window, qo)
-            flops = 10.0 * hd * pairs * H * B
-            nbytes = (_nbytes(q, k, v, out, dout, lse)
-                      + (q.numel() + k.numel() + v.numel()) * q.element_size())
-            bound_ms, by = _bound(nbytes, flops, PEAK_BF16_S
-                                  if dtype == "bfloat16" else PEAK_F32_S)
+            work = FA.bwd_work(B, S, Skv, H, KV, hd, dt, **kw)
+            flops = work.ops
+            bound_ms, by = _bound(work)
             label = (f"B={B} S={S} Skv={Skv} H={H} KV={KV} hd={hd}"
                      f"{' causal' if causal else ''}"
                      f"{f' window={window}' if window else ''}"
@@ -3811,8 +3794,7 @@ def _rglru_bwd_phase(device, shapes) -> dict:
                           reps=20)
         plain_ms = _ms(lambda: RS.rglru_scan_bwd_plain(a, h0, h, dh), device,
                        reps=1, warmup=0)
-        bound_ms, by = _bound(_nbytes(a, h, dh, h0) + _nbytes(*got),
-                              2.0 * B * S * W)
+        bound_ms, by = _bound(RS.bwd_work(B, S, W))
         label = f"B={B} S={S} W={W}"
         print(f"rglru_scan_bwd ({label}): equal to plain; kernel {ms:.4f} ms "
               f"(device {dev_ms:.5f} ms), plain {plain_ms:.4f} ms, bound "
@@ -4272,6 +4254,195 @@ def _mesh_phase(device, scale: Scale, replay: dict, serve: dict, models,
     return dict(launches=launches, seconds=secs)
 
 
+def _cost_line(label: str, meas, launches: dict) -> str:
+    """One profiled call as a line: times, modelled work, bound, measured
+    over bound, the counter's kernel items and the launches."""
+    r = meas.roofline
+    return (f"{label}: first call {meas.compile_s:.3f} s; steady "
+            f"{meas.steady_s * 1e3:.3f} ms (min {meas.steady_min_s * 1e3:.3f}"
+            f", max {meas.steady_max_s * 1e3:.3f}, {meas.repeats} calls); "
+            f"flops {r['flops']:.6g} (products "
+            f"{json.dumps(r['dot_flops_by_dtype'])}), "
+            f"bytes {r['bytes']:.6g}; bound {r['bound_s'] * 1e3:.6g} ms "
+            f"({r['dominant']}); measured / bound "
+            f"{r['measured_over_bound']:.2f}; kernel items "
+            f"{json.dumps(r['kernels'])}, launches {json.dumps(launches)}")
+
+
+def _same_count(card, meta, what: str) -> None:
+    """The card's op count equals the one lowered on ``meta``: flops,
+    products, bytes and the items of every kernel."""
+    fields = ("flops", "dot_flops", "bytes", "kernels")
+    got = {f: getattr(card, f) for f in fields}
+    want = {f: getattr(meta, f) for f in fields}
+    if got != want:
+        diff = sorted({(k, tuple(v)) for k, v in card.items.items()}
+                      ^ {(k, tuple(v)) for k, v in meta.items.items()})
+        raise AssertionError(f"{what}: the card's count {got} != meta's "
+                             f"{want}; items apart: {diff[:12]}")
+
+
+def _roofline_phase(device, scale: Scale, replay: dict) -> dict:
+    """Phase 14, profiling and the H100 roofline (``repro_torch.launch
+    .profiling``, ``op_cost``, ``op_stats``, ``lowering``, ``dryrun``) on
+    qwen1.5-0.5b whole (phase 11b's config, bf16): ``profile_call`` of
+    ``prefill`` on one prompt of phase 8's length (10 timed calls) and of
+    the train step on phase 11b's batch and microbatches (3 timed calls),
+    each with its first call, steady times, the counted call's flops by
+    type, bytes, bound, dominant term and measured over bound; the
+    counter's G (and G backward) items equal the launches of the counted
+    call (24 per prefill; the train step's as ``_train_launches`` reckons
+    them, two backward launches an item), and ``lower_step`` on ``meta``
+    for the same ``InputShape`` equals the card's count on flops,
+    products, bytes and the items of each kernel; the train step's
+    costliest items (``top_cost_items``); ``profile_call`` of phase 4's
+    fused sweep (kernel B, one launch); ``trace()`` around one prefill
+    writes a Chrome trace that names G's CUDA function; and
+    ``dryrun.main`` for qwen1.5-0.5b x train_4k on the single-pod layout.
+    The counted calls' launches are read apart from the main paths'."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import InputShape
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.fleet import simulate_fleet
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import profiling as PR
+    from repro_torch.launch.lowering import lower_step
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.launch.op_cost import top_cost_items
+    from repro_torch.models import transformer as T
+    from repro_torch.train import adamw_init
+    from repro_torch.train.trainer import make_train_step
+
+    card = device.type == "cuda"
+    run = scale.train_lm[0]
+    cfg = dataclasses.replace(_lm_config(run),
+                              train_microbatches=run.microbatches)
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    one = make_abstract_mesh((1, 1), ("data", "model"))
+    S = scale.anytime.prefill_len
+    g = torch.Generator(device=device).manual_seed(14)
+    prompt = {"tokens": torch.randint(0, cfg.vocab, (1, S), generator=g,
+                                      device=device, dtype=torch.int32)}
+    tokens = make_lm_tokens(cfg.vocab, run.seq, run.batch, seed=0)
+    batch = {"tokens": torch.from_numpy(tokens).to(device)}
+    opt = adamw_init(params)
+
+    @torch.no_grad()
+    def prefill(params, batch):
+        return T.prefill(cfg, params, batch)
+
+    def joined(label, fn, args, repeats, warmup, **kw):
+        meas = PR.measure(fn, *args, label=label, repeats=repeats,
+                          warmup=warmup, **kw)
+        ops.reset_launch_counts()
+        PR.roofline_join(meas)
+        counts = {k: n for k, n in ops.launch_counts().items() if n}
+        print(_cost_line(label, meas, counts))
+        return meas, counts
+
+    # the CPU rehearsal times one call of each (its plain versions are slow)
+    reps = (lambda n, w: (n, w)) if card else (lambda n, w: (1, 0))
+    out = {}
+    pre, pre_l = joined(f"profile_call prefill ({cfg.name}, 1 x {S})",
+                        prefill, (params, prompt), *reps(10, 2))
+    step = make_train_step(cfg)
+    trn, trn_l = joined(f"profile_call train step ({cfg.name}, {run.batch} x "
+                        f"{run.seq}, {run.microbatches} microbatches)",
+                        step, (params, opt, batch), *reps(3, 1))
+    low_pre = lower_step(cfg, InputShape("prefill", S, 1, "prefill"), one)
+    low_trn = lower_step(cfg, InputShape("train", run.seq, run.batch,
+                                         "train"), one)
+    want = _train_launches(cfg, run.microbatches)
+    if card:
+        if pre.cost.kernels != {"flash_attention": cfg.n_layers} or \
+                pre_l != {"flash_attention": cfg.n_layers}:
+            raise AssertionError(f"prefill: G items {pre.cost.kernels}, "
+                                 f"launches {pre_l}, not {cfg.n_layers}")
+        items = dict(trn.cost.kernels)
+        items["flash_attention_bwd"] *= 2      # two launches a call
+        if items != trn_l or trn_l != want:
+            raise AssertionError(f"train step: G items {trn.cost.kernels} "
+                                 f"(backward x 2), launches {trn_l}, "
+                                 f"reckoned {want}")
+        _same_count(pre.cost, low_pre.cost, "prefill")
+        _same_count(trn.cost, low_trn.cost, "train step")
+        print("the counter's G and G-backward items == the counted calls' "
+              f"launches {json.dumps(trn_l)} (train), {json.dumps(pre_l)} "
+              "(prefill); lower_step on meta == the card's count on flops, "
+              "products, bytes and kernel items, prefill and train step")
+    total_b, total_f = trn.cost.bytes, trn.cost.flops
+    top = top_cost_items(trn.cost, n=10, by="bytes")
+    print("train step, costliest items by bytes: " + "; ".join(
+        f"{r['op']} {r['type']} x{r['mult']}: "
+        f"{100 * r['bytes'] / total_b:.1f} % of bytes, "
+        f"{100 * r['flops'] / total_f:.1f} % of flops" for r in top))
+    by_op = {}
+    for (op, _), (_, f, b) in trn.cost.items.items():
+        bf, bb = by_op.get(op, (0.0, 0.0))
+        by_op[op] = (bf + f, bb + b)
+    print("train step, bytes by op: " + "; ".join(
+        f"{op} {100 * b / total_b:.1f} %" for op, (f, b) in sorted(
+            by_op.items(), key=lambda kv: -kv[1][1])[:12]))
+    del opt, batch
+
+    # kernel B: the fused replay sweep of phase 4 (one launch per call)
+    fused, fused_l = joined(
+        f"profile_call simulate_fleet fused ({replay['cfg'].n_devices} "
+        f"devices, {replay['statics'].n_steps} steps)", simulate_fleet,
+        (replay["cfg"], replay["statics"]), *reps(10, 2), mode="fused")
+    if fused.cost.kernels != {"fleet_fused_steps": 1} or (
+            card and fused_l != {"fleet_fused_steps": 1}):
+        raise AssertionError(f"fused sweep: items {fused.cost.kernels}, "
+                             f"launches {fused_l}")
+
+    # a Chrome trace of one prefill that names G's CUDA function
+    with tempfile.TemporaryDirectory() as tmp:
+        with PR.trace(tmp) as path:
+            prefill(params, prompt)
+            _sync(device)
+        if path is None or not Path(path).exists():
+            raise AssertionError("trace(): no Chrome trace written")
+        text = Path(path).read_text()
+        size = len(text)
+    named = "flash_tc_kernel" in text
+    if card and not named:
+        raise AssertionError("the prefill's trace names no flash_tc_kernel")
+    print(f"trace() of one prefill: {size} bytes of Chrome trace, G's "
+          f"flash_tc_kernel named: {named}")
+    del params, prompt, text
+
+    quiet = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(quiet):
+        rec = dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "train_4k"])
+    if rec["status"] != "ok" or rec["n_devices"] != 256:
+        raise AssertionError(f"dry run: {rec['status']}, "
+                             f"{rec.get('n_devices')} devices")
+    r = rec["roofline"]
+    print(f"dryrun qwen1.5-0.5b x train_4k (single pod, {rec['n_devices']} "
+          f"devices, meta): {time.perf_counter() - t0:.1f} s; per device "
+          f"{rec['op_flops_per_device']:.6g} flops, "
+          f"{rec['op_bytes_per_device']:.6g} bytes, bound "
+          f"{r['bound_s'] * 1e3:.3f} ms ({r['dominant']}), useful flops "
+          f"{rec['useful_flops_ratio']:.3f}, kernels "
+          f"{json.dumps(rec['kernels'])}, memory "
+          f"{json.dumps(rec['memory'])}")
+    if card:
+        torch.cuda.empty_cache()
+    for key, meas in (("prefill", pre), ("train", trn), ("fused", fused)):
+        out[key] = dict(meas.roofline, steady_s=meas.steady_s,
+                        compile_s=meas.compile_s)
+    out["top_items"] = top
+    return out
+
+
 def _unnest(row: dict) -> list:
     """A kernel check's rows as one flat list: its first row, then the
     rest (``shapes``)."""
@@ -4330,6 +4501,8 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
     launch = _phase("12 (launch drivers)", _launch_phase, device, scale)
     mesh = _phase("13 (mesh)", _mesh_phase, device, scale, replay, serve,
                   models, sets)
+    _phase("14 (profiling and roofline)", _roofline_phase, device, scale,
+           replay)
     # each path's launches were counted from zero; a kernel on several
     # paths reports their sum and the count of each
     paths = dict(serve=serve["launches"], scalar=scalar["launches"],

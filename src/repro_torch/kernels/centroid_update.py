@@ -43,7 +43,7 @@ import ctypes
 import torch
 
 from ..core._fma import fma_f32
-from . import _build
+from . import _build, _cost
 
 #: launches of the CUDA kernel (the plain version never counts)
 launches = 0
@@ -142,6 +142,23 @@ def _kernel():
     return fn
 
 
+def work(k: int, d: int, B: int, n_valid: int | None = None) -> _cost.Work:
+    """One call: the ``n_valid`` assigned rows of x (every row when
+    None) and the int32 assignments read once, the centroids read and
+    written once; one add per assigned element and ~4 operations per
+    centroid element (the weighted sum and the division)."""
+    n_valid = B if n_valid is None else n_valid
+    return _cost.Work(bytes=4 * n_valid * d + 8 * k * d + 4 * B,
+                      ops=float(n_valid * d + 4 * k * d))
+
+
+def _call_work(centroids, x, assign, weight, *, result):
+    n_valid = (None if assign.device.type == "meta"
+               else int((assign >= 0).sum()))
+    return work(*centroids.shape, x.shape[0], n_valid)
+
+
+@_cost.counted("centroid_update", _call_work)
 def centroid_update(centroids: torch.Tensor, x: torch.Tensor,
                     assign: torch.Tensor, weight: float) -> torch.Tensor:
     """``centroids`` ``(k, d)`` f32, ``x`` ``(B, d)`` f32, ``assign``

@@ -34,6 +34,10 @@ multiply-adds over ``hd`` (:func:`~repro_torch.core._fma.fma_f32`),
 (order-independent at f32 precision), so ``p`` agrees bit for bit, also
 after its rounding to bf16, whatever the split; the two differ only in the
 summation order of the PV product.
+
+A ``meta`` tensor takes the card's route and gets an empty ``meta`` output,
+with no launch counted; the op counter counts each call as one item of
+:func:`work` (every slot on ``meta``, the kept slots on data).
 """
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ import ctypes
 import torch
 
 from ..core._fma import fma_f32
-from . import _build
+from . import _build, _cost
 
 #: launches of the CUDA kernel (the plain version never counts)
 launches = 0
@@ -89,6 +93,39 @@ def _ref_slot_count(c: int) -> int:
     return -(-c // bc) * bc
 
 
+def kept_slots(slot_pos: torch.Tensor, my_pos: torch.Tensor,
+               window: int = 0) -> torch.Tensor:
+    """``(B, C)`` bool: the slots each row's query sees."""
+    slot_pos, my_pos = slot_pos.to(torch.int64), my_pos.to(torch.int64)
+    valid = (slot_pos >= 0) & (slot_pos <= my_pos[:, None])
+    if window:
+        valid = valid & (my_pos[:, None] - slot_pos <= window)
+    return valid
+
+
+def work(B: int, H: int, KV: int, hd: int, C: int, dtype: torch.dtype, *,
+         n_valid: int | None = None) -> _cost.Work:
+    """One call: q, the int32 positions and the k and v rows of the
+    ``n_valid`` kept (row, slot) pairs (every slot when None) read once,
+    the f32 output written once; 4 * H * hd flops per kept pair (the two
+    products, on the CUDA cores)."""
+    n_valid = B * C if n_valid is None else n_valid
+    es = dtype.itemsize
+    return _cost.Work(
+        bytes=B * H * hd * es + 4 * B * (C + 1) + 2 * n_valid * KV * hd * es
+        + 4 * B * H * hd,
+        ops=4.0 * H * hd * n_valid, dot=True)
+
+
+def _call_work(q, k_cache, v_cache, slot_pos, my_pos, *, result, window=0,
+               round_p=False):
+    B, H, hd = q.shape
+    n_valid = (None if q.device.type == "meta"
+               else int(kept_slots(slot_pos, my_pos, window).sum()))
+    return work(B, H, k_cache.shape[2], hd, k_cache.shape[1], q.dtype,
+                n_valid=n_valid)
+
+
 def decode_gqa_plain(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, slot_pos: torch.Tensor,
                      my_pos: torch.Tensor, *, window: int = 0,
@@ -104,10 +141,7 @@ def decode_gqa_plain(q: torch.Tensor, k_cache: torch.Tensor,
     for d in range(hd):      # the kernel's order: d = 0 .. hd-1, one rounding
         s = fma_f32(qg[..., d, None], kt[..., d, :], s)
     s = s * hd ** -0.5
-    slot_pos, my_pos = slot_pos.to(torch.int64), my_pos.to(torch.int64)
-    valid = (slot_pos >= 0) & (slot_pos <= my_pos[:, None])
-    if window:
-        valid = valid & (my_pos[:, None] - slot_pos <= window)
+    valid = kept_slots(slot_pos, my_pos, window)
     s = torch.where(valid[:, None, None, :], s, NEG)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp((s - m).to(torch.float64)).to(f32)
@@ -161,6 +195,7 @@ def _launcher():
     return _LAUNCH
 
 
+@_cost.counted("decode_gqa", _call_work)
 def decode_gqa(q: torch.Tensor, k_cache: torch.Tensor,
                v_cache: torch.Tensor, slot_pos: torch.Tensor,
                my_pos: torch.Tensor, *, window: int = 0,
@@ -169,13 +204,14 @@ def decode_gqa(q: torch.Tensor, k_cache: torch.Tensor,
     version; a CUDA tensor launches the kernel (``hd <= 256``, ``G = H //
     KV <= 32``; positions are cast to int32).  The kernel has no backward:
     under autograd, with an input that needs a gradient, a CUDA call
-    raises rather than return a tensor without a graph."""
+    raises rather than return a tensor without a graph.  A ``meta``
+    tensor takes the CUDA route and launches nothing."""
     global launches
     _check(q, k_cache, v_cache, slot_pos, my_pos)
     if q.device.type == "cpu":
         return decode_gqa_plain(q, k_cache, v_cache, slot_pos, my_pos,
                                 window=window, round_p=round_p)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_gqa: unsupported device {q.device}")
     _build.no_grad_inputs("decode_gqa", q, k_cache, v_cache)
     B, H, hd = q.shape
@@ -188,7 +224,7 @@ def decode_gqa(q: torch.Tensor, k_cache: torch.Tensor,
     if C == 0:
         raise ValueError("decode_gqa: an empty cache")
     out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
+    if out.numel() == 0 or q.device.type == "meta":
         return out
     q, k_cache, v_cache = (q.contiguous(), k_cache.contiguous(),
                            v_cache.contiguous())

@@ -48,6 +48,12 @@ once by the first launch for both), in f32 on the CUDA cores.
 kernels visit.
 Without autograd (``torch.no_grad()``, or no input that needs a gradient)
 the call launches exactly the forward it launches for serving.
+
+A ``meta`` tensor takes the card's route (through :class:`_FlashAttention`
+under autograd) and gets empty ``meta`` outputs of the kernel's shapes and
+dtypes, with no launch counted: a step lowered on ``meta`` counts each
+call as one item of :func:`work` (:func:`bwd_work` for the backward), as
+the card's does.
 """
 from __future__ import annotations
 
@@ -55,7 +61,9 @@ import ctypes
 
 import torch
 
-from . import _build
+import numpy as np
+
+from . import _build, _cost
 
 #: launches of the CUDA kernel (the plain version never counts)
 launches = 0
@@ -88,6 +96,58 @@ def kernel_path(dtype: torch.dtype, hd: int) -> str:
         raise ValueError(f"flash_attention: the bf16 tensor-core kernel "
                          f"takes hd a multiple of 8; got hd={hd}")
     return path
+
+
+def pairs(S: int, Skv: int, causal: bool, window: int,
+          q_offset: int) -> int:
+    """Unmasked (query, key) pairs of one head: the useful work."""
+    qpos = np.arange(S, dtype=np.int64) + q_offset
+    hi = np.minimum(qpos, Skv - 1) if causal else np.full(S, Skv - 1)
+    lo = np.maximum(qpos - window, 0) if window else np.zeros(S, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def _peak_type(dtype: torch.dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
+def work(B: int, S: int, Skv: int, H: int, KV: int, hd: int,
+         dtype: torch.dtype, *, causal: bool = True, window: int = 0,
+         q_offset: int = 0) -> _cost.Work:
+    """One forward call: q, k and v read once, the f32 output written
+    once; 4 * hd flops (the two products) per visible pair of each head, at
+    the dense peak of the input type."""
+    n_q, n_kv = B * S * H * hd, B * Skv * KV * hd
+    return _cost.Work(
+        bytes=(n_q + 2 * n_kv) * dtype.itemsize + 4 * n_q,
+        ops=4.0 * hd * pairs(S, Skv, causal, window, q_offset) * H * B,
+        dtype=_peak_type(dtype), dot=True)
+
+
+def bwd_work(B: int, S: int, Skv: int, H: int, KV: int, hd: int,
+             dtype: torch.dtype, *, causal: bool = True, window: int = 0,
+             q_offset: int = 0) -> _cost.Work:
+    """One backward call: q, k, v, the f32 ``out``, ``dout`` and ``lse``
+    read once, dq, dk and dv written once in the input type; 10 * hd flops
+    (s, dp, dv, dk, dq) per visible pair of each head."""
+    n_q, n_kv = B * S * H * hd, B * Skv * KV * hd
+    return _cost.Work(
+        bytes=2 * (n_q + 2 * n_kv) * dtype.itemsize + 8 * n_q + 4 * B * S * H,
+        ops=10.0 * hd * pairs(S, Skv, causal, window, q_offset) * H * B,
+        dtype=_peak_type(dtype), dot=True)
+
+
+def _call_work(q, k, v, *, result, causal=True, window=0, q_offset=0):
+    return work(*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                q.shape[3], q.dtype, causal=causal, window=window,
+                q_offset=q_offset)
+
+
+def _bwd_call_work(q, k, v, out, lse, dout, *, result, causal=True,
+                   window=0, q_offset=0):
+    return bwd_work(*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                    q.shape[3], q.dtype, causal=causal, window=window,
+                    q_offset=q_offset)
 
 
 def _ref_kv_count(skv: int) -> int:
@@ -198,7 +258,8 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
 
 def _launch(q, k, v, causal: bool, window: int, q_offset: int,
             with_lse: bool):
-    """Kernel G on CUDA tensors: ``(out, lse or None)``."""
+    """Kernel G on CUDA tensors: ``(out, lse or None)``; on ``meta``
+    tensors the empty outputs, nothing launched."""
     global launches
     B, S, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
@@ -207,12 +268,12 @@ def _launch(q, k, v, causal: bool, window: int, q_offset: int,
     if G > BLOCK_Q:
         raise ValueError(f"flash_attention: the kernel takes G <= "
                          f"{BLOCK_Q}; got G={G}")
-    q, k, v = _dense(q), _dense(k), _dense(v)
     out = torch.empty((B, S, H, hd), dtype=torch.float32, device=q.device)
     lse = (torch.empty((B, S, H), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    if out.numel() == 0:
+    if out.numel() == 0 or q.device.type == "meta":
         return out, lse
+    q, k, v = _dense(q), _dense(k), _dense(v)
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), B, S, Skv, H,
                       KV, hd, int(causal), int(window), int(q_offset),
                       hd ** -0.5, int(path == "tensor-core"), out.data_ptr(),
@@ -244,6 +305,7 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+@_cost.counted("flash_attention", _call_work)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     q_offset: int = 0) -> torch.Tensor:
@@ -251,12 +313,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     plain version (differentiable by autograd); a CUDA tensor launches the
     kernel of :func:`kernel_path` (``G = H // KV`` up to :data:`BLOCK_Q`),
     through :class:`_FlashAttention` when autograd needs a gradient of an
-    input."""
+    input; a ``meta`` tensor takes the CUDA route and launches nothing."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, window, q_offset)
@@ -391,6 +453,7 @@ def _bwd_launcher():
     return _BWD
 
 
+@_cost.counted("flash_attention_bwd", _bwd_call_work)
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
                         q_offset=0):
     """``(dq, dk, dv)`` in the inputs' dtypes from the forward's ``out``
@@ -398,14 +461,15 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
     the plain version; a CUDA tensor launches ``csrc/flash_attn_bwd.cu``
     (two kernels, f32 accumulation, any ``G <= 64`` and ``hd <= 256``,
     the instance of :func:`kernel_path`: bf16 on the tensor cores with
-    ``hd`` a multiple of 8, f32 on the CUDA cores)."""
+    ``hd`` a multiple of 8, f32 on the CUDA cores); a ``meta`` tensor gets
+    empty gradients and launches nothing."""
     global bwd_launches
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          causal=causal, window=window,
                                          q_offset=q_offset)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
     B, S, H, hd = q.shape
@@ -414,6 +478,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
     if H // KV > BLOCK_Q:
         raise ValueError(f"flash_attention_bwd: G <= {BLOCK_Q}; got "
                          f"G={H // KV}")
+    if q.device.type == "meta":
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     q, k, v = _dense(q), _dense(k), _dense(v)
     out, lse, dout = (_dense(t.to(torch.float32)) for t in (out, lse, dout))
     f32 = dict(dtype=torch.float32, device=q.device)

@@ -39,7 +39,7 @@ import torch
 
 from ..core import policy as P
 from ..core import step as S
-from . import _build
+from . import _build, _cost
 
 #: compile-time cap of the kernel's slot registers (csrc/device_step.cuh)
 QMAX = 8
@@ -162,6 +162,19 @@ def _outputs(D: int, device) -> tuple:
             run.view(torch.bool), e_new.view(torch.float32))
 
 
+def work(D: int, Q: int, in_bytes: int) -> _cost.Work:
+    """One call: the ``in_bytes`` of the operands read once and the four
+    ``(D,)`` outputs (10 bytes a device) written once; per slot the score's
+    ~20 operations and the argmax compare, per device the rank, threshold,
+    gate and capacitor update (~10)."""
+    return _cost.Work(bytes=in_bytes + 10 * D, ops=float(D * (21 * Q + 10)))
+
+
+def _call_work(*args, result, n_tasks, dt):
+    D, Q = args[1].shape
+    return work(D, Q, _cost.nbytes(*args))
+
+
 def _launch(ins: tuple, *, n_tasks: int, dt: float):
     global launches
     ins = _checked(ins)
@@ -177,6 +190,7 @@ def _launch(ins: tuple, *, n_tasks: int, dt: float):
     return outs
 
 
+@_cost.counted("fleet_priority", _call_work)
 def fleet_priority(policy, active, laxity, release, utility, mandatory,
                    alpha, beta, eta, persistent, energy, e_opt, power,
                    capacity, gate_e, drain, forced, task, rr_cursor, *,

@@ -39,7 +39,7 @@ import torch
 from ..core import step as S
 from ..core.step import DeviceCarry, StepParams
 from ..fleet.state import ServeCarry, ServeLog
-from . import _build
+from . import _build, _cost
 from .l1_topk2 import window_plan
 
 #: the kernels' largest instances: QC = 8 queue slots, KC = 8 tasks
@@ -185,6 +185,56 @@ def _load(name: str, size_fn: str, struct) -> ctypes.CDLL:
     return lib
 
 
+def _cfg_bytes(cfg: StepParams) -> int:
+    return sum(_cost.nbytes(getattr(cfg, f)) for f in _CFG_FIELDS)
+
+
+def fleet_work(D: int, Q: int, n_steps: int, cfg_bytes: int,
+               carry_bytes: int, units: int = 0) -> _cost.Work:
+    """One call of kernel B: the config's ``cfg_bytes`` once, the carry
+    in and out, and per completed unit the margin, pass and correctness
+    entries it reads (6 bytes); ~40 operations per queue slot of each
+    device-step (scores, energy gates, admission)."""
+    return _cost.Work(bytes=cfg_bytes + 2 * carry_bytes + 6 * units,
+                      ops=40.0 * D * n_steps * Q)
+
+
+def serve_work(D: int, Q: int, n_steps: int, cfg_bytes: int,
+               carry_bytes: int, S: int, C: int,
+               units: int = 0) -> _cost.Work:
+    """One call of kernel C: as :func:`fleet_work` for the step (the
+    carry is the device carry and the log), and per completed unit its
+    ``S`` selected features, feature indices and ``C x S`` centroids read
+    and its log entries written, with the ``C x S`` L1 distances (3
+    operations an element)."""
+    return _cost.Work(
+        bytes=cfg_bytes + 2 * carry_bytes
+        + units * (4 * (2 * S + C * S) + 4 * (C + 2)),
+        ops=40.0 * D * n_steps * Q + units * 3.0 * C * S)
+
+
+def _units(new: DeviceCarry, old: DeviceCarry) -> int:
+    """Units completed between two carries (0 on ``meta``)."""
+    if new.m_units.device.type == "meta":
+        return 0
+    return int((new.m_units.to(torch.int64) - old.m_units).sum())
+
+
+def _fleet_call_work(cfg, carry, i0, *, result, statics, n_steps):
+    return fleet_work(cfg.policy.shape[0], statics.queue_size, n_steps,
+                      _cfg_bytes(cfg), _cost.nbytes(*carry),
+                      _units(result, carry))
+
+
+def _serve_call_work(cfg, carry, tables, i0, job0, *, result, statics,
+                     n_steps):
+    return serve_work(cfg.policy.shape[0], statics.queue_size, n_steps,
+                      _cfg_bytes(cfg),
+                      _cost.nbytes(*carry.dev) + _cost.nbytes(*carry.log),
+                      tables.fidx.shape[-1], carry.bank.centroids.shape[-2],
+                      _units(result.dev, carry.dev))
+
+
 def _fleet_launch(cfg: StepParams, carry: DeviceCarry, i0: int, *, statics,
                   n_steps: int) -> DeviceCarry:
     global fleet_launches
@@ -229,6 +279,7 @@ def _fleet_kernel():
     return _FLEET_FN["launch"]
 
 
+@_cost.counted("fleet_fused_steps", _fleet_call_work)
 def fleet_fused_steps(cfg: StepParams, carry: DeviceCarry, i0: int, *,
                       statics, n_steps: int) -> DeviceCarry:
     """Advance the replay fleet ``n_steps`` timesteps from step ``i0``:
@@ -332,6 +383,7 @@ def _serve_kernel():
     return _SERVE_FN["launch"]
 
 
+@_cost.counted("serve_fused_steps", _serve_call_work)
 def serve_fused_steps(cfg: StepParams, carry: ServeCarry, tables, i0: int,
                       job0: torch.Tensor, *, statics, n_steps: int
                       ) -> ServeCarry:

@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, _cost
 
 POS = 1e30
 _WIN = 32
@@ -127,6 +127,21 @@ def _kernel():
     return fn
 
 
+def work(B: int, k: int, d: int, per_row: bool = False) -> _cost.Work:
+    """One call: x and the centroids (``(B, k, d)`` with ``per_row``,
+    else ``(k, d)``) read once, d1, d2 and the index written (12 bytes a
+    row); 3 operations (difference, absolute value, sum) per element of
+    each of the ``B x k`` distances."""
+    return _cost.Work(bytes=4 * (B * d + (B if per_row else 1) * k * d)
+                      + 12 * B, ops=3.0 * B * k * d)
+
+
+def _call_work(x, centroids, *, result):
+    return work(x.shape[0], centroids.shape[-2], x.shape[1],
+                centroids.dim() == 3)
+
+
+@_cost.counted("l1_topk2", _call_work)
 def l1_topk2(x: torch.Tensor, centroids: torch.Tensor):
     """``x`` ``(B, d)``, ``centroids`` ``(k, d)`` or ``(B, k, d)``, float32
     -> ``(d1 (B,) f32, d2 (B,) f32, idx (B,) int32)``.

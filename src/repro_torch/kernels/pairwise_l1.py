@@ -30,7 +30,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, _cost
 from .l1_topk2 import _MAX_D, _plan_arg, ordered_sum, window_plan
 
 #: launches of the CUDA kernel (the plain version never counts)
@@ -131,6 +131,19 @@ def _check(x, y):
         raise ValueError("pairwise_l1: x and y on different devices")
 
 
+def work(B1: int, B2: int, d: int) -> _cost.Work:
+    """One call: x and y read once, the ``(B1, B2)`` distances written
+    once; 3 operations (difference, absolute value, sum) per element of
+    each distance."""
+    return _cost.Work(bytes=4 * ((B1 + B2) * d + B1 * B2),
+                      ops=3.0 * B1 * B2 * d)
+
+
+def _call_work(x, y, *, result, **blocks):
+    return work(x.shape[0], y.shape[0], x.shape[1])
+
+
+@_cost.counted("pairwise_l1", _call_work)
 def pairwise_l1(x: torch.Tensor, y: torch.Tensor, *, block_b1: int = 128,
                 block_b2: int = 128, block_d: int = 512) -> torch.Tensor:
     """``x`` ``(B1, d)``, ``y`` ``(B2, d)`` float32 -> ``(B1, B2)`` float32

@@ -29,6 +29,11 @@ autograd the call launches exactly the forward it launches for serving.
 The model's own path (:func:`repro_torch.models.rglru.rglru_seq`) launches
 this kernel for a CUDA tensor; a CPU tensor there runs the port of the
 reference's associative scan.
+
+A ``meta`` tensor takes the card's route (through :class:`_RGLRUScan`
+under autograd) and gets empty ``meta`` outputs, with no launch counted;
+the op counter counts each call as one item of :func:`work` (or
+:func:`bwd_work`).
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ import ctypes
 import torch
 
 from ..core._fma import fma_f32
-from . import _build
+from . import _build, _cost
 
 #: launches of the CUDA kernel (the plain version never counts)
 launches = 0
@@ -61,6 +66,27 @@ def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor,
         h = fma_f32(a[:, t], h, b[:, t])
         out[:, t] = h
     return out, h
+
+
+def work(B: int, S: int, W: int) -> _cost.Work:
+    """One forward call: a, b (f32) and h0 read once, h written once;
+    one fused multiply-add (two flops) per element."""
+    return _cost.Work(bytes=4 * (3 * B * S * W + B * W), ops=2.0 * B * S * W)
+
+
+def bwd_work(B: int, S: int, W: int) -> _cost.Work:
+    """One backward call: a, h, dh and h0 read once, da, db and dh0
+    written once; two flops per element."""
+    return _cost.Work(bytes=4 * (5 * B * S * W + 2 * B * W),
+                      ops=2.0 * B * S * W)
+
+
+def _call_work(a, b, h0, *, result):
+    return work(*a.shape)
+
+
+def _bwd_call_work(a, h0, h, dh, *, result):
+    return bwd_work(*a.shape)
 
 
 def copy_path(W: int, *ptrs: int) -> str:
@@ -120,12 +146,13 @@ def _kernel():
 
 
 def _launch(a, b, h0):
-    """Kernel I on CUDA tensors: ``h`` (B, S, W) f32."""
+    """Kernel I on CUDA tensors: ``h`` (B, S, W) f32; on ``meta``
+    tensors the empty output, nothing launched."""
     global launches
     B, S, W = a.shape
     a, b, h0 = (t.to(torch.float32).contiguous() for t in (a, b, h0))
     h = torch.empty_like(a)
-    if h.numel() == 0:
+    if h.numel() == 0 or a.device.type == "meta":
         return h
     tma = copy_path(W, a.data_ptr(), b.data_ptr(), h.data_ptr()) == "tma"
     err = _kernel()(a.data_ptr(), b.data_ptr(), h0.data_ptr(), B, S, W,
@@ -150,17 +177,19 @@ class _RGLRUScan(torch.autograd.Function):
         return rglru_scan_bwd(a, h0, h, dh)
 
 
+@_cost.counted("rglru_scan", _call_work)
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor):
     """``(h (B, S, W), h_last (B, W))`` f32.  A CPU tensor takes the plain
     version (differentiable by autograd); a CUDA tensor launches the kernel
     (inputs cast to f32 and made contiguous), through
     :class:`_RGLRUScan` when autograd needs a gradient of an input, and
-    ``h_last`` is then the view ``h[:, -1]``."""
+    ``h_last`` is then the view ``h[:, -1]``.  A ``meta`` tensor takes the
+    CUDA route and launches nothing."""
     _check(a, b, h0)
     dev = a.device
     if dev.type == "cpu":
         return rglru_scan_plain(a, b, h0)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"rglru_scan: unsupported device {dev}")
     if a.shape[1] == 0:
         return torch.empty_like(a, dtype=torch.float32), h0.to(
@@ -212,17 +241,18 @@ def _bwd_kernel():
     return fn
 
 
+@_cost.counted("rglru_scan_bwd", _bwd_call_work)
 def rglru_scan_bwd(a: torch.Tensor, h0: torch.Tensor, h: torch.Tensor,
                    dh: torch.Tensor):
     """``(da, db, dh0)`` f32 of the recurrence from the forward's ``a``,
     ``h0`` and ``h`` and the cotangent ``dh`` of ``h``.  A CPU tensor takes
     the plain version; a CUDA tensor launches ``csrc/rglru_scan_bwd.cu``
     (its ring filled as :func:`copy_path` says, the tiles of
-    :func:`bwd_tile_plan`)."""
+    :func:`bwd_tile_plan`); a ``meta`` tensor gets empty gradients."""
     global bwd_launches
     if a.device.type == "cpu":
         return rglru_scan_bwd_plain(a, h0, h, dh)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cuda", "meta"):
         raise ValueError(f"rglru_scan_bwd: unsupported device {a.device}")
     B, S, W = a.shape
     a, h0, h, dh = (t.to(torch.float32).contiguous() for t in (a, h0, h, dh))
@@ -230,6 +260,8 @@ def rglru_scan_bwd(a: torch.Tensor, h0: torch.Tensor, h: torch.Tensor,
     dh0 = torch.empty_like(h0)
     if a.numel() == 0:
         return da, db, dh0.zero_()
+    if a.device.type == "meta":
+        return da, db, dh0
     tma = copy_path(W, a.data_ptr(), h.data_ptr(), dh.data_ptr(),
                     da.data_ptr(), db.data_ptr()) == "tma"
     err = _bwd_kernel()(a.data_ptr(), h0.data_ptr(), h.data_ptr(),

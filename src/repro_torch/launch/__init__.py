@@ -3,8 +3,13 @@
 (:mod:`repro_torch.launch.serve`), both on the CUDA card or on the CPU
 under ``--device cpu``; the meshes and their logical-axis rules
 (:mod:`repro_torch.launch.mesh`), the spec tables and the placement over a
-mesh (:mod:`repro_torch.launch.sharding`), and the shape stand-ins of every
-model input (:mod:`repro_torch.launch.inputs`)."""
+mesh (:mod:`repro_torch.launch.sharding`), the shape stand-ins of every
+model input (:mod:`repro_torch.launch.inputs`); the op-level cost model
+(:mod:`repro_torch.launch.op_cost`), the H100 roofline terms
+(:mod:`repro_torch.launch.op_stats`), steps counted on ``meta``
+(:mod:`repro_torch.launch.lowering`), the multi-pod dry run
+(:mod:`repro_torch.launch.dryrun`) and the profiling harness
+(:mod:`repro_torch.launch.profiling`)."""
 from __future__ import annotations
 
 import sys

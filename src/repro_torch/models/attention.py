@@ -33,6 +33,9 @@ from ..kernels import ops as kops
 
 NEG_INF = -1e30
 _F32 = torch.float32
+#: devices that take the card's kernels; ``meta`` follows the card so that
+#: a step lowered on it counts kernels G and H as the card runs them
+_CARD_ROUTE = ("cuda", "meta")
 
 
 def _block_pairs(n_chunks: int, chunk: int, window: int) -> np.ndarray:
@@ -67,7 +70,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, S, H, hd), k/v: (B, Skv, KV, hd) -> (B, S, H, hd) in ``q``'s
     dtype.  ``q_offset`` shifts query positions (cross-attention uses
     ``causal=False``)."""
-    if q.device.type == "cuda":
+    if q.device.type in _CARD_ROUTE:
         o = kops.flash_attention(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset)
         return o.to(q.dtype)
@@ -145,7 +148,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     query token's position.  Operands in their own dtype with f32 sums (a
     bf16 product is exact in f32), scores and softmax in f32.
     """
-    if q.device.type == "cuda":
+    if q.device.type in _CARD_ROUTE:
         o = kops.decode_gqa(q, k_cache, v_cache, slot_pos, my_pos,
                             window=window, round_p=True)
         return o.to(q.dtype)

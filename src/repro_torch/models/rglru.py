@@ -49,6 +49,8 @@ from .common import draws, scaled_normal, zeros
 
 C_FACTOR = 8.0
 _F32 = torch.float32
+#: devices that take kernel I; ``meta`` follows the card
+_CARD_ROUTE = ("cuda", "meta")
 
 
 def init_rglru(g: torch.Generator, width: int, dtype,
@@ -139,7 +141,7 @@ def _scan(a: torch.Tensor, b: torch.Tensor,
           h0: Optional[torch.Tensor] = None):
     """``h`` (B, S, W) f32 of ``h_t = a_t h_{t-1} + b_t`` from ``h0`` (or
     zeros), by the device's path."""
-    if a.device.type == "cuda":
+    if a.device.type in _CARD_ROUTE:
         if h0 is None:
             h0 = torch.zeros((a.shape[0], a.shape[2]), dtype=_F32,
                              device=a.device)

@@ -1769,3 +1769,124 @@ def test_remat_gradients_agree_on_the_card(cuda):
     for x, y in zip(a, b):
         gap = float((x - y).abs().max())
         assert gap <= 1e-4 * max(float(y.abs().max()), 1e-3 * top), gap
+
+
+def _one_call(name, cuda):
+    """One call of kernel ``name``'s public entry point on the card, as a
+    thunk."""
+    rng = np.random.default_rng(11)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda, dtype)
+
+    if name == "fleet_priority":
+        ins = _priority_operands(cuda, 40, 3)
+        args = tuple(ins[f] for f in (
+            "policy", "active", "laxity", "release", "utility", "mandatory",
+            "alpha", "beta", "eta", "persistent", "energy", "e_opt", "power",
+            "capacity", "gate_e", "drain", "forced", "task", "rr_cursor"))
+        return lambda: FP.fleet_priority(*args, n_tasks=2, dt=0.01)
+    if name == "fleet_fused_steps":
+        cfg, statics = _replay_cfg(cuda, 1)
+        carry = fleet.init_fleet(cfg, statics)
+        return lambda: fleet_step.fleet_fused_steps(
+            cfg, carry, 0, statics=statics, n_steps=statics.n_steps)
+    if name == "serve_fused_steps":
+        eng, reqs = _engine(cuda, False, "per-device")
+        return lambda: eng.run(reqs, 5, seeds=range(5), n_segments=1,
+                               mode="fused")
+    if name == "l1_topk2":
+        x, c = t(9, 150), t(9, 5, 150)
+        return lambda: L1.l1_topk2(x, c)
+    if name == "centroid_update":
+        c, x = t(5, 64), t(12, 64)
+        a = torch.tensor([0, -1, 3, 4, -1, 2, 2, 0, 1, -1, 4, 4],
+                         dtype=torch.int32, device=cuda)
+        return lambda: CU.centroid_update(c, x, a, 32.0)
+    if name == "pairwise_l1":
+        x, y = t(33, 6), t(17, 6)
+        return lambda: PW.pairwise_l1(x, y)
+    if name in ("flash_attention", "flash_attention_bwd"):
+        q, k, v = (t(1, 96, 4, 64, dtype=torch.bfloat16),
+                   t(1, 96, 2, 64, dtype=torch.bfloat16),
+                   t(1, 96, 2, 64, dtype=torch.bfloat16))
+        if name == "flash_attention":
+            return lambda: FA.flash_attention(q, k, v)
+        out, lse = FA._launch(q, k, v, True, 0, 0, True)
+        dout = t(1, 96, 4, 64)
+        return lambda: FA.flash_attention_bwd(q, k, v, out, lse, dout)
+    if name == "decode_gqa":
+        q, kc, vc = t(2, 8, 64), t(2, 40, 2, 64), t(2, 40, 2, 64)
+        slot_pos = torch.arange(40, dtype=torch.int32,
+                                device=cuda).expand(2, 40).contiguous()
+        pos = torch.tensor([39, 20], dtype=torch.int32, device=cuda)
+        return lambda: DG.decode_gqa(q, kc, vc, slot_pos, pos, window=16)
+    a, b, h0 = 0.9 + 0.05 * t(2, 50, 96), t(2, 50, 96), t(2, 96)
+    if name == "rglru_scan":
+        return lambda: RS.rglru_scan(a, b, h0)
+    h, _ = RS.rglru_scan(a, b, h0)
+    return lambda: RS.rglru_scan_bwd(a, h0, h, b)
+
+
+@pytest.mark.parametrize("name", list(ops._MODULES))
+def test_op_counter_items_equal_launches(cuda, name):
+    """One call of each kernel's entry point under the op counter: its
+    items are the kernel's launches (G's backward launches twice a call),
+    and the item's work is the kernel's ``work()``."""
+    from repro_torch.launch.op_cost import count
+
+    fn = _one_call(name, cuda)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    _, cost = count(fn)
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in ops.launch_counts().items() if n}
+    items = dict(cost.kernels)
+    if "flash_attention_bwd" in items:
+        items["flash_attention_bwd"] *= 2
+    assert items == launches and name in items
+
+
+def _count_on(cfg, shape, cuda):
+    """``(the card's count, the meta count)`` of the step ``shape``
+    dictates for ``cfg``, the card's on seeded weights and tokens."""
+    from repro_torch.launch.inputs import input_specs
+    from repro_torch.launch.lowering import lower_step, step_fn
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.launch.op_cost import count
+    from repro_torch.train import adamw_init
+
+    spec = input_specs(cfg, shape)
+    params = TF.init_params(cfg, torch.Generator(device=cuda).manual_seed(3),
+                            device=cuda)
+    opt = adamw_init(params) if spec.step_kind == "train" else None
+    tokens = np.random.default_rng(3).integers(
+        0, cfg.vocab, (shape.global_batch, shape.seq_len)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(tokens).to(cuda)}
+    _, card = count(step_fn(spec), params, opt, batch)
+    torch.cuda.synchronize()
+    meta = lower_step(cfg, shape, make_abstract_mesh((1, 1),
+                                                     ("data", "model")))
+    return card, meta.cost
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_card_count_equals_meta_lowering(cuda, kind):
+    """The reduced qwen1.5-0.5b's prefill (and train step, two
+    microbatches, its backward on autograd's device thread) counted on the
+    card equals ``lower_step``'s count on ``meta`` on every field and
+    item."""
+    import dataclasses
+
+    from repro_torch.configs import InputShape
+
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
+                              train_microbatches=2)
+    card, meta = _count_on(cfg, InputShape(kind, 64, 2, kind), cuda)
+    assert card.as_dict() == meta.as_dict()
+    assert card.items == meta.items
+    want = {"flash_attention": cfg.n_layers} if kind == "prefill" else {
+        "flash_attention": 2 * 2 * cfg.n_layers,   # remat: twice a pass
+        "flash_attention_bwd": 2 * cfg.n_layers}
+    assert card.kernels == want

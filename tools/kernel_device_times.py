@@ -31,10 +31,9 @@ their sum, and the host-clock time per call:
   (the forecaster's 256 x 256 x 6 and 4,096 x 4,096 x 512), and the
   large shape again from views that start off 16 bytes (the kernel's
   4-byte copies), each with its CUDA-event time, its bound
-  (``chip_smoke._bound``: 3 f32 operations per term at 67 TFLOP/s, or
-  the bytes) and its FADD issue floor: 2 FADDs per term over 132 SMs x
-  128 FP32 lanes at the SM clock ``nvidia-smi`` reads while the large
-  shape runs;
+  (``PW.work``: 3 f32 operations per term at 67 TFLOP/s, or the bytes)
+  and its FADD issue floor: 2 FADDs per term over 132 SMs x 128 FP32
+  lanes at the SM clock ``nvidia-smi`` reads while the large shape runs;
 * G ``flash_attention`` in bf16 at its seven shapes, H ``decode_gqa`` at
   its six;
 * I ``rglru_scan`` at the hybrid's prefill (1, 4,096, 4,096) and
@@ -45,14 +44,15 @@ their sum, and the host-clock time per call:
 * Gbwd: G's backward (``flash_attention_bwd``) in bf16 at phase 11d's
   shapes (``chip_smoke.FULL.flash_bwd_shapes``), each kernel of a call,
   their sum, the backward of ``scaled_dot_product_attention`` by autograd
-  on the same inputs (the yardstick) and the bound (``chip_smoke._bound``:
-  10 hd flops per visible pair at the bf16 peak, or the bytes);
+  on the same inputs (the yardstick) and the bound (``FA.bwd_work``: 10
+  hd flops per visible pair at the bf16 peak, or the bytes);
 * Ibwd: I's backward (``rglru_scan_bwd``) at phase 11d's shapes
   (``chip_smoke.FULL.rglru_bwd_shapes``), with its bound (bytes).
 
-E, F, I, Gbwd and Ibwd touch only the wrappers' public calls, ``_launch``
-and ``chip_smoke``'s helpers, so the script also times an older
-checkout's kernels when copied into it: ``PYTHONPATH`` names the tree,
+E, F, I, Gbwd and Ibwd touch only the wrappers' public calls, ``_launch``,
+each kernel's ``work()`` (for the bound) and ``chip_smoke``'s helpers, so
+the script also times another checkout's kernels when copied into it (one
+that has ``work()``: this tree and later): ``PYTHONPATH`` names the tree,
 one process per tree, e.g. parent, change, change, parent.  Needs a CUDA
 card.
 """
@@ -249,10 +249,6 @@ def _stream(dev):
     return _build.stream_handle(dev)
 
 
-def _bound_ms(nbytes: float) -> float:
-    return nbytes / chip_smoke.PEAK_BYTES_S * 1e3
-
-
 def kernel_e(dev) -> None:
     rng = np.random.default_rng(0)
     for k, d, B, share in ((5, 8192, 64, 0.25), (8, 8192, 1024, 1.0)):
@@ -268,7 +264,7 @@ def kernel_e(dev) -> None:
         label = f"E (k={k}, d={d}, B={B}, {n} rows assigned)"
         dev_ms = profile(label, lambda: CU.centroid_update(c, x, a, 32.0),
                          calls=100)
-        bound = _bound_ms(n * d * 4 + 2 * k * d * 4 + B * 4)
+        bound = chip_smoke._bound(CU.work(k, d, B, n))[0]
         print(f"  {label}: {ms:.5f} ms per call (CUDA events, 200 calls), "
               f"device {dev_ms:.5f}, bound {bound:.6f} ms (bytes)")
         if hasattr(CU, "_kernel"):   # the wrapper's host work
@@ -323,8 +319,7 @@ def kernel_f(dev) -> None:
         hits = [v for k, v in kernels.items() if "pairwise_l1_kernel" in k]
         n = sum(c for _, c in hits)
         dev_ms = sum(t for t, _ in hits) / n if n else float("nan")
-        bound, by = chip_smoke._bound(4 * (B1 * d + B2 * d + B1 * B2),
-                                      3.0 * B1 * B2 * d)
+        bound, by = chip_smoke._bound(PW.work(B1, B2, d))
         floor = 2.0 * B1 * B2 * d / (132 * 128 * mhz * 1e6) * 1e3
         how = ""
         if hasattr(PW, "copy_path"):
@@ -347,7 +342,7 @@ def kernel_i(dev) -> None:
         ms = chip_smoke._ms(lambda: RS.rglru_scan(a, b, h0), dev, reps=50)
         label = f"I (B={B} S={S} W={W})"
         dev_ms = profile(label, lambda: RS.rglru_scan(a, b, h0), calls=50)
-        bound = _bound_ms(4 * (3 * B * S * W + B * W))
+        bound = chip_smoke._bound(RS.work(B, S, W))[0]
         print(f"  {label}: {ms:.5f} ms per call (CUDA events, 50 calls), "
               f"device {dev_ms:.5f}, bound {bound:.6f} ms (bytes)")
         if hasattr(RS, "_kernel") and S <= 512:
@@ -443,11 +438,9 @@ def kernel_gbwd(dev) -> None:
                                                      g_lib,
                                                      retain_graph=True),
                          calls=calls)
-        flops = 10.0 * hd * chip_smoke._flash_pairs(S, Skv, causal, window,
-                                                    qo) * H * B
-        nbytes = (chip_smoke._nbytes(q, k, v, out, dout, lse)
-                  + (q.numel() + k.numel() + v.numel()) * 2)
-        bound, by = chip_smoke._bound(nbytes, flops, chip_smoke.PEAK_BF16_S)
+        work = FA.bwd_work(B, S, Skv, H, KV, hd, torch.bfloat16, **kw)
+        flops = work.ops
+        bound, by = chip_smoke._bound(work)
         print(f"  Gbwd ({label}) bf16: device {dev_ms:.4f} ms per call, "
               f"SDPA backward {lib_ms:.4f} ms, bound {bound:.6f} ms ({by}), "
               f"{flops / dev_ms / 1e9:.2f} TFLOP/s useful")
@@ -466,7 +459,7 @@ def kernel_ibwd(dev) -> None:
         label = f"B={B} S={S} W={W}"
         dev_ms = profile(f"Ibwd ({label})",
                          lambda: RS.rglru_scan_bwd(a, h0, h, dh), calls=50)
-        bound = _bound_ms(4 * (5 * B * S * W + 2 * B * W))
+        bound = chip_smoke._bound(RS.bwd_work(B, S, W))[0]
         print(f"  Ibwd ({label}): device {dev_ms:.5f} ms per call, bound "
               f"{bound:.6f} ms (bytes), {100 * bound / dev_ms:.1f} % of it")
 
