@@ -234,8 +234,27 @@ Phases, each printing one line (any failure exits non-zero):
     function; and ``dryrun.main`` for qwen1.5-0.5b x train_4k on the
     single-pod layout (256 devices, ``meta``).  Its counted calls'
     launches are checked in the phase and kept out of the paths' counts;
-15. one JSON line naming every kernel with its launches, error, times and
-    bound.  Every phase prints its seconds.  Each kernel's bound is its
+15. the serve engines over meshes of the one card listed several times
+    (``make_fleet_mesh(4, device="cuda:0")``, ``make_mesh(shape, ("data",
+    "model"), "cuda:0")``): (a) phase 3's serve run cut to its first 136
+    of 545 steps with the per-device bank (no adaptation) and the shared
+    bank adapting, each block's kernel D per step and the shared update
+    through kernel E's partial entry per block and its finish, each equal
+    to the same mesh run on the CPU (every leaf without adaptation; every
+    integer leaf with it, floats within 1e-4); (b) the anytime engine for
+    qwen1.5-0.5b at its published widths (16 slots, 16 steps) on ``(2,
+    2)`` and ``(1, 4)``: its 16 kv heads split, kernel H on each block's
+    heads; (c) recurrentgemma-9b cut to one period on ``(1, 2)``: its one
+    kv head's cache split by length (H's stats, merge and PV entries) and
+    its RG-LRU state and conv buffer by width; both with the result
+    arrays equal to the one-block run's and the decode state within 1e-5;
+    (d) H's slice entries and merge against their plain versions at the
+    hybrid's decode shape cut 2 and 4 ways (bf16, f32) and E's partial
+    entry and finish bit for bit, each timed beside its bound.  Counts
+    zeroed before each path's runs and read after;
+16. one JSON line naming every kernel (and the slice entries of E and H)
+    with its launches, error, times and bound.  Every phase prints its
+    seconds.  Each kernel's bound is its
     ``work()`` (:mod:`repro_torch.kernels._cost`) over the H100 peaks of
     :mod:`repro_torch.launch.op_stats`.
 
@@ -248,7 +267,8 @@ anytime engine (phase 8) 64 steps (from 128), and the telemetry sweep
 anytime path (phase 9) 16 decode steps and a 32-step engine (from 32 and
 64).  Depth cuts that pay for phase 13: the replay's vmap and pallas runs
 (phase 4) take 290 steps (from 580) and the stablelm-3b training run
-(phase 12a) 2 steps (from 3).
+(phase 12a) 2 steps (from 3).  Phase 15 took 27 s on its own on the card
+and needed no cut.
 
 TF32 is off for the whole run (``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32``): f32 products are full f32, as on
@@ -262,6 +282,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import json
 import subprocess
 import sys
@@ -288,6 +309,15 @@ TRAIN_CNN_KERNELS = ("l1_topk2",)
 MESH_KERNELS = ("fleet_priority", "fleet_fused_steps", "l1_topk2",
                 "centroid_update", "decode_gqa", "flash_attention",
                 "flash_attention_bwd")
+MESH_SERVE_KERNELS = ("l1_topk2", "centroid_partial", "centroid_finish")
+MESH_ANY_KERNELS = ("decode_gqa", "decode_gqa_stats", "decode_gqa_merge",
+                    "decode_gqa_pv")
+# the entries of E and H that only a mesh of several blocks runs
+SLICE_ENTRIES = {"centroid_partial": "centroid_update",
+                 "centroid_finish": "centroid_update",
+                 "decode_gqa_stats": "decode_gqa",
+                 "decode_gqa_merge": "decode_gqa",
+                 "decode_gqa_pv": "decode_gqa"}
 REPLACES = {
     "fleet_priority": "src/repro/kernels/fleet_priority.py:83",
     "fleet_fused_steps": "src/repro/kernels/fleet_step.py:114",
@@ -377,6 +407,28 @@ class Scale:
     flash_bwd_shapes: tuple   # phase 11d: G's backward, as flash_shapes
     rglru_bwd_shapes: tuple   # phase 11d: I's backward, (B, S, W)
     launch: "LaunchRun"       # phase 12: the launch drivers
+    mesh_serve_steps: int     # phase 15a: the first steps of phase 3's run
+    mesh_anytime: tuple       # phases 15b-c: MeshAnys
+    mesh_decode_shape: tuple  # phase 15d: the long-cache timing rows of
+    #                           H's slices (B, H, KV, hd, C, window), cut 2
+    #                           and 4 ways
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshAny:
+    """One anytime engine run over meshes of one card (phases 15b-c): the
+    model (``n_layers`` a depth cut), the engine's slots, steps, prompt and
+    new tokens, the requests, and the ``(data, model)`` mesh shapes."""
+
+    arch: str
+    narrow: bool
+    n_layers: int
+    slots: int
+    steps: int
+    prompt: int
+    new: int
+    requests: int
+    meshes: tuple
 
 
 # the anytime engine's runs of phases 8 and 9: (supply, policy)
@@ -528,7 +580,13 @@ FULL = Scale(cnns=(("cifar100", None), ("vww", None)), n_train=384,
                                 "qwen1.5-0.5b", "--requests", "12"),
                  ckpt_train=("--arch", "xlstm-125m", "--reduced", "--steps",
                              "4", "--batch", "2", "--seq", "16",
-                             "--ckpt-every", "4")))
+                             "--ckpt-every", "4")),
+             mesh_serve_steps=136,
+             mesh_anytime=(MeshAny("qwen1.5-0.5b", False, 8, 16, 88, 16,
+                                   48, 16, ((2, 2), (1, 4))),
+                           MeshAny("recurrentgemma-9b", False, 3, 16, 120,
+                                   16, 48, 16, ((1, 2),))),
+             mesh_decode_shape=(1, 16, 1, 256, 2176, 2048))
 
 
 def _narrow():
@@ -600,7 +658,13 @@ def _narrow():
                            "--requests", "4"),
             ckpt_train=("--arch", "xlstm-125m", "--reduced", "--steps", "4",
                         "--batch", "2", "--seq", "16", "--ckpt-every",
-                        "4")))
+                        "4")),
+        mesh_serve_steps=24,
+        mesh_anytime=(MeshAny("qwen1.5-0.5b", True, 0, 4, 12, 2, 2, 6,
+                              ((2, 2), (1, 4))),
+                      MeshAny("recurrentgemma-9b", True, 0, 4, 12, 2, 2, 6,
+                              ((1, 2),))),
+        mesh_decode_shape=(1, 4, 1, 64, 48, 64))
 
 
 # --------------------------------------------------------------------------- #
@@ -876,7 +940,7 @@ def _build_phase() -> None:
         print(f"  pairwise_l1 instance, {bm} x {bn} tile"
               f"{', three-level fold' if multi else ''}: {regs} registers")
     # kernels B and C keep their carry in registers, I its carry, E its
-    # running sums, F its chains and fold sums, and the backward kernels of
+    # running sums (whole and partial instances), F its chains and fold sums, and the backward kernels of
     # G and I their accumulators and carry: no instance may need a stack
     # (the log of this build, or the one kept beside a cached library)
     for kernel, lib, entry, n in (
@@ -884,7 +948,7 @@ def _build_phase() -> None:
             ("serve_fused_steps", "serve_fused", "serve_fused_kernel", 4),
             ("rglru_scan", "rglru_scan", "rglru_scan_kernel", 2),
             ("centroid_update", "centroid_update", "centroid_update_kernel",
-             1),
+             2),
             ("pairwise_l1", "pairwise_l1", "pairwise_l1_kernel", 4),
             ("flash_attention_bwd", "flash_attn_bwd", "dq_kernel", 3),
             ("flash_attention_bwd", "flash_attn_bwd", "dkdv_kernel", 6),
@@ -4254,6 +4318,429 @@ def _mesh_phase(device, scale: Scale, replay: dict, serve: dict, models,
     return dict(launches=launches, seconds=secs)
 
 
+def _to(tree, device):
+    """A tree of dicts, lists and tensors with every tensor on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(_to(v, device) for v in tree)
+    if hasattr(tree, "_fields"):
+        return type(tree)(*[_to(v, device) for v in tree])
+    return tree.to(device) if hasattr(tree, "to") else tree
+
+
+def _one_card_mesh(device, shape, axes):
+    """``shape`` over the one card named with its index (the CPU device
+    listed as many times in a rehearsal)."""
+    from repro_torch.launch.mesh import make_mesh
+
+    name = (f"cuda:{device.index or 0}" if device.type == "cuda"
+            else device.type)
+    return make_mesh(shape, axes, name)
+
+
+def _mesh_serve_phase(device, scale: Scale, models, sets) -> dict:
+    """Phase 15a: phase 3's §9.2 serve run (64 devices, solar at eta
+    0.71) cut to its first ``mesh_serve_steps`` steps, on
+    ``make_fleet_mesh(4, device="cuda:0")``: the per-device bank without
+    adaptation and the shared bank with it, each block's kernel D
+    launched on its block every step and the shared bank's update summed
+    over the blocks (kernel E's partial entry per block, its finish once).
+    Each equals the same mesh run of the port on the CPU from the card's
+    build: the run without adaptation on every leaf bit for bit (phase 3's
+    standard for its one-block run), the adaptive run on every integer and
+    boolean leaf, its float leaves (centroids through the CNN's
+    propagation convs, margins) within 1e-4."""
+    import torch
+
+    from repro_torch.core.agile import AgileCNN
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_fleet_mesh
+
+    requests = _serve_requests(scale, sets)
+    n_dev = -(-scale.n_devices // 4) * 4     # a multiple of the 4 blocks
+    seeds = list(range(n_dev))
+    mesh = make_fleet_mesh(4, device=(f"cuda:{device.index or 0}"
+                                      if device.type == "cuda" else "cpu"))
+    cpu = torch.device("cpu")
+    cpu_models = [AgileCNN(m.cfg, _to(m.params, cpu),
+                           [_to(uc, cpu) for uc in m.bank]) for m in models]
+
+    _, statics, *_ = _serve_engine(device, scale, models, False,
+                                   "per-device").build(
+        requests, n_dev, seeds=seeds)
+
+    def engine(adapt, bank_mode, on):
+        ms = models if on == device else cpu_models
+        eng = _serve_engine(on, scale, ms, adapt, bank_mode)
+        eng.config = dataclasses.replace(
+            eng.config, horizon=scale.mesh_serve_steps * statics.dt)
+        return eng
+
+    cases = (("per-device", False), ("shared", True))
+    built = {}
+    for bank_mode, adapt in cases:
+        eng = engine(adapt, bank_mode, device)
+        built[bank_mode] = (eng, eng.build(requests, n_dev,
+                                           seeds=seeds))
+        if built[bank_mode][1][1].n_steps != scale.mesh_serve_steps:
+            raise AssertionError("the cut serve run has "
+                                 f"{built[bank_mode][1][1].n_steps} steps")
+    _sync(device)
+
+    # ---- the main path: counts zeroed just before, read just after ------
+    ops.reset_launch_counts()
+    runs, secs = {}, {}
+    for bank_mode, adapt in cases:
+        eng, b = built[bank_mode]
+        eng.build = lambda *a, b=b, **k: b
+        t0 = time.perf_counter()
+        runs[bank_mode] = eng.run(requests, n_dev, seeds=seeds,
+                                  mesh=mesh)
+        _sync(device)
+        secs[bank_mode] = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    launches = {k: counts[k] for k in MESH_SERVE_KERNELS}
+    print(f"mesh serve path launches {json.dumps(launches)}")
+    n = scale.mesh_serve_steps
+    if device.type == "cuda":
+        want_d = len(cases) * n * mesh.size
+        fin = launches["centroid_finish"]
+        if (launches["l1_topk2"] != want_d or fin == 0
+                or launches["centroid_partial"] != mesh.size * fin
+                or counts["centroid_update"] != 0):
+            raise AssertionError(
+                f"mesh serve path launched {launches} (centroid_update "
+                f"{counts['centroid_update']}): expected kernel D "
+                f"{want_d} times (once per block and step), E's partial "
+                f"entry {mesh.size} times per finish and no whole E")
+
+    # ---- outputs are right: the same mesh runs on the CPU ---------------
+    t0 = time.perf_counter()
+    for bank_mode, adapt in cases:
+        eng = engine(adapt, bank_mode, cpu)
+        b = _to(built[bank_mode][1], cpu)
+        eng.build = lambda *a, b=b, **k: b
+        ref = eng.run(requests, n_dev, seeds=seeds,
+                      mesh=make_fleet_mesh(4, device="cpu"))
+        card = runs[bank_mode]
+        for part in ("dev", "bank", "log"):
+            a_p, b_p = getattr(card.carry, part), getattr(ref.carry, part)
+            for f, a, r in zip(a_p._fields, a_p, b_p):
+                what = f"serve ({bank_mode}) over {mesh!r}: {part}.{f}"
+                if adapt and a.dtype.is_floating_point:
+                    _close_or_witness(a, r, what, f"card vs CPU, {n} steps")
+                elif not torch.equal(a.cpu(), r):
+                    raise AssertionError(f"{what} != the CPU's mesh run")
+        for f, a, r in zip(card.fleet._fields, card.fleet, ref.fleet):
+            if not torch.equal(a.cpu(), r):
+                raise AssertionError(f"serve ({bank_mode}) over {mesh!r}: "
+                                     f"fleet.{f} != the CPU's mesh run")
+    cpu_s = time.perf_counter() - t0
+    adapted = runs["shared"].carry.bank.counts.sum() > \
+        built["shared"][1][3].bank.counts.sum()
+    if not bool(adapted):
+        raise AssertionError("the shared bank did not adapt over the mesh")
+    print(f"mesh serve ({mesh!r}, {n_dev} devices, the first {n} "
+          f"steps): per-device bank without adaptation == the CPU's mesh "
+          f"run on every leaf, the shared bank with adaptation on every "
+          f"integer leaf (floats within 1e-4); card "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+          + f", CPU {cpu_s:.2f} s")
+    return dict(launches=launches, seconds=secs)
+
+
+def _mesh_any_phase(device, runs) -> dict:
+    """Phases 15b-c: the anytime engine for each :class:`MeshAny` at its
+    published widths (seeded random weights, ``n_layers`` a depth cut; a
+    persistent supply) on one block, then on each of its ``(data, model)``
+    meshes of the one card: the result arrays equal the one-block run's
+    bit for bit, more than half of the requests complete, and the decode
+    state, gathered whole, is within 1e-5 of it.  qwen1.5-0.5b splits its
+    16 kv heads (kernel H on each block's heads, also held against its
+    plain version at each block's shape); recurrentgemma-9b's one kv head
+    splits the cache length (H's slice entries and merge, whose per-block
+    shapes phase 15d checks) and its RG-LRU state and conv buffer by
+    width.  Counts are zeroed before the mesh runs and read after."""
+    import torch
+
+    from repro_torch.kernels import decode_gqa as DG
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import AnytimeConfig, AnytimeServeEngine
+
+    fields = ("status", "finish", "tardiness", "agree", "tokens",
+              "depth_sum")
+    out, total = {}, {k: 0 for k in MESH_ANY_KERNELS}
+    slice_shapes, head_shapes = [], []
+    for run in runs:
+        cfg = _any_config(AnyRun(run.arch, run.narrow, 0, 0, False, (),
+                                 run.requests, run.slots, run.prompt,
+                                 run.new, run.steps, n_layers=run.n_layers))
+        params = T.init_params(
+            cfg, torch.Generator(device=device).manual_seed(0), device=device)
+        eng = AnytimeServeEngine(cfg, params, serve_cfg=AnytimeConfig(
+            batch_slots=run.slots, max_steps=run.steps,
+            prompt_len=run.prompt, max_new_tokens=run.new))
+        reqs = _any_requests(cfg, AnyRun(
+            run.arch, run.narrow, 0, 0, False, (), run.requests, run.slots,
+            run.prompt, run.new, run.steps), np.random.default_rng(15))
+        seen = {}
+        plain = eng.run(reqs, hook=lambda s, c, k: seen.update(one=c.state))
+        _sync(device)
+        kinds = _layer_kinds(cfg)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        on_mesh = {}
+        for shape in run.meshes:
+            mesh = _one_card_mesh(device, shape, ("data", "model"))
+            on_mesh[shape] = (eng.run(reqs, mesh=mesh, hook=lambda s, c, k,
+                                      shape=shape: seen.update(
+                                          {shape: SH.gather(c.state)})),
+                              mesh)
+        _sync(device)
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        launches = {k: counts[k] for k in MESH_ANY_KERNELS}
+        for k in total:
+            total[k] += launches[k]
+        want = {k: 0 for k in MESH_ANY_KERNELS}
+        C = run.prompt + run.new                    # the engine's cache
+        for shape, (_, mesh) in on_mesh.items():
+            nd, nm = shape
+            kv = cfg.n_kv_heads
+            per = kinds["attn"] * run.steps
+            block = (run.slots // nd, cfg.n_heads, kv, cfg.resolved_head_dim,
+                     C, cfg.window or 0)
+            if kv % nm == 0:
+                want["decode_gqa"] += per * nd * nm
+                head_shapes.append((block[0], block[1] // nm, kv // nm,
+                                    *block[3:5], cfg.dtype, True, block[5]))
+            else:
+                want["decode_gqa_stats"] += per * nd * nm
+                want["decode_gqa_merge"] += per * nd
+                want["decode_gqa_pv"] += per * nd * nm
+                slice_shapes.append(block + (nm,))
+        if device.type == "cuda" and launches != want:
+            raise AssertionError(f"{run.arch} over meshes {run.meshes} "
+                                 f"launched {launches}, expected {want}")
+        if 2 * plain.completed <= run.requests:
+            raise AssertionError(f"{run.arch}: {plain.completed} of "
+                                 f"{run.requests} requests completed in "
+                                 f"{run.steps} steps")
+        worst = 0.0
+        for shape, (res, mesh) in on_mesh.items():
+            for f in fields:
+                if not np.array_equal(getattr(res, f), getattr(plain, f)):
+                    raise AssertionError(f"{run.arch} over {mesh!r}: {f} != "
+                                         "the one-block run's")
+            for a, b in zip(_leaves(seen[shape]), _leaves(seen["one"])):
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+                if a.dtype.is_floating_point:
+                    worst = max(worst, _max_err(a.float(), b.float()))
+        print(f"mesh anytime {run.arch}{' (reduced)' if run.narrow else ''}"
+              f" ({cfg.n_layers} layers {json.dumps(_layer_kinds(cfg))}, "
+              f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv, {run.slots} "
+              f"slots, {run.steps} steps, cache {run.prompt + run.new}) on "
+              f"meshes {list(run.meshes)} of one card: result arrays == the "
+              f"one-block run's ({plain.completed} completed), decode state "
+              f"within {worst:.3g}; launches {json.dumps(launches)}; "
+              f"{secs:.2f} s")
+        out[run.arch] = dict(launches=launches, seconds=secs)
+    # kernel H at each head-cut block's shape against its plain version
+    g = torch.Generator(device=device).manual_seed(15)
+    for shape in dict.fromkeys(head_shapes):
+        B, H, KV, hd, C, dtype, round_p, window = shape
+        q, k, v, sp, pos = _decode_inputs(shape, g, device)
+        got = DG.decode_gqa(q, k, v, sp, pos, window=window, round_p=round_p)
+        ref = DG.decode_gqa_plain(q, k, v, sp, pos, window=window,
+                                  round_p=round_p)
+        torch.testing.assert_close(got, ref, rtol=DECODE_TOL[0],
+                                   atol=DECODE_TOL[1])
+        print(f"decode_gqa at a head-cut block's shape (B={B} H={H} KV={KV} "
+              f"hd={hd} C={C} {dtype}): max err {_max_err(got, ref):.3g} vs "
+              "plain")
+    return dict(runs=out, launches=total,
+                slice_shapes=list(dict.fromkeys(slice_shapes)))
+
+
+def _slice_phase(device, scale: Scale, rng, path_shapes) -> dict:
+    """Phase 15d: kernel H's slice entries (stats, merge, PV) against their
+    plain versions in bf16 and f32, and the merged result against the
+    whole cache's H (within ``DECODE_TOL`` in f32; its gap printed in
+    bf16), at each ``path_shapes`` entry ``(B, H, KV, hd, C, window, n)``
+    (a block's rows and whole cache of a phase 15c run, cut ``n`` ways:
+    the first row, and the kernels line's) and also cut the other of 2
+    and 4 ways, then at ``mesh_decode_shape``'s long cache cut 2 and 4
+    ways (timing rows); rows whose cache ends early leave the last slices
+    empty.  Kernel E's partial entry against its plain version bit for bit
+    at phase 3's shared-bank shape cut over 4 blocks (16 rows each), and
+    its finish.  Each timed with CUDA events beside its ``work()`` bound
+    (the PV and stats entries per block, the merge per call);
+    ``index_add_`` is the library call for E's partial sums, none computes
+    the others' functions."""
+    import torch
+
+    from repro_torch.kernels import centroid_update as CU
+    from repro_torch.kernels import decode_gqa as DG
+    from repro_torch.launch import sharding as SH
+
+    g = torch.Generator(device=device).manual_seed(15)
+    rows = {k: [] for k in SLICE_ENTRIES}
+    cuts = []
+    for *shape, n in path_shapes:
+        cuts += [(tuple(shape), m) for m in dict.fromkeys((n, 2, 4))]
+    cuts += [(tuple(scale.mesh_decode_shape), n) for n in (2, 4)]
+    cuts = list(dict.fromkeys(cuts))
+    for dtype, (shape, n) in itertools.product(("bfloat16", "float32"),
+                                               cuts):
+        B, H, KV, hd, C, window = shape
+        q, k, v, sp, pos = _decode_inputs((B, H, KV, hd, C, dtype, True,
+                                           window), g, device)
+        whole = DG.decode_gqa(q, k, v, sp, pos, window=window, round_p=True)
+        c = C // n
+        ks = [k[:, i * c:(i + 1) * c].contiguous() for i in range(n)]
+        vs = [v[:, i * c:(i + 1) * c].contiguous() for i in range(n)]
+        sps = [sp[:, i * c:(i + 1) * c].contiguous() for i in range(n)]
+        label = f"B={B} C={C} {dtype}, {n} slices of {c}"
+        stats = [DG.decode_gqa_stats(q, a, s, pos, window=window)
+                 for a, s in zip(ks, sps)]
+        plain = [DG.decode_gqa_stats_plain(q, a, s, pos, window=window)
+                 for a, s in zip(ks, sps)]
+        err = 0.0
+        for (m1, l1), (m2, l2) in zip(stats, plain):
+            if not torch.equal(m1, m2):
+                raise AssertionError(f"decode_gqa_stats ({label}): the "
+                                     "maxima differ from plain")
+            torch.testing.assert_close(l1, l2, rtol=1e-12, atol=0)
+            err = max(err, _max_err(l1, l2))
+        pm = torch.stack([s[0] for s in stats])
+        ps = torch.stack([s[1] for s in stats])
+        m, l = DG.decode_gqa_merge(pm, ps)
+        m2, l2 = DG.decode_gqa_merge_plain(pm, ps)
+        if not (torch.equal(m, m2) and torch.equal(l, l2)):
+            raise AssertionError(f"decode_gqa_merge ({label}) != plain")
+        pvs = [DG.decode_gqa_pv(q, a, b, s, pos, m, l, window=window)
+               for a, b, s in zip(ks, vs, sps)]
+        pv_err = 0.0
+        for o1, a, b, s in zip(pvs, ks, vs, sps):
+            o2 = DG.decode_gqa_pv_plain(q, a, b, s, pos, m, l,
+                                        window=window)
+            torch.testing.assert_close(o1, o2, rtol=DECODE_TOL[0],
+                                       atol=DECODE_TOL[1])
+            pv_err = max(pv_err, _max_err(o1, o2))
+        # the blocks' PV sums in block order against the whole cache's
+        # H: f32 weights move by an ulp of l at most; bf16 weights can
+        # round the other way where l moves, so that gap is printed
+        gap = _max_err(SH.block_sum(pvs), whole)
+        if dtype == "float32":
+            torch.testing.assert_close(SH.block_sum(pvs), whole,
+                                       rtol=DECODE_TOL[0],
+                                       atol=DECODE_TOL[1])
+        print(f"decode_gqa slices ({label}): merged vs the whole "
+              f"cache's kernel H, max gap {gap:.3g}")
+        s_work = DG.slice_work(B, H, KV, hd, c, q.dtype, pv=False)
+        p_work = DG.slice_work(B, H, KV, hd, c, q.dtype, pv=True)
+        for name, fn, pfn, work, e in (
+                ("decode_gqa_stats",
+                 lambda: DG.decode_gqa_stats(q, ks[0], sps[0], pos,
+                                             window=window),
+                 lambda: DG.decode_gqa_stats_plain(q, ks[0], sps[0], pos,
+                                                   window=window),
+                 s_work, err),
+                ("decode_gqa_merge", lambda: DG.decode_gqa_merge(pm, ps),
+                 lambda: DG.decode_gqa_merge_plain(pm, ps),
+                 DG.merge_work(n, B * H), 0.0),
+                ("decode_gqa_pv",
+                 lambda: DG.decode_gqa_pv(q, ks[0], vs[0], sps[0], pos,
+                                          m, l, window=window),
+                 lambda: DG.decode_gqa_pv_plain(q, ks[0], vs[0], sps[0],
+                                                pos, m, l, window=window),
+                 p_work, pv_err)):
+            ms = _ms(fn, device)
+            plain_ms = _ms(pfn, device, reps=3, warmup=1)
+            bound_ms, by = _bound(work)
+            rows[name].append(dict(
+                shape=label, max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, library_ms=None))
+            print(f"{name} (H={H} KV={KV} hd={hd} window {window}, "
+                  f"{label}): max err {e:.3g} vs plain; "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.6f} ms ({by})")
+
+    # E's partial entry per block of phase 3's shared-bank update, then
+    # the finish of the blocks' sums
+    k_, d_, B_ = scale.cu_shape
+    per = max(B_ // 4, 1)
+    B_ = 4 * per
+    cents = torch.from_numpy(rng.normal(size=(k_, d_)).astype(
+        np.float32)).to(device)
+    x = torch.from_numpy(rng.normal(size=(B_, d_)).astype(
+        np.float32)).to(device)
+    a = torch.from_numpy(np.where(rng.random(B_) < 0.5,
+                                  rng.integers(0, k_, B_), -1).astype(
+        np.int32)).to(device)
+    parts = []
+    for i in range(4):
+        xb, ab = x[i * per:(i + 1) * per], a[i * per:(i + 1) * per]
+        got = CU.centroid_partial(xb, ab, k_)
+        ref = CU.centroid_partial_plain(xb, ab, k_)
+        if not all(torch.equal(u, w) for u, w in zip(got, ref)):
+            raise AssertionError("centroid_partial kernel != plain version")
+        parts.append(got)
+    sums = parts[0][0] + parts[1][0] + parts[2][0] + parts[3][0]
+    cnt = parts[0][1] + parts[1][1] + parts[2][1] + parts[3][1]
+    fin = CU.centroid_finish(cents, sums, cnt, 32.0)
+    if not torch.equal(fin, CU.centroid_finish_plain(cents, sums, cnt,
+                                                     32.0)):
+        raise AssertionError("centroid_finish kernel != plain version")
+    xb, ab = x[:per].contiguous(), a[:per].contiguous()
+    valid = ab >= 0
+    xv, av = xb[valid], ab[valid].to(torch.int64)
+    for name, fn, pfn, work, lib in (
+            ("centroid_partial", lambda: CU.centroid_partial(xb, ab, k_),
+             lambda: CU.centroid_partial_plain(xb, ab, k_),
+             CU.partial_work(k_, d_, per, int(valid.sum())),
+             lambda: torch.zeros((k_, d_), device=device).index_add_(
+                 0, av, xv)),
+            ("centroid_finish",
+             lambda: CU.centroid_finish(cents, sums, cnt, 32.0),
+             lambda: CU.centroid_finish_plain(cents, sums, cnt, 32.0),
+             CU.finish_work(k_, d_), None)):
+        ms = _ms(fn, device)
+        plain_ms = _ms(pfn, device, reps=3, warmup=1)
+        lib_ms = _ms(lib, device) if lib is not None else None
+        bound_ms, by = _bound(work)
+        rows[name].append(dict(
+            shape=f"k={k_} d={d_}" + (f" B={per}" if lib else ""),
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=by, library_ms=lib_ms))
+        print(f"{name} (k={k_}, d={d_}" + (f", {per} rows of a block"
+                                            if lib else "")
+              + f"): bit-equal to plain; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms"
+              + (f", index_add_ {lib_ms:.4f} ms" if lib else "")
+              + f", bound {bound_ms:.6f} ms ({by})")
+    out = {}
+    for name, rs in rows.items():
+        row = dict(rs[0])
+        row["max_abs_err"] = max(r["max_abs_err"] for r in rs)
+        row["shapes"] = rs[1:]
+        out[name] = row
+    return out
+
+
+def _mesh_blocks_phase(device, scale: Scale, models, sets, rng) -> dict:
+    """Phase 15: the serve engines over meshes of one card listed several
+    times (15a the fleet scan, 15b-c the anytime engine) and the new
+    entries of kernels E and H against their plain versions (15d)."""
+    serve = _mesh_serve_phase(device, scale, models, sets)
+    anytime = _mesh_any_phase(device, scale.mesh_anytime)
+    rows = _slice_phase(device, scale, rng, anytime["slice_shapes"])
+    return dict(serve=serve, anytime=anytime, rows=rows)
+
+
 def _cost_line(label: str, meas, launches: dict) -> str:
     """One profiled call as a line: times, modelled work, bound, measured
     over bound, the counter's kernel items and the launches."""
@@ -4503,6 +4990,8 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
                   models, sets)
     _phase("14 (profiling and roofline)", _roofline_phase, device, scale,
            replay)
+    blocks = _phase("15 (serve engines over meshes of one card)",
+                    _mesh_blocks_phase, device, scale, models, sets, rng)
     # each path's launches were counted from zero; a kernel on several
     # paths reports their sum and the count of each
     paths = dict(serve=serve["launches"], scalar=scalar["launches"],
@@ -4516,7 +5005,9 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
                     for run in scale.train_lm},
                  **{f"launch {k}": v["launches"] for k, v in launch.items()
                     if "launches" in v},
-                 mesh=mesh["launches"])
+                 mesh=mesh["launches"],
+                 **{"mesh serve": blocks["serve"]["launches"],
+                    "mesh anytime": blocks["anytime"]["launches"]})
     g_row, h_row = (dict(row, shapes=row["shapes"] + _unnest(z),
                          max_abs_err=max(row["max_abs_err"],
                                          z["max_abs_err"]))
@@ -4545,6 +5036,12 @@ def run(device_name: str = "cuda", scale: Scale = FULL) -> dict:
                          replaces=REPLACES[name],
                          launches=sum(by_path.values()),
                          launches_by_path=by_path, **row))
+    for name, parent in SLICE_ENTRIES.items():
+        by_path = {p: c[name] for p, c in paths.items() if name in c}
+        rows.append(dict(name=name, route="cuda", source=SOURCES[parent],
+                         replaces=REPLACES[parent],
+                         launches=sum(by_path.values()),
+                         launches_by_path=by_path, **blocks["rows"][name]))
     return {"kernels": rows}
 
 

@@ -4,10 +4,11 @@
 One classifier per Zygarde unit.  Offline construction (numpy, copied from
 the reference): per-unit features -> SelectKBest-style feature selection ->
 k-means seeded at class means -> cluster labels by majority vote.  Online
-(tensors): L1 classify through the ``l1_topk2`` kernel, weighted-average
-centroid adaptation through the ``centroid_update`` kernel, and centroid
-*propagation* to deeper layers after early exit
-(c^{i+1} = (1/r) sigma(W^{i+1} r c^i)).
+(tensors): L1 classify through the ``l1_topk2`` kernel, the utility test,
+weighted-average centroid adaptation through the ``centroid_update``
+kernel (its partial and finish entries for a batch cut into blocks), and
+centroid *propagation* to deeper layers after early exit (c^{i+1} = (1/r)
+sigma(W^{i+1} r c^i)).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 
 from ..kernels import centroid_update as _cu
 from ..kernels import l1_topk2 as _l1
+from ..models.common import block_sum
 
 
 class UnitClassifier(NamedTuple):
@@ -146,6 +148,12 @@ def classify(uc: UnitClassifier, feats: torch.Tensor):
     return pred, d1, d2, idx, margin_of(d1, d2)
 
 
+def utility_test(uc: UnitClassifier, margin: torch.Tensor) -> torch.Tensor:
+    """True = confident enough to exit (the margin above the unit's
+    threshold)."""
+    return margin > uc.threshold
+
+
 def adapt(
     uc: UnitClassifier, feats: torch.Tensor, cluster_idx: torch.Tensor,
     weight: float = 32.0,
@@ -215,6 +223,36 @@ def online_update(
     new_counts = counts + torch.bincount(hits, minlength=k + 1)[:k].to(
         torch.float32)
     return new_c, new_counts
+
+
+def online_update_blocks(
+    centroids: torch.Tensor,
+    counts: torch.Tensor,
+    xs: Sequence[torch.Tensor],
+    idxs: Sequence[torch.Tensor],
+    weight: float = 32.0,
+):
+    """:func:`online_update` over a batch cut into blocks (``xs[i]`` ``(B_i,
+    F)`` with its ``idxs[i]``, each on its block's device), as the
+    reference's program partitions it over a mesh: each block's rows are
+    summed per cluster on its own device (kernel E's partial entry, in
+    E's row order over the block's rows), the blocks' sums and counts are
+    added in block order on the first block's device
+    (:func:`repro_torch.models.common.block_sum`), and the summed
+    partials are finished there (E's finish entry).  One block is
+    :func:`online_update` itself."""
+    if len(xs) == 1:
+        return online_update(centroids, counts, xs[0], idxs[0], weight)
+    k, f = centroids.shape
+    parts = [_cu.centroid_partial(
+        x.to(torch.float32).reshape(-1, f).contiguous(),
+        i.to(torch.int32).reshape(-1).contiguous(), k)
+        for x, i in zip(xs, idxs)]
+    sums = block_sum([p[0] for p in parts])
+    n = block_sum([p[1] for p in parts])
+    new_c = _cu.centroid_finish(centroids.contiguous(), sums.contiguous(),
+                                n.to(centroids.device), weight)
+    return new_c, counts + n.to(counts.device)
 
 
 # --------------------------------------------------------------------------- #

@@ -35,6 +35,16 @@ running sum that takes each row block's sum at :func:`block_end` as the
 reference adds its block sums — a deterministic reduction, no float
 atomics; the plain version below is the same arithmetic, so the two
 agree bit for bit.
+
+Over a mesh the reference's partitioned program sums each block's rows
+locally (the one-hot product over the block's rows, :func:`row_blocks` of
+the block's count), adds the blocks' partial sums and f32 counts in block
+order (its all-reduce on the CPU adds the devices' partials in device
+order) and finishes ``(w c + sum) / (w + n)`` after that, read off the
+dumped program of ``FleetServeEngine.run`` over a 4-device mesh.  So the
+kernel has two more entries: :func:`centroid_partial` (one block's sums
+and counts, the same walk) and :func:`centroid_finish` (the finish of the
+summed partials).
 """
 from __future__ import annotations
 
@@ -45,8 +55,10 @@ import torch
 from ..core._fma import fma_f32
 from . import _build, _cost
 
-#: launches of the CUDA kernel (the plain version never counts)
+#: launches of the CUDA kernel's entries (the plain versions never count)
 launches = 0
+partial_launches = 0
+finish_launches = 0
 
 #: rows per part of the reference's split, and the longest unsplit block
 PART_ROWS = 608
@@ -94,20 +106,31 @@ def block_end(row: int, n_rows: int, k: int) -> int:
     return start + size
 
 
-def centroid_update_plain(centroids, x, assign, weight):
-    """The plain PyTorch version (same arithmetic, same order)."""
-    k, B = centroids.shape[0], x.shape[0]
+def centroid_partial_plain(x, assign, k: int):
+    """The plain version of :func:`centroid_partial`: ``(sums (k, d),
+    counts (k,) f32)`` of ``x``'s rows per cluster, in the kernel's order."""
+    B = x.shape[0]
     hot = assign[:, None].to(torch.int64) == torch.arange(
         k, device=assign.device)                              # (B, k)
-    sums = torch.zeros_like(centroids)
+    sums = torch.zeros((k, x.shape[1]), dtype=torch.float32, device=x.device)
     for start, end in row_blocks(B, k):
-        acc = torch.zeros_like(centroids)
+        acc = torch.zeros_like(sums)
         for b in range(start, min(end, B)):   # rows >= B are the padding
             acc = torch.where(hot[b][:, None], acc + x[b], acc)
         sums = sums + acc
-    counts = hot.sum(0).to(torch.float32)[:, None]
+    return sums, hot.sum(0).to(torch.float32)
+
+
+def centroid_finish_plain(centroids, sums, counts, weight):
+    """The plain version of :func:`centroid_finish`."""
     w = torch.full((), weight, dtype=torch.float32, device=centroids.device)
-    return fma_f32(w, centroids, sums) / (w + counts)
+    return fma_f32(w, centroids, sums) / (w + counts[:, None])
+
+
+def centroid_update_plain(centroids, x, assign, weight):
+    """The plain PyTorch version (same arithmetic, same order)."""
+    sums, counts = centroid_partial_plain(x, assign, centroids.shape[0])
+    return centroid_finish_plain(centroids, sums, counts, weight)
 
 
 def _check(centroids, x, assign):
@@ -127,18 +150,22 @@ def _check(centroids, x, assign):
 
 
 _FN = {}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "centroid_update_launch": [_P, _P, _P, _I, _I, _I, _F, _P, _P],
+    "centroid_partial_launch": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "centroid_finish_launch": [_P, _P, _P, _I, _I, _F, _P, _P],
+}
 
 
-def _kernel():
-    """``centroid_update_launch``, bound once."""
-    fn = _FN.get("launch")
+def _kernel(entry: str = "centroid_update_launch"):
+    """An entry of the built library, bound once."""
+    fn = _FN.get(entry)
     if fn is None:
-        fn = _build.load("centroid_update").centroid_update_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+        fn = getattr(_build.load("centroid_update"), entry)
+        fn.argtypes = _ARGTYPES[entry]
         fn.restype = ctypes.c_int
-        _FN["launch"] = fn
+        _FN[entry] = fn
     return fn
 
 
@@ -189,4 +216,97 @@ def centroid_update(centroids: torch.Tensor, x: torch.Tensor,
                     _build.stream_handle(dev))
     _build.check(err, "centroid_update")
     launches += 1
+    return out
+
+
+def _cuda_ready(name: str, *tensors) -> torch.device:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    return dev
+
+
+def partial_work(k: int, d: int, B: int,
+                 n_valid: int | None = None) -> _cost.Work:
+    """One :func:`centroid_partial` call: the assigned rows and the
+    assignments read once, the sums and counts written once; one add per
+    assigned element."""
+    n_valid = B if n_valid is None else n_valid
+    return _cost.Work(bytes=4 * n_valid * d + 4 * B + 4 * k * (d + 1),
+                      ops=float(n_valid * d))
+
+
+def finish_work(k: int, d: int) -> _cost.Work:
+    """One :func:`centroid_finish` call: centroids, sums and counts read,
+    the new centroids written; ~4 operations per element."""
+    return _cost.Work(bytes=4 * (3 * k * d + k), ops=4.0 * k * d)
+
+
+def _partial_call_work(x, assign, k, *, result):
+    n_valid = (None if assign.device.type == "meta"
+               else int(((assign >= 0) & (assign < k)).sum()))
+    return partial_work(k, x.shape[1], x.shape[0], n_valid)
+
+
+@_cost.counted("centroid_partial", _partial_call_work)
+def centroid_partial(x: torch.Tensor, assign: torch.Tensor, k: int):
+    """One block's share of :func:`centroid_update`: ``x`` ``(B, d)`` f32
+    and ``assign`` ``(B,)`` int32 -> ``(sums (k, d), counts (k,))`` f32,
+    each cluster's rows summed in the kernel's order (rows outside ``[0,
+    k)`` ignored).  A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel's partial entry."""
+    global partial_launches
+    if x.dtype != torch.float32 or assign.dtype != torch.int32:
+        raise TypeError("centroid_partial takes float32 x and int32 "
+                        "assignments")
+    if x.dim() != 2 or assign.shape != (x.shape[0],):
+        raise ValueError(f"centroid_partial: x (B, d), assign (B,); got "
+                         f"{tuple(x.shape)}, {tuple(assign.shape)}")
+    if x.device.type == "cpu":
+        return centroid_partial_plain(x, assign, k)
+    dev = _cuda_ready("centroid_partial", x, assign)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"centroid_partial: k={k} outside [1, {MAX_K}]")
+    d = x.shape[1]
+    sums = torch.empty((k, d), dtype=torch.float32, device=dev)
+    counts = torch.empty((k,), dtype=torch.float32, device=dev)
+    if d == 0:
+        return sums, centroid_partial_plain(x, assign, k)[1]
+    err = _kernel("centroid_partial_launch")(
+        x.data_ptr(), assign.data_ptr(), x.shape[0], k, d, sums.data_ptr(),
+        counts.data_ptr(), _build.stream_handle(dev))
+    _build.check(err, "centroid_partial")
+    partial_launches += 1
+    return sums, counts
+
+
+@_cost.counted("centroid_finish",
+               lambda c, s, n, w, *, result: finish_work(*c.shape))
+def centroid_finish(centroids: torch.Tensor, sums: torch.Tensor,
+                    counts: torch.Tensor, weight: float) -> torch.Tensor:
+    """``(w * c + sums) / (w + counts)`` with the multiply-add fused, as
+    :func:`centroid_update` finishes: the update from partial sums and
+    counts already summed over the blocks.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel's finish entry."""
+    global finish_launches
+    if not (centroids.dtype == sums.dtype == counts.dtype == torch.float32):
+        raise TypeError("centroid_finish takes float32 tensors")
+    k, d = centroids.shape
+    if sums.shape != (k, d) or counts.shape != (k,):
+        raise ValueError(f"centroid_finish: centroids (k, d), sums (k, d), "
+                         f"counts (k,); got {tuple(centroids.shape)}, "
+                         f"{tuple(sums.shape)}, {tuple(counts.shape)}")
+    if centroids.device.type == "cpu":
+        return centroid_finish_plain(centroids, sums, counts, weight)
+    dev = _cuda_ready("centroid_finish", centroids, sums, counts)
+    out = torch.empty_like(centroids)
+    if k * d == 0:
+        return out
+    err = _kernel("centroid_finish_launch")(
+        centroids.data_ptr(), sums.data_ptr(), counts.data_ptr(), k, d,
+        float(weight), out.data_ptr(), _build.stream_handle(dev))
+    _build.check(err, "centroid_finish")
+    finish_launches += 1
     return out

@@ -37,6 +37,16 @@
 // so only the add chain is serial.  x is read once, and only its assigned
 // rows.  8 warps and 8 stages of 8 rows were the fastest of the layouts
 // measured (PERF.md §6).
+//
+// Over a mesh of several blocks (a shared bank served by a fleet cut into
+// blocks) the reference sums each block's rows locally and adds the
+// blocks' partial sums and counts in block order before the finish, so
+// the kernel has two more entries: centroid_partial_launch (the same walk
+// over one block's rows; it writes the sums and the f32 counts, no
+// finish) and centroid_finish_launch (the summed partials' finish,
+// (w * c + sum) / (w + n), one thread per element).  The partials are
+// summed between them in block order on the first block's device.
+#include <algorithm>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -76,11 +86,14 @@ __device__ __forceinline__ int block_end(int row, int n8, int n_parts,
   return start + size;
 }
 
+// PARTIAL: out takes the sums and cnt the counts (c and w unused)
+template <bool PARTIAL>
 __global__ void __launch_bounds__(E_THREADS)
     centroid_update_kernel(const float* __restrict__ c,
                            const float* __restrict__ x,
                            const int* __restrict__ assign, int B, int k,
-                           int d, float w, float* __restrict__ out) {
+                           int d, float w, float* __restrict__ out,
+                           float* __restrict__ cnt) {
   extern __shared__ __align__(16) float smem[];
   int* asg = reinterpret_cast<int*>(smem + RING);
   int* list = asg + E_CHUNK;
@@ -97,7 +110,8 @@ __global__ void __launch_bounds__(E_THREADS)
   const unsigned below = (1u << lane) - 1u;
   const int f = blockIdx.x * 32 + lane;
   const bool live = f < d;
-  const float c_first = warp < k && live ? c[(long)warp * d + f] : 0.f;
+  const float c_first =
+      !PARTIAL && warp < k && live ? c[(long)warp * d + f] : 0.f;
   float* ring = smem + warp * E_STAGES * E_STAGE_ROWS * 32 + lane;
   const int n8 = (B + 7) / 8 * 8;
   const int n_parts = (n8 + PART_ROWS - 1) / PART_ROWS;
@@ -223,13 +237,49 @@ __global__ void __launch_bounds__(E_THREADS)
     if (c0 + E_CHUNK < B) __syncthreads();  // the next chunk rewrites them
   }
 
+  if (PARTIAL && blockIdx.x == 0) {
+    __syncthreads();  // the last chunk's totals
+    for (int j = tid; j < k; j += E_THREADS) cnt[j] = (float)total[j];
+  }
   if (!live) return;
   for (int j = warp; j < k; j += E_WARPS) {
     const float s = __fadd_rn(run_s[32 * j + lane], run_b[32 * j + lane]);
     const long o = (long)j * d + f;
+    if (PARTIAL) {
+      out[o] = s;
+      continue;
+    }
     const float cj = j == warp ? c_first : c[o];
     out[o] = __fdiv_rn(__fmaf_rn(w, cj, s), __fadd_rn(w, (float)total[j]));
   }
+}
+
+// the finish of summed partials: out = (w * c + sums) / (w + counts)
+__global__ void centroid_finish_kernel(const float* __restrict__ c,
+                                       const float* __restrict__ sums,
+                                       const float* __restrict__ counts,
+                                       long n, int d, float w,
+                                       float* __restrict__ out) {
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
+       i += (long)gridDim.x * blockDim.x)
+    out[i] = __fdiv_rn(__fmaf_rn(w, c[i], sums[i]),
+                       __fadd_rn(w, counts[i / d]));
+}
+
+template <bool PARTIAL>
+int launch_walk(const float* c, const float* x, const int* assign, int B,
+                int k, int d, float w, float* out, float* cnt,
+                cudaStream_t stream) {
+  if (k < 1 || k > E_MAX_K) return (int)cudaErrorInvalidValue;
+  static const int e = (int)cudaFuncSetAttribute(
+      centroid_update_kernel<PARTIAL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(E_MAX_K));
+  if (e) return e;
+  const int blocks = (int)(((long)d + 31) / 32);
+  centroid_update_kernel<PARTIAL><<<blocks, E_THREADS, smem_bytes(k),
+                                    stream>>>(c, x, assign, B, k, d, w, out,
+                                              cnt);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -238,14 +288,26 @@ __global__ void __launch_bounds__(E_THREADS)
 extern "C" int centroid_update_launch(const float* c, const float* x,
                                       const int* assign, int B, int k, int d,
                                       float w, float* out, void* stream) {
-  if (k < 1 || k > E_MAX_K) return (int)cudaErrorInvalidValue;
-  static const int e = (int)cudaFuncSetAttribute(
-      centroid_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes(E_MAX_K));
-  if (e) return e;
-  const int blocks = (int)(((long)d + 31) / 32);
-  centroid_update_kernel<<<blocks, E_THREADS, smem_bytes(k),
-                           (cudaStream_t)stream>>>(c, x, assign, B, k, d, w,
-                                                   out);
+  return launch_walk<false>(c, x, assign, B, k, d, w, out, nullptr,
+                            (cudaStream_t)stream);
+}
+
+// one block's partial sums (k, d) and f32 counts (k,) of its B rows
+extern "C" int centroid_partial_launch(const float* x, const int* assign,
+                                       int B, int k, int d, float* sums,
+                                       float* counts, void* stream) {
+  return launch_walk<true>(nullptr, x, assign, B, k, d, 0.f, sums, counts,
+                           (cudaStream_t)stream);
+}
+
+// the finish of the summed partials of every block
+extern "C" int centroid_finish_launch(const float* c, const float* sums,
+                                      const float* counts, int k, int d,
+                                      float w, float* out, void* stream) {
+  const long n = (long)k * d;
+  const int threads = 256;
+  const int blocks = (int)std::min<long>((n + threads - 1) / threads, 4096);
+  centroid_finish_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      c, sums, counts, n, d, w, out);
   return (int)cudaGetLastError();
 }

@@ -60,6 +60,27 @@
 // The PV pass is instanced on a bound of the group size (1, 2, 4, 8, 16,
 // 32), so its accumulators stay in registers and a slot costs no work for
 // heads the group does not have.
+//
+// A cache cut by length over the blocks of a mesh (few kv heads, each
+// block holding a slice of every row's slots) takes three more entries,
+// for round_p = 1 only (the model's function), with the arithmetic H uses
+// between its own chunks:
+//   decode_gqa_stats_launch: over one block's slice, each (row, head)'s
+//     max m_b and f64 sum of (float)exp(s - m_b) (one block per (row, kv
+//     head); pass 1 and pass 2 of the single-launch plan);
+//   decode_gqa_merge_launch: on the first block's device, the blocks'
+//     maxima and sums in block order: m = max m_b, l = (float) sum_b
+//     l_b * exp(m_b - m) in f64 (a block with no valid slot adds 0 when
+//     another has one; with none anywhere every slot weighs exp(0) = 1, so
+//     p = 1 / C as the model's softmax of all -1e30 gives);
+//   decode_gqa_pv_launch: over one block's slice, p = exp(s - m) / l
+//     rounded to the cache's dtype and the slice's PV sums per head, in
+//     slot order (pass 1 again, the weights, pass 3).
+// The blocks' PV sums are then added in block order on the first block's
+// device.  Scores are formed as in every other plan, so a slot's weight
+// differs from the whole cache's only by the rounding of l.
+#include <algorithm>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -446,6 +467,97 @@ __global__ void __launch_bounds__(THREADS)
   out[hg * hd + d] = round_p ? o : __fdiv_rn(o, den);
 }
 
+// ---- a cache slice of a mesh block: stats, merge, PV ----------------------
+
+// scores of the slice into the scratch, then per head (one warp each) its
+// max and f64 sum of (float)exp(s - max)
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    slice_stats(const T* __restrict__ q, const T* __restrict__ k,
+                const int* __restrict__ slot_pos,
+                const int* __restrict__ my_pos, int C, int H, int KV, int hd,
+                int vec, int window, float scale, float* scratch,
+                float* __restrict__ pmax, double* __restrict__ psum) {
+  extern __shared__ float smem[];
+  const Block<T> bl(blockIdx.x, k, k, slot_pos, my_pos, C, H, KV, hd, vec,
+                    scratch, smem);
+  load_q(bl, q, H, hd);
+  scores(bl, 0, C, C, hd, window, scale);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int g = warp; g < bl.G; g += THREADS / 32) {
+    const float* sg = bl.sc + (long)g * C;
+    float m = NEG;
+    for (int c = lane; c < C; c += 32) m = fmaxf(m, sg[c]);
+    m = warp_max(m);
+    double ld = 0.0;
+    for (int c = lane; c < C; c += 32)
+      ld = __dadd_rn(ld, (double)(float)exp((double)__fsub_rn(sg[c], m)));
+    ld = warp_sum(ld);
+    if (lane == 0) {
+      const long hg = (long)blockIdx.x * bl.G + g;  // = row * H + head
+      pmax[hg] = m;
+      psum[hg] = ld;
+    }
+  }
+}
+
+// one thread per (row, head): the nb blocks' maxima and sums in block order
+__global__ void slice_merge(const float* __restrict__ pmax,
+                            const double* __restrict__ psum, int nb, long n,
+                            float* __restrict__ m_out,
+                            float* __restrict__ l_out) {
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
+       i += (long)gridDim.x * blockDim.x) {
+    float m = pmax[i];
+    for (int b = 1; b < nb; ++b) m = fmaxf(m, pmax[(long)b * n + i]);
+    double l = 0.0;
+    for (int b = 0; b < nb; ++b)
+      l = __dadd_rn(l, __dmul_rn(psum[(long)b * n + i],
+                                 exp(__dsub_rn((double)pmax[(long)b * n + i],
+                                               (double)m))));
+    m_out[i] = m;
+    l_out[i] = (float)l;
+  }
+}
+
+// the slice's PV sums with the merged max and denominator
+template <typename T, int GT>
+__global__ void __launch_bounds__(THREADS)
+    slice_pv(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const int* __restrict__ slot_pos,
+             const int* __restrict__ my_pos, int C, int H, int KV, int hd,
+             int vec, int window, float scale, const float* __restrict__ mrg_m,
+             const float* __restrict__ mrg_l, float* scratch,
+             float* __restrict__ out) {
+  extern __shared__ float smem[];
+  const Block<T> bl(blockIdx.x, k, v, slot_pos, my_pos, C, H, KV, hd, vec,
+                    scratch, smem);
+  load_q(bl, q, H, hd);
+  scores(bl, 0, C, C, hd, window, scale);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int g = warp; g < bl.G; g += THREADS / 32) {
+    const long hg = (long)blockIdx.x * bl.G + g;
+    const float m = mrg_m[hg], l = mrg_l[hg];
+    float* sg = bl.sc + (long)g * C;
+    for (int c = lane; c < C; c += 32)
+      sg[c] = round_like<T>(
+          __fdiv_rn((float)exp((double)__fsub_rn(sg[c], m)), l));
+  }
+  float acc[GT];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) acc[g] = 0.f;
+  pv(bl, 0, C, C, hd, nullptr, acc);
+  const int tid = threadIdx.x;
+  if (tid < hd) {
+    float* o = out + ((long)bl.row * H + (long)bl.kvh * bl.G) * hd + tid;
+#pragma unroll
+    for (int g = 0; g < GT; ++g)
+      if (g < bl.G) o[(long)g * hd] = acc[g];
+  }
+}
+
 // the most shared memory a block of these kernels takes (G = 32, hd = 256)
 constexpr int SMEM_MAX =
     sizeof(float) * (GMAX * 256 + TILE * 257 + GMAX * TILE + GMAX);
@@ -463,6 +575,8 @@ int allow_smem_once() {
     int e = allow_smem(decode_gqa_kernel<T, GT>);
     if (!e) e = allow_smem(split_scores<T>);
     if (!e) e = allow_smem(split_pv<T, GT>);
+    if (!e) e = allow_smem(slice_stats<T>);
+    if (!e) e = allow_smem(slice_pv<T, GT>);
     return e;
   }();
   return err;
@@ -527,7 +641,112 @@ int launch_group(int G, const void* q, const void* k, const void* v,
 #undef DECODE_GQA_LAUNCH
 }
 
+size_t block_smem(int G, int hd) {
+  return sizeof(float) *
+         ((size_t)G * hd + TILE * (hd + 1) + (size_t)G * TILE + GMAX);
+}
+
+int vec_ok(int hd, int n, const void* q, const void* k, const void* v) {
+  return hd % n == 0 && (uintptr_t)q % 16 == 0 && (uintptr_t)k % 16 == 0 &&
+         (uintptr_t)v % 16 == 0;
+}
+
+template <typename T, int GT>
+int launch_slice(int stage, const void* q, const void* k, const void* v,
+                 const int* slot_pos, const int* my_pos, int B, int C, int H,
+                 int KV, int hd, int window, float scale, float* scratch,
+                 float* pmax, double* psum, const float* mrg_m,
+                 const float* mrg_l, float* out, cudaStream_t stream) {
+  const int G = H / KV;
+  const T *qt = (const T*)q, *kt = (const T*)k, *vt = (const T*)v;
+  const int vec = vec_ok(hd, Vec<T>::N, q, k, stage ? v : k);
+  int e = allow_smem_once<T, GT>();
+  if (e) return e;
+  if (stage == 0)
+    slice_stats<T><<<B * KV, THREADS, block_smem(G, hd), stream>>>(
+        qt, kt, slot_pos, my_pos, C, H, KV, hd, vec, window, scale, scratch,
+        pmax, psum);
+  else
+    slice_pv<T, GT><<<B * KV, THREADS, block_smem(G, hd), stream>>>(
+        qt, kt, vt, slot_pos, my_pos, C, H, KV, hd, vec, window, scale,
+        mrg_m, mrg_l, scratch, out);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_slice_group(int stage, const void* q, const void* k,
+                       const void* v, const int* slot_pos, const int* my_pos,
+                       int B, int C, int H, int KV, int hd, int window,
+                       float scale, float* scratch, float* pmax, double* psum,
+                       const float* mrg_m, const float* mrg_l, float* out,
+                       cudaStream_t st) {
+  const int G = H / KV;
+#define DECODE_GQA_SLICE(GT)                                                 \
+  launch_slice<T, GT>(stage, q, k, v, slot_pos, my_pos, B, C, H, KV, hd,     \
+                      window, scale, scratch, pmax, psum, mrg_m, mrg_l, out, \
+                      st)
+  if (G <= 1) return DECODE_GQA_SLICE(1);
+  if (G <= 2) return DECODE_GQA_SLICE(2);
+  if (G <= 4) return DECODE_GQA_SLICE(4);
+  if (G <= 8) return DECODE_GQA_SLICE(8);
+  if (G <= 16) return DECODE_GQA_SLICE(16);
+  return DECODE_GQA_SLICE(GMAX);
+#undef DECODE_GQA_SLICE
+}
+
+int slice_entry(int stage, const void* q, const void* k, const void* v,
+                const int* slot_pos, const int* my_pos, int B, int C, int H,
+                int KV, int hd, int window, float scale, int bf16,
+                float* scratch, float* pmax, double* psum, const float* mrg_m,
+                const float* mrg_l, float* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    return launch_slice_group<__nv_bfloat16>(
+        stage, q, k, v, slot_pos, my_pos, B, C, H, KV, hd, window, scale,
+        scratch, pmax, psum, mrg_m, mrg_l, out, st);
+  return launch_slice_group<float>(stage, q, k, v, slot_pos, my_pos, B, C, H,
+                                   KV, hd, window, scale, scratch, pmax, psum,
+                                   mrg_m, mrg_l, out, st);
+}
+
 }  // namespace
+
+// one block's slice of the cache: pmax (B, H) f32 and psum (B, H) f64
+extern "C" int decode_gqa_stats_launch(const void* q, const void* k,
+                                       const int* slot_pos,
+                                       const int* my_pos, int B, int C,
+                                       int H, int KV, int hd, int window,
+                                       float scale, int bf16, float* scratch,
+                                       float* pmax, double* psum,
+                                       void* stream) {
+  return slice_entry(0, q, k, k, slot_pos, my_pos, B, C, H, KV, hd, window,
+                     scale, bf16, scratch, pmax, psum, nullptr, nullptr,
+                     nullptr, stream);
+}
+
+// nb blocks' stats, stacked (nb, n) -> the merged m (n,) and l (n,) f32
+extern "C" int decode_gqa_merge_launch(const float* pmax, const double* psum,
+                                       int nb, long n, float* m, float* l,
+                                       void* stream) {
+  const int threads = 256;
+  const int blocks = (int)std::min<long>((n + threads - 1) / threads, 4096);
+  slice_merge<<<blocks, threads, 0, (cudaStream_t)stream>>>(pmax, psum, nb,
+                                                            n, m, l);
+  return (int)cudaGetLastError();
+}
+
+// one block's slice: its PV sums (B, H, hd) f32 under the merged m and l
+extern "C" int decode_gqa_pv_launch(const void* q, const void* k,
+                                    const void* v, const int* slot_pos,
+                                    const int* my_pos, int B, int C, int H,
+                                    int KV, int hd, int window, float scale,
+                                    int bf16, const float* m, const float* l,
+                                    float* scratch, float* out,
+                                    void* stream) {
+  return slice_entry(1, q, k, v, slot_pos, my_pos, B, C, H, KV, hd, window,
+                     scale, bf16, scratch, nullptr, nullptr, m, l, out,
+                     stream);
+}
 
 extern "C" int decode_gqa_launch(const void* q, const void* k, const void* v,
                                  const int* slot_pos, const int* my_pos,

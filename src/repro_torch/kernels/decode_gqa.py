@@ -38,6 +38,17 @@ summation order of the PV product.
 A ``meta`` tensor takes the card's route and gets an empty ``meta`` output,
 with no launch counted; the op counter counts each call as one item of
 :func:`work` (every slot on ``meta``, the kept slots on data).
+
+A cache cut by length over the blocks of a mesh (a model with fewer kv
+heads than the mesh's ``model`` axis) needs each row's max and denominator
+over every block before a block's PV product, so the kernel has three more
+entries for ``round_p=True``: :func:`decode_gqa_stats` (one block's slice:
+each (row, head)'s max and f64 sum of ``exp(s - max)``),
+:func:`decode_gqa_merge` (the blocks' stats in block order: the max of the
+maxima and the f64 sum of each block's sum rescaled to it) and
+:func:`decode_gqa_pv` (one block's PV sums under the merged max and
+denominator); the blocks' PV sums are added in block order
+(:func:`repro_torch.models.attention.decode_attention_slices`).
 """
 from __future__ import annotations
 
@@ -48,8 +59,11 @@ import torch
 from ..core._fma import fma_f32
 from . import _build, _cost
 
-#: launches of the CUDA kernel (the plain version never counts)
+#: launches of the CUDA kernel's entries (the plain versions never count)
 launches = 0
+stats_launches = 0
+merge_launches = 0
+pv_launches = 0
 
 NEG = -1e30
 #: the reference's cache tile (``choose_block(C, 512)``)
@@ -252,4 +266,220 @@ def decode_gqa(q: torch.Tensor, k_cache: torch.Tensor,
         psum, ppv, out.data_ptr(), _build.stream_handle(q.device))
     _build.check(err, "decode_gqa")
     launches += 1
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# A cache slice of a mesh block: stats, merge, PV (round_p=True).
+# --------------------------------------------------------------------------- #
+
+
+def _scores_plain(q, k_cache, slot_pos, my_pos, window):
+    """``(B, KV, G, C)`` f32 scores in the kernel's order, ``NEG`` where a
+    slot is not kept."""
+    B, H, hd = q.shape
+    C, KV = k_cache.shape[1], k_cache.shape[2]
+    f32 = torch.float32
+    qg = q.to(f32).reshape(B, KV, H // KV, hd)
+    kt = k_cache.to(f32).permute(0, 2, 3, 1)[:, :, None]
+    s = torch.zeros((B, KV, H // KV, C), dtype=f32, device=q.device)
+    for d in range(hd):
+        s = fma_f32(qg[..., d, None], kt[..., d, :], s)
+    s = s * hd ** -0.5
+    valid = kept_slots(slot_pos, my_pos, window)
+    return torch.where(valid[:, None, None, :], s, NEG)
+
+
+def decode_gqa_stats_plain(q, k_cache, slot_pos, my_pos, *, window=0):
+    """The plain version of :func:`decode_gqa_stats`."""
+    B, H, _ = q.shape
+    s = _scores_plain(q, k_cache, slot_pos, my_pos, window)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp((s - m).to(torch.float64)).to(torch.float32)
+    return m.reshape(B, H), p.to(torch.float64).sum(dim=-1).reshape(B, H)
+
+
+def decode_gqa_merge_plain(pmax, psum):
+    """The plain version of :func:`decode_gqa_merge` on stacked ``(nb, ...)``
+    maxima and sums."""
+    m = pmax.amax(dim=0)
+    l = torch.zeros_like(psum[0])
+    for b in range(pmax.shape[0]):
+        l = l + psum[b] * torch.exp(pmax[b].to(torch.float64)
+                                    - m.to(torch.float64))
+    return m, l.to(torch.float32)
+
+
+def decode_gqa_pv_plain(q, k_cache, v_cache, slot_pos, my_pos, m, l, *,
+                        window=0):
+    """The plain version of :func:`decode_gqa_pv` (the PV product as an
+    einsum: only its summation order differs from the kernel's)."""
+    B, H, hd = q.shape
+    KV = k_cache.shape[2]
+    s = _scores_plain(q, k_cache, slot_pos, my_pos, window)
+    mm = m.reshape(B, KV, H // KV, 1)
+    ll = l.reshape(B, KV, H // KV, 1)
+    p = torch.exp((s - mm).to(torch.float64)).to(torch.float32)
+    p = (p / ll).to(v_cache.dtype).to(torch.float32)
+    o = torch.einsum("bkgc,bckh->bkgh", p, v_cache.to(torch.float32))
+    return o.reshape(B, H, hd)
+
+
+def slice_work(B: int, H: int, KV: int, hd: int, C: int, dtype, *,
+               pv: bool, n_valid: int | None = None) -> _cost.Work:
+    """One slice entry: q, the positions and the kept k rows (and v rows
+    for the PV entry) read once, the stats (12 bytes per (row, head)) or
+    the PV sums written; 2 (4 with PV) * H * hd flops per kept pair."""
+    n_valid = B * C if n_valid is None else n_valid
+    es = dtype.itemsize
+    rows = (2 if pv else 1) * n_valid * KV * hd * es
+    out = 4 * B * H * hd + 8 * B * H if pv else 12 * B * H
+    return _cost.Work(bytes=B * H * hd * es + 4 * B * (C + 1) + rows + out,
+                      ops=(4.0 if pv else 2.0) * H * hd * n_valid, dot=True)
+
+
+def merge_work(nb: int, n: int) -> _cost.Work:
+    """One merge: ``nb`` blocks' maxima (f32) and sums (f64) read, ``m`` and
+    ``l`` written; ~4 operations per block and (row, head)."""
+    return _cost.Work(bytes=12 * nb * n + 8 * n, ops=4.0 * nb * n)
+
+
+def _slice_call_work(q, k_cache, *rest, result, window=0, pv=False):
+    slot_pos, my_pos = (rest[1], rest[2]) if pv else (rest[0], rest[1])
+    B, H, hd = q.shape
+    n_valid = (None if q.device.type == "meta"
+               else int(kept_slots(slot_pos, my_pos, window).sum()))
+    return slice_work(B, H, k_cache.shape[2], hd, k_cache.shape[1], q.dtype,
+                      pv=pv, n_valid=n_valid)
+
+
+_SLICE_FN = {}
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+_SLICE_ARGTYPES = {
+    "decode_gqa_stats_launch": [_VP] * 4 + [_I] * 6 + [ctypes.c_float, _I]
+                               + [_VP] * 4,
+    "decode_gqa_merge_launch": [_VP, _VP, _I, ctypes.c_long, _VP, _VP, _VP],
+    "decode_gqa_pv_launch": [_VP] * 5 + [_I] * 6 + [ctypes.c_float, _I]
+                            + [_VP] * 5,
+}
+
+
+def _slice_entry(name: str):
+    fn = _SLICE_FN.get(name)
+    if fn is None:
+        fn = getattr(_build.load("decode_gqa"), name)
+        fn.argtypes = _SLICE_ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _SLICE_FN[name] = fn
+    return fn
+
+
+def _slice_args(q, k_cache, slot_pos, my_pos):
+    """The card's checks and contiguous int32 positions of a slice entry."""
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_gqa: unsupported device {q.device}")
+    _build.no_grad_inputs("decode_gqa", q, k_cache)
+    B, H, hd = q.shape
+    if hd > MAX_HEAD_DIM or H // k_cache.shape[2] > MAX_GROUP:
+        raise ValueError(f"decode_gqa: the kernel takes hd <= "
+                         f"{MAX_HEAD_DIM} and G <= {MAX_GROUP}")
+    if k_cache.shape[1] == 0:
+        raise ValueError("decode_gqa: an empty cache slice")
+    return (slot_pos.to(torch.int32).contiguous(),
+            my_pos.to(torch.int32).contiguous())
+
+
+@_cost.counted("decode_gqa_stats", _slice_call_work)
+def decode_gqa_stats(q: torch.Tensor, k_cache: torch.Tensor,
+                     slot_pos: torch.Tensor, my_pos: torch.Tensor, *,
+                     window: int = 0):
+    """One block's slice of the cache (``slot_pos`` its slots' positions):
+    ``(pmax (B, H) f32, psum (B, H) f64)``, each (row, head)'s max score
+    and the f64 sum of ``exp(s - max)`` (each term rounded to f32).  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    global stats_launches
+    _check(q, k_cache, k_cache, slot_pos, my_pos)
+    if q.device.type == "cpu":
+        return decode_gqa_stats_plain(q, k_cache, slot_pos, my_pos,
+                                      window=window)
+    slot_pos, my_pos = _slice_args(q, k_cache, slot_pos, my_pos)
+    B, H, hd = q.shape
+    C, KV = k_cache.shape[1], k_cache.shape[2]
+    q, k_cache = q.contiguous(), k_cache.contiguous()
+    pmax = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    psum = torch.empty((B, H), dtype=torch.float64, device=q.device)
+    scratch = torch.empty(B * H * C, dtype=torch.float32, device=q.device)
+    err = _slice_entry("decode_gqa_stats_launch")(
+        q.data_ptr(), k_cache.data_ptr(), slot_pos.data_ptr(),
+        my_pos.data_ptr(), B, C, H, KV, hd, int(window), hd ** -0.5,
+        1 if q.dtype == torch.bfloat16 else 0, scratch.data_ptr(),
+        pmax.data_ptr(), psum.data_ptr(), _build.stream_handle(q.device))
+    _build.check(err, "decode_gqa_stats")
+    stats_launches += 1
+    return pmax, psum
+
+
+@_cost.counted("decode_gqa_merge",
+               lambda pmax, psum, *, result: merge_work(
+                   pmax.shape[0], pmax[0].numel()))
+def decode_gqa_merge(pmax: torch.Tensor, psum: torch.Tensor):
+    """The blocks' stats, stacked ``(nb, ...)`` in block order (f32 maxima,
+    f64 sums) -> ``(m, l)`` f32: the max of the maxima and ``l = sum_b
+    psum_b * exp(pmax_b - m)`` in f64, in block order.  A CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel."""
+    global merge_launches
+    if pmax.dtype != torch.float32 or psum.dtype != torch.float64 or \
+            pmax.shape != psum.shape:
+        raise TypeError("decode_gqa_merge takes stacked f32 maxima and f64 "
+                        "sums of one shape")
+    if pmax.device.type == "cpu":
+        return decode_gqa_merge_plain(pmax, psum)
+    if pmax.device.type != "cuda":
+        raise ValueError(f"decode_gqa_merge: unsupported device "
+                         f"{pmax.device}")
+    pmax, psum = pmax.contiguous(), psum.contiguous()
+    m = torch.empty(pmax.shape[1:], dtype=torch.float32, device=pmax.device)
+    l = torch.empty_like(m)
+    err = _slice_entry("decode_gqa_merge_launch")(
+        pmax.data_ptr(), psum.data_ptr(), pmax.shape[0], m.numel(),
+        m.data_ptr(), l.data_ptr(), _build.stream_handle(pmax.device))
+    _build.check(err, "decode_gqa_merge")
+    merge_launches += 1
+    return m, l
+
+
+@_cost.counted("decode_gqa_pv",
+               lambda *a, result, window=0: _slice_call_work(
+                   *a, result=result, window=window, pv=True))
+def decode_gqa_pv(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, slot_pos: torch.Tensor,
+                  my_pos: torch.Tensor, m: torch.Tensor, l: torch.Tensor, *,
+                  window: int = 0) -> torch.Tensor:
+    """One block's slice: ``(B, H, hd)`` f32 PV sums with ``p = exp(s - m)
+    / l`` rounded to the cache's dtype (``m``, ``l`` the merged ``(B, H)``
+    stats).  A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel."""
+    global pv_launches
+    _check(q, k_cache, v_cache, slot_pos, my_pos)
+    if q.device.type == "cpu":
+        return decode_gqa_pv_plain(q, k_cache, v_cache, slot_pos, my_pos, m,
+                                   l, window=window)
+    slot_pos, my_pos = _slice_args(q, k_cache, slot_pos, my_pos)
+    _build.no_grad_inputs("decode_gqa", v_cache)
+    B, H, hd = q.shape
+    C, KV = k_cache.shape[1], k_cache.shape[2]
+    q, k_cache, v_cache = (q.contiguous(), k_cache.contiguous(),
+                           v_cache.contiguous())
+    m = m.to(torch.float32).contiguous()
+    l = l.to(torch.float32).contiguous()
+    out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(B * H * C, dtype=torch.float32, device=q.device)
+    err = _slice_entry("decode_gqa_pv_launch")(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        slot_pos.data_ptr(), my_pos.data_ptr(), B, C, H, KV, hd,
+        int(window), hd ** -0.5, 1 if q.dtype == torch.bfloat16 else 0,
+        m.data_ptr(), l.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        _build.stream_handle(q.device))
+    _build.check(err, "decode_gqa_pv")
+    pv_launches += 1
     return out

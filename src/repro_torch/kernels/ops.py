@@ -20,8 +20,17 @@ from . import fleet_step as _fs
 from . import l1_topk2 as _l1
 from . import pairwise_l1 as _pw
 from . import rglru_scan as _rg
-from .centroid_update import centroid_update  # noqa: F401
-from .decode_gqa import decode_gqa  # noqa: F401
+from .centroid_update import (  # noqa: F401
+    centroid_finish,
+    centroid_partial,
+    centroid_update,
+)
+from .decode_gqa import (  # noqa: F401
+    decode_gqa,
+    decode_gqa_merge,
+    decode_gqa_pv,
+    decode_gqa_stats,
+)
 from .flash_attn import flash_attention, flash_attention_bwd  # noqa: F401
 from .fleet_priority import fleet_priority  # noqa: F401
 from .fleet_step import fleet_fused_steps, serve_fused_steps  # noqa: F401
@@ -35,9 +44,14 @@ _MODULES = {"fleet_priority": (_fp, "launches"),
             "serve_fused_steps": (_fs, "serve_launches"),
             "l1_topk2": (_l1, "launches"),
             "centroid_update": (_cu, "launches"),
+            "centroid_partial": (_cu, "partial_launches"),
+            "centroid_finish": (_cu, "finish_launches"),
             "pairwise_l1": (_pw, "launches"),
             "flash_attention": (_fa, "launches"),
             "decode_gqa": (_dg, "launches"),
+            "decode_gqa_stats": (_dg, "stats_launches"),
+            "decode_gqa_merge": (_dg, "merge_launches"),
+            "decode_gqa_pv": (_dg, "pv_launches"),
             "rglru_scan": (_rg, "launches"),
             "flash_attention_bwd": (_fa, "bwd_launches"),
             "rglru_scan_bwd": (_rg, "bwd_launches")}

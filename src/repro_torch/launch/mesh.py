@@ -9,9 +9,13 @@ with axes ``("data", "model")``, two pods of 512 with ``("pod", "data",
 "model")``.  On a machine with fewer cards building one raises, as
 ``jax.make_mesh`` does on a host without the devices.
 
-A mesh may list the CPU device several times: the counterpart of the
-reference's forced host devices, with which the tests hold the port's
-padding and slicing to the reference's multi-device runs.
+A mesh may list one device several times: the CPU device, or a card named
+with its index (``"cuda:0"``).  That is the counterpart of the reference's
+forced host devices: the tests hold the port's padding, slicing and
+cross-block reductions to the reference's multi-device runs with it, and
+one card runs every block of a larger mesh.  A replicated leaf placed on
+a device it already lives on stays the same tensor, so the blocks of one
+card share one copy of it.
 
 Functions, not module constants: importing this module touches no device.
 """
@@ -62,13 +66,14 @@ def _visible(device_type: str) -> int:
 def make_mesh(shape: Sequence[int], axes: Sequence[str],
               device="cuda") -> Mesh:
     """A mesh of ``prod(shape)`` devices of ``device``'s type: CUDA cards
-    0, 1, ... (``ValueError`` when fewer are visible), or that many copies
-    of a CPU device."""
+    0, 1, ... for a bare ``"cuda"`` (``ValueError`` when fewer are
+    visible), or that many copies of a CPU device or of a card named with
+    its index (``"cuda:0"``)."""
     dev = torch.device(device)
     n = int(np.prod(tuple(shape), dtype=np.int64))
     if n < 1:
         raise ValueError(f"a mesh of shape {tuple(shape)} holds no device")
-    if dev.type == "cuda":
+    if dev.type == "cuda" and dev.index is None:
         have = _visible("cuda")
         if n > have:
             raise ValueError(
@@ -104,10 +109,12 @@ def make_fleet_mesh(n_devices: Optional[int] = None,
                     device="cuda") -> Mesh:
     """A 1-D ``("dev",)`` mesh for the fleet simulator's independent device
     axis (:mod:`repro_torch.fleet`, :mod:`repro_torch.adapt`): every visible
-    card by default (one CPU device under ``device="cpu"``); ``n_devices``
-    copies of a CPU device when the CPU is asked for."""
+    card by default (one CPU device under ``device="cpu"``, one card under
+    ``"cuda:0"``); ``n_devices`` copies of a CPU device or of an indexed
+    card when one is asked for."""
     dev = torch.device(device)
-    n = _visible(dev.type) if n_devices is None else int(n_devices)
+    n = (int(n_devices) if n_devices is not None
+         else _visible(dev.type) if dev.index is None else 1)
     return make_mesh((n,), ("dev",), dev)
 
 

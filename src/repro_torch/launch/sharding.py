@@ -21,8 +21,10 @@ the device axis ``D`` to a multiple of ``mesh.size`` by wrap-around (index
 blocks: block ``i`` lives on ``mesh.devices.flat[i]``.  A run over such a
 placement computes each block on its own device, in block order
 (:func:`blocks`), and :func:`join` gathers the results onto the first
-device in that order.  On a mesh of one device a placement is the tensor
-itself: no padding, no copy.
+device in that order; a sum across blocks runs on the first block's
+device in block order (:func:`block_sum`).
+On a mesh of one device a placement is the tensor itself: no padding, no
+copy.
 """
 from __future__ import annotations
 
@@ -31,7 +33,9 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
-from ..models.common import sanitize_dim
+from ..models.common import (  # noqa: F401  (re-exported)
+    Sharded, block_layout, block_sum, replace_blocks, sanitize_dim, whole_of,
+)
 from .mesh import Mesh, logical_rules
 
 # --------------------------------------------------------------------------- #
@@ -282,27 +286,6 @@ def named(mesh: Mesh, spec_tree: Any) -> Any:
 # --------------------------------------------------------------------------- #
 
 
-class Sharded:
-    """A tensor placed over a mesh: ``blocks[i]`` lives on
-    ``sharding.mesh.devices.flat[i]``; ``shape`` is the whole tensor's."""
-
-    __slots__ = ("blocks", "sharding", "shape")
-
-    def __init__(self, blocks: Sequence[torch.Tensor],
-                 sharding: NamedSharding, shape):
-        self.blocks = tuple(blocks)
-        self.sharding = sharding
-        self.shape = torch.Size(shape)
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.blocks[0].dtype
-
-    def __repr__(self) -> str:
-        return (f"Sharded({tuple(self.shape)}, {self.dtype}, "
-                f"{self.sharding.spec!r}, {len(self.blocks)} blocks)")
-
-
 def _block_slices(mesh: Mesh, spec: P, shape) -> list[tuple]:
     """Each mesh device's block of a tensor of ``shape`` under ``spec``:
     one tuple of slices per device, in ``mesh.devices.flat`` order."""
@@ -344,11 +327,12 @@ def _whole(x) -> torch.Tensor:
 def _put(leaf, sharding: NamedSharding) -> Sharded:
     leaf = _whole(leaf)
     devices = sharding.mesh.devices
-    slices = _block_slices(sharding.mesh, sharding.spec, leaf.shape)
     whole = tuple(slice(0, n) for n in leaf.shape)
-    blocks = [(leaf if sl == whole[:len(sl)] else leaf[sl]).to(dev)
+    slices = [tuple(sl) + whole[len(sl):] for sl in
+              _block_slices(sharding.mesh, sharding.spec, leaf.shape)]
+    blocks = [(leaf if sl == whole else leaf[sl]).to(dev)
               for sl, dev in zip(slices, devices.flat)]
-    return Sharded(blocks, sharding, leaf.shape)
+    return Sharded(blocks, sharding, leaf.shape, slices)
 
 
 def device_put(tree: Any, shardings: Any) -> Any:
@@ -373,19 +357,7 @@ def blocks(tree: Any) -> list:
 def gather(tree: Any) -> Any:
     """Every :class:`Sharded` leaf of ``tree`` assembled whole on the first
     device of its mesh (a one-block leaf is its block: no copy)."""
-    def whole(x):
-        if not isinstance(x, Sharded):
-            return x
-        if len(x.blocks) == 1:
-            return x.blocks[0]
-        s = x.sharding
-        dev = x.blocks[0].device
-        out = torch.empty(x.shape, dtype=x.dtype, device=dev)
-        for sl, b in zip(_block_slices(s.mesh, s.spec, x.shape), x.blocks):
-            out[sl] = b.to(dev)
-        return out
-
-    return _map(whole, tree)
+    return _map(whole_of, tree)
 
 
 def join(trees: Sequence[Any]) -> Any:

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from .common import block_sum
 
 NEG_INF = -1e30
 _F32 = torch.float32
@@ -167,3 +168,30 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     o = torch.einsum("bkgc,bckh->bkgh", p.to(v_cache.dtype).to(_F32),
                      v_cache.to(_F32))
     return o.reshape(B, H, hd).to(q.dtype)
+
+
+def decode_attention_slices(q: torch.Tensor, k_slices, v_slices, sp_slices,
+                            my_pos: torch.Tensor,
+                            window: int = 0) -> torch.Tensor:
+    """:func:`decode_attention` against a cache cut by length into slices,
+    one per mesh block, each on its block's device (``sp_slices`` the
+    positions of each slice's slots; ``q`` and ``my_pos`` whole).
+
+    Every block's row max and f64 denominator (kernel H's stats entry),
+    merged in block order on the first block's device (its merge entry),
+    then every block's PV sums under the merged max and denominator (its
+    PV entry), added in block order
+    (:func:`repro_torch.models.common.block_sum`).  On the CPU the
+    entries run their plain versions.  Returns ``(B, H, hd)`` in ``q``'s
+    dtype on the first block's device."""
+    dev = k_slices[0].device
+    stats = [kops.decode_gqa_stats(q.to(k.device), k, sp,
+                                   my_pos.to(k.device), window=window)
+             for k, sp in zip(k_slices, sp_slices)]
+    m, l = kops.decode_gqa_merge(torch.stack([s[0].to(dev) for s in stats]),
+                                 torch.stack([s[1].to(dev) for s in stats]))
+    parts = [kops.decode_gqa_pv(q.to(k.device), k, v, sp,
+                                my_pos.to(k.device), m.to(k.device),
+                                l.to(k.device), window=window)
+             for k, v, sp in zip(k_slices, v_slices, sp_slices)]
+    return block_sum(parts).to(q.dtype)

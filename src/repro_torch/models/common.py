@@ -50,6 +50,102 @@ def sanitize_dim(axes, dim: int, axis_sizes: Mapping[str, int]):
 
 
 # --------------------------------------------------------------------------- #
+# Tensors cut into blocks over a mesh.
+# --------------------------------------------------------------------------- #
+#
+# :mod:`repro_torch.launch.sharding` places a leaf by its spec into a
+# :class:`Sharded`; the models run a placed decode state block by block
+# with the helpers below, which take a plain tensor as the one block that
+# holds all of it.
+
+
+class Sharded:
+    """A tensor placed over a mesh: ``blocks[i]`` lives on
+    ``sharding.mesh.devices.flat[i]`` and holds ``slices[i]`` of the whole
+    tensor (one slice per dim); ``shape`` is the whole tensor's."""
+
+    __slots__ = ("blocks", "sharding", "shape", "slices")
+
+    def __init__(self, blocks: Sequence[torch.Tensor], sharding, shape,
+                 slices: Sequence[tuple]):
+        self.blocks = tuple(blocks)
+        self.sharding = sharding
+        self.shape = torch.Size(shape)
+        self.slices = tuple(slices)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[0].dtype
+
+    def __repr__(self) -> str:
+        return (f"Sharded({tuple(self.shape)}, {self.dtype}, "
+                f"{self.sharding.spec!r}, {len(self.blocks)} blocks)")
+
+
+def block_layout(x) -> list[tuple[tuple, list[int]]]:
+    """The distinct blocks of a placed leaf, in the order of their first
+    block: ``(slices, block indices)``, one slice per dim; blocks with the
+    same slices are replicas of one another.  A plain tensor is one block
+    holding all of it."""
+    if not isinstance(x, Sharded):
+        return [(tuple(slice(0, n) for n in x.shape), [0])]
+    out: dict[tuple, list[int]] = {}
+    for i, sl in enumerate(x.slices):
+        out.setdefault(tuple((d.start, d.stop) for d in sl), []).append(i)
+    return [(tuple(slice(a, b) for a, b in key), idx)
+            for key, idx in out.items()]
+
+
+def blocks_of(x) -> tuple:
+    """A placed leaf's blocks; a plain tensor is its one block."""
+    return x.blocks if isinstance(x, Sharded) else (x,)
+
+
+def replace_blocks(x, new: Sequence[torch.Tensor]):
+    """``x``'s placement with new blocks of the same shapes (a plain
+    tensor's one block is the new tensor)."""
+    if not isinstance(x, Sharded):
+        return new[0]
+    return Sharded(new, x.sharding, x.shape, x.slices)
+
+
+def whole_of(x) -> torch.Tensor:
+    """A placed leaf assembled whole on its first block's device (a plain
+    tensor, or a leaf of one block, as it is: no copy)."""
+    if not isinstance(x, Sharded):
+        return x
+    if len(x.blocks) == 1:
+        return x.blocks[0]
+    dev = x.blocks[0].device
+    out = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    for sl, b in zip(x.slices, x.blocks):
+        out[sl] = b.to(dev)
+    return out
+
+
+def place_like(x, t: torch.Tensor):
+    """A whole tensor ``t`` of ``x``'s shape cut into ``x``'s blocks on
+    their devices (a plain ``x``: ``t`` itself)."""
+    if not isinstance(x, Sharded):
+        return t
+    return replace_blocks(x, [t[sl].to(b.device)
+                              for sl, b in zip(x.slices, x.blocks)])
+
+
+def block_sum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Per-block tensors of one shape summed on the first block's device in
+    block order, ``((p0 + p1) + p2) + ...``: the order in which the
+    reference's all-reduce on the CPU adds its devices' partials.  Every
+    cross-block sum of a mesh run goes through here, so its order is fixed
+    (no float atomics, no collective library); one block is returned as it
+    is."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p.to(out.device)
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # Initializers (parameters stored in the config's dtype).
 # --------------------------------------------------------------------------- #
 

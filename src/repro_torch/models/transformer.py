@@ -41,17 +41,23 @@ import torch.utils.checkpoint
 from . import moe as moe_mod
 from . import rglru as rg
 from . import xlstm as xl
-from .attention import chunked_attention, decode_attention
+from .attention import (chunked_attention, decode_attention,
+                        decode_attention_slices)
 from .common import (
     apply_norm,
     apply_rope,
     activate,
+    block_layout,
+    blocks_of,
     dense_init,
     dtype_of,
     embed_init,
     norm_init,
+    place_like,
+    replace_blocks,
     scaled_normal,
     ShapeOnly,
+    whole_of,
     zeros,
 )
 
@@ -130,7 +136,18 @@ def init_block(g, cfg, kind: str, *, cross: bool = False) -> dict:
 # --------------------------------------------------------------------------- #
 
 
-def _qkv(p: dict, cfg, h: torch.Tensor, positions: torch.Tensor):
+def _qkv(p: dict, cfg, h: torch.Tensor, positions: torch.Tensor,
+         kv: Optional[tuple[int, int]] = None):
+    """q, k, v of ``h`` (RoPE at ``positions``); ``kv = (k0, k1)`` gives
+    only kv heads ``k0 .. k1 - 1`` and their query heads, from column
+    slices of the projections (a mesh block's heads)."""
+    if kv is not None:
+        G = p["wq"].shape[1] // p["wk"].shape[1]
+        qs, ks = slice(kv[0] * G, kv[1] * G), slice(*kv)
+        p = {n: (w[:, qs] if n == "wq" else w[qs] if n == "bq" else
+                 w[:, ks] if n in ("wk", "wv") else w[ks])
+             for n, w in p.items() if n in ("wq", "wk", "wv", "bq", "bk",
+                                            "bv")}
     q = torch.einsum("bsd,dnh->bsnh", h, p["wq"])
     k = torch.einsum("bsd,dnh->bsnh", h, p["wk"])
     v = torch.einsum("bsd,dnh->bsnh", h, p["wv"])
@@ -265,8 +282,9 @@ def _write_slot(cache: torch.Tensor, val: torch.Tensor,
 def block_step(p: dict, cfg, kind: str, x: torch.Tensor, state: dict,
                pos: torch.Tensor, *, window: Optional[int] = None,
                scanned: bool = False):
-    """x: (B, D); state: per-block decode state; pos: (B,) current
-    position; ``scanned`` as in :func:`block_seq`."""
+    """x: (B, D); state: per-block decode state, its leaves tensors or
+    placed over a mesh (see below); pos: (B,) current position;
+    ``scanned`` as in :func:`block_seq`."""
     window = cfg.window if window is None else window
     new_state = dict(state)
     if kind == "rec":
@@ -274,9 +292,8 @@ def block_step(p: dict, cfg, kind: str, x: torch.Tensor, state: dict,
         gate = F.gelu(torch.einsum("bd,dw->bw", h, p["gate_proj"]),
                       approximate="tanh")
         r = torch.einsum("bd,dw->bw", h, p["rec_proj"])
-        r, new_state["buf"] = rg.conv1d_step(p["conv"], r, state["buf"])
-        r, new_state["h"] = rg.rglru_step(p["rglru"], r, state["h"],
-                                          scanned=scanned)
+        r, new_state["buf"], new_state["h"] = _rec_state_step(
+            p, r, state["buf"], state["h"], scanned)
         x = x + torch.einsum("bw,wd->bd", gate * r, p["out_proj"])
         if cfg.d_ff:
             h2 = apply_norm(cfg.norm, p["norm2"], x)
@@ -284,34 +301,19 @@ def block_step(p: dict, cfg, kind: str, x: torch.Tensor, state: dict,
         return x, new_state
     if kind in ("mlstm", "slstm"):
         h = apply_norm(cfg.norm, p["norm1"], x)
-        step_fn = xl.mlstm_step if kind == "mlstm" else xl.slstm_step
-        y, new_state["cell"] = step_fn(p["cell"], h, cfg.n_heads,
-                                       state["cell"])
+        y, new_state["cell"] = _xlstm_cell_step(p, cfg, kind, h,
+                                                state["cell"])
         return x + y, new_state
     if kind != "attn":
         raise ValueError(kind)
-    B = x.shape[0]
-    h = apply_norm(cfg.norm, p["norm1"], x)[:, None]            # (B, 1, D)
-    q, k, v = _qkv(p["attn"], cfg, h, pos[:, None])
-    q, k, v = q[:, 0], k[:, 0], v[:, 0]
-    C = state["k"].shape[1]
-    slot = torch.remainder(pos, C)
-    k_cache = _write_slot(state["k"], k, slot)
-    v_cache = _write_slot(state["v"], v, slot)
-    slot_pos = _slot_positions(pos + 1, C)
-    o = decode_attention(q, k_cache, v_cache, slot_pos, pos, window)
+    h = apply_norm(cfg.norm, p["norm1"], x)
+    o, new_state["k"], new_state["v"] = _attend(
+        p["attn"], cfg, h, state["k"], state["v"], pos, window)
     x = x + torch.einsum("bnh,nhd->bd", o, p["attn"]["wo"])
-    new_state["k"], new_state["v"] = k_cache, v_cache
     if "xattn" in p:
         hx = apply_norm(cfg.norm, p["norm_x"], x)
-        qx = torch.einsum("bd,dnh->bnh", hx, p["xattn"]["wq"])
-        xk, xv = state["xk"], state["xv"]
-        nenc = xk.shape[1]
-        enc_pos = torch.arange(nenc, dtype=_I32, device=x.device).expand(
-            B, nenc)
-        ox = decode_attention(qx, xk, xv, enc_pos,
-                              torch.full((B,), nenc, dtype=_I32,
-                                         device=x.device), 0)
+        ox, _, _ = _attend(p["xattn"], cfg, hx, state["xk"], state["xv"],
+                           None, 0)
         x = x + torch.einsum("bnh,nhd->bd", ox, p["xattn"]["wo"])
     h2 = apply_norm(cfg.norm, p["norm2"], x)
     if "moe" in p:
@@ -321,6 +323,210 @@ def block_step(p: dict, cfg, kind: str, x: torch.Tensor, state: dict,
     else:
         y = torch.zeros_like(x)
     return x + y, new_state
+
+
+# A decode state placed by :func:`repro_torch.launch.sharding.state_specs`
+# holds :class:`~repro_torch.models.common.Sharded` leaves: the batch rows
+# cut over ``data``, and over ``model`` the kv heads of the caches (or
+# their length where the heads do not divide) and the width of the RG-LRU
+# state and the conv buffer.  The step's hidden state, its norms, FFNs and
+# MoE (a dispatch group over every slot, as without a mesh) and the
+# projections into and out of the state run whole, once: their weights
+# are replicated.  What the state splits runs block by block on each
+# block's device (:func:`_attend`, :func:`_rec_state_step`,
+# :func:`_xlstm_cell_step`); blocks that hold the same slices (a leaf the
+# spec replicates over an axis) are computed once and copied to each.  A
+# state that is not placed is the one block that holds all of it.
+
+
+def _row_groups(layout) -> list:
+    """A leaf's distinct blocks grouped by their batch rows, in row order:
+    ``[(rows slice, [(slices, block indices), ...]), ...]``."""
+    groups: dict[tuple, list] = {}
+    for sl, idx in layout:
+        groups.setdefault((sl[0].start, sl[0].stop), []).append((sl, idx))
+    return [(slice(*r), groups[r]) for r in sorted(groups)]
+
+
+def _on(t: torch.Tensor, dev) -> torch.Tensor:
+    return t if t.device == dev else t.to(dev)
+
+
+def _params_on(p: dict, dev) -> dict:
+    return {n: _on(w, dev) for n, w in p.items()}
+
+
+def _write_slice(cache: torch.Tensor, val: torch.Tensor,
+                 local: torch.Tensor) -> torch.Tensor:
+    """:func:`_write_slot` into a slice of a cut cache: ``local`` is each
+    row's slot minus the slice's first slot; rows whose slot lies outside
+    the slice keep it as it is."""
+    n = cache.shape[1]
+    inside = (local >= 0) & (local < n)
+    idx = local.clamp(0, n - 1).long()
+    ar = torch.arange(cache.shape[0], device=cache.device)
+    out = cache.clone()
+    mask = inside.reshape(inside.shape + (1,) * (val.dim() - 1))
+    out[ar, idx] = torch.where(mask, val.to(cache.dtype), out[ar, idx])
+    return out
+
+
+def _attend(p: dict, cfg, h: torch.Tensor, ks, vs,
+            pos: Optional[torch.Tensor], window: int):
+    """One step's attention over the caches ``ks``/``vs``: with ``pos``
+    the self-attention (q, k, v of ``h`` at ``pos``, k and v written into
+    the caches), without it the cross-attention (q of ``h``, every encoder
+    slot seen).  Over placed caches each block's heads' q, k, v come from
+    column slices of the projections, the outputs gathered in head order;
+    over a cache cut by length the blocks' stats and PV sums are merged in
+    block order (:func:`repro_torch.models.attention.
+    decode_attention_slices`).  Returns ``(o (B, H, hd) on h's device, new
+    ks, new vs)``."""
+    B, C, KV = ks.shape[0], ks.shape[1], ks.shape[2]
+    G = p["wq"].shape[1] // KV
+    k_blocks, v_blocks = blocks_of(ks), blocks_of(vs)
+    new_k, new_v = list(k_blocks), list(v_blocks)
+    outs = []
+    for rows, group in _row_groups(block_layout(ks)):
+        hr = h[rows]
+        Br = hr.shape[0]
+        if pos is not None:
+            pr = pos[rows]
+            slot_pos = _slot_positions(pr + 1, C)
+        else:
+            pr = torch.full((Br,), C, dtype=_I32, device=h.device)
+            slot_pos = torch.arange(C, dtype=_I32,
+                                    device=h.device).expand(Br, C)
+
+        def qkv(dev, kv=None):
+            x = _on(hr, dev)
+            if pos is not None:
+                q, k, v = _qkv(p, cfg, x[:, None], _on(pr, dev)[:, None], kv)
+                return q[:, 0], k[:, 0], v[:, 0]
+            wq = p["wq"] if kv is None else p["wq"][:, kv[0] * G:kv[1] * G]
+            return torch.einsum("bd,dnh->bnh", x, _on(wq, dev)), None, None
+
+        def keep(idx, kc, vc):
+            for i in idx:
+                new_k[i] = _on(kc, k_blocks[i].device)
+                new_v[i] = _on(vc, v_blocks[i].device)
+
+        head_cut = any(sl[2] != slice(0, KV) for sl, _ in group)
+        len_cut = any(sl[1] != slice(0, C) for sl, _ in group)
+        if len_cut:
+            q, k, v = qkv(h.device)
+            kcs, vcs, sps = [], [], []
+            for sl, idx in group:
+                kb, vb = k_blocks[idx[0]], v_blocks[idx[0]]
+                dev, c0 = kb.device, sl[1].start
+                if pos is not None:
+                    local = _on(torch.remainder(pr, C) - c0, dev)
+                    kb = _write_slice(kb, _on(k, dev), local)
+                    vb = _write_slice(vb, _on(v, dev), local)
+                    keep(idx, kb, vb)
+                kcs.append(kb)
+                vcs.append(vb)
+                sps.append(_on(slot_pos[:, sl[1]].contiguous(), dev))
+            o = decode_attention_slices(q, kcs, vcs, sps, pr, window)
+        else:
+            pieces = []
+            for sl, idx in group:
+                kb, vb = k_blocks[idx[0]], v_blocks[idx[0]]
+                dev = kb.device
+                kv = (sl[2].start, sl[2].stop) if head_cut else None
+                q, k, v = qkv(dev, kv)
+                if pos is not None:
+                    slot = _on(torch.remainder(pr, C), dev)
+                    kb = _write_slot(kb, k, slot)
+                    vb = _write_slot(vb, v, slot)
+                    keep(idx, kb, vb)
+                pieces.append(decode_attention(
+                    q, kb, vb, _on(slot_pos, dev), _on(pr, dev),
+                    window if pos is not None else 0))
+            o = (pieces[0] if len(pieces) == 1 else
+                 torch.cat([_on(t, h.device) for t in pieces], dim=1))
+        outs.append(_on(o, h.device))
+    o = torch.cat(outs, dim=0) if len(outs) > 1 else outs[0]
+    return o, replace_blocks(ks, new_k), replace_blocks(vs, new_v)
+
+
+def _rglru_cols(p: dict, w0: int, w1: int) -> dict:
+    """The RG-LRU parameters of width ``w0 .. w1 - 1`` (whole blocks of its
+    block-diagonal gates)."""
+    dh = p["wa"].shape[1]
+    return {"wa": p["wa"][w0 // dh:w1 // dh], "wx": p["wx"][w0 // dh:w1 // dh],
+            "ba": p["ba"][w0:w1], "bx": p["bx"][w0:w1], "lam": p["lam"][w0:w1]}
+
+
+def _rec_state_step(p: dict, r: torch.Tensor, bufs, hs, scanned: bool):
+    """The conv and the RG-LRU of a ``"rec"`` block's step over its
+    ``buf``/``h`` (placed alike: rows over ``data``, width over
+    ``model``): each block's rows and width slice (whole gate blocks) on
+    its device, the outputs gathered by rows and width.  Returns ``(y (B,
+    W) on r's device, new buf, new h)``."""
+    W = r.shape[1]
+    dh = p["rglru"]["wa"].shape[1]
+    h_blocks, b_blocks = blocks_of(hs), blocks_of(bufs)
+    new_h, new_buf = list(h_blocks), list(b_blocks)
+    pieces = []
+    for sl, idx in block_layout(hs):
+        rows, w0, w1 = sl[0], sl[1].start, sl[1].stop
+        if w0 % dh or w1 % dh:
+            raise ValueError(
+                f"a width slice {w0}:{w1} of the RG-LRU state cuts its "
+                f"gate blocks of {dh}")
+        hb, bb = h_blocks[idx[0]], b_blocks[idx[0]]
+        dev = hb.device
+        conv, gates = p["conv"], p["rglru"]
+        if (w0, w1) != (0, W):
+            conv = {n: w[..., w0:w1] for n, w in conv.items()}
+            gates = _rglru_cols(gates, w0, w1)
+        c_out, nb = rg.conv1d_step(_params_on(conv, dev),
+                                   _on(r[rows, w0:w1], dev), bb)
+        y_p, h_p = rg.rglru_step(_params_on(gates, dev), c_out, hb,
+                                 scanned=scanned)
+        pieces.append((rows, slice(w0, w1), _on(y_p, r.device)))
+        for i in idx:
+            new_h[i] = _on(h_p, h_blocks[i].device)
+            new_buf[i] = _on(nb, b_blocks[i].device)
+    if len(pieces) == 1:
+        y = pieces[0][2]
+    else:
+        y = torch.empty(r.shape, dtype=pieces[0][2].dtype, device=r.device)
+        for rows, cols, y_p in pieces:
+            y[rows, cols] = y_p
+    return y, replace_blocks(bufs, new_buf), replace_blocks(hs, new_h)
+
+
+def _xlstm_cell_step(p: dict, cfg, kind: str, h: torch.Tensor, cell):
+    """An xLSTM block's cell over its state (``h`` the normed input): each
+    block's rows on its device.  A cell placed other than by its batch
+    rows (slots that the ``data`` axis does not divide) steps whole and is
+    placed again."""
+    step_fn = xl.mlstm_step if kind == "mlstm" else xl.slstm_step
+    leaves = tuple(cell)
+
+    def rebuild(new):
+        return type(cell)(*new) if hasattr(cell, "_fields") else tuple(new)
+
+    if not all(all(d == slice(0, n) for d, n in zip(sl[1:], c.shape[1:]))
+               for c in leaves for sl, _ in block_layout(c)):
+        y, new = step_fn(p["cell"], h, cfg.n_heads,
+                         tuple(_on(whole_of(c), h.device) for c in leaves))
+        return y, rebuild(place_like(c, n) for c, n in zip(leaves, new))
+    new = [list(blocks_of(c)) for c in leaves]
+    ys = []
+    for sl, idx in block_layout(leaves[0]):
+        dev = blocks_of(leaves[0])[idx[0]].device
+        y_r, cell_n = step_fn(_params_on(p["cell"], dev),
+                              _on(h[sl[0]], dev), cfg.n_heads,
+                              tuple(blocks_of(c)[idx[0]] for c in leaves))
+        ys.append(_on(y_r, h.device))
+        for j, c in enumerate(leaves):
+            for i in idx:
+                new[j][i] = _on(cell_n[j], blocks_of(c)[i].device)
+    y = torch.cat(ys, dim=0) if len(ys) > 1 else ys[0]
+    return y, rebuild(replace_blocks(c, n) for c, n in zip(leaves, new))
 
 
 # --------------------------------------------------------------------------- #

@@ -48,10 +48,13 @@ How the port runs the reference's jitted scan eagerly:
   per-token depth histogram, slack, busy slots, energy); the result
   arrays are the same bit for bit either way.
 * ``mesh=`` places the decode state by
-  :func:`repro_torch.launch.sharding.state_specs` (the reference's batch
-  and kv-head split) on a mesh of one device; a larger mesh raises
-  ``NotImplementedError``: splitting the kv heads over ``model`` is tensor
-  parallelism.
+  :func:`repro_torch.launch.sharding.state_specs` (the reference's split:
+  slots over ``data``; kv heads, or the cache length where they do not
+  divide, and the RG-LRU width over ``model``) and runs each step's model
+  block by block (:func:`repro_torch.models.transformer.block_step` on a
+  placed state).  Admission, depth control, the clock and the energy gate
+  stay whole: they are per-slot scalars, and the rows each block resets or
+  keeps are its slice of them.
 """
 from __future__ import annotations
 
@@ -66,6 +69,8 @@ from ..core import policy as POL
 from ..core._fma import fma_f32
 from ..models import anytime as A
 from ..models import transformer as T
+from ..models.common import (Sharded, block_layout, place_like,
+                             replace_blocks, whole_of)
 from ..telemetry import state as TEL
 
 _F32 = torch.float32
@@ -249,6 +254,22 @@ def _bmask(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
     return mask.reshape(mask.shape + (1,) * (leaf.dim() - 1))
 
 
+def _where_rows(mask: torch.Tensor, new, old):
+    """``torch.where`` of a ``(B,)`` row mask (or a scalar) over a
+    batch-leading leaf; a leaf placed over a mesh takes each block's rows
+    of the mask on the block's device."""
+    if not isinstance(old, Sharded):
+        return torch.where(_bmask(mask, old) if mask.dim() else mask, new,
+                           old)
+    out = list(old.blocks)
+    for sl, idx in block_layout(old):
+        for i in idx:
+            m = (mask[sl[0]] if mask.dim() else mask).to(out[i].device)
+            out[i] = torch.where(_bmask(m, out[i]) if m.dim() else m,
+                                 new.blocks[i], out[i])
+    return replace_blocks(old, out)
+
+
 def _map_state(fn, *states):
     """``fn`` over the leaves of decode states of one structure."""
     first = states[0]
@@ -412,7 +433,8 @@ class AnytimeServeEngine:
         return -(laxity + tables.release * _f32(POL._TIE))
 
     def _step(self, tables: AnytimeTables, carry: AnytimeCarry,
-              knobs: AnytimeKnobs, tel_on: bool = False) -> AnytimeCarry:
+              knobs: AnytimeKnobs, tel_on: bool = False,
+              zero_state=None) -> AnytimeCarry:
         cfg, sc = self.cfg, self.scfg
         B, U, m = sc.batch_slots, self.n_units, self.mandatory
         N = tables.prompt.shape[0]
@@ -437,19 +459,23 @@ class AnytimeServeEngine:
         req = torch.clamp(slot_req, 0, N - 1).long()
         req_status = _set_at(req_status, torch.where(admitted, req, N), 1)
         state = _map_state(
-            lambda a, z: torch.where(_bmask(admitted, a), z, a),
-            carry.state, self._zero_state)
+            lambda a, z: _where_rows(admitted, z, a), carry.state,
+            self._zero_state if zero_state is None else zero_state)
         slot_next = torch.where(admitted, tables.prompt[req, 0], slot_next)
 
         # --- power: brownout when the store can't cover the base cost -- #
         active = slot_req >= 0
         on = energy >= _f32(sc.e_base)
+        pos_leaf = state["pos"]
+        pos = whole_of(pos_leaf).to(dev)            # placed over a mesh
         run_logits, run_state = A.unit_decode_step(
-            cfg, self.params, self.heads, state, slot_next,
+            cfg, self.params, self.heads, dict(state, pos=pos), slot_next,
             window=sc.window)
+        if pos_leaf is not pos:
+            run_state["pos"] = place_like(pos_leaf, run_state["pos"])
         unit_logits = torch.where(on, run_logits,
                                   torch.zeros((), dtype=_F32, device=dev))
-        new_state = _map_state(lambda r, s: torch.where(on, r, s),
+        new_state = _map_state(lambda r, s: _where_rows(on, r, s),
                                run_state, state)
         run_mask = active & on
 
@@ -457,7 +483,6 @@ class AnytimeServeEngine:
         plen = tables.prompt_len[req]
         ntok = tables.n_tokens[req]
         ddl = tables.deadline[req]
-        pos = state["pos"]
         gen_step = pos >= plen - 1        # this step's output is generated
         if sc.policy == "edf":
             depth = torch.full((B,), U, dtype=_I32, device=dev)
@@ -566,25 +591,28 @@ class AnytimeServeEngine:
         and may return replacement :class:`AnytimeKnobs`.  ``telemetry``
         (a :class:`repro_torch.telemetry.TelemetryConfig`) fills
         ``AnytimeResult.telemetry``.  ``mesh`` (a
-        :class:`repro_torch.launch.mesh.Mesh` of one device) places the
-        decode state by :func:`repro_torch.launch.sharding.state_specs`.
+        :class:`repro_torch.launch.mesh.Mesh` with ``data`` and ``model``
+        axes) places the decode state by
+        :func:`repro_torch.launch.sharding.state_specs` and runs each
+        step's model on the blocks (the carry a ``hook`` sees holds the
+        placed state; :func:`repro_torch.launch.sharding.gather` makes it
+        whole).  On a mesh of one device the state is the one block.
         """
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                f"AnytimeServeEngine.run over a mesh of {mesh.size} devices: "
-                "the decode state's kv heads split over the 'model' axis, "
-                "which is tensor parallelism, and the slots' batch over "
-                "'data'; the engine runs on a mesh of one device")
         tables = (requests if isinstance(requests, AnytimeTables)
                   else self.pack(requests))
         knobs = knobs if knobs is not None else self.default_knobs()
         carry = self.init_carry(tables, telemetry=telemetry)
+        zero = None
         if mesh is not None:
             from ..launch import sharding as SH
 
-            carry = carry._replace(state=SH.blocks(SH.device_put(
-                carry.state,
-                SH.named(mesh, SH.state_specs(mesh, carry.state))))[0])
+            shardings = SH.named(mesh, SH.state_specs(mesh, carry.state))
+            state = SH.device_put(carry.state, shardings)
+            if mesh.size == 1:
+                state = SH.blocks(state)[0]
+            else:
+                zero = SH.device_put(self._zero_state, shardings)
+            carry = carry._replace(state=state)
         T_total = self.scfg.max_steps
         if not 1 <= n_segments <= T_total:
             raise ValueError(f"n_segments {n_segments} outside "
@@ -594,7 +622,7 @@ class AnytimeServeEngine:
         for seg in range(n_segments):
             n_steps = base + (1 if seg < extra else 0)
             for _ in range(n_steps):
-                carry = self._step(tables, carry, knobs, tel_on)
+                carry = self._step(tables, carry, knobs, tel_on, zero)
             if hook is not None:
                 new = hook(seg, carry, knobs)
                 if new is not None:

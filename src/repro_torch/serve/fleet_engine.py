@@ -37,8 +37,10 @@ which nothing else keeps): the counterpart of the reference's donated carry; the
 ahead-of-time compiled chunk programs have none, so ``compile_s`` is 0.
 ``telemetry=`` (both tiers in ``run``, the counters tier in ``run_stream``)
 collects the serve loop's telemetry beside the carry, the serve outcome
-unchanged; the fused mode rejects it, as the reference does.  Meshes are
-not part of the port yet.
+unchanged; the fused mode rejects it, as the reference does.  ``mesh=``
+runs the scan over the fleet's blocks step by step (:meth:`FleetServeEngine
+._scan_blocks`); a shared bank's update sums the blocks' partial sums in
+block order, as the reference's partitioned program does.
 """
 from __future__ import annotations
 
@@ -65,6 +67,7 @@ from ..fleet.state import (
     init_state,
 )
 from ..kernels import fleet_step, ops
+from ..launch import sharding as SH
 from ..telemetry import state as T
 from ..telemetry import trace as T_trace
 from .engine import Request, ServeConfig, per_task
@@ -738,26 +741,35 @@ class FleetServeEngine:
         """Collaborative shared-bank update: all devices exiting at
         ``(k, u)`` this step fold into ONE :func:`km.online_update`
         (batch-averaged), then one propagation sweep refreshes every touched
-        row of the deeper units."""
+        row of the deeper units.  The step's outcome arguments are lists,
+        one entry per block of the fleet (one entry without a mesh): each
+        block's rows are summed on its own device and the blocks' sums are
+        added in block order (:func:`km.online_update_blocks`), as the
+        reference's partitioned program does."""
         cents, counts = bank
         C_ = cents.shape[2]
-        iota_c = torch.arange(C_, device=cents.device)
+        dev = cents.device
+        iota_c = torch.arange(C_, device=dev)
         for k, m in enumerate(self.models):
-            hot = torch.zeros(C_, dtype=torch.bool, device=cents.device)
+            hot = torch.zeros(C_, dtype=torch.bool, device=dev)
             for v in range(m.n_units):
                 kc = self.meta.n_clusters[k][v]
                 fu = self.meta.feat_dim[k][v]
-                mrow = do & (tk == k) & (u == v)
-                idxk = torch.where(mrow, ci, torch.full_like(ci, -1))
-                new_c, new_n = km.online_update(
+                mrows = [d & (t == k) & (w == v)
+                         for d, t, w in zip(do, tk, u)]
+                new_c, new_n = km.online_update_blocks(
                     cents[k, v, :kc, :fu], counts[k, v, :kc],
-                    x_full[:, :fu], idxk, weight=self.adapt_weight)
+                    [x[:, :fu] for x in x_full],
+                    [torch.where(mr, c, torch.full_like(c, -1))
+                     for mr, c in zip(mrows, ci)],
+                    weight=self.adapt_weight)
                 cents[k, v, :kc, :fu] = new_c
                 counts[k, v, :kc] = new_n
                 if v == m.n_units - 1:
                     break
-                hot = hot | (mrow[:, None]
-                             & (iota_c[None, :] == ci[:, None])).any(0)
+                for mr, c in zip(mrows, ci):
+                    hot = hot | (mr[:, None] & (iota_c.to(c.device)[None, :]
+                                                == c[:, None])).any(0).to(dev)
                 f_out = self.meta.feat_dim[k][v + 1]
                 r = counts[k, v, :kc, None]
                 src = cents[k, v, :kc, :fu]
@@ -787,94 +799,155 @@ class FleetServeEngine:
         reduced into ``tel`` after the segment (the full tier's rare ring
         and histogram events folded on the host); the return is then
         ``(ServeCarry, Telemetry)``.  Tracing only adds outputs: the serve
-        numerics are unchanged."""
-        K = cfg.period.shape[1]
+        numerics are unchanged.  The run of one block of
+        :meth:`_scan_blocks`."""
+        carries, tels = self._scan_blocks(
+            [cfg], [tables], [carry], i0, job0, statics=statics,
+            n_steps=n_steps, adapt=adapt, tels=[tel], tcfg=tcfg)
+        return carries[0] if tcfg is None else (carries[0], tels[0])
+
+    @staticmethod
+    def _x_full(tables: ServeTables, tk, u, job):
+        """The full-dim feature rows of the devices' selected (task, unit,
+        job): ``(D, F)``."""
+        K, Ub = tables.fidx.shape[:2]
         J = tables.labels.shape[-1]
+        if tables.full_feats.dim() == 5:
+            return tables.full_feats[
+                torch.arange(tk.shape[0], device=tk.device),
+                tk.to(torch.int64), job.to(torch.int64), u.to(torch.int64)]
+        ff = tables.full_feats.reshape(K * J * Ub,
+                                       tables.full_feats.shape[-1])
+        return S.take_rows(ff, (tk * J + job) * Ub + u)
+
+    def _scan_blocks(self, cfgs: Sequence[FleetConfig],
+                     tables: Sequence[ServeTables],
+                     carries: Sequence[ServeCarry], i0: int, job0=None, *,
+                     statics: FleetStatics, n_steps: int, adapt: bool,
+                     tels: Sequence[Optional[T.Telemetry]],
+                     tcfg: Optional[T.TelemetryConfig] = None):
+        """:meth:`_scan_steps` over the blocks of a fleet cut over a mesh
+        (one block without one), step by step: every block runs the step
+        on its own device, in block order, and then the bank adapts.  A
+        per-device bank adapts block by block; a shared bank (one copy per
+        device the blocks live on, the first block's adapted and the others
+        refreshed from it in place) folds every block's exits into one
+        update.  Returns ``(carries, telemetries)``, one per block."""
+        nb = len(cfgs)
+        K = cfgs[0].period.shape[1]
+        devs = [c.policy.device for c in cfgs]
         if job0 is None:
-            job0 = torch.zeros(K, dtype=_I32, device=cfg.policy.device)
-        dev, bank, log = carry
-        shared = bank.centroids.dim() == 4
-        per_dev_tables = tables.sel_feats.dim() == 5
+            job0 = torch.zeros(K, dtype=_I32, device=devs[0])
+        job0s = [job0.to(d) for d in devs]
+        dev_st = [c.dev for c in carries]
+        logs = [c.log for c in carries]
+        shared = carries[0].bank.centroids.dim() == 4
         trace = tcfg is not None and tcfg.level == "full"
-        spec = pack_spec(cfg, statics) if trace else None
-        st0, ys = dev, []
-        if adapt:
-            bank = ServeBank(*[l.clone() for l in bank])
+        spec = pack_spec(cfgs[0], statics) if trace else None
+        st0, ys = list(dev_st), [[] for _ in range(nb)]
+        banks = [c.bank for c in carries]
+        if adapt and shared:
+            master = ServeBank(*[l.clone() for l in banks[0]])
+            copies = {master.centroids.device: master}
+            for b in banks[1:]:
+                d = b.centroids.device
+                if d not in copies:
+                    copies[d] = ServeBank(*[l.clone() for l in b])
+            banks = [copies[b.centroids.device] for b in banks]
+        elif adapt:
+            banks = [ServeBank(*[l.clone() for l in b]) for b in banks]
         graphs = (None if tcfg is not None or not n_steps
-                  or cfg.policy.device.type != "cuda"
-                  else _GraphedSteps(cfg, tables, ServeCarry(dev, bank, log),
-                                     job0, statics=statics))
+                  or devs[0].type != "cuda"
+                  else [_GraphedSteps(c, t, ServeCarry(d, b, g), j,
+                                      statics=statics)
+                        for c, t, d, b, g, j in zip(cfgs, tables, dev_st,
+                                                    banks, logs, job0s)])
         for i in range(i0, i0 + n_steps):
-            if graphs is not None:
-                first_pass, tk, u, job, ci = graphs(i)
-            else:
-                t = S.step_clock(i, statics.dt, cfg.policy.device)
-                dev_pre = dev
-                out = serve_step(cfg, tables, dev, bank, log, t, job0,
-                                 statics=statics, trace=trace)
-                dev, log, (first_pass, tk, u, job, ci) = out[:3]
+            auxes = []
+            for b in range(nb):
+                if graphs is not None:
+                    auxes.append(graphs[b](i))
+                    continue
+                t = S.step_clock(i, statics.dt, devs[b])
+                out = serve_step(cfgs[b], tables[b], dev_st[b], banks[b],
+                                 logs[b], t, job0s[b], statics=statics,
+                                 trace=trace)
                 if trace:
-                    ys.append(T_trace.emit_full(spec, out[3], dev_pre, dev))
+                    ys[b].append(T_trace.emit_full(spec, out[3], dev_st[b],
+                                                   out[0]))
                 elif tcfg is not None:
-                    ys.append(T_trace.emit_counters(dev))
-            if not adapt or not bool(first_pass.any()):
+                    ys[b].append(T_trace.emit_counters(out[0]))
+                dev_st[b], logs[b] = out[0], out[1]
+                auxes.append(out[2])
+            if not adapt:
                 continue
-            Ub = tables.fidx.shape[-2]
-            if per_dev_tables:
-                x_full = tables.full_feats[
-                    torch.arange(tk.shape[0], device=tk.device),
-                    tk.to(torch.int64), job.to(torch.int64),
-                    u.to(torch.int64)]
-            else:
-                ff = tables.full_feats.reshape(
-                    K * J * Ub, tables.full_feats.shape[-1])
-                x_full = S.take_rows(ff, (tk * J + job) * Ub + u)
+            hit = [bool(a[0].any()) for a in auxes]
+            if not any(hit):
+                continue
+            x_full = [self._x_full(tb, a[1], a[2], a[3])
+                      for tb, a in zip(tables, auxes)]
             if shared:
-                bank = self._adapt_shared(bank, x_full, tk, u, ci,
-                                          first_pass)
-            else:
-                bank = self._adapt_per_device(bank, x_full, tk, u, ci,
-                                              first_pass)
+                first_pass, tk, u, _, ci = zip(*auxes)
+                self._adapt_shared(master, x_full, tk, u, ci, first_pass)
+                for d, copy in copies.items():
+                    if copy is not master:
+                        for dst, src in zip(copy, master):
+                            dst.copy_(src.to(d))
+                continue
+            for b in range(nb):
+                if hit[b]:
+                    first_pass, tk, u, _, ci = auxes[b]
+                    banks[b] = self._adapt_per_device(
+                        banks[b], x_full[b], tk, u, ci, first_pass)
         if graphs is not None:
-            dev, log = graphs.dev, graphs.log
-        out = ServeCarry(dev=dev, bank=bank, log=log)
+            dev_st = [g.dev for g in graphs]
+            logs = [g.log for g in graphs]
+        outs = [ServeCarry(dev=d, bank=b, log=g)
+                for d, b, g in zip(dev_st, banks, logs)]
         if tcfg is None:
-            return out
-        ys = [torch.stack(c) for c in zip(*ys)]
-        if not trace:
-            return out, T_trace.reduce_counters(tel, st0, dev, ys, n_steps)
-        tel, ring = T_trace.reduce_full(spec, tel, st0, dev, ys, i0, n_steps,
-                                        statics.dt)
-        return out, T_trace.fold_events_host(spec, tel, ring, i0,
-                                             statics.dt)
+            return outs, [None] * nb
+        new_tels = []
+        for b in range(nb):
+            y = [torch.stack(c) for c in zip(*ys[b])]
+            if not trace:
+                new_tels.append(T_trace.reduce_counters(
+                    tels[b], st0[b], dev_st[b], y, n_steps))
+                continue
+            tel, ring = T_trace.reduce_full(spec, tels[b], st0[b], dev_st[b],
+                                            y, i0, n_steps, statics.dt)
+            new_tels.append(T_trace.fold_events_host(spec, tel, ring, i0,
+                                                     statics.dt))
+        return outs, new_tels
 
     # ------------------------------------------------------------------ #
     # Public entry point.
     # ------------------------------------------------------------------ #
 
     def _place(self, mesh, cfg, carry, tables, tel, per_dev: bool):
-        """``run``'s state placed over a one-device ``mesh`` by the sharding
-        functions, as the one block that device runs."""
-        from ..launch import sharding as SH
-
+        """``run``'s state placed over ``mesh`` by the sharding functions:
+        per block, in block order, ``(cfgs, carries, tables, tels)``."""
         D = cfg.n_devices
         if D % mesh.size:
             raise ValueError(
                 f"D={D} devices must divide over mesh size {mesh.size}")
-        if mesh.size > 1:
-            raise NotImplementedError(
-                f"FleetServeEngine.run over a mesh of {mesh.size} devices: "
-                "the shared bank's update sums over every device and the "
-                "adaptive convs compute their features over the whole batch "
-                "of devices (the CNN's features move with the batch they "
-                "are computed in), so the serve scan does not split into "
-                "blocks; it runs on a mesh of one device")
         placed = (SH.shard_fleet_config(mesh, cfg),
                   SH.shard_serve_carry(mesh, carry,
                                        shared_bank=self.bank_mode == "shared"),
                   SH.shard_serve_tables(mesh, tables, per_device=per_dev),
                   None if tel is None else SH.shard_fleet_carry(mesh, tel))
-        return tuple(SH.blocks(x)[0] for x in placed)
+        out = [SH.blocks(x) for x in placed[:3]]
+        return (*out, [None] * mesh.size if tel is None
+                else SH.blocks(placed[3]))
+
+    def _join(self, carries: Sequence[ServeCarry]) -> ServeCarry:
+        """Per-block carries joined in block order (a shared bank is the
+        first block's); one carry is returned as it is."""
+        if len(carries) == 1:
+            return carries[0]
+        dev, bank, log = zip(*carries)
+        return ServeCarry(
+            dev=SH.join(dev), log=SH.join(log),
+            bank=bank[0] if self.bank_mode == "shared" else SH.join(bank))
 
     def run(
         self,
@@ -904,12 +977,13 @@ class FleetServeEngine:
         ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) places the
         config, carry, tables and telemetry by the sharding functions
         (:func:`repro_torch.launch.sharding.shard_serve_carry`; ``D`` must
-        be a multiple of the mesh size).  On a mesh of one device the scan
-        then runs unchanged; a larger mesh raises ``NotImplementedError``:
-        the shared bank's update sums over every device, and the adaptive
-        convs compute their features over the whole batch of devices (the
-        CNN's features move with the batch they are computed in), so a
-        run block by block would not be the same run.
+        be a multiple of the mesh size) and runs the scan block by block,
+        step by step (:meth:`_scan_blocks`): each block's kernel launches
+        on its own device, a per-device bank's propagation convs see only
+        their block's devices (as the reference's partitioned convs do),
+        and a shared bank sums the blocks' partial updates in block order.
+        The result's carry and telemetry are the blocks joined in order
+        (the shared bank is the first block's).
         """
         if mode not in ("scan", "fused"):
             raise ValueError(f"unknown serve mode {mode!r}")
@@ -929,8 +1003,10 @@ class FleetServeEngine:
         tel = (None if telemetry is None
                else T.init_fleet_telemetry(telemetry, cfg))
         if mesh is not None:
-            cfg, carry0, tables, tel = self._place(
+            cfgs, outs, tabs, tels = self._place(
                 mesh, cfg, carry0, tables, tel, per_dev)
+        else:
+            cfgs, outs, tabs, tels = [cfg], [carry0], [tables], [tel]
         K = len(self.models)
         job0 = torch.zeros(K, dtype=_I32, device=self.device)
         sizes = [len(c) for c in
@@ -939,23 +1015,20 @@ class FleetServeEngine:
             torch.cuda.synchronize(self.device)
         t0 = time.perf_counter()
         i0 = 0
-        out = carry0
         for n in sizes:
             if not n:
                 continue
             if mode == "fused":
-                out = fleet_step.serve_fused_steps(
-                    cfg, out, tables, i0, job0, statics=statics, n_steps=n)
-            elif tel is None:
-                out = self._scan_steps(
-                    cfg, tables, out, i0, job0, statics=statics, n_steps=n,
-                    adapt=adapt)
+                outs = [fleet_step.serve_fused_steps(
+                    cfg, outs[0], tables, i0, job0, statics=statics,
+                    n_steps=n)]
             else:
-                out, tel = self._scan_steps(
-                    cfg, tables, out, i0, job0, statics=statics, n_steps=n,
-                    adapt=adapt, tel=tel, tcfg=telemetry)
+                outs, tels = self._scan_blocks(
+                    cfgs, tabs, outs, i0, job0, statics=statics, n_steps=n,
+                    adapt=adapt, tels=tels, tcfg=telemetry)
             i0 += n
-        fleet = finalize_fleet(cfg, out.dev, statics, live=True)
+        out, tel = self._join(outs), SH.join(tels)
+        fleet = finalize_fleet(SH.join(cfgs), out.dev, statics, live=True)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0

@@ -253,8 +253,9 @@ def test_moe_engine_matches_jax(policy):
 def test_engine_rejects_what_it_does_not_run(tiny):
     """``telemetry=`` runs and leaves the result arrays as the plain
     run's; so does ``mesh=`` on a one-device host mesh (the decode state
-    placed by ``state_specs``), while a mesh of two devices raises
-    ``NotImplementedError`` (tensor parallelism)."""
+    placed by ``state_specs``) and on a mesh of two devices, whose blocks
+    each serve one slot (``tests/test_torch_anytime_mesh.py`` holds larger
+    meshes to the reference's multi-device runs)."""
     _, pe = _engines(tiny)
     _, preqs = _requests()
     out = pe.run(preqs, telemetry=TelemetryConfig(level="full"))
@@ -267,8 +268,10 @@ def test_engine_rejects_what_it_does_not_run(tiny):
     for name in RESULT_FIELDS:
         np.testing.assert_array_equal(getattr(on_mesh, name),
                                       getattr(plain, name), err_msg=name)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        pe.run(preqs, mesh=make_mesh((2, 1), ("data", "model"), "cpu"))
+    on_two = pe.run(preqs, mesh=make_mesh((2, 1), ("data", "model"), "cpu"))
+    for name in RESULT_FIELDS:
+        np.testing.assert_array_equal(getattr(on_two, name),
+                                      getattr(plain, name), err_msg=name)
 
 
 def test_score_fn_and_tune_match_jax(tiny):

@@ -1112,6 +1112,148 @@ def test_decode_gqa_split_cache_matches_plain(cuda, dtype, round_p):
                                    msg=lambda m: f"{(B, H, KV, hd, C)}: {m}")
 
 
+# kernel H's slice entries: (B, H, KV, hd, C, window) cut into n slices:
+# the hybrid's decode and engine batch (its engine's 64-slot cache over a
+# (1, 2) mesh, as chip_smoke.py runs it, and 4 ways), glm4-9b's 2 kv
+# heads, a ragged last slice and a slice with no valid slot
+SLICE_CASES = [(1, 16, 1, 256, 2176, 2048, 2), (16, 16, 1, 256, 64, 2048, 2),
+               (16, 16, 1, 256, 64, 2048, 4),
+               (1, 32, 2, 128, 4096, 16, 4), (3, 8, 2, 32, 100, 0, 3),
+               (2, 12, 2, 64, 96, 16, 2)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_gqa_slices_match_plain(cuda, dtype):
+    """H's stats, merge and PV entries over a cache cut into slices, each
+    against its plain version: the maxima and the merge bit for bit, the
+    f64 sums to 1e-12, the PV sums at rtol = atol = 1e-5; the blocks' PV
+    sums added in order are H on the whole cache within 1e-5 in f32 (the
+    weights differ by the rounding of their denominator at most).  One
+    launch count per entry call."""
+    from repro_torch.models.common import block_sum
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(29)
+    for B, H, KV, hd, C, window, n in SLICE_CASES:
+        q = torch.randn((B, H, hd), generator=g, device=cuda).to(dt)
+        k = torch.randn((B, C, KV, hd), generator=g, device=cuda).to(dt)
+        v = torch.randn((B, C, KV, hd), generator=g, device=cuda).to(dt)
+        pos = torch.randint(1, C + 1, (B,), generator=g, device=cuda)
+        slots = torch.arange(C, device=cuda)
+        slot_pos = torch.where(slots[None] < pos[:, None], slots[None], -1)
+        pos = (pos - 1).to(torch.int32)
+        cut = -(-C // n)
+        bounds = [(i * cut, min(C, (i + 1) * cut)) for i in range(n)]
+        ks, vs, sps = ([t[:, a:b].contiguous() for a, b in bounds]
+                       for t in (k, v, slot_pos))
+        n0 = (DG.stats_launches, DG.merge_launches, DG.pv_launches)
+        stats = [DG.decode_gqa_stats(q, a, s, pos, window=window)
+                 for a, s in zip(ks, sps)]
+        for (m1, l1), a, s in zip(stats, ks, sps):
+            m2, l2 = DG.decode_gqa_stats_plain(q, a, s, pos, window=window)
+            assert torch.equal(m1, m2)
+            torch.testing.assert_close(l1, l2, rtol=1e-12, atol=0)
+        pm = torch.stack([x[0] for x in stats])
+        ps = torch.stack([x[1] for x in stats])
+        m, l = DG.decode_gqa_merge(pm, ps)
+        m2, l2 = DG.decode_gqa_merge_plain(pm, ps)
+        assert torch.equal(m, m2) and torch.equal(l, l2)
+        pvs = [DG.decode_gqa_pv(q, a, b, s, pos, m, l, window=window)
+               for a, b, s in zip(ks, vs, sps)]
+        torch.cuda.synchronize()
+        assert (DG.stats_launches, DG.merge_launches, DG.pv_launches) == (
+            n0[0] + n, n0[1] + 1, n0[2] + n)
+        for o, a, b, s in zip(pvs, ks, vs, sps):
+            want = DG.decode_gqa_pv_plain(q, a, b, s, pos, m, l,
+                                          window=window)
+            torch.testing.assert_close(o, want, rtol=1e-5, atol=1e-5)
+        if dtype == "float32":
+            whole = DG.decode_gqa(q, k, v, slot_pos, pos, window=window,
+                                  round_p=True)
+            torch.testing.assert_close(block_sum(pvs), whole, rtol=1e-5,
+                                       atol=1e-5)
+
+
+def test_centroid_partial_and_finish_match_plain(cuda):
+    """E's partial entry on each of 4 blocks of rows (some rows assigned
+    to no cluster, a cluster no block touches) and its finish of the
+    blocks' summed partials, bit for bit against the plain versions; one
+    block's partial and finish equal ``centroid_update`` bit for bit."""
+    rng = np.random.default_rng(29)
+    for k, d, B in ((5, 8192, 64), (8, 300, 4 * 700), (1, 64, 40)):
+        c = torch.from_numpy(rng.normal(size=(k, d)).astype(
+            np.float32)).to(cuda)
+        x = torch.from_numpy(rng.normal(size=(B, d)).astype(
+            np.float32)).to(cuda)
+        a = rng.integers(-1, k, B).astype(np.int32)
+        if k > 1:
+            a[a == k - 1] = -1
+        a = torch.from_numpy(a).to(cuda)
+        parts = []
+        for i in range(4):
+            sl = slice(i * B // 4, (i + 1) * B // 4)
+            got = CU.centroid_partial(x[sl], a[sl], k)
+            want = CU.centroid_partial_plain(x[sl], a[sl], k)
+            assert all(torch.equal(u, w) for u, w in zip(got, want))
+            parts.append(got)
+        sums = parts[0][0] + parts[1][0] + parts[2][0] + parts[3][0]
+        n = parts[0][1] + parts[1][1] + parts[2][1] + parts[3][1]
+        assert torch.equal(CU.centroid_finish(c, sums, n, 32.0),
+                           CU.centroid_finish_plain(c, sums, n, 32.0))
+        one = CU.centroid_finish(c, *CU.centroid_partial(x, a, k), 32.0)
+        assert torch.equal(one, CU.centroid_update(c, x, a, 32.0))
+
+
+@pytest.mark.parametrize("bank_mode,adapt", [("per-device", False),
+                                             ("shared", True)])
+def test_serve_scan_over_four_blocks_of_one_card_matches_cpu(
+        cuda, bank_mode, adapt):
+    """``FleetServeEngine.run`` over ``make_fleet_mesh(4, "cuda:0")`` (8
+    devices, two per block; kernel D per block and step, E's partial entry
+    per block) against the same mesh run on the CPU from the card's build
+    and the same models: every leaf bit for bit without adaptation; with
+    the shared bank adapting, every integer leaf, the float leaves within
+    1e-4 (the propagation convs are cuDNN's on the card)."""
+    from repro_torch.core.agile import AgileCNN
+
+    eng, reqs = _engine(cuda, adapt, bank_mode)
+    built = eng.build(reqs, 8, seeds=range(8))
+    eng.build = lambda *a, **k: built
+    ops.reset_launch_counts()
+    card = eng.run(reqs, 8, mesh=make_fleet_mesh(4, device="cuda:0"))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["l1_topk2"] == 4 * built[1].n_steps
+    if adapt:
+        assert counts["centroid_finish"] > 0
+        assert counts["centroid_partial"] == 4 * counts["centroid_finish"]
+        assert counts["centroid_update"] == 0
+
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+            return type(tree)(cpu(v) for v in tree)
+        if hasattr(tree, "_fields"):
+            return type(tree)(*[cpu(v) for v in tree])
+        return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+    models = [AgileCNN(m.cfg, cpu(m.params), [cpu(uc) for uc in m.bank])
+              for m in eng.models]
+    ref_eng = FleetServeEngine(models, eng.harvester, eng.eta,
+                               config=eng.config, bank_mode=bank_mode,
+                               device="cpu")
+    ref_eng.build = lambda *a, **k: cpu(built)
+    ref = ref_eng.run(reqs, 8, mesh=make_fleet_mesh(4, device="cpu"))
+    for part in ("dev", "bank", "log"):
+        a_p, b_p = getattr(card.carry, part), getattr(ref.carry, part)
+        for f, a, b in zip(a_p._fields, a_p, b_p):
+            if adapt and a.dtype.is_floating_point:
+                torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+            else:
+                assert torch.equal(a.cpu(), b), f"{part}.{f}"
+
+
 def test_decode_gqa_counts_one_launch_per_call(cuda):
     """One ``decode_gqa`` call adds exactly one to ``launches``, whether the
     kernel runs as one launch (no split) or four (a split cache)."""
@@ -1822,6 +1964,27 @@ def _one_call(name, cuda):
                                 device=cuda).expand(2, 40).contiguous()
         pos = torch.tensor([39, 20], dtype=torch.int32, device=cuda)
         return lambda: DG.decode_gqa(q, kc, vc, slot_pos, pos, window=16)
+    if name in ("decode_gqa_stats", "decode_gqa_merge", "decode_gqa_pv"):
+        q, kc, vc = t(2, 8, 64), t(2, 24, 2, 64), t(2, 24, 2, 64)
+        slot_pos = torch.arange(24, dtype=torch.int32,
+                                device=cuda).expand(2, 24).contiguous()
+        pos = torch.tensor([23, 10], dtype=torch.int32, device=cuda)
+        if name == "decode_gqa_stats":
+            return lambda: DG.decode_gqa_stats(q, kc, slot_pos, pos)
+        m, l = DG.decode_gqa_stats_plain(q, kc, slot_pos, pos)
+        if name == "decode_gqa_merge":
+            pm, ps = torch.stack([m, m - 1.0]), torch.stack([l, 2 * l])
+            return lambda: DG.decode_gqa_merge(pm, ps)
+        return lambda: DG.decode_gqa_pv(q, kc, vc, slot_pos, pos, m,
+                                        l.float())
+    if name in ("centroid_partial", "centroid_finish"):
+        c, x = t(5, 64), t(12, 64)
+        a = torch.tensor([0, -1, 3, 4, -1, 2, 2, 0, 1, -1, 4, 4],
+                         dtype=torch.int32, device=cuda)
+        if name == "centroid_partial":
+            return lambda: CU.centroid_partial(x, a, 5)
+        sums, n = CU.centroid_partial_plain(x, a, 5)
+        return lambda: CU.centroid_finish(c, sums, n, 32.0)
     a, b, h0 = 0.9 + 0.05 * t(2, 50, 96), t(2, 50, 96), t(2, 96)
     if name == "rglru_scan":
         return lambda: RS.rglru_scan(a, b, h0)

@@ -412,6 +412,53 @@ def test_online_update_matches_jax():
     np.testing.assert_array_equal(np_.numpy(), np.asarray(nj))
 
 
+def test_utility_test_matches_jax():
+    """``utility_test``: the margin above the unit's threshold, on a fitted
+    unit and margins at, around and far from it."""
+    feats, y = _feats(0, 60, (256, 40))
+    uj = JK.fit_unit_classifier(feats[0], y, n_sel=30, threshold=0.07)
+    up = PK.fit_unit_classifier(feats[0], y, n_sel=30, threshold=0.07,
+                                device="cpu")
+    m = np.concatenate([np.float32([0.07, np.nextafter(np.float32(0.07),
+                                                       np.float32(1))]),
+                        np.random.default_rng(1).uniform(-1, 1, 64)
+                        ]).astype(np.float32)
+    got = PK.utility_test(up, torch.from_numpy(m)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(JK.utility_test(uj, m)))
+    assert got.dtype == np.bool_ and got[1] and not got[0]
+
+
+def test_online_update_blocks_sums_each_block_then_the_blocks():
+    """``online_update_blocks`` (kernel E's partial and finish entries):
+    each block's rows per cluster in row order, the blocks' sums added in
+    block order, then E's finish; one block is ``online_update``."""
+    rng = np.random.default_rng(11)
+    c = rng.normal(size=(5, 40)).astype(np.float32)
+    n = rng.uniform(1, 9, 5).astype(np.float32)
+    x = (rng.normal(size=(16, 40)) * 10.0 ** rng.integers(
+        -3, 4, (16, 40))).astype(np.float32)
+    idx = rng.integers(-1, 5, 16).astype(np.int32)
+    t = torch.from_numpy
+    cut = [slice(4 * i, 4 * i + 4) for i in range(4)]
+    got_c, got_n = PK.online_update_blocks(
+        t(c), t(n), [t(x[s]) for s in cut], [t(idx[s]) for s in cut])
+    total = np.zeros_like(c)
+    for s in cut:
+        part = np.zeros_like(c)
+        for row, j in zip(x[s], idx[s]):
+            if j >= 0:
+                part[j] = part[j] + row
+        total = total + part
+    hits = np.bincount(idx[idx >= 0], minlength=5).astype(np.float32)
+    want = PCU.centroid_finish_plain(t(c), t(total), t(hits), 32.0)
+    np.testing.assert_array_equal(got_c.numpy(), want.numpy())
+    np.testing.assert_array_equal(got_n.numpy(), n + hits)
+    one = PK.online_update_blocks(t(c), t(n), [t(x)], [t(idx)])
+    whole = PK.online_update(t(c), t(n), t(x), t(idx))
+    for a, b in zip(one, whole):
+        assert torch.equal(a, b)
+
+
 def test_kernel_wrappers_reject_bad_inputs():
     x = torch.zeros(4, 8)
     with pytest.raises(TypeError):

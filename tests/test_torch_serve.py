@@ -267,8 +267,10 @@ def test_fused_rejects_adapt_and_unported_options(models):
     """The fused mode's ValueErrors (adaptation, telemetry, a mesh); a run
     over a one-device mesh equals the run without one (a per-device bank
     without adaptation, a shared bank with it); ``D`` that does not divide
-    over the mesh is the reference's ValueError, and a mesh of two devices
-    raises ``NotImplementedError``."""
+    over the mesh is the reference's ValueError, and a run over a mesh of
+    two devices (two blocks, per-device banks) equals the run without one
+    (``tests/test_torch_serve_mesh.py`` holds larger meshes to the
+    reference's multi-device runs)."""
     reqs = _requests(Request, _streams(False), False)
     with pytest.raises(ValueError, match="adapt"):
         _port_engine(models, "zygarde", True, "per-device").run(
@@ -292,8 +294,9 @@ def test_fused_rejects_adapt_and_unported_options(models):
         eng.run(reqs, 3, mesh=two)
     with pytest.raises(ValueError, match="mesh"):
         eng.run(reqs, 2, mesh=two, mode="fused")
-    with pytest.raises(NotImplementedError, match="shared bank"):
-        eng.run(reqs, 2, mesh=two)
+    plain, on_two = eng.run(reqs, 2), eng.run(reqs, 2, mesh=two)
+    for (name, a), (_, b) in zip(_leaves(plain.carry), _leaves(on_two.carry)):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("bank_mode", ["per-device", "shared"])

@@ -91,10 +91,11 @@ def test_chip_smoke_rehearsal_on_cpu():
     RG-LRU hybrid with kernel H's and I's, and of the rest of the model
     zoo (MoE, xLSTM, the encoder-decoder, the VLM), and training (the
     agile CNNs, the LM step of the dense model and the hybrid, the
-    backward kernels of G and I), the launch drivers and the mesh entry
-    points: the kernels report names A to I and the two backward kernels
-    with the contract's keys (no launches on the CPU), each with the paths
-    that ran it."""
+    backward kernels of G and I), the launch drivers, the mesh entry
+    points and the serve engines over meshes of several blocks: the
+    kernels report names A to I, the two backward kernels and the slice
+    entries of E and H with the contract's keys (no launches on the CPU),
+    each with the paths that ran it."""
     sys.path.insert(0, str(ROOT))
     try:
         import chip_smoke
@@ -108,7 +109,9 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert [r["name"] for r in rows] == [
         "fleet_priority", "fleet_fused_steps", "serve_fused_steps",
         "l1_topk2", "centroid_update", "pairwise_l1", "flash_attention",
-        "decode_gqa", "rglru_scan", "flash_attention_bwd", "rglru_scan_bwd"]
+        "decode_gqa", "rglru_scan", "flash_attention_bwd", "rglru_scan_bwd",
+        "centroid_partial", "centroid_finish", "decode_gqa_stats",
+        "decode_gqa_merge", "decode_gqa_pv"]
     paths = {r["name"]: sorted(r["launches_by_path"]) for r in rows}
     assert paths["fleet_fused_steps"] == ["mesh", "online", "replay", "tune"]
     assert paths["pairwise_l1"] == ["online"]
@@ -117,7 +120,7 @@ def test_chip_smoke_rehearsal_on_cpu():
     training = ["launch train", "train qwen1.5-0.5b",
                 "train recurrentgemma-9b"]
     assert paths["decode_gqa"] == sorted(serving + ["launch serve anytime",
-                                                    "mesh"])
+                                                    "mesh", "mesh anytime"])
     assert paths["flash_attention"] == sorted(serving + training + ["mesh"])
     assert paths["flash_attention_bwd"] == sorted(training + ["mesh"])
     assert paths["rglru_scan"] == ["hybrid", "train recurrentgemma-9b"]
@@ -126,7 +129,12 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert paths["centroid_update"] == [
         "launch serve scalar", "mesh", "online", "scalar", "serve", "stream",
         "telemetry"]
-    assert paths["l1_topk2"] == paths["centroid_update"] + ["train_cnn"]
+    assert paths["l1_topk2"] == sorted(paths["centroid_update"]
+                                       + ["mesh serve", "train_cnn"])
+    for name in ("centroid_partial", "centroid_finish"):
+        assert paths[name] == ["mesh serve"]
+    for name in ("decode_gqa_stats", "decode_gqa_merge", "decode_gqa_pv"):
+        assert paths[name] == ["mesh anytime"]
     assert paths["fleet_priority"] == ["mesh", "replay", "telemetry"]
     for r in rows:
         assert keys <= set(r)
