@@ -4577,7 +4577,8 @@ def _slice_phase(device, scale: Scale, rng, path_shapes) -> dict:
     empty.  Kernel E's partial entry against its plain version bit for bit
     at phase 3's shared-bank shape cut over 4 blocks (16 rows each), and
     its finish.  Each timed with CUDA events beside its ``work()`` bound
-    (the PV and stats entries per block, the merge per call);
+    (the PV and stats entries per block, the merge per call), H's entries
+    also on the device alone (``_busy_ms``);
     ``index_add_`` is the library call for E's partial sums, none computes
     the others' functions."""
     import torch
@@ -4609,10 +4610,11 @@ def _slice_phase(device, scale: Scale, rng, path_shapes) -> dict:
         plain = [DG.decode_gqa_stats_plain(q, a, s, pos, window=window)
                  for a, s in zip(ks, sps)]
         err = 0.0
-        for (m1, l1), (m2, l2) in zip(stats, plain):
-            if not torch.equal(m1, m2):
+        for (m1, l1, s1), (m2, l2, s2) in zip(stats, plain):
+            if not (torch.equal(s1, s2) and torch.equal(m1, m2)):
                 raise AssertionError(f"decode_gqa_stats ({label}): the "
-                                     "maxima differ from plain")
+                                     "kept scores or the maxima differ "
+                                     "from plain")
             torch.testing.assert_close(l1, l2, rtol=1e-12, atol=0)
             err = max(err, _max_err(l1, l2))
         pm = torch.stack([s[0] for s in stats])
@@ -4621,12 +4623,10 @@ def _slice_phase(device, scale: Scale, rng, path_shapes) -> dict:
         m2, l2 = DG.decode_gqa_merge_plain(pm, ps)
         if not (torch.equal(m, m2) and torch.equal(l, l2)):
             raise AssertionError(f"decode_gqa_merge ({label}) != plain")
-        pvs = [DG.decode_gqa_pv(q, a, b, s, pos, m, l, window=window)
-               for a, b, s in zip(ks, vs, sps)]
+        pvs = [DG.decode_gqa_pv(x[2], b, m, l) for x, b in zip(stats, vs)]
         pv_err = 0.0
-        for o1, a, b, s in zip(pvs, ks, vs, sps):
-            o2 = DG.decode_gqa_pv_plain(q, a, b, s, pos, m, l,
-                                        window=window)
+        for o1, x, b in zip(pvs, stats, vs):
+            o2 = DG.decode_gqa_pv_plain(x[2], b, m, l)
             torch.testing.assert_close(o1, o2, rtol=DECODE_TOL[0],
                                        atol=DECODE_TOL[1])
             pv_err = max(pv_err, _max_err(o1, o2))
@@ -4653,21 +4653,21 @@ def _slice_phase(device, scale: Scale, rng, path_shapes) -> dict:
                  lambda: DG.decode_gqa_merge_plain(pm, ps),
                  DG.merge_work(n, B * H), 0.0),
                 ("decode_gqa_pv",
-                 lambda: DG.decode_gqa_pv(q, ks[0], vs[0], sps[0], pos,
-                                          m, l, window=window),
-                 lambda: DG.decode_gqa_pv_plain(q, ks[0], vs[0], sps[0],
-                                                pos, m, l, window=window),
+                 lambda: DG.decode_gqa_pv(stats[0][2], vs[0], m, l),
+                 lambda: DG.decode_gqa_pv_plain(stats[0][2], vs[0], m, l),
                  p_work, pv_err)):
             ms = _ms(fn, device)
+            dev_ms = _busy_ms(fn, device)
             plain_ms = _ms(pfn, device, reps=3, warmup=1)
             bound_ms, by = _bound(work)
             rows[name].append(dict(
-                shape=label, max_abs_err=e, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, library_ms=None))
+                shape=label, max_abs_err=e, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                library_ms=None))
             print(f"{name} (H={H} KV={KV} hd={hd} window {window}, "
                   f"{label}): max err {e:.3g} vs plain; "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{bound_ms:.6f} ms ({by})")
+                  f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({by})")
 
     # E's partial entry per block of phase 3's shared-bank update, then
     # the finish of the blocks' sums

@@ -64,26 +64,36 @@
 // A cache cut by length over the blocks of a mesh (few kv heads, each
 // block holding a slice of every row's slots) takes three more entries,
 // for round_p = 1 only (the model's function), with the arithmetic H uses
-// between its own chunks:
-//   decode_gqa_stats_launch: over one block's slice, each (row, head)'s
-//     max m_b and f64 sum of (float)exp(s - m_b) (one block per (row, kv
-//     head); pass 1 and pass 2 of the single-launch plan);
+// between its own chunks.  The stats and PV entries cut each (row, kv
+// head)'s slice into split_plan's chunks, so B * KV * nsplit blocks cover
+// the SMs at a batch of one row, and stage the cache rows through a
+// cp.async double buffer:
+//   decode_gqa_stats_launch: over one block's slice, its masked scores
+//     (kept, (B, H, C) f32) and each (row, head)'s max m_b and f64 sum of
+//     (float)exp(s - m_b).  One chunk: one launch; several: the scores and
+//     each chunk's max, then each chunk's f64 sum under the slice's max,
+//     the last chunk of a (row, kv head) to finish writing m_b and l_b =
+//     the chunk sums added in chunk order;
 //   decode_gqa_merge_launch: on the first block's device, the blocks'
 //     maxima and sums in block order: m = max m_b, l = (float) sum_b
 //     l_b * exp(m_b - m) in f64 (a block with no valid slot adds 0 when
 //     another has one; with none anywhere every slot weighs exp(0) = 1, so
 //     p = 1 / C as the model's softmax of all -1e30 gives);
-//   decode_gqa_pv_launch: over one block's slice, p = exp(s - m) / l
-//     rounded to the cache's dtype and the slice's PV sums per head, in
-//     slot order (pass 1 again, the weights, pass 3).
+//   decode_gqa_pv_launch: over one block's slice, from its kept scores (K
+//     is read once per step), p = exp(s - m) / l rounded to the cache's
+//     dtype and the slice's PV sums per head and column in slot order, the
+//     chunks' sums added in chunk order (split_combine).
 // The blocks' PV sums are then added in block order on the first block's
 // device.  Scores are formed as in every other plan, so a slot's weight
 // differs from the whole cache's only by the rounding of l.
 #include <algorithm>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "async_copy.cuh"
 
 namespace {
 
@@ -467,97 +477,6 @@ __global__ void __launch_bounds__(THREADS)
   out[hg * hd + d] = round_p ? o : __fdiv_rn(o, den);
 }
 
-// ---- a cache slice of a mesh block: stats, merge, PV ----------------------
-
-// scores of the slice into the scratch, then per head (one warp each) its
-// max and f64 sum of (float)exp(s - max)
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    slice_stats(const T* __restrict__ q, const T* __restrict__ k,
-                const int* __restrict__ slot_pos,
-                const int* __restrict__ my_pos, int C, int H, int KV, int hd,
-                int vec, int window, float scale, float* scratch,
-                float* __restrict__ pmax, double* __restrict__ psum) {
-  extern __shared__ float smem[];
-  const Block<T> bl(blockIdx.x, k, k, slot_pos, my_pos, C, H, KV, hd, vec,
-                    scratch, smem);
-  load_q(bl, q, H, hd);
-  scores(bl, 0, C, C, hd, window, scale);
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int g = warp; g < bl.G; g += THREADS / 32) {
-    const float* sg = bl.sc + (long)g * C;
-    float m = NEG;
-    for (int c = lane; c < C; c += 32) m = fmaxf(m, sg[c]);
-    m = warp_max(m);
-    double ld = 0.0;
-    for (int c = lane; c < C; c += 32)
-      ld = __dadd_rn(ld, (double)(float)exp((double)__fsub_rn(sg[c], m)));
-    ld = warp_sum(ld);
-    if (lane == 0) {
-      const long hg = (long)blockIdx.x * bl.G + g;  // = row * H + head
-      pmax[hg] = m;
-      psum[hg] = ld;
-    }
-  }
-}
-
-// one thread per (row, head): the nb blocks' maxima and sums in block order
-__global__ void slice_merge(const float* __restrict__ pmax,
-                            const double* __restrict__ psum, int nb, long n,
-                            float* __restrict__ m_out,
-                            float* __restrict__ l_out) {
-  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
-       i += (long)gridDim.x * blockDim.x) {
-    float m = pmax[i];
-    for (int b = 1; b < nb; ++b) m = fmaxf(m, pmax[(long)b * n + i]);
-    double l = 0.0;
-    for (int b = 0; b < nb; ++b)
-      l = __dadd_rn(l, __dmul_rn(psum[(long)b * n + i],
-                                 exp(__dsub_rn((double)pmax[(long)b * n + i],
-                                               (double)m))));
-    m_out[i] = m;
-    l_out[i] = (float)l;
-  }
-}
-
-// the slice's PV sums with the merged max and denominator
-template <typename T, int GT>
-__global__ void __launch_bounds__(THREADS)
-    slice_pv(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const int* __restrict__ slot_pos,
-             const int* __restrict__ my_pos, int C, int H, int KV, int hd,
-             int vec, int window, float scale, const float* __restrict__ mrg_m,
-             const float* __restrict__ mrg_l, float* scratch,
-             float* __restrict__ out) {
-  extern __shared__ float smem[];
-  const Block<T> bl(blockIdx.x, k, v, slot_pos, my_pos, C, H, KV, hd, vec,
-                    scratch, smem);
-  load_q(bl, q, H, hd);
-  scores(bl, 0, C, C, hd, window, scale);
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int g = warp; g < bl.G; g += THREADS / 32) {
-    const long hg = (long)blockIdx.x * bl.G + g;
-    const float m = mrg_m[hg], l = mrg_l[hg];
-    float* sg = bl.sc + (long)g * C;
-    for (int c = lane; c < C; c += 32)
-      sg[c] = round_like<T>(
-          __fdiv_rn((float)exp((double)__fsub_rn(sg[c], m)), l));
-  }
-  float acc[GT];
-#pragma unroll
-  for (int g = 0; g < GT; ++g) acc[g] = 0.f;
-  pv(bl, 0, C, C, hd, nullptr, acc);
-  const int tid = threadIdx.x;
-  if (tid < hd) {
-    float* o = out + ((long)bl.row * H + (long)bl.kvh * bl.G) * hd + tid;
-#pragma unroll
-    for (int g = 0; g < GT; ++g)
-      if (g < bl.G) o[(long)g * hd] = acc[g];
-  }
-}
-
 // the most shared memory a block of these kernels takes (G = 32, hd = 256)
 constexpr int SMEM_MAX =
     sizeof(float) * (GMAX * 256 + TILE * 257 + GMAX * TILE + GMAX);
@@ -575,8 +494,6 @@ int allow_smem_once() {
     int e = allow_smem(decode_gqa_kernel<T, GT>);
     if (!e) e = allow_smem(split_scores<T>);
     if (!e) e = allow_smem(split_pv<T, GT>);
-    if (!e) e = allow_smem(slice_stats<T>);
-    if (!e) e = allow_smem(slice_pv<T, GT>);
     return e;
   }();
   return err;
@@ -641,87 +558,492 @@ int launch_group(int G, const void* q, const void* k, const void* v,
 #undef DECODE_GQA_LAUNCH
 }
 
-size_t block_smem(int G, int hd) {
-  return sizeof(float) *
-         ((size_t)G * hd + TILE * (hd + 1) + (size_t)G * TILE + GMAX);
+// one thread per (row, head): the nb blocks' maxima and sums in block order
+__global__ void slice_merge(const float* __restrict__ pmax,
+                            const double* __restrict__ psum, int nb, long n,
+                            float* __restrict__ m_out,
+                            float* __restrict__ l_out) {
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
+       i += (long)gridDim.x * blockDim.x) {
+    float m = pmax[i];
+    for (int b = 1; b < nb; ++b) m = fmaxf(m, pmax[(long)b * n + i]);
+    double l = 0.0;
+    for (int b = 0; b < nb; ++b)
+      l = __dadd_rn(l, __dmul_rn(psum[(long)b * n + i],
+                                 exp(__dsub_rn((double)pmax[(long)b * n + i],
+                                               (double)m))));
+    m_out[i] = m;
+    l_out[i] = (float)l;
+  }
 }
 
-int vec_ok(int hd, int n, const void* q, const void* k, const void* v) {
-  return hd % n == 0 && (uintptr_t)q % 16 == 0 && (uintptr_t)k % 16 == 0 &&
-         (uintptr_t)v % 16 == 0;
+// ---- a cache slice of a mesh block: stats (scores kept), merge, PV --------
+//
+// Each entry cuts every (row, kv head)'s slice into the chunks of the
+// wrapper's split_plan and runs a grid of (B * KV, nsplit) blocks, so a
+// batch of one row still spreads over the SMs; chunk j holds slots
+// [j * chunk, min(C, (j + 1) * chunk)).  A chunk's cache rows go through a
+// double buffer of 64-slot tiles in shared memory (16-byte cp.async where
+// the rows allow it): the copy of the next tile runs under the current
+// tile's dot chains or PV sums.
+
+constexpr int ROW_PAD = 16;      // bytes after each staged cache row
+constexpr int SCORE_GROUPS = 4;  // head groups of a tile's scores
+
+// Bytes of one staged cache row: whole 16-byte pieces plus the pad, so the
+// rows of 8 consecutive slots start in different 16-byte bank groups when
+// a row is a multiple of 32 bytes.
+__host__ __device__ __forceinline__ int row_bytes(int hd, int es) {
+  return (hd * es + 15) / 16 * 16 + ROW_PAD;
 }
 
-template <typename T, int GT>
-int launch_slice(int stage, const void* q, const void* k, const void* v,
-                 const int* slot_pos, const int* my_pos, int B, int C, int H,
-                 int KV, int hd, int window, float scale, float* scratch,
-                 float* pmax, double* psum, const float* mrg_m,
-                 const float* mrg_l, float* out, cudaStream_t stream) {
+// Issue the copies of slots c0 .. c0 + TILE - 1 of a cache column block
+// (zeros from c_end on) into a staged tile of rows of rb bytes, as stored:
+// with VEC 16-byte cp.async pieces left in flight (the caller commits and
+// waits), without element by element, complete on return.
+template <typename T, bool VEC>
+__device__ __forceinline__ void stage_rows(char* dst, int rb, const T* src,
+                                           long stride, int c0, int c_end,
+                                           int hd) {
+  if (VEC) {
+    constexpr int V = Vec<T>::N;
+    const int per_row = hd / V;
+    for (int i = threadIdx.x; i < TILE * per_row; i += THREADS) {
+      const int r = i / per_row, j = i - r * per_row;
+      const bool in = c0 + r < c_end;
+      acopy::cp_async16(dst + r * rb + 16 * j,
+                        src + (long)(in ? c0 + r : c0) * stride + V * j,
+                        in ? 16 : 0);
+    }
+    return;
+  }
+  using Bits = typename std::conditional<sizeof(T) == 2, uint16_t,
+                                         uint32_t>::type;
+  const Bits* s = reinterpret_cast<const Bits*>(src);
+  for (int i = threadIdx.x; i < TILE * hd; i += THREADS) {
+    const int r = i / hd, d = i - r * hd;
+    reinterpret_cast<Bits*>(dst + r * rb)[d] =
+        c0 + r < c_end ? s[(long)(c0 + r) * stride + d] : Bits(0);
+  }
+}
+
+// The dot chains of one staged row with the query heads g0 + 4 i (i < NH,
+// g < G): s[i] = sum_d q[g, d] k[d] as one __fmaf_rn chain over d = 0 ..
+// hd-1.  Every lane of a warp takes the same heads, so the q reads are
+// broadcasts; each 16-byte piece of k is read once for all NH heads.
+template <typename T, int NH, bool VEC>
+__device__ __forceinline__ void row_dots(const float* Qs, const char* row,
+                                         int hd, int G, int g0,
+                                         float (&s)[NH]) {
+#pragma unroll
+  for (int i = 0; i < NH; ++i) s[i] = 0.f;
+  if (VEC) {
+    constexpr int V = Vec<T>::N;
+    for (int j = 0; j < hd / V; ++j) {
+      float kk[V];
+      Vec<T>::unpack(*reinterpret_cast<const uint4*>(row + 16 * j), kk);
+#pragma unroll
+      for (int i = 0; i < NH; ++i) {
+        const int g = g0 + SCORE_GROUPS * i;
+        if (g < G) {
+          const float4* qv =
+              reinterpret_cast<const float4*>(Qs + g * hd + V * j);
+#pragma unroll
+          for (int e = 0; e < V / 4; ++e) {
+            const float4 qq = qv[e];
+            s[i] = __fmaf_rn(qq.x, kk[4 * e], s[i]);
+            s[i] = __fmaf_rn(qq.y, kk[4 * e + 1], s[i]);
+            s[i] = __fmaf_rn(qq.z, kk[4 * e + 2], s[i]);
+            s[i] = __fmaf_rn(qq.w, kk[4 * e + 3], s[i]);
+          }
+        }
+      }
+    }
+    return;
+  }
+  const T* kr = reinterpret_cast<const T*>(row);
+  for (int d = 0; d < hd; ++d) {
+    const float kd = to_f32(kr[d]);
+#pragma unroll
+    for (int i = 0; i < NH; ++i) {
+      const int g = g0 + SCORE_GROUPS * i;
+      if (g < G) s[i] = __fmaf_rn(Qs[g * hd + d], kd, s[i]);
+    }
+  }
+}
+
+// Scores of one chunk into sc (B, H, C) f32 (kept for the PV entry), then
+// per head (one warp each) the chunk's max: into cmax[hg * ns + j] when the
+// slice has several chunks (and the pair's count of finished chunks for
+// slice_sums set to 0), else the slice's max into pmax and the f64 sum of
+// (float)exp(s - max) into psum.  Warp w computes slots (w & 1) * 32 +
+// lane of each tile for heads w / 2 + 4 i; the group's q is read once.
+template <typename T, int NH, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+    slice_scores(const T* __restrict__ q, const T* __restrict__ k,
+                 const int* __restrict__ slot_pos,
+                 const int* __restrict__ my_pos, int C, int H, int KV,
+                 int hd, int window, float scale, int chunk,
+                 float* __restrict__ sc, float* __restrict__ pmax,
+                 double* __restrict__ psum, int* __restrict__ done) {
+  extern __shared__ __align__(16) char smem_raw[];
+  const int rk = blockIdx.x, row = rk / KV, kvh = rk % KV, G = H / KV;
+  const int j = blockIdx.y, ns = gridDim.y;
+  if (ns > 1 && j == 0 && threadIdx.x == 0) done[rk] = 0;  // for slice_sums
+  const int c_begin = j * chunk, c_end = min(C, c_begin + chunk);
+  const int rb = row_bytes(hd, sizeof(T));
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  char* ring = smem_raw + ((size_t)G * hd * sizeof(float) + 15) / 16 * 16;
+  const long cstride = (long)KV * hd;
+  const T* kr = k + (long)row * C * cstride + (long)kvh * hd;
+  const int* sp = slot_pos + (long)row * C;
+  const int pos = my_pos[row];
+  const long hg0 = (long)rk * G;  // = row * H + kvh * G
+  float* s_out = sc + hg0 * C;
+
+  stage_rows<T, VEC>(ring, rb, kr, cstride, c_begin, c_end, hd);
+  acopy::cp_async_commit();
+  const T* qr = q + hg0 * hd;
+  for (int i = threadIdx.x; i < G * hd; i += THREADS) Qs[i] = to_f32(qr[i]);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cw = (warp & 1) * 32 + lane, g0 = warp >> 1;
+  int t = 0;
+  for (int c0 = c_begin; c0 < c_end; c0 += TILE, ++t) {
+    const char* cur = ring + (size_t)(t & 1) * TILE * rb;
+    if (c0 + TILE < c_end) {
+      stage_rows<T, VEC>(ring + (size_t)((t + 1) & 1) * TILE * rb, rb, kr,
+                         cstride, c0 + TILE, c_end, hd);
+      acopy::cp_async_commit();
+      acopy::cp_async_wait<1>();
+    } else {
+      acopy::cp_async_wait<0>();
+    }
+    __syncthreads();  // the tile (and q) in shared memory for every thread
+    const int c = c0 + cw;
+    if (c < c_end && g0 < G) {
+      float s[NH];
+      row_dots<T, NH, VEC>(Qs, cur + cw * rb, hd, G, g0, s);
+      const int p = sp[c];
+      const bool valid =
+          p >= 0 && p <= pos && (window == 0 || pos - p <= window);
+#pragma unroll
+      for (int i = 0; i < NH; ++i) {
+        const int g = g0 + SCORE_GROUPS * i;
+        if (g < G)
+          s_out[(long)g * C + c] = valid ? __fmul_rn(s[i], scale) : NEG;
+      }
+    }
+    __syncthreads();  // the tile consumed before its buffer is refilled
+  }
+  for (int g = warp; g < G; g += THREADS / 32) {
+    const float* sg = s_out + (long)g * C;
+    float m = NEG;
+    for (int c = c_begin + lane; c < c_end; c += 32) m = fmaxf(m, sg[c]);
+    m = warp_max(m);
+    if (ns > 1) {
+      if (lane == 0) pmax[(hg0 + g) * ns + j] = m;
+      continue;
+    }
+    double ld = 0.0;
+    for (int c = c_begin + lane; c < c_end; c += 32)
+      ld = __dadd_rn(ld, (double)(float)exp((double)__fsub_rn(sg[c], m)));
+    ld = warp_sum(ld);
+    if (lane == 0) {
+      pmax[hg0 + g] = m;
+      psum[hg0 + g] = ld;
+    }
+  }
+}
+
+// Several chunks: each chunk's f64 sum of (float)exp(s - m) under the
+// slice's max m (the max of the chunk maxima, exact in any order).  The
+// last chunk of a (row, kv head) to finish (an integer count, its chunk
+// sums fenced before it counts) then writes each head's max and the f64
+// sum of its chunk sums in chunk order.
+__global__ void __launch_bounds__(THREADS)
+    slice_sums(int C, int G, int chunk, const float* __restrict__ sc,
+               const float* __restrict__ cmax, double* __restrict__ csum,
+               int* __restrict__ done, float* __restrict__ pmax,
+               double* __restrict__ psum) {
+  __shared__ int last;
+  const int j = blockIdx.y, ns = gridDim.y;
+  const int c_begin = j * chunk, c_end = min(C, c_begin + chunk);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long hg0 = (long)blockIdx.x * G;
+  for (int g = warp; g < G; g += THREADS / 32) {
+    const float m = split_m(cmax, hg0 + g, ns);
+    const float* sg = sc + (hg0 + g) * C;
+    double ld = 0.0;
+    for (int c = c_begin + lane; c < c_end; c += 32)
+      ld = __dadd_rn(ld, (double)(float)exp((double)__fsub_rn(sg[c], m)));
+    ld = warp_sum(ld);
+    if (lane == 0) csum[(hg0 + g) * ns + j] = ld;
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(done + blockIdx.x, 1) == ns - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int g = threadIdx.x; g < G; g += THREADS) {
+    const long hg = hg0 + g;
+    float m = NEG;
+    double l = 0.0;
+    for (int i = 0; i < ns; ++i) {
+      m = fmaxf(m, __ldcg(cmax + hg * ns + i));
+      l = __dadd_rn(l, __ldcg(csum + hg * ns + i));
+    }
+    pmax[hg] = m;
+    psum[hg] = l;
+  }
+}
+
+// One chunk's PV sums from the kept scores: per tile the weights p =
+// round(exp(s - m) / l) of the group's heads (f64 exp, taken while the
+// tile's v rows are in flight), then thread (hs, d) sums p * v[c, d] in
+// slot order for column d of heads hs, hs + groups, ... (groups = 256 /
+// hd), GT >= G bounding the accumulators at compile time.  One chunk
+// writes the slice's sums to out, several write each chunk's to ppv.
+template <typename T, int GT, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+    slice_pv(const float* __restrict__ sc, const T* __restrict__ v, int C,
+             int H, int KV, int hd, int chunk, const float* __restrict__ mrg_m,
+             const float* __restrict__ mrg_l, float* __restrict__ out,
+             float* __restrict__ ppv) {
+  extern __shared__ __align__(16) char smem_raw[];
+  const int rk = blockIdx.x, row = rk / KV, kvh = rk % KV, G = H / KV;
+  const int j = blockIdx.y, ns = gridDim.y;
+  const int c_begin = j * chunk, c_end = min(C, c_begin + chunk);
+  const int rb = row_bytes(hd, sizeof(T));
+  float* Ws = reinterpret_cast<float*>(smem_raw);  // G x TILE weights
+  float* ml = Ws + G * TILE;                       // m then l per head
+  char* ring = reinterpret_cast<char*>(ml + 2 * GMAX);
+  const long cstride = (long)KV * hd;
+  const T* vr = v + (long)row * C * cstride + (long)kvh * hd;
+  const long hg0 = (long)rk * G;
+  const float* s_in = sc + hg0 * C;
+
+  stage_rows<T, VEC>(ring, rb, vr, cstride, c_begin, c_end, hd);
+  acopy::cp_async_commit();
+  for (int g = threadIdx.x; g < G; g += THREADS) {
+    ml[g] = mrg_m[hg0 + g];
+    ml[GMAX + g] = mrg_l[hg0 + g];
+  }
+  __syncthreads();
+  const int groups = max(1, THREADS / hd);
+  const int d = threadIdx.x % hd, hs = threadIdx.x / hd;
+  const bool active = hs < groups;
+  float acc[GT];
+#pragma unroll
+  for (int i = 0; i < GT; ++i) acc[i] = 0.f;
+  int t = 0;
+  for (int c0 = c_begin; c0 < c_end; c0 += TILE, ++t) {
+    const char* cur = ring + (size_t)(t & 1) * TILE * rb;
+    for (int i = threadIdx.x; i < G * TILE; i += THREADS) {
+      const int g = i / TILE, c = c0 + i % TILE;
+      Ws[i] = c < c_end ? round_like<T>(__fdiv_rn(
+                              (float)exp((double)__fsub_rn(
+                                  s_in[(long)g * C + c], ml[g])),
+                              ml[GMAX + g]))
+                        : 0.f;
+    }
+    if (c0 + TILE < c_end) {
+      stage_rows<T, VEC>(ring + (size_t)((t + 1) & 1) * TILE * rb, rb, vr,
+                         cstride, c0 + TILE, c_end, hd);
+      acopy::cp_async_commit();
+      acopy::cp_async_wait<1>();
+    } else {
+      acopy::cp_async_wait<0>();
+    }
+    __syncthreads();  // the weights and the v tile in shared memory
+    if (active) {
+      const int n = min(TILE, c_end - c0);
+      const char* col = cur + d * sizeof(T);
+      int cc = 0;
+      for (; cc + 4 <= n; cc += 4) {
+        float vv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          vv[u] = to_f32(*reinterpret_cast<const T*>(col + (cc + u) * rb));
+#pragma unroll
+        for (int i = 0; i < GT; ++i) {
+          const int g = hs + groups * i;
+          if (g < G) {
+            const float4 w =
+                *reinterpret_cast<const float4*>(Ws + g * TILE + cc);
+            acc[i] = __fmaf_rn(w.x, vv[0], acc[i]);
+            acc[i] = __fmaf_rn(w.y, vv[1], acc[i]);
+            acc[i] = __fmaf_rn(w.z, vv[2], acc[i]);
+            acc[i] = __fmaf_rn(w.w, vv[3], acc[i]);
+          }
+        }
+      }
+      for (; cc < n; ++cc) {
+        const float vc = to_f32(*reinterpret_cast<const T*>(col + cc * rb));
+#pragma unroll
+        for (int i = 0; i < GT; ++i) {
+          const int g = hs + groups * i;
+          if (g < G) acc[i] = __fmaf_rn(Ws[g * TILE + cc], vc, acc[i]);
+        }
+      }
+    }
+    __syncthreads();  // the weights and the tile consumed
+  }
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < GT; ++i) {
+    const int g = hs + groups * i;
+    if (g < G) {
+      if (ns == 1)
+        out[(hg0 + g) * hd + d] = acc[i];
+      else
+        ppv[((hg0 + g) * ns + j) * hd + d] = acc[i];
+    }
+  }
+}
+
+// the most shared memory a slice block takes: the scores' q and ring at
+// G = 32, hd = 256 in f32
+constexpr int SLICE_SMEM_MAX =
+    sizeof(float) * GMAX * 256 + 2 * TILE * (256 * 4 + ROW_PAD);
+
+template <typename K>
+int allow_slice_smem(K kern) {
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SLICE_SMEM_MAX);
+}
+
+template <typename T, int GT, bool VEC>
+int stats_launch(const T* q, const T* k, const int* slot_pos,
+                 const int* my_pos, int B, int C, int H, int KV, int hd,
+                 int window, float scale, int nsplit, int chunk, float* sc,
+                 float* cmax, double* csum, int* done, float* pmax,
+                 double* psum, cudaStream_t st) {
+  constexpr int NH = (GT + SCORE_GROUPS - 1) / SCORE_GROUPS;
+  static const int attr = allow_slice_smem(slice_scores<T, NH, VEC>);
+  if (attr) return attr;
   const int G = H / KV;
-  const T *qt = (const T*)q, *kt = (const T*)k, *vt = (const T*)v;
-  const int vec = vec_ok(hd, Vec<T>::N, q, k, stage ? v : k);
-  int e = allow_smem_once<T, GT>();
-  if (e) return e;
-  if (stage == 0)
-    slice_stats<T><<<B * KV, THREADS, block_smem(G, hd), stream>>>(
-        qt, kt, slot_pos, my_pos, C, H, KV, hd, vec, window, scale, scratch,
-        pmax, psum);
-  else
-    slice_pv<T, GT><<<B * KV, THREADS, block_smem(G, hd), stream>>>(
-        qt, kt, vt, slot_pos, my_pos, C, H, KV, hd, vec, window, scale,
-        mrg_m, mrg_l, scratch, out);
+  const size_t smem = ((size_t)G * hd * sizeof(float) + 15) / 16 * 16 +
+                      2 * (size_t)TILE * row_bytes(hd, sizeof(T));
+  const dim3 grid(B * KV, nsplit);
+  const bool one = nsplit == 1;
+  slice_scores<T, NH, VEC><<<grid, THREADS, smem, st>>>(
+      q, k, slot_pos, my_pos, C, H, KV, hd, window, scale, chunk, sc,
+      one ? pmax : cmax, psum, done);
+  int e = (int)cudaGetLastError();
+  if (e || one) return e;
+  slice_sums<<<grid, THREADS, 0, st>>>(C, G, chunk, sc, cmax, csum, done,
+                                       pmax, psum);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_slice_group(int stage, const void* q, const void* k,
-                       const void* v, const int* slot_pos, const int* my_pos,
-                       int B, int C, int H, int KV, int hd, int window,
-                       float scale, float* scratch, float* pmax, double* psum,
-                       const float* mrg_m, const float* mrg_l, float* out,
-                       cudaStream_t st) {
+template <typename T, int GT, bool VEC>
+int pv_launch(const float* sc, const T* v, int B, int C, int H, int KV,
+              int hd, int nsplit, int chunk, const float* m, const float* l,
+              float* ppv, float* out, cudaStream_t st) {
+  static const int attr = allow_slice_smem(slice_pv<T, GT, VEC>);
+  if (attr) return attr;
   const int G = H / KV;
-#define DECODE_GQA_SLICE(GT)                                                 \
-  launch_slice<T, GT>(stage, q, k, v, slot_pos, my_pos, B, C, H, KV, hd,     \
-                      window, scale, scratch, pmax, psum, mrg_m, mrg_l, out, \
-                      st)
-  if (G <= 1) return DECODE_GQA_SLICE(1);
-  if (G <= 2) return DECODE_GQA_SLICE(2);
-  if (G <= 4) return DECODE_GQA_SLICE(4);
-  if (G <= 8) return DECODE_GQA_SLICE(8);
-  if (G <= 16) return DECODE_GQA_SLICE(16);
-  return DECODE_GQA_SLICE(GMAX);
-#undef DECODE_GQA_SLICE
+  const size_t smem = sizeof(float) * ((size_t)G * TILE + 2 * GMAX) +
+                      2 * (size_t)TILE * row_bytes(hd, sizeof(T));
+  slice_pv<T, GT, VEC><<<dim3(B * KV, nsplit), THREADS, smem, st>>>(
+      sc, v, C, H, KV, hd, chunk, m, l, out, ppv);
+  int e = (int)cudaGetLastError();
+  if (e || nsplit == 1) return e;
+  split_combine<<<B * H, (hd + 31) / 32 * 32, 0, st>>>(hd, nsplit, 1, 0.f,
+                                                        nullptr, nullptr,
+                                                        ppv, out);
+  return (int)cudaGetLastError();
 }
 
-int slice_entry(int stage, const void* q, const void* k, const void* v,
-                const int* slot_pos, const int* my_pos, int B, int C, int H,
-                int KV, int hd, int window, float scale, int bf16,
-                float* scratch, float* pmax, double* psum, const float* mrg_m,
-                const float* mrg_l, float* out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return launch_slice_group<__nv_bfloat16>(
-        stage, q, k, v, slot_pos, my_pos, B, C, H, KV, hd, window, scale,
-        scratch, pmax, psum, mrg_m, mrg_l, out, st);
-  return launch_slice_group<float>(stage, q, k, v, slot_pos, my_pos, B, C, H,
-                                   KV, hd, window, scale, scratch, pmax, psum,
-                                   mrg_m, mrg_l, out, st);
+// 16-byte staging: rows of whole 16-byte pieces at a 16-byte aligned base
+bool vec_rows(int hd, int es, const void* base) {
+  return hd * es % 16 == 0 && (uintptr_t)base % 16 == 0;
+}
+
+// the instance whose group bound GT is the least power of two >= G (the
+// staging element by element takes one instance of the largest bound)
+template <typename T>
+int stats_group(int G, const void* q, const void* k, const int* slot_pos,
+                const int* my_pos, int B, int C, int H, int KV, int hd,
+                int window, float scale, int nsplit, int chunk, float* sc,
+                float* cmax, double* csum, int* done, float* pmax,
+                double* psum, cudaStream_t st) {
+  const T *qt = (const T*)q, *kt = (const T*)k;
+#define DECODE_GQA_STATS(GT, VEC)                                          \
+  stats_launch<T, GT, VEC>(qt, kt, slot_pos, my_pos, B, C, H, KV, hd,     \
+                           window, scale, nsplit, chunk, sc, cmax, csum,  \
+                           done, pmax, psum, st)
+  if (!vec_rows(hd, sizeof(T), k)) return DECODE_GQA_STATS(GMAX, false);
+  if (G <= 4) return DECODE_GQA_STATS(4, true);
+  if (G <= 8) return DECODE_GQA_STATS(8, true);
+  if (G <= 16) return DECODE_GQA_STATS(16, true);
+  return DECODE_GQA_STATS(GMAX, true);
+#undef DECODE_GQA_STATS
+}
+
+template <typename T>
+int pv_group(int G, const float* sc, const void* v, int B, int C, int H,
+             int KV, int hd, int nsplit, int chunk, const float* m,
+             const float* l, float* ppv, float* out, cudaStream_t st) {
+  const T* vt = (const T*)v;
+#define DECODE_GQA_PV(GT, VEC)                                              \
+  pv_launch<T, GT, VEC>(sc, vt, B, C, H, KV, hd, nsplit, chunk, m, l, ppv, \
+                        out, st)
+  if (!vec_rows(hd, sizeof(T), v)) return DECODE_GQA_PV(GMAX, false);
+  if (G <= 1) return DECODE_GQA_PV(1, true);
+  if (G <= 2) return DECODE_GQA_PV(2, true);
+  if (G <= 4) return DECODE_GQA_PV(4, true);
+  if (G <= 8) return DECODE_GQA_PV(8, true);
+  if (G <= 16) return DECODE_GQA_PV(16, true);
+  return DECODE_GQA_PV(GMAX, true);
+#undef DECODE_GQA_PV
 }
 
 }  // namespace
 
-// one block's slice of the cache: pmax (B, H) f32 and psum (B, H) f64
-extern "C" int decode_gqa_stats_launch(const void* q, const void* k,
-                                       const int* slot_pos,
-                                       const int* my_pos, int B, int C,
-                                       int H, int KV, int hd, int window,
-                                       float scale, int bf16, float* scratch,
-                                       float* pmax, double* psum,
-                                       void* stream) {
-  return slice_entry(0, q, k, k, slot_pos, my_pos, B, C, H, KV, hd, window,
-                     scale, bf16, scratch, pmax, psum, nullptr, nullptr,
-                     nullptr, stream);
+// The arguments of the stats and PV entries, packed by the wrapper in one
+// struct.pack (decode_gqa.py: _STATS_ARGS, _PV_ARGS) and passed by pointer.
+struct StatsArgs {
+  const void *q, *k;
+  const int *slot_pos, *my_pos;
+  float* sc;     // (B, H, C) the slice's masked scores
+  float* cmax;   // (B * H * nsplit) the chunks' maxima (nsplit > 1)
+  double* csum;  // (B * H * nsplit) the chunks' sums (nsplit > 1)
+  int* done;     // (B * KV) the finished chunks of each pair (nsplit > 1)
+  float* pmax;   // (B, H)
+  double* psum;  // (B, H)
+  int B, C, H, KV, hd, window, bf16, nsplit, chunk;
+  float scale;
+};
+
+struct PVArgs {
+  const float* sc;  // (B, H, C) the stats entry's kept scores
+  const void* v;
+  const float *m, *l;  // (B, H) the merged stats
+  float* ppv;          // (B * H * nsplit * hd) the chunks' sums (nsplit > 1)
+  float* out;          // (B, H, hd)
+  int B, C, H, KV, hd, bf16, nsplit, chunk;
+};
+
+extern "C" int decode_gqa_slice_args_size(int pv) {
+  return pv ? (int)sizeof(PVArgs) : (int)sizeof(StatsArgs);
+}
+
+// one block's slice of the cache: its masked scores, each (row, head)'s
+// max and f64 sum of exp(s - max)
+extern "C" int decode_gqa_stats_launch(const StatsArgs* a, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int G = a->H / a->KV;
+  if (a->bf16)
+    return stats_group<__nv_bfloat16>(
+        G, a->q, a->k, a->slot_pos, a->my_pos, a->B, a->C, a->H, a->KV,
+        a->hd, a->window, a->scale, a->nsplit, a->chunk, a->sc, a->cmax,
+        a->csum, a->done, a->pmax, a->psum, st);
+  return stats_group<float>(G, a->q, a->k, a->slot_pos, a->my_pos, a->B,
+                            a->C, a->H, a->KV, a->hd, a->window, a->scale,
+                            a->nsplit, a->chunk, a->sc, a->cmax, a->csum,
+                            a->done, a->pmax, a->psum, st);
 }
 
 // nb blocks' stats, stacked (nb, n) -> the merged m (n,) and l (n,) f32
@@ -735,17 +1057,18 @@ extern "C" int decode_gqa_merge_launch(const float* pmax, const double* psum,
   return (int)cudaGetLastError();
 }
 
-// one block's slice: its PV sums (B, H, hd) f32 under the merged m and l
-extern "C" int decode_gqa_pv_launch(const void* q, const void* k,
-                                    const void* v, const int* slot_pos,
-                                    const int* my_pos, int B, int C, int H,
-                                    int KV, int hd, int window, float scale,
-                                    int bf16, const float* m, const float* l,
-                                    float* scratch, float* out,
-                                    void* stream) {
-  return slice_entry(1, q, k, v, slot_pos, my_pos, B, C, H, KV, hd, window,
-                     scale, bf16, scratch, nullptr, nullptr, m, l, out,
-                     stream);
+// one block's slice from its kept scores: its PV sums under the merged m
+// and l
+extern "C" int decode_gqa_pv_launch(const PVArgs* a, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int G = a->H / a->KV;
+  if (a->bf16)
+    return pv_group<__nv_bfloat16>(G, a->sc, a->v, a->B, a->C, a->H, a->KV,
+                                   a->hd, a->nsplit, a->chunk, a->m, a->l,
+                                   a->ppv, a->out, st);
+  return pv_group<float>(G, a->sc, a->v, a->B, a->C, a->H, a->KV, a->hd,
+                         a->nsplit, a->chunk, a->m, a->l, a->ppv, a->out,
+                         st);
 }
 
 extern "C" int decode_gqa_launch(const void* q, const void* k, const void* v,

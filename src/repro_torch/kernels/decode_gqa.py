@@ -43,16 +43,21 @@ A cache cut by length over the blocks of a mesh (a model with fewer kv
 heads than the mesh's ``model`` axis) needs each row's max and denominator
 over every block before a block's PV product, so the kernel has three more
 entries for ``round_p=True``: :func:`decode_gqa_stats` (one block's slice:
-each (row, head)'s max and f64 sum of ``exp(s - max)``),
-:func:`decode_gqa_merge` (the blocks' stats in block order: the max of the
-maxima and the f64 sum of each block's sum rescaled to it) and
-:func:`decode_gqa_pv` (one block's PV sums under the merged max and
-denominator); the blocks' PV sums are added in block order
-(:func:`repro_torch.models.attention.decode_attention_slices`).
+each (row, head)'s max and f64 sum of ``exp(s - max)``, and the slice's
+masked scores, kept), :func:`decode_gqa_merge` (the blocks' stats in block
+order: the max of the maxima and the f64 sum of each block's sum rescaled
+to it) and :func:`decode_gqa_pv` (one block's PV sums from its kept scores
+under the merged max and denominator, so the slice's k rows are read once
+per step); the blocks' PV sums are added in block order
+(:func:`repro_torch.models.attention.decode_attention_slices`).  The stats
+and PV entries cut each slice into :func:`split_plan`'s chunks, as the
+whole cache is cut, and combine the chunks' maxima, f64 sums and PV sums
+in chunk order.
 """
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
@@ -296,7 +301,8 @@ def decode_gqa_stats_plain(q, k_cache, slot_pos, my_pos, *, window=0):
     s = _scores_plain(q, k_cache, slot_pos, my_pos, window)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp((s - m).to(torch.float64)).to(torch.float32)
-    return m.reshape(B, H), p.to(torch.float64).sum(dim=-1).reshape(B, H)
+    return (m.reshape(B, H), p.to(torch.float64).sum(dim=-1).reshape(B, H),
+            s.reshape(B, H, -1))
 
 
 def decode_gqa_merge_plain(pmax, psum):
@@ -310,32 +316,36 @@ def decode_gqa_merge_plain(pmax, psum):
     return m, l.to(torch.float32)
 
 
-def decode_gqa_pv_plain(q, k_cache, v_cache, slot_pos, my_pos, m, l, *,
-                        window=0):
+def decode_gqa_pv_plain(s, v_cache, m, l):
     """The plain version of :func:`decode_gqa_pv` (the PV product as an
     einsum: only its summation order differs from the kernel's)."""
-    B, H, hd = q.shape
-    KV = k_cache.shape[2]
-    s = _scores_plain(q, k_cache, slot_pos, my_pos, window)
+    B, H, C = s.shape
+    KV = v_cache.shape[2]
+    sg = s.reshape(B, KV, H // KV, C)
     mm = m.reshape(B, KV, H // KV, 1)
     ll = l.reshape(B, KV, H // KV, 1)
-    p = torch.exp((s - mm).to(torch.float64)).to(torch.float32)
+    p = torch.exp((sg - mm).to(torch.float64)).to(torch.float32)
     p = (p / ll).to(v_cache.dtype).to(torch.float32)
     o = torch.einsum("bkgc,bckh->bkgh", p, v_cache.to(torch.float32))
-    return o.reshape(B, H, hd)
+    return o.reshape(B, H, -1)
 
 
 def slice_work(B: int, H: int, KV: int, hd: int, C: int, dtype, *,
                pv: bool, n_valid: int | None = None) -> _cost.Work:
-    """One slice entry: q, the positions and the kept k rows (and v rows
-    for the PV entry) read once, the stats (12 bytes per (row, head)) or
-    the PV sums written; 2 (4 with PV) * H * hd flops per kept pair."""
+    """One slice entry.  Stats: q, the positions and the kept k rows read
+    once, the stats (12 bytes per (row, head)) and the kept scores written;
+    2 * H * hd flops per kept pair.  PV: the scores, the merged stats and
+    the kept v rows read once, the PV sums written; 2 * H * hd flops per
+    kept pair."""
     n_valid = B * C if n_valid is None else n_valid
     es = dtype.itemsize
-    rows = (2 if pv else 1) * n_valid * KV * hd * es
-    out = 4 * B * H * hd + 8 * B * H if pv else 12 * B * H
-    return _cost.Work(bytes=B * H * hd * es + 4 * B * (C + 1) + rows + out,
-                      ops=(4.0 if pv else 2.0) * H * hd * n_valid, dot=True)
+    rows = n_valid * KV * hd * es
+    if pv:
+        nbytes = 4 * B * H * C + 8 * B * H + rows + 4 * B * H * hd
+    else:
+        nbytes = (B * H * hd * es + 4 * B * (C + 1) + rows + 12 * B * H
+                  + 4 * B * H * C)
+    return _cost.Work(bytes=nbytes, ops=2.0 * H * hd * n_valid, dot=True)
 
 
 def merge_work(nb: int, n: int) -> _cost.Work:
@@ -344,79 +354,121 @@ def merge_work(nb: int, n: int) -> _cost.Work:
     return _cost.Work(bytes=12 * nb * n + 8 * n, ops=4.0 * nb * n)
 
 
-def _slice_call_work(q, k_cache, *rest, result, window=0, pv=False):
-    slot_pos, my_pos = (rest[1], rest[2]) if pv else (rest[0], rest[1])
+def _stats_call_work(q, k_cache, slot_pos, my_pos, *, result, window=0):
     B, H, hd = q.shape
     n_valid = (None if q.device.type == "meta"
                else int(kept_slots(slot_pos, my_pos, window).sum()))
     return slice_work(B, H, k_cache.shape[2], hd, k_cache.shape[1], q.dtype,
-                      pv=pv, n_valid=n_valid)
+                      pv=False, n_valid=n_valid)
+
+
+def _pv_call_work(s, v_cache, m, l, *, result):
+    B, H, C = s.shape
+    # a kept slot's score is finite in every head; head 0 gives the mask
+    n_valid = (None if s.device.type == "meta"
+               else int((s[:, 0] > NEG).sum()))
+    return slice_work(B, H, v_cache.shape[2], v_cache.shape[3], C,
+                      v_cache.dtype, pv=True, n_valid=n_valid)
 
 
 _SLICE_FN = {}
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+#: ``struct StatsArgs`` / ``struct PVArgs`` of ``csrc/decode_gqa.cu``, packed
+#: in one ``struct.pack`` (a pointer to them is the entry's one argument)
+_STATS_ARGS = struct.Struct("10P9if")
+_PV_ARGS = struct.Struct("6P8i")
 _SLICE_ARGTYPES = {
-    "decode_gqa_stats_launch": [_VP] * 4 + [_I] * 6 + [ctypes.c_float, _I]
-                               + [_VP] * 4,
-    "decode_gqa_merge_launch": [_VP, _VP, _I, ctypes.c_long, _VP, _VP, _VP],
-    "decode_gqa_pv_launch": [_VP] * 5 + [_I] * 6 + [ctypes.c_float, _I]
-                            + [_VP] * 5,
+    "decode_gqa_stats_launch": [ctypes.c_char_p, ctypes.c_void_p],
+    "decode_gqa_merge_launch": [ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_int, ctypes.c_long, ctypes.c_void_p,
+                                ctypes.c_void_p, ctypes.c_void_p],
+    "decode_gqa_pv_launch": [ctypes.c_char_p, ctypes.c_void_p],
 }
 
 
 def _slice_entry(name: str):
+    """Entry ``name`` of the built library, bound once (the packed argument
+    layouts checked against the library's)."""
     fn = _SLICE_FN.get(name)
     if fn is None:
-        fn = getattr(_build.load("decode_gqa"), name)
+        lib = _build.load("decode_gqa")
+        size = lib.decode_gqa_slice_args_size
+        size.argtypes, size.restype = [ctypes.c_int], ctypes.c_int
+        if (size(0), size(1)) != (_STATS_ARGS.size, _PV_ARGS.size):
+            raise RuntimeError("decode_gqa: StatsArgs / PVArgs layouts differ "
+                               "between csrc/decode_gqa.cu and this wrapper")
+        fn = getattr(lib, name)
         fn.argtypes = _SLICE_ARGTYPES[name]
         fn.restype = ctypes.c_int
         _SLICE_FN[name] = fn
     return fn
 
 
-def _slice_args(q, k_cache, slot_pos, my_pos):
-    """The card's checks and contiguous int32 positions of a slice entry."""
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_gqa: unsupported device {q.device}")
-    _build.no_grad_inputs("decode_gqa", q, k_cache)
-    B, H, hd = q.shape
-    if hd > MAX_HEAD_DIM or H // k_cache.shape[2] > MAX_GROUP:
+def _card_limits(device, hd: int, G: int, C: int) -> None:
+    """The card's checks of a slice entry."""
+    if device.type != "cuda":
+        raise ValueError(f"decode_gqa: unsupported device {device}")
+    if hd > MAX_HEAD_DIM or G > MAX_GROUP:
         raise ValueError(f"decode_gqa: the kernel takes hd <= "
                          f"{MAX_HEAD_DIM} and G <= {MAX_GROUP}")
-    if k_cache.shape[1] == 0:
+    if C == 0:
         raise ValueError("decode_gqa: an empty cache slice")
-    return (slot_pos.to(torch.int32).contiguous(),
-            my_pos.to(torch.int32).contiguous())
 
 
-@_cost.counted("decode_gqa_stats", _slice_call_work)
+def _dense(t: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``t`` as a contiguous tensor of ``dtype``, copied only when it is
+    not one already."""
+    if dtype is not None and t.dtype != dtype:
+        t = t.to(dtype)
+    return t if t.is_contiguous() else t.contiguous()
+
+
+@_cost.counted("decode_gqa_stats", _stats_call_work)
 def decode_gqa_stats(q: torch.Tensor, k_cache: torch.Tensor,
                      slot_pos: torch.Tensor, my_pos: torch.Tensor, *,
                      window: int = 0):
     """One block's slice of the cache (``slot_pos`` its slots' positions):
-    ``(pmax (B, H) f32, psum (B, H) f64)``, each (row, head)'s max score
-    and the f64 sum of ``exp(s - max)`` (each term rounded to f32).  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel."""
+    ``(pmax (B, H) f32, psum (B, H) f64, s (B, H, C) f32)``, each (row,
+    head)'s max score, the f64 sum of ``exp(s - max)`` (each term rounded
+    to f32) and the slice's masked scores, kept for :func:`decode_gqa_pv`.
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (one workspace allocation: the three results are views of
+    it)."""
     global stats_launches
     _check(q, k_cache, k_cache, slot_pos, my_pos)
     if q.device.type == "cpu":
         return decode_gqa_stats_plain(q, k_cache, slot_pos, my_pos,
                                       window=window)
-    slot_pos, my_pos = _slice_args(q, k_cache, slot_pos, my_pos)
     B, H, hd = q.shape
     C, KV = k_cache.shape[1], k_cache.shape[2]
-    q, k_cache = q.contiguous(), k_cache.contiguous()
-    pmax = torch.empty((B, H), dtype=torch.float32, device=q.device)
-    psum = torch.empty((B, H), dtype=torch.float64, device=q.device)
-    scratch = torch.empty(B * H * C, dtype=torch.float32, device=q.device)
-    err = _slice_entry("decode_gqa_stats_launch")(
+    _card_limits(q.device, hd, H // KV, C)
+    _build.no_grad_inputs("decode_gqa", q, k_cache)
+    q, k_cache = _dense(q), _dense(k_cache)
+    slot_pos, my_pos = _dense(slot_pos, torch.int32), _dense(my_pos,
+                                                             torch.int32)
+    nsplit, chunk = split_plan(B, KV, C, _sm_count(q.device))
+    # f64: psum, then each chunk's sum; f32 after them: pmax, the scores,
+    # each chunk's max, then an int32 count per (row, kv head) (the chunk
+    # parts are empty without a split)
+    n = B * H
+    ns = nsplit if nsplit > 1 else 0
+    n64 = n + n * ns
+    n32 = n + n * C + n * ns + (B * KV if ns else 0)
+    buf = torch.empty(n64 + (n32 + 1) // 2, dtype=torch.float64,
+                      device=q.device)
+    f32 = buf.view(torch.float32)
+    base, o32 = buf.data_ptr(), 2 * n64
+    err = _slice_entry("decode_gqa_stats_launch")(_STATS_ARGS.pack(
         q.data_ptr(), k_cache.data_ptr(), slot_pos.data_ptr(),
-        my_pos.data_ptr(), B, C, H, KV, hd, int(window), hd ** -0.5,
-        1 if q.dtype == torch.bfloat16 else 0, scratch.data_ptr(),
-        pmax.data_ptr(), psum.data_ptr(), _build.stream_handle(q.device))
+        my_pos.data_ptr(), base + 4 * (o32 + n), base + 4 * (o32 + n + n * C),
+        base + 8 * n, base + 4 * (o32 + n + n * C + n * ns), base + 4 * o32,
+        base, B, C, H, KV, hd, int(window),
+        1 if q.dtype == torch.bfloat16 else 0, nsplit, chunk, hd ** -0.5),
+        _build.stream_handle(q.device))
     _build.check(err, "decode_gqa_stats")
     stats_launches += 1
-    return pmax, psum
+    return (f32.as_strided((B, H), (H, 1), o32),
+            buf.as_strided((B, H), (H, 1), 0),
+            f32.as_strided((B, H, C), (H * C, C, 1), o32 + n))
 
 
 @_cost.counted("decode_gqa_merge",
@@ -448,38 +500,49 @@ def decode_gqa_merge(pmax: torch.Tensor, psum: torch.Tensor):
     return m, l
 
 
-@_cost.counted("decode_gqa_pv",
-               lambda *a, result, window=0: _slice_call_work(
-                   *a, result=result, window=window, pv=True))
-def decode_gqa_pv(q: torch.Tensor, k_cache: torch.Tensor,
-                  v_cache: torch.Tensor, slot_pos: torch.Tensor,
-                  my_pos: torch.Tensor, m: torch.Tensor, l: torch.Tensor, *,
-                  window: int = 0) -> torch.Tensor:
-    """One block's slice: ``(B, H, hd)`` f32 PV sums with ``p = exp(s - m)
-    / l`` rounded to the cache's dtype (``m``, ``l`` the merged ``(B, H)``
-    stats).  A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel."""
+@_cost.counted("decode_gqa_pv", _pv_call_work)
+def decode_gqa_pv(s: torch.Tensor, v_cache: torch.Tensor, m: torch.Tensor,
+                  l: torch.Tensor) -> torch.Tensor:
+    """One block's slice from its kept scores ``s`` (``(B, H, C)`` f32, the
+    third result of :func:`decode_gqa_stats`): ``(B, H, hd)`` f32 PV sums
+    with ``p = exp(s - m) / l`` rounded to the cache's dtype (``m``, ``l``
+    the merged ``(B, H)`` stats).  A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel."""
     global pv_launches
-    _check(q, k_cache, v_cache, slot_pos, my_pos)
-    if q.device.type == "cpu":
-        return decode_gqa_pv_plain(q, k_cache, v_cache, slot_pos, my_pos, m,
-                                   l, window=window)
-    slot_pos, my_pos = _slice_args(q, k_cache, slot_pos, my_pos)
+    if s.dim() != 3 or v_cache.dim() != 4:
+        raise ValueError("decode_gqa_pv: scores (B, H, C), cache "
+                         "(B, C, KV, hd)")
+    B, H, C = s.shape
+    KV, hd = v_cache.shape[2], v_cache.shape[3]
+    if (v_cache.shape[:2] != (B, C) or H % KV or m.shape != (B, H)
+            or l.shape != (B, H)):
+        raise ValueError(
+            f"decode_gqa_pv: scores {tuple(s.shape)}, cache "
+            f"{tuple(v_cache.shape)}, m {tuple(m.shape)}, l "
+            f"{tuple(l.shape)}")
+    if s.dtype != torch.float32 or v_cache.dtype not in (torch.float32,
+                                                         torch.bfloat16):
+        raise TypeError("decode_gqa_pv takes f32 scores and a float32 or "
+                        "bfloat16 cache")
+    if len({t.device for t in (s, v_cache, m, l)}) != 1:
+        raise ValueError("decode_gqa_pv: inputs on different devices")
+    if s.device.type == "cpu":
+        return decode_gqa_pv_plain(s, v_cache, m, l)
+    _card_limits(s.device, hd, H // KV, C)
     _build.no_grad_inputs("decode_gqa", v_cache)
-    B, H, hd = q.shape
-    C, KV = k_cache.shape[1], k_cache.shape[2]
-    q, k_cache, v_cache = (q.contiguous(), k_cache.contiguous(),
-                           v_cache.contiguous())
-    m = m.to(torch.float32).contiguous()
-    l = l.to(torch.float32).contiguous()
-    out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
-    scratch = torch.empty(B * H * C, dtype=torch.float32, device=q.device)
-    err = _slice_entry("decode_gqa_pv_launch")(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        slot_pos.data_ptr(), my_pos.data_ptr(), B, C, H, KV, hd,
-        int(window), hd ** -0.5, 1 if q.dtype == torch.bfloat16 else 0,
-        m.data_ptr(), l.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        _build.stream_handle(q.device))
+    s, v_cache = _dense(s), _dense(v_cache)
+    m, l = _dense(m, torch.float32), _dense(l, torch.float32)
+    nsplit, chunk = split_plan(B, KV, C, _sm_count(s.device))
+    # the PV sums, then each chunk's (none without a split)
+    n = B * H * hd
+    buf = torch.empty(n * nsplit + (n if nsplit > 1 else 0),
+                      dtype=torch.float32, device=s.device)
+    base = buf.data_ptr()
+    err = _slice_entry("decode_gqa_pv_launch")(_PV_ARGS.pack(
+        s.data_ptr(), v_cache.data_ptr(), m.data_ptr(), l.data_ptr(),
+        base + 4 * n, base, B, C, H, KV, hd,
+        1 if v_cache.dtype == torch.bfloat16 else 0, nsplit, chunk),
+        _build.stream_handle(s.device))
     _build.check(err, "decode_gqa_pv")
     pv_launches += 1
-    return out
+    return buf.as_strided((B, H, hd), (H * hd, hd, 1), 0)

@@ -177,21 +177,19 @@ def decode_attention_slices(q: torch.Tensor, k_slices, v_slices, sp_slices,
     one per mesh block, each on its block's device (``sp_slices`` the
     positions of each slice's slots; ``q`` and ``my_pos`` whole).
 
-    Every block's row max and f64 denominator (kernel H's stats entry),
-    merged in block order on the first block's device (its merge entry),
-    then every block's PV sums under the merged max and denominator (its
-    PV entry), added in block order
-    (:func:`repro_torch.models.common.block_sum`).  On the CPU the
-    entries run their plain versions.  Returns ``(B, H, hd)`` in ``q``'s
-    dtype on the first block's device."""
+    Every block's row max, f64 denominator and masked scores (kernel H's
+    stats entry), the stats merged in block order on the first block's
+    device (its merge entry), then every block's PV sums from its kept
+    scores under the merged max and denominator (its PV entry), added in
+    block order (:func:`repro_torch.models.common.block_sum`).  On the CPU
+    the entries run their plain versions.  Returns ``(B, H, hd)`` in
+    ``q``'s dtype on the first block's device."""
     dev = k_slices[0].device
     stats = [kops.decode_gqa_stats(q.to(k.device), k, sp,
                                    my_pos.to(k.device), window=window)
              for k, sp in zip(k_slices, sp_slices)]
     m, l = kops.decode_gqa_merge(torch.stack([s[0].to(dev) for s in stats]),
                                  torch.stack([s[1].to(dev) for s in stats]))
-    parts = [kops.decode_gqa_pv(q.to(k.device), k, v, sp,
-                                my_pos.to(k.device), m.to(k.device),
-                                l.to(k.device), window=window)
-             for k, v, sp in zip(k_slices, v_slices, sp_slices)]
+    parts = [kops.decode_gqa_pv(st[2], v, m.to(v.device), l.to(v.device))
+             for st, v in zip(stats, v_slices)]
     return block_sum(parts).to(q.dtype)

@@ -28,9 +28,12 @@ forms that.  ``a`` sits within 1e-4 of 1 for the slowest lanes, so an ulp
 of ``a`` is a large relative change of ``1 - a * a``: the two forms are up
 to 1.5e-5 apart after three layers, and both exponentials take XLA's own
 ``exp`` (:func:`repro_torch.core._fma.xla_exp_f32`), so that they round as
-the reference's do.  The other transcendentals are torch's and differ from
-XLA's by an ulp here and there, which the gates carry without
-amplification.
+the reference's do.  On the CPU the sigmoids take that ``exp`` too and
+``sqrt`` is correctly rounded (taken in f64), as XLA's compiled gates are
+(read from ``XLA_FLAGS=--xla_dump_to`` of ``jax.jit(_gates)``: vectorised
+``exp`` with fused multiply-adds, ``vsqrtps``); ``softplus``'s ``log1p``
+is torch's and differs from XLA's by an ulp for some ``lam``, which the
+gates carry without amplification.
 
 Training: on the card the scan runs kernel I under its ``autograd.Function``
 with the backward kernel when a gradient is needed
@@ -82,7 +85,18 @@ def _block_mm(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _sigmoid(z: torch.Tensor) -> torch.Tensor:
-    return 1.0 / (torch.exp(-z) + 1.0)
+    """``1 / (exp(-z) + 1)``; on the CPU with XLA's ``exp``."""
+    exp = xla_exp_f32 if z.device.type == "cpu" else torch.exp
+    return 1.0 / (exp(-z) + 1.0)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """A correctly rounded f32 ``sqrt``, as XLA's ``vsqrtps``: on the CPU
+    taken in f64 (PyTorch's vectorised f32 ``sqrt`` there is an ulp off
+    for some inputs on AVX-512 hosts), elsewhere as it is."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -99,7 +113,7 @@ def _gates(p: dict, x: torch.Tensor, scanned: bool = False):
     log_a = (_softplus(p["lam"]) * -C_FACTOR) * r
     a = xla_exp_f32(log_a)
     a2 = xla_exp_f32(log_a + log_a) if scanned else a * a
-    gated_x = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * (i * x.to(_F32))
+    gated_x = _sqrt(torch.clamp(1.0 - a2, min=1e-12)) * (i * x.to(_F32))
     return a, gated_x
 
 

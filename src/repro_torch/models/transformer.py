@@ -333,10 +333,11 @@ def block_step(p: dict, cfg, kind: str, x: torch.Tensor, state: dict,
 # MoE (a dispatch group over every slot, as without a mesh) and the
 # projections into and out of the state run whole, once: their weights
 # are replicated.  What the state splits runs block by block on each
-# block's device (:func:`_attend`, :func:`_rec_state_step`,
-# :func:`_xlstm_cell_step`); blocks that hold the same slices (a leaf the
-# spec replicates over an axis) are computed once and copied to each.  A
-# state that is not placed is the one block that holds all of it.
+# block's device (:func:`_attend`, :func:`_rec_state_step`); blocks that
+# hold the same slices (a leaf the spec replicates over an axis) are
+# computed once and copied to each.  An xLSTM cell steps whole and is
+# placed again (:func:`_xlstm_cell_step`).  A state that is not placed is
+# the one block that holds all of it.
 
 
 def _row_groups(layout) -> list:
@@ -499,34 +500,18 @@ def _rec_state_step(p: dict, r: torch.Tensor, bufs, hs, scanned: bool):
 
 
 def _xlstm_cell_step(p: dict, cfg, kind: str, h: torch.Tensor, cell):
-    """An xLSTM block's cell over its state (``h`` the normed input): each
-    block's rows on its device.  A cell placed other than by its batch
-    rows (slots that the ``data`` axis does not divide) steps whole and is
-    placed again."""
+    """An xLSTM block's cell over its state (``h`` the normed input),
+    stepped whole on ``h``'s device and placed again.  Its products with
+    replicated weights (the gates, the sLSTM's ``h @ R``) then take every
+    row at once, as without a mesh: a product over fewer rows may round
+    otherwise (the CPU's GEMM picks its kernel by the row count), so a
+    mesh step does not depend on how the rows are cut."""
     step_fn = xl.mlstm_step if kind == "mlstm" else xl.slstm_step
     leaves = tuple(cell)
-
-    def rebuild(new):
-        return type(cell)(*new) if hasattr(cell, "_fields") else tuple(new)
-
-    if not all(all(d == slice(0, n) for d, n in zip(sl[1:], c.shape[1:]))
-               for c in leaves for sl, _ in block_layout(c)):
-        y, new = step_fn(p["cell"], h, cfg.n_heads,
-                         tuple(_on(whole_of(c), h.device) for c in leaves))
-        return y, rebuild(place_like(c, n) for c, n in zip(leaves, new))
-    new = [list(blocks_of(c)) for c in leaves]
-    ys = []
-    for sl, idx in block_layout(leaves[0]):
-        dev = blocks_of(leaves[0])[idx[0]].device
-        y_r, cell_n = step_fn(_params_on(p["cell"], dev),
-                              _on(h[sl[0]], dev), cfg.n_heads,
-                              tuple(blocks_of(c)[idx[0]] for c in leaves))
-        ys.append(_on(y_r, h.device))
-        for j, c in enumerate(leaves):
-            for i in idx:
-                new[j][i] = _on(cell_n[j], blocks_of(c)[i].device)
-    y = torch.cat(ys, dim=0) if len(ys) > 1 else ys[0]
-    return y, rebuild(replace_blocks(c, n) for c, n in zip(leaves, new))
+    y, new = step_fn(p["cell"], h, cfg.n_heads,
+                     tuple(_on(whole_of(c), h.device) for c in leaves))
+    new = [place_like(c, n) for c, n in zip(leaves, new)]
+    return y, type(cell)(*new) if hasattr(cell, "_fields") else tuple(new)
 
 
 # --------------------------------------------------------------------------- #

@@ -726,10 +726,19 @@ class FleetServeEngine:
                 f_in = self.meta.feat_dim[k][v]
                 f_out = self.meta.feat_dim[k][v + 1]
                 r = counts[act, k, v, :kc][..., None]          # (A, kc, 1)
-                src = cents[act, k, v, :kc, :f_in]
-                img = torch.relu(m.unit_apply_flat(
-                    v + 1, (r * src).reshape(-1, f_in))).reshape(
-                        act.numel(), kc, f_out) / r
+                src = r * cents[act, k, v, :kc, :f_in]
+                if cents.device.type == "cpu":
+                    # each device's kc rows through the unit on their own,
+                    # as the scalar engine's propagate: the CPU's GEMM
+                    # picks its kernel by the row count, so a product over
+                    # every adapting device's rows rounds otherwise
+                    img = torch.stack([m.unit_apply_flat(v + 1, x)
+                                       for x in src])
+                else:
+                    img = m.unit_apply_flat(
+                        v + 1, src.reshape(-1, f_in)).reshape(
+                            act.numel(), kc, f_out)
+                img = torch.relu(img) / r
                 row = (torch.arange(kc, device=cents.device)[None, :]
                        == ci_[act][:, None])
                 old = cents[act, k, v + 1, :kc, :f_out]

@@ -31,6 +31,7 @@ from repro_torch.launch.mesh import make_fleet_mesh
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_fleet import port_harvester, port_tasks  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 DRIVERS = ("random", "grid", "es", "es-grad", "cma")
 

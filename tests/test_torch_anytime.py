@@ -12,8 +12,9 @@ package.
   tiny model of ``tests/test_anytime.py`` (weights carried over), for
   ``anytime``, ``edf`` and ``edf-m`` and for 1 and 4 segments, and on the
   reduced recurrentgemma-9b (rec, rec, attn: 3 units), xlstm-125m and
-  dbrx-132b; with a
-  small capacitor the clock and the charge also match after every step.
+  dbrx-132b (those cases in ``tests/test_torch_anytime_engine.py``, which
+  imports this file's helpers); with a small capacitor the clock and the
+  charge also match after every step.
   The model's logits differ from JAX's at f32 round-off, so a margin at a
   threshold or a near-tie of two logits could flip a decision: the
   thresholds used here (0.1, 0.3, 1e9) and the seeded inputs keep away
@@ -46,6 +47,7 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import AnytimeConfig, AnytimeRequest
 from repro_torch.serve import AnytimeServeEngine
 from repro_torch.telemetry import TelemetryConfig
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RESULT_FIELDS = ("status", "finish", "tardiness", "agree", "tokens",
                  "depth_sum")
@@ -179,17 +181,6 @@ def _assert_same(jres, pres):
     assert pres.as_dict() == jres.as_dict()
 
 
-@pytest.mark.parametrize("n_segments", [1, 4])
-@pytest.mark.parametrize("policy", ["anytime", "edf", "edf-m"])
-def test_engine_matches_jax(tiny, policy, n_segments):
-    je, pe = _engines(tiny, policy=policy)
-    jreqs, preqs = _requests()
-    jres = je.run(jreqs, n_segments=n_segments)
-    pres = pe.run(preqs, n_segments=n_segments)
-    assert pres.completed == len(preqs)
-    _assert_same(jres, pres)
-
-
 @pytest.mark.parametrize("policy", ["anytime", "edf", "edf-m"])
 def test_engine_clock_and_charge_match_jax_every_step(tiny, policy):
     """A 2 J capacitor at half charge on a 3.3 W supply: the charge moves
@@ -210,43 +201,6 @@ def test_engine_clock_and_charge_match_jax_every_step(tiny, policy):
                   hook=lambda s, c, k: ph.append((float(c.now),
                                                   float(c.energy))))
     assert ph == jh
-    _assert_same(jres, pres)
-
-
-@pytest.mark.parametrize("policy", ["anytime", "edf", "edf-m"])
-def test_hybrid_engine_matches_jax(policy):
-    """The reduced recurrentgemma-9b behind the engine: admission resets a
-    slot's recurrent state (``h``, the conv buffer) with its KV cache, and
-    the result arrays equal the JAX engine's."""
-    hybrid = _port_model("recurrentgemma-9b")
-    je, pe = _engines(hybrid, policy=policy, max_steps=96)
-    jreqs, preqs = _requests(ragged=True)
-    jres, pres = je.run(jreqs), pe.run(preqs)
-    assert pres.completed == len(preqs) and pres.n_units == 3
-    _assert_same(jres, pres)
-
-
-@pytest.mark.parametrize("policy", ["anytime", "edf", "edf-m"])
-def test_xlstm_engine_matches_jax(policy):
-    """The reduced xlstm-125m (mLSTM, sLSTM: 2 units) behind the engine:
-    admission resets a slot's xLSTM cells (``m`` back to -1e30) like any
-    other leaf, and the result arrays equal the JAX engine's."""
-    je, pe = _engines(_port_model("xlstm-125m"), policy=policy, max_steps=96)
-    jreqs, preqs = _requests(ragged=True)
-    jres, pres = je.run(jreqs), pe.run(preqs)
-    assert pres.completed == len(preqs) and pres.n_units == 2
-    _assert_same(jres, pres)
-
-
-@pytest.mark.parametrize("policy", ["anytime", "edf", "edf-m"])
-def test_moe_engine_matches_jax(policy):
-    """The reduced dbrx-132b (2 MoE layers: 2 units) behind the engine, the
-    batch slots one dispatch group per step; the result arrays equal the
-    JAX engine's."""
-    je, pe = _engines(_port_model("dbrx-132b"), policy=policy, max_steps=96)
-    jreqs, preqs = _requests(ragged=True)
-    jres, pres = je.run(jreqs), pe.run(preqs)
-    assert pres.completed == len(preqs) and pres.n_units == 2
     _assert_same(jres, pres)
 
 

@@ -210,3 +210,35 @@ def test_xlstm_cells_cut_past_their_rows_step_whole():
     for a, b in zip(SH._leaves(SH.gather(seen["mesh"])),
                     SH._leaves(seen["plain"])):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("q,kind", [(0, "mlstm"), (1, "slstm")])
+def test_xlstm_cell_step_over_a_mesh_equals_the_step_without(q, kind):
+    """One mLSTM and one sLSTM step of the reduced xlstm-125m with its cell
+    placed on a ``(2, 2)`` mesh (rows cut over ``data``) equals the step
+    without a mesh bit for bit: the cell steps whole, so its products with
+    replicated weights take all four rows at once in both."""
+    cfg = get_config("xlstm-125m").reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    p = T._index(params["layers"]["stack"][q], 0)
+    st = T.init_decode_state(cfg, 4, 8, cache_len=8, stacked=False,
+                             device="cpu")
+    rng = np.random.default_rng(q)
+    cell = tuple(torch.from_numpy(rng.normal(size=c.shape).astype(np.float32))
+                 for c in st["stack"][q][0]["cell"])
+    stack = list(st["stack"])
+    stack[q] = (dict(stack[q][0], cell=cell),) + tuple(stack[q][1:])
+    st = dict(st, stack=tuple(stack))
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    placed = SH.device_put(st, SH.named(mesh, SH.state_specs(mesh, st)))
+    pcell = placed["stack"][q][0]["cell"]
+    assert all(len({sl[0] for sl, _ in SH.block_layout(c)}) == 2
+               for c in pcell)
+    h = torch.from_numpy(rng.normal(size=(4, cfg.d_model)).astype(np.float32))
+    y0, new0 = T._xlstm_cell_step(p, cfg, kind, h, cell)
+    y1, new1 = T._xlstm_cell_step(p, cfg, kind, h, pcell)
+    assert torch.equal(y1, y0)
+    for a, b in zip(new1, new0):
+        assert isinstance(a, SH.Sharded)
+        assert torch.equal(SH.gather(a), b)

@@ -24,6 +24,7 @@ import torch
 from repro.kernels import ops as JO
 from repro_torch.core._fma import fma_f32
 from repro_torch.kernels import centroid_update as CU
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SRC = (Path(CU.__file__).parent / "csrc" / "centroid_update.cu").read_text()
 #: the largest B * k where the reference's order is one fixed function of

@@ -8,6 +8,10 @@
 * ``round_p=True`` (the model's ``decode_attention``: the normalised
   softmax rounded to the cache's dtype before the PV product) against the
   JAX ``decode_attention`` in f32 and in bf16, at the same tolerance.
+* The slice entries' plain versions (a cache cut by length over mesh
+  blocks): the stats' maxima and sums, and the PV sums fed the stats' kept
+  scores, equal the same functions forming every score again from ``q``
+  and ``k``, bit for bit, at ``tests/test_torch_gpu.py``'s slice cases.
 
 Inputs are made with numpy from a seed and go through both packages.
 """
@@ -22,6 +26,10 @@ from repro.models.attention import decode_attention as jax_decode_attention
 
 from repro_torch.kernels import decode_gqa as DG
 from repro_torch.models.attention import decode_attention
+from repro_torch.models.common import block_sum
+from _torch_threads import one_torch_thread  # noqa: F401
+# (B, H, KV, hd, C, window, n): each cache cut by length into n slices
+from test_torch_gpu import SLICE_CASES
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -153,3 +161,64 @@ def test_split_denominator_rounds_as_the_plain_one():
     for part in parts:
         split = split + part
     assert torch.equal(split.float(), plain)
+
+
+def _stats_from_q(q, k, slot_pos, my_pos, window):
+    """The slice stats as the plain entry formed them before it kept its
+    scores: ``(pmax, psum)``."""
+    B, H, _ = q.shape
+    s = DG._scores_plain(q, k, slot_pos, my_pos, window)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp((s - m).to(torch.float64)).to(torch.float32)
+    return m.reshape(B, H), p.to(torch.float64).sum(dim=-1).reshape(B, H)
+
+
+def _pv_from_q(q, k, v, slot_pos, my_pos, m, l, window):
+    """The slice PV sums as the plain entry formed them before: every score
+    formed again from ``q`` and ``k``."""
+    B, H, hd = q.shape
+    KV = k.shape[2]
+    s = DG._scores_plain(q, k, slot_pos, my_pos, window)
+    p = torch.exp((s - m.reshape(B, KV, H // KV, 1)).to(torch.float64))
+    p = (p.to(torch.float32) / l.reshape(B, KV, H // KV, 1)).to(
+        v.dtype).to(torch.float32)
+    o = torch.einsum("bkgc,bckh->bkgh", p, v.to(torch.float32))
+    return o.reshape(B, H, hd)
+
+
+@pytest.mark.parametrize("case", SLICE_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slice_entries_with_kept_scores_equal_the_scores_formed_again(
+        case, dtype):
+    """The plain stats entry's maxima and sums, and the plain PV entry fed
+    its kept scores, equal the same functions forming every score again
+    from ``q`` and ``k`` bit for bit, slice by slice; the slices' PV sums
+    added in block order are H on the whole cache within 1e-5 in f32."""
+    B, H, KV, hd, C, window, n = case
+    rng = np.random.default_rng(C + n)
+    q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(
+        dtype) for sh in ((B, H, hd), (B, C, KV, hd), (B, C, KV, hd)))
+    pos = rng.integers(1, C + 1, B)
+    slot_pos = torch.from_numpy(np.where(np.arange(C)[None] < pos[:, None],
+                                         np.arange(C)[None], -1))
+    pos = torch.from_numpy((pos - 1).astype(np.int32))
+    cut = -(-C // n)
+    bounds = [(i * cut, min(C, (i + 1) * cut)) for i in range(n)]
+    ks, vs, sps = ([t[:, a:b].contiguous() for a, b in bounds]
+                   for t in (k, v, slot_pos))
+    stats = [DG.decode_gqa_stats(q, a, s, pos, window=window)
+             for a, s in zip(ks, sps)]
+    for (m1, l1, s1), a, s in zip(stats, ks, sps):
+        m2, l2 = _stats_from_q(q, a, s, pos, window)
+        assert s1.shape == (B, H, a.shape[1])
+        assert torch.equal(m1, m2) and torch.equal(l1, l2)
+    m, l = DG.decode_gqa_merge(torch.stack([x[0] for x in stats]),
+                               torch.stack([x[1] for x in stats]))
+    pvs = [DG.decode_gqa_pv(x[2], b, m, l) for x, b in zip(stats, vs)]
+    for o, a, b, s in zip(pvs, ks, vs, sps):
+        assert torch.equal(o, _pv_from_q(q, a, b, s, pos, m, l, window))
+    if dtype == torch.float32:
+        whole = DG.decode_gqa_plain(q, k, v, slot_pos, pos, window=window,
+                                    round_p=True)
+        torch.testing.assert_close(block_sum(pvs), whole, rtol=1e-5,
+                                   atol=1e-5)

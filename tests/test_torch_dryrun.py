@@ -9,6 +9,7 @@ import sys
 from _subproc import sub_env
 
 from repro_torch.launch import dryrun
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def run_module(args, timeout=300):

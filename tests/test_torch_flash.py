@@ -26,6 +26,7 @@ from repro.models import attention as JA
 from repro_torch.kernels import flash_attn as FA
 from repro_torch.kernels import ops as PO
 from repro_torch.models import attention as PA
+from _torch_threads import one_torch_thread  # noqa: F401
 
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
 ATTN_TOL = dict(rtol=1e-5, atol=1e-6)

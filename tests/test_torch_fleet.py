@@ -32,6 +32,7 @@ from repro_torch.core import scheduler as PS
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import _workloads as W  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 POLICIES = ("zygarde", "edf", "edf-m", "rr")
 SHORT = W.HORIZON / 3

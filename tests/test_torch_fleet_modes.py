@@ -34,6 +34,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import _workloads as W  # noqa: E402
 from test_torch_fleet import (  # noqa: E402
     POLICIES, SHORT, assert_result_equal, matrix_cfg, port_cfg, port_statics)
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.mark.parametrize("k", sorted(W.TASK_SET_SEEDS))

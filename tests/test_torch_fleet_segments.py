@@ -30,6 +30,7 @@ import _workloads as W  # noqa: E402
 from test_torch_fleet import (POLICIES, assert_result_equal,  # noqa: E402
                               port_cfg, port_harvester, port_statics,
                               port_tasks)
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 HORIZON = 3.0
 

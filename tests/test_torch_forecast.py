@@ -27,6 +27,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_fleet import assert_result_equal  # noqa: E402
 from test_torch_online import (assert_history_equal, cycle_s,  # noqa: E402
                                default_point, demo, demo_fleet, n_segments)
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 TABLES = ("centroids", "born", "counts", "stats_sum", "stats_n", "trans",
           "dur_sum", "dur_n", "cur_cluster", "cur_age", "n_obs")

@@ -1115,17 +1115,22 @@ def test_decode_gqa_split_cache_matches_plain(cuda, dtype, round_p):
 # kernel H's slice entries: (B, H, KV, hd, C, window) cut into n slices:
 # the hybrid's decode and engine batch (its engine's 64-slot cache over a
 # (1, 2) mesh, as chip_smoke.py runs it, and 4 ways), glm4-9b's 2 kv
-# heads, a ragged last slice and a slice with no valid slot
+# heads, a ragged last slice and a slice with no valid slot; the long cache
+# at 2 and 4 cuts splits each slice into 17 and 9 chunks (the last one
+# ragged at 4), 150-slot slices of two rows into 64 + 64 + 22, and hd = 36
+# stages bf16 rows element by element (72 bytes: no 16-byte pieces)
 SLICE_CASES = [(1, 16, 1, 256, 2176, 2048, 2), (16, 16, 1, 256, 64, 2048, 2),
                (16, 16, 1, 256, 64, 2048, 4),
                (1, 32, 2, 128, 4096, 16, 4), (3, 8, 2, 32, 100, 0, 3),
-               (2, 12, 2, 64, 96, 16, 2)]
+               (2, 12, 2, 64, 96, 16, 2), (1, 16, 1, 256, 2176, 2048, 4),
+               (2, 8, 1, 64, 300, 0, 2), (2, 4, 2, 36, 130, 0, 2)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_gqa_slices_match_plain(cuda, dtype):
     """H's stats, merge and PV entries over a cache cut into slices, each
-    against its plain version: the maxima and the merge bit for bit, the
+    against its plain version: the kept scores, the maxima and the merge
+    bit for bit, the
     f64 sums to 1e-12, the PV sums at rtol = atol = 1e-5; the blocks' PV
     sums added in order are H on the whole cache within 1e-5 in f32 (the
     weights differ by the rounding of their denominator at most).  One
@@ -1149,23 +1154,22 @@ def test_decode_gqa_slices_match_plain(cuda, dtype):
         n0 = (DG.stats_launches, DG.merge_launches, DG.pv_launches)
         stats = [DG.decode_gqa_stats(q, a, s, pos, window=window)
                  for a, s in zip(ks, sps)]
-        for (m1, l1), a, s in zip(stats, ks, sps):
-            m2, l2 = DG.decode_gqa_stats_plain(q, a, s, pos, window=window)
-            assert torch.equal(m1, m2)
+        for (m1, l1, s1), a, s in zip(stats, ks, sps):
+            m2, l2, s2 = DG.decode_gqa_stats_plain(q, a, s, pos,
+                                                   window=window)
+            assert torch.equal(s1, s2) and torch.equal(m1, m2)
             torch.testing.assert_close(l1, l2, rtol=1e-12, atol=0)
         pm = torch.stack([x[0] for x in stats])
         ps = torch.stack([x[1] for x in stats])
         m, l = DG.decode_gqa_merge(pm, ps)
         m2, l2 = DG.decode_gqa_merge_plain(pm, ps)
         assert torch.equal(m, m2) and torch.equal(l, l2)
-        pvs = [DG.decode_gqa_pv(q, a, b, s, pos, m, l, window=window)
-               for a, b, s in zip(ks, vs, sps)]
+        pvs = [DG.decode_gqa_pv(x[2], b, m, l) for x, b in zip(stats, vs)]
         torch.cuda.synchronize()
         assert (DG.stats_launches, DG.merge_launches, DG.pv_launches) == (
             n0[0] + n, n0[1] + 1, n0[2] + n)
-        for o, a, b, s in zip(pvs, ks, vs, sps):
-            want = DG.decode_gqa_pv_plain(q, a, b, s, pos, m, l,
-                                          window=window)
+        for o, x, b in zip(pvs, stats, vs):
+            want = DG.decode_gqa_pv_plain(x[2], b, m, l)
             torch.testing.assert_close(o, want, rtol=1e-5, atol=1e-5)
         if dtype == "float32":
             whole = DG.decode_gqa(q, k, v, slot_pos, pos, window=window,
@@ -1971,12 +1975,11 @@ def _one_call(name, cuda):
         pos = torch.tensor([23, 10], dtype=torch.int32, device=cuda)
         if name == "decode_gqa_stats":
             return lambda: DG.decode_gqa_stats(q, kc, slot_pos, pos)
-        m, l = DG.decode_gqa_stats_plain(q, kc, slot_pos, pos)
+        m, l, sc = DG.decode_gqa_stats_plain(q, kc, slot_pos, pos)
         if name == "decode_gqa_merge":
             pm, ps = torch.stack([m, m - 1.0]), torch.stack([l, 2 * l])
             return lambda: DG.decode_gqa_merge(pm, ps)
-        return lambda: DG.decode_gqa_pv(q, kc, vc, slot_pos, pos, m,
-                                        l.float())
+        return lambda: DG.decode_gqa_pv(sc, vc, m, l.float())
     if name in ("centroid_partial", "centroid_finish"):
         c, x = t(5, 64), t(12, 64)
         a = torch.tensor([0, -1, 3, 4, -1, 2, 2, 0, 1, -1, 4, 4],

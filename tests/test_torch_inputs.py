@@ -16,6 +16,7 @@ from repro.launch import inputs as JI
 
 from repro_torch.configs import get_config
 from repro_torch.launch import inputs as PI
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def flat(tree) -> list:

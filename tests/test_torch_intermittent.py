@@ -23,6 +23,7 @@ from repro.core import intermittent as JI
 from repro_torch.core import energy as PE
 from repro_torch.core import intermittent as PI
 from repro_torch.models import cnn as PC
+from _torch_threads import one_torch_thread  # noqa: F401
 
 PERSISTENT = PE.Harvester("battery", 1.0, 0.0, 10.0)
 

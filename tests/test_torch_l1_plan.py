@@ -21,6 +21,7 @@ import torch
 
 from repro.kernels import ops as JO
 from repro_torch.kernels import l1_topk2 as L1
+from _torch_threads import one_torch_thread  # noqa: F401
 
 WIN = 32
 #: kernel C's level-0 windows per staged chunk, read from its source

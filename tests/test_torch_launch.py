@@ -29,6 +29,7 @@ from repro_torch.configs import get_config
 from repro_torch.models import transformer as PT
 from repro_torch.train import load_checkpoint
 from repro_torch.train.optimizer import tree_leaves
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def run_module(args, timeout=600, ok=True):

@@ -26,6 +26,7 @@ from repro_torch.kernels import rglru_scan as RS
 from repro_torch.launch.inputs import ShapeSkip
 from repro_torch.launch.lowering import analyze, lower_step
 from repro_torch.launch.mesh import make_abstract_mesh
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SLOW = {("dbrx-132b", "train_4k"), ("qwen3-moe-235b-a22b", "train_4k"),
         ("recurrentgemma-9b", "train_4k"), ("xlstm-125m", "train_4k"),

@@ -32,6 +32,7 @@ from repro_torch.kernels import ops as PO
 from repro_torch.models import cnn as PC
 
 from _subproc import sub_env
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TINY = ("tiny", (16, 16, 1), ((4, 5, True), (8, 5, True)), (16,), 3)
 CNN_TOL = dict(rtol=1e-5, atol=1e-5)

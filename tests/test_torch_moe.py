@@ -27,6 +27,7 @@ from repro.models import moe as JM
 from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.models import moe as PM
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ("dbrx-132b", "qwen3-moe-235b-a22b")

@@ -28,6 +28,7 @@ from repro_torch import telemetry as PT
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_fleet import (assert_result_equal, port_cfg,  # noqa: E402
                               port_statics)
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parent.parent
 

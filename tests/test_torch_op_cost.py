@@ -16,6 +16,7 @@ from repro.launch.hlo_cost import HloCostModel
 from repro_torch.kernels import flash_attn as FA
 from repro_torch.kernels import ops
 from repro_torch.launch import op_cost as OC
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def ref_cost(fn, *shapes):

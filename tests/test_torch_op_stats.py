@@ -34,6 +34,7 @@ from repro_torch.kernels import rglru_scan as RS
 from repro_torch.launch import op_stats as OS
 from repro_torch.launch.lowering import lower_step
 from repro_torch.launch.mesh import make_abstract_mesh
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("shape", sorted(INPUT_SHAPES))

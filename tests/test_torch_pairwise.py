@@ -17,6 +17,7 @@ from repro.kernels import ops as jops
 
 from repro_torch.kernels import ops as pops
 from repro_torch.kernels import pairwise_l1 as PW
+from _torch_threads import one_torch_thread  # noqa: F401
 
 # (B1, B2, d, block_d): the four shapes of test_kernels.py's sweep, its
 # odd-size case, two-block and three-block d, the forecaster's first batch

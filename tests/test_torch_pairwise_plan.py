@@ -30,6 +30,7 @@ from repro.kernels import ops as JO
 from repro_torch.kernels import pairwise_l1 as PW
 from repro_torch.kernels.l1_topk2 import window_plan
 from test_torch_gpu import PW_CASES
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SRC = (Path(PW.__file__).parent / "csrc" / "pairwise_l1.cu").read_text()
 WIN = 32

@@ -7,6 +7,7 @@ import torch
 
 from repro_torch.launch import op_stats as OS
 from repro_torch.launch import profiling as PR
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_measure_orders_its_times():

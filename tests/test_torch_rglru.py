@@ -30,6 +30,7 @@ from repro_torch import convert
 from repro_torch.core._fma import xla_exp_f32
 from repro_torch.kernels import rglru_scan as RS
 from repro_torch.models import rglru as PR
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

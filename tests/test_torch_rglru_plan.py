@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core._fma import fma_f32
 from repro_torch.kernels import rglru_scan as RS
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SRC = (Path(RS.__file__).parent / "csrc" / "rglru_scan.cu").read_text()
 

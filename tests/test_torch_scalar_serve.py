@@ -46,6 +46,7 @@ from repro_torch.serve import (FleetServeEngine, Request, ServeConfig,
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_serve import _data  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 SPECS = (("tiny4", (16, 16, 1), ((4, 5, True), (8, 5, True)), (16, 8), 3),
          ("tiny3", (16, 16, 1), ((6, 5, True),), (12, 8), 3))
@@ -322,6 +323,22 @@ def test_scalar_matches_fleet_many_devices(models):
         np.testing.assert_array_equal(pred, fres.pred[d, 0, :n])
         np.testing.assert_array_equal(margin.view(np.uint32),
                                       fres.margin[d, 0, :n].view(np.uint32))
+
+
+def test_fleet_device_margins_do_not_depend_on_the_fleet_size(models):
+    """One device's margins in a one-device fleet equal every device's in
+    a four-device fleet on the same stream, bit for bit: each adapting
+    device's centroid propagation runs on its own rows, whatever the
+    number of devices adapting in the step."""
+    n = 5
+    cfg = _cfg("zygarde", n, True)
+    reqs = _requests(Request, n, cfg.period, 1)[0]
+    one = _fleet_run(models, cfg, reqs, 0.02)
+    four = _fleet_run(models, cfg, reqs, 0.02, n_devices=4)
+    assert (one.exit_unit[0, 0, :n] >= 0).all()
+    for d in range(4):
+        np.testing.assert_array_equal(one.margin[0, 0, :n].view(np.uint32),
+                                      four.margin[d, 0, :n].view(np.uint32))
 
 
 @pytest.mark.parametrize("threshold", [None, 10.0])

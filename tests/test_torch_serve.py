@@ -40,6 +40,7 @@ from repro_torch.launch.mesh import make_fleet_mesh
 from repro_torch.models import cnn as PC
 from repro_torch.serve import FleetServeEngine, Request, ServeConfig
 from repro_torch.telemetry import TelemetryConfig
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SPECS = (("tiny3", (16, 16, 1), ((4, 5, True), (8, 5, True)), (16,), 3),
          ("tiny2", (16, 16, 1), ((6, 5, True),), (12,), 3))

@@ -33,6 +33,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import _workloads as W  # noqa: E402
 
 from repro.core import energy as JE  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 N_STEPS = 240
 # a bursty harvester strong enough to pay the cold-boot debt within the

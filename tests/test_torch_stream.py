@@ -37,6 +37,7 @@ from repro_torch.telemetry import TelemetryConfig
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_scalar_serve import (_jax_model, _port_model,  # noqa: E402
                                      _requests, build_models)
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 _LOG_FIELDS = ("units", "pred", "correct", "margin", "exit_unit", "sched")
 

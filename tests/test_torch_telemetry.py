@@ -53,6 +53,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _workloads import make_task  # noqa: E402
 from test_torch_fleet import (assert_result_equal, port_cfg,  # noqa: E402
                               port_statics)
+from _torch_threads import one_torch_thread  # noqa: E402,F401
 
 #: telemetry fields that must be integer-exact (tests/test_telemetry.py)
 INT_FIELDS = ("c_release", "c_miss", "c_sched", "c_retired", "c_power_fail",

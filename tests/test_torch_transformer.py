@@ -29,6 +29,7 @@ from repro_torch import convert
 from repro_torch.configs import get_config, list_configs
 from repro_torch.core.agile import AgileTransformer
 from repro_torch.models import transformer as PT
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ARCHS = ("qwen1.5-0.5b", "glm4-9b", "recurrentgemma-9b")

@@ -27,6 +27,7 @@ from repro.models import xlstm as JX
 
 from repro_torch import convert
 from repro_torch.models import xlstm as PX
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CFG = jget("xlstm-125m").reduced()

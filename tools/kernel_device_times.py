@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python tools/kernel_device_times.py [--only E,F,I]
     PYTHONPATH=src python tools/kernel_device_times.py --only Gbwd,Ibwd
+    PYTHONPATH=src python tools/kernel_device_times.py --only Hslice
 
 CUDA-event times of a wrapper call (``chip_smoke.py``) include the host
 work between launches: at small sizes the card waits on the wrapper.
@@ -47,12 +48,16 @@ their sum, and the host-clock time per call:
   on the same inputs (the yardstick) and the bound (``FA.bwd_work``: 10
   hd flops per visible pair at the bf16 peak, or the bytes);
 * Ibwd: I's backward (``rglru_scan_bwd``) at phase 11d's shapes
-  (``chip_smoke.FULL.rglru_bwd_shapes``), with its bound (bytes).
+  (``chip_smoke.FULL.rglru_bwd_shapes``), with its bound (bytes);
+* Hslice: H's slice entries (stats, merge, PV) at ``chip_smoke.py``
+  phase 15d's cuts, each with its CUDA-event ms, its device ms and its
+  bound.
 
-E, F, I, Gbwd and Ibwd touch only the wrappers' public calls, ``_launch``,
-each kernel's ``work()`` (for the bound) and ``chip_smoke``'s helpers, so
-the script also times another checkout's kernels when copied into it (one
-that has ``work()``: this tree and later): ``PYTHONPATH`` names the tree,
+E, F, I, Gbwd, Ibwd and Hslice touch only the wrappers' public calls,
+``_launch``, each kernel's ``work()`` (for the bound) and ``chip_smoke``'s
+helpers, so the script also times another checkout's kernels when copied
+into it (one that has ``work()``: this tree and later; ``slice_work``
+for Hslice): ``PYTHONPATH`` names the tree,
 one process per tree, e.g. parent, change, change, parent.  Needs a CUDA
 card.
 """
@@ -405,6 +410,74 @@ def kernel_h(dev) -> None:
                 lambda: DG.decode_gqa(q, k, v, slot_pos, pos, **kw))
 
 
+def _slice_cuts():
+    """Phase 15d's cuts ``((B, H, KV, hd, C, window), n)``: each block of a
+    ``FULL.mesh_anytime`` run whose kv heads do not divide its mesh's
+    ``model`` axis (its rows and whole cache) cut 2 and 4 ways, then
+    ``FULL.mesh_decode_shape``'s long cache cut 2 and 4 ways."""
+    from repro_torch.configs import get_config
+
+    cuts = []
+    for run in chip_smoke.FULL.mesh_anytime:
+        cfg = get_config(run.arch)
+        for nd, nm in run.meshes:
+            if cfg.n_kv_heads % nm:
+                block = (run.slots // nd, cfg.n_heads, cfg.n_kv_heads,
+                         cfg.resolved_head_dim, run.prompt + run.new,
+                         cfg.window or 0)
+                cuts += [(block, m) for m in dict.fromkeys((nm, 2, 4))]
+    cuts += [(tuple(chip_smoke.FULL.mesh_decode_shape), n) for n in (2, 4)]
+    return list(dict.fromkeys(cuts))
+
+
+def kernel_hslice(dev) -> None:
+    """H's slice entries (stats, merge, PV) of a block's first slice at
+    phase 15d's cuts, each with its CUDA-event ms (``chip_smoke._ms``: the
+    wrapper's host work included), its device ms (``chip_smoke._busy_ms``:
+    calls enqueued while the card spins), its host-clock us per call, its
+    bound, and the stats' and PV's device time by kernel (the profiler).
+    Takes either interface of the PV entry (from the stats' kept scores, or
+    from q and k), so a copy in an older checkout times that checkout's
+    entries."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    for dtype in ("bfloat16", "float32"):
+        for (B, H, KV, hd, C, window), n in _slice_cuts():
+            q, k, v, sp, pos = chip_smoke._decode_inputs(
+                (B, H, KV, hd, C, dtype, True, window), g, dev)
+            c = C // n
+            k0, v0, sp0 = (t[:, :c].contiguous() for t in (k, v, sp))
+            st = DG.decode_gqa_stats(q, k0, sp0, pos, window=window)
+            pm = torch.stack([st[0]] * n)
+            ps = torch.stack([st[1]] * n)
+            m, l = DG.decode_gqa_merge(pm, ps)
+            if len(st) == 3:
+                pv = lambda st=st, v0=v0, m=m, l=l: DG.decode_gqa_pv(
+                    st[2], v0, m, l)
+            else:
+                pv = (lambda q=q, k0=k0, v0=v0, sp0=sp0, m=m, l=l,
+                      w=window: DG.decode_gqa_pv(q, k0, v0, sp0, pos, m, l,
+                                                 window=w))
+            label = (f"H={H} KV={KV} hd={hd} window {window}, B={B} C={C} "
+                     f"{dtype}, {n} slices of {c}")
+            for name, fn, work in (
+                    ("stats", lambda q=q, k0=k0, sp0=sp0, w=window:
+                     DG.decode_gqa_stats(q, k0, sp0, pos, window=w),
+                     DG.slice_work(B, H, KV, hd, c, q.dtype, pv=False)),
+                    ("merge", lambda pm=pm, ps=ps: DG.decode_gqa_merge(pm,
+                                                                       ps),
+                     DG.merge_work(n, B * H)),
+                    ("PV", pv, DG.slice_work(B, H, KV, hd, c, q.dtype,
+                                             pv=True))):
+                ms = chip_smoke._ms(fn, dev, reps=50, warmup=5)
+                dev_ms = chip_smoke._busy_ms(fn, dev, reps=20)
+                bound = chip_smoke._bound(work)[0]
+                print(f"Hslice {name} ({label}): event {ms:.4f} ms, device "
+                      f"{dev_ms:.4f} ms per call, host {host_us(fn, 500):.1f}"
+                      f" us per call, bound {bound:.6f} ms")
+                if name != "merge":
+                    profile(f"  Hslice {name} ({label}) by kernel", fn)
+
+
 def kernel_gbwd(dev) -> None:
     import torch.nn.functional as F
 
@@ -467,14 +540,14 @@ def kernel_ibwd(dev) -> None:
 KERNELS = {"A": kernel_a, "B": kernel_b, "C": kernel_c, "D": kernel_d,
            "E": kernel_e, "F": kernel_f, "G": kernel_g, "H": kernel_h,
            "I": kernel_i, "T": tune_call, "Gbwd": kernel_gbwd,
-           "Ibwd": kernel_ibwd}
+           "Ibwd": kernel_ibwd, "Hslice": kernel_hslice}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", default=",".join(KERNELS),
                     help="what to time, comma-separated (A,B,C,D,E,F,G,H,I,T,"
-                    "Gbwd,Ibwd)")
+                    "Gbwd,Ibwd,Hslice)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
